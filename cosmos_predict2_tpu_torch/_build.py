@@ -1,0 +1,119 @@
+"""Build and load the port's CUDA kernels; read and reset their launch counts.
+
+The kernels are CUDA C++ under ``csrc/``, compiled at first use by ``nvcc``
+for ``sm_90a`` into one shared library with a plain C interface and loaded
+with ``ctypes`` (no PyTorch headers, so a build takes seconds, not minutes).
+The library lands in ``build/cosmos_torch_kernels/`` at the repository root
+(``build/`` is git-ignored) under a name carrying a hash of the sources and
+flags, so an edited source triggers a rebuild and an unchanged one loads the
+cached library. Importing this module needs no ``nvcc`` and no GPU.
+
+Each kernel's wrapper keeps a plain integer ``launches`` that it raises by
+one where it launches its kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("flash_attention_fwd.cu", "conv3d_causal.cu")
+HEADERS = ("mma_bf16.cuh",)
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cosmos_torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",  # register / shared-memory / spill report, kept in the build log
+)
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def nvcc_path() -> str:
+    """The nvcc binary: $CUDA_HOME/bin, /usr/local/cuda/bin, then $PATH."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
+    return found
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC_DIR / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libcosmos_torch_kernels_{source_hash()}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless the library for these sources exists.
+
+    Raises RuntimeError with the compiler's output when nvcc fails. The
+    compiler's report (``-Xptxas=-v``) is written beside the library as
+    ``build.log``.
+    """
+    lib = library_path()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".tmp{os.getpid()}")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)  # atomic: a concurrent loader never sees a partial file
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed (thread-safe)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.cosmos_flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
+            lib.cosmos_flash_attention_fwd.restype = i
+            lib.cosmos_conv3d_causal.argtypes = [p, p, p, p, i, i, i, i, i, p]
+            lib.cosmos_conv3d_causal.restype = i
+            _lib = lib
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def _wrappers() -> dict:
+    from cosmos_predict2_tpu_torch.ops.conv3d import conv3d_causal
+    from cosmos_predict2_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    return {"flash_attention_fwd": flash_attention_fwd, "conv3d_causal": conv3d_causal}
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel name -> launches since the last reset."""
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0

@@ -1,0 +1,344 @@
+"""MiniTrainDIT — the Cosmos video DiT, dense base configuration, in PyTorch.
+
+Counterpart of cosmos_predict2_tpu/networks/dit.py (patch embed with the
+padding-mask channel, 3D RoPE, sinusoidal timesteps + AdaLN-LoRA, N blocks
+of AdaLN-gated self-attention -> cross-attention -> GPT2 MLP with per-head
+q/k RMSNorm, final AdaLN layer + unpatchify). Submodules are named after
+the reference's torch state-dict keys (``x_embedder.proj.1``,
+``t_embedder.1.linear_1``, ``blocks.{i}.adaln_modulation_self_attn.1`` ...)
+so utils/checkpoint_convert.py::convert_dit_state_dict maps this module's
+``state_dict()`` straight onto the JAX parameter tree.
+
+Numerics follow the reference: fp32 parameters, matmuls in ``cfg.dtype``
+(bf16) returning that dtype, norms and AdaLN modulation in fp32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from cosmos_predict2_tpu_torch.ops.attention import dot_product_attention
+from cosmos_predict2_tpu_torch.ops.normalization import layer_norm, rms_norm
+from cosmos_predict2_tpu_torch.ops.rope import RopeSpec, apply_rope, rope_angles_3d
+
+
+@dataclasses.dataclass(frozen=True)
+class DiTConfig:
+    in_channels: int = 16
+    out_channels: int = 16
+    patch_spatial: int = 2
+    patch_temporal: int = 1
+    concat_padding_mask: bool = True
+    model_channels: int = 2048
+    num_blocks: int = 28
+    num_heads: int = 16
+    mlp_ratio: float = 4.0
+    crossattn_emb_channels: int = 1024
+    use_crossattn_projection: bool = False
+    crossattn_proj_in_channels: int = 1024
+    use_adaln_lora: bool = True
+    adaln_lora_dim: int = 256
+    rope_h_extrapolation_ratio: float = 1.0
+    rope_w_extrapolation_ratio: float = 1.0
+    rope_t_extrapolation_ratio: float = 1.0
+    rope_enable_fps_modulation: bool = True
+    timestep_scale: float = 1.0
+    # compute dtype for matmuls; norms and modulation stay fp32
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def head_dim(self) -> int:
+        return self.model_channels // self.num_heads
+
+    @property
+    def rope_spec(self) -> RopeSpec:
+        return RopeSpec(
+            head_dim=self.head_dim,
+            h_extrapolation_ratio=self.rope_h_extrapolation_ratio,
+            w_extrapolation_ratio=self.rope_w_extrapolation_ratio,
+            t_extrapolation_ratio=self.rope_t_extrapolation_ratio,
+            enable_fps_modulation=self.rope_enable_fps_modulation,
+        )
+
+
+def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """y = x W^T (+ b) computed and returned in ``dtype`` (the reference's
+    ``Dense``: inputs and parameters cast to the compute dtype)."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm with a learnable weight (eps 1e-6), fp32 inside."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, self.weight, self.eps)
+
+
+class Attention(nn.Module):
+    """Self- or cross-attention: bias-free projections, per-head q/k RMSNorm,
+    RoPE on self-attention only."""
+
+    def __init__(self, query_dim: int, context_dim: Optional[int], n_heads: int, head_dim: int, dtype: torch.dtype):
+        super().__init__()
+        inner = n_heads * head_dim
+        ctx_dim = query_dim if context_dim is None else context_dim
+        self.n_heads, self.head_dim, self.dtype = n_heads, head_dim, dtype
+        self.q_proj = nn.Linear(query_dim, inner, bias=False)
+        self.k_proj = nn.Linear(ctx_dim, inner, bias=False)
+        self.v_proj = nn.Linear(ctx_dim, inner, bias=False)
+        self.q_norm = RMSNorm(head_dim)
+        self.k_norm = RMSNorm(head_dim)
+        self.output_proj = nn.Linear(inner, query_dim, bias=False)
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None, rope_angles=None) -> torch.Tensor:
+        ctx = x if context is None else context
+        heads = lambda t: t.reshape(t.shape[:-1] + (self.n_heads, self.head_dim))
+        q = self.q_norm(heads(linear(self.q_proj, x, self.dtype)))
+        k = self.k_norm(heads(linear(self.k_proj, ctx, self.dtype)))
+        v = heads(linear(self.v_proj, ctx, self.dtype))
+        if context is None and rope_angles is not None:
+            q = apply_rope(q, rope_angles)
+            k = apply_rope(k, rope_angles)
+        out = dot_product_attention(q.contiguous(), k.contiguous(), v.contiguous())
+        return linear(self.output_proj, out.reshape(out.shape[:-2] + (-1,)), self.dtype)
+
+
+class GPT2FeedForward(nn.Module):
+    """Linear -> GELU (exact) -> Linear, both bias-free."""
+
+    def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.layer1 = nn.Linear(d_model, d_ff, bias=False)
+        self.layer2 = nn.Linear(d_ff, d_model, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(self.layer2, F.gelu(linear(self.layer1, x, self.dtype)), self.dtype)
+
+
+def adaln_modulation(dim: int, n_chunks: int, use_lora: bool, lora_dim: int) -> nn.Sequential:
+    """SiLU -> Linear(dim -> lora_dim) -> Linear(lora_dim -> n*dim) with
+    LoRA, SiLU -> Linear(dim -> n*dim) without; run in fp32."""
+    if use_lora:
+        return nn.Sequential(
+            nn.SiLU(), nn.Linear(dim, lora_dim, bias=False), nn.Linear(lora_dim, n_chunks * dim, bias=False)
+        )
+    return nn.Sequential(nn.SiLU(), nn.Linear(dim, n_chunks * dim, bias=False))
+
+
+class Block(nn.Module):
+    """x <- x + gate * f(layer_norm(x) * (1 + scale) + shift) for self-attn,
+    cross-attn and MLP; (shift, scale, gate) from AdaLN (+ the shared LoRA
+    term)."""
+
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        d = cfg.model_channels
+        self.cfg = cfg
+        self.self_attn = Attention(d, None, cfg.num_heads, cfg.head_dim, cfg.dtype)
+        self.cross_attn = Attention(d, cfg.crossattn_emb_channels, cfg.num_heads, cfg.head_dim, cfg.dtype)
+        self.mlp = GPT2FeedForward(d, int(d * cfg.mlp_ratio), cfg.dtype)
+        for name in ("self_attn", "cross_attn", "mlp"):
+            self.add_module(f"adaln_modulation_{name}", adaln_modulation(d, 3, cfg.use_adaln_lora, cfg.adaln_lora_dim))
+
+    def _mod(self, name: str, emb: torch.Tensor, adaln_lora: Optional[torch.Tensor]):
+        out = getattr(self, f"adaln_modulation_{name}")(emb.float())
+        if adaln_lora is not None:
+            out = out + adaln_lora
+        return [c[:, :, None, None, :] for c in out.chunk(3, dim=-1)]  # (B, T, 1, 1, D)
+
+    def forward(self, x, emb, crossattn_emb, rope_angles, adaln_lora):
+        B, T, H, W, D = x.shape
+        dt = self.cfg.dtype
+
+        def modulated(shift, scale):
+            return (layer_norm(x) * (1.0 + scale) + shift).to(dt)
+
+        shift, scale, gate = self._mod("self_attn", emb, adaln_lora)
+        out = self.self_attn(modulated(shift, scale).reshape(B, T * H * W, D), rope_angles=rope_angles)
+        x = x + gate.to(x.dtype) * out.reshape(B, T, H, W, D).to(x.dtype)
+
+        shift, scale, gate = self._mod("cross_attn", emb, adaln_lora)
+        out = self.cross_attn(modulated(shift, scale).reshape(B, T * H * W, D), context=crossattn_emb.to(dt))
+        x = x + gate.to(x.dtype) * out.reshape(B, T, H, W, D).to(x.dtype)
+
+        shift, scale, gate = self._mod("mlp", emb, adaln_lora)
+        out = self.mlp(modulated(shift, scale))
+        return x + gate.to(x.dtype) * out.to(x.dtype)
+
+
+def timestep_sinusoid(timesteps_B_T: torch.Tensor, num_channels: int) -> torch.Tensor:
+    """Sinusoidal embedding, [cos, sin] order, fp32."""
+    half = num_channels // 2
+    exponent = -math.log(10000.0) * torch.arange(half, dtype=torch.float32, device=timesteps_B_T.device) / half
+    args = timesteps_B_T.float()[..., None] * torch.exp(exponent)
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+class Timesteps(nn.Module):
+    def __init__(self, num_channels: int):
+        super().__init__()
+        self.num_channels = num_channels
+
+    def forward(self, timesteps_B_T: torch.Tensor) -> torch.Tensor:
+        return timestep_sinusoid(timesteps_B_T, self.num_channels)
+
+
+class TimestepEmbedding(nn.Module):
+    """Linear -> SiLU -> Linear in fp32. With AdaLN-LoRA returns (raw
+    sinusoid, 3D LoRA term); without it (mlp output, None)."""
+
+    def __init__(self, in_features: int, out_features: int, use_adaln_lora: bool):
+        super().__init__()
+        self.use_adaln_lora = use_adaln_lora
+        self.linear_1 = nn.Linear(in_features, out_features, bias=not use_adaln_lora)
+        n_out = 3 * out_features if use_adaln_lora else out_features
+        self.linear_2 = nn.Linear(out_features, n_out, bias=False)
+
+    def forward(self, sample: torch.Tensor):
+        emb = self.linear_2(F.silu(self.linear_1(sample)))
+        if self.use_adaln_lora:
+            return sample, emb
+        return emb, None
+
+
+class PatchEmbed(nn.Module):
+    """b c (t r) (h m) (w n) -> b t h w (c r m n), then a bias-free Linear.
+    ``proj`` keeps the reference's (Rearrange, Linear) indices."""
+
+    def __init__(self, cfg: DiTConfig, in_channels: int):
+        super().__init__()
+        self.cfg = cfg
+        patch_dim = in_channels * cfg.patch_temporal * cfg.patch_spatial**2
+        self.proj = nn.Sequential(nn.Identity(), nn.Linear(patch_dim, cfg.model_channels, bias=False))
+
+    def forward(self, x_B_C_T_H_W: torch.Tensor) -> torch.Tensor:
+        B, C, T, H, W = x_B_C_T_H_W.shape
+        ps, pt = self.cfg.patch_spatial, self.cfg.patch_temporal
+        x = x_B_C_T_H_W.reshape(B, C, T // pt, pt, H // ps, ps, W // ps, ps)
+        x = x.permute(0, 2, 4, 6, 1, 3, 5, 7).reshape(B, T // pt, H // ps, W // ps, C * pt * ps * ps)
+        return linear(self.proj[1], x, self.cfg.dtype)
+
+
+class FinalLayer(nn.Module):
+    """AdaLN (2 chunks) + linear head."""
+
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        d = cfg.model_channels
+        self.cfg = cfg
+        self.adaln_modulation = adaln_modulation(d, 2, cfg.use_adaln_lora, cfg.adaln_lora_dim)
+        out = cfg.patch_spatial**2 * cfg.patch_temporal * cfg.out_channels
+        self.linear = nn.Linear(d, out, bias=False)
+
+    def forward(self, x, emb, adaln_lora):
+        d = self.cfg.model_channels
+        out = self.adaln_modulation(emb.float())
+        if adaln_lora is not None:
+            out = out + adaln_lora[:, :, : 2 * d]
+        shift, scale = (c[:, :, None, None, :] for c in out.chunk(2, dim=-1))
+        x = (layer_norm(x) * (1.0 + scale) + shift).to(self.cfg.dtype)
+        return linear(self.linear, x, self.cfg.dtype)
+
+
+class MiniTrainDIT(nn.Module):
+    """The dense video DiT. x: (B, C, T, H, W); timesteps: (B,) or (B, T)."""
+
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.model_channels
+        in_ch = cfg.in_channels + (1 if cfg.concat_padding_mask else 0)
+        self.x_embedder = PatchEmbed(cfg, in_ch)
+        self.t_embedder = nn.Sequential(Timesteps(d), TimestepEmbedding(d, d, cfg.use_adaln_lora))
+        self.t_embedding_norm = RMSNorm(d)
+        if cfg.use_crossattn_projection:
+            self.crossattn_proj = nn.Sequential(
+                nn.Linear(cfg.crossattn_proj_in_channels, cfg.crossattn_emb_channels, bias=True), nn.GELU()
+            )
+        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.num_blocks))
+        self.final_layer = FinalLayer(cfg)
+
+    def forward(
+        self,
+        x_B_C_T_H_W: torch.Tensor,
+        timesteps_B_T: torch.Tensor,
+        crossattn_emb: torch.Tensor,
+        fps: Optional[torch.Tensor] = None,
+        padding_mask: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        cfg = self.cfg
+        B, C, T, H, W = x_B_C_T_H_W.shape
+        ps, pt = cfg.patch_spatial, cfg.patch_temporal
+        if cfg.timestep_scale != 1.0:
+            timesteps_B_T = timesteps_B_T * cfg.timestep_scale
+
+        if cfg.concat_padding_mask:
+            if padding_mask is None:
+                padding_mask = torch.zeros((B, 1, H, W), dtype=x_B_C_T_H_W.dtype, device=x_B_C_T_H_W.device)
+            elif padding_mask.shape[-2:] != (H, W):
+                padding_mask = F.interpolate(padding_mask.float(), size=(H, W), mode="nearest-exact")
+            mask = padding_mask[:, :1, None, :, :].expand(B, 1, T, H, W).to(x_B_C_T_H_W.dtype)
+            x_B_C_T_H_W = torch.cat([x_B_C_T_H_W, mask], dim=1)
+
+        x = self.x_embedder(x_B_C_T_H_W)  # (B, T', H', W', D) in cfg.dtype
+        Tt, Hp, Wp = T // pt, H // ps, W // ps
+        rope_angles = rope_angles_3d(cfg.rope_spec, Tt, Hp, Wp, fps=fps, device=x.device)
+
+        if timesteps_B_T.ndim == 1:
+            timesteps_B_T = timesteps_B_T[:, None]
+        emb, adaln_lora = self.t_embedder[1](self.t_embedder[0](timesteps_B_T))
+        emb = self.t_embedding_norm(emb.float())
+        if emb.shape[1] == 1 and Tt > 1:
+            emb = emb.expand(B, Tt, cfg.model_channels)
+            if adaln_lora is not None:
+                adaln_lora = adaln_lora.expand(B, Tt, 3 * cfg.model_channels)
+
+        if cfg.use_crossattn_projection:
+            crossattn_emb = F.gelu(linear(self.crossattn_proj[0], crossattn_emb, cfg.dtype))
+
+        for block in self.blocks:
+            x = block(x, emb, crossattn_emb, rope_angles, adaln_lora)
+
+        x = self.final_layer(x, emb, adaln_lora)
+        # B T H W (p1 p2 t C) -> B C (T t) (H p1) (W p2)
+        x = x.reshape(B, Tt, Hp, Wp, ps, ps, pt, cfg.out_channels)
+        x = x.permute(0, 7, 1, 6, 2, 4, 3, 5)
+        return x.reshape(B, cfg.out_channels, Tt * pt, Hp * ps, Wp * ps)
+
+
+@torch.no_grad()
+def init_dit_weights(net: MiniTrainDIT, generator: torch.Generator) -> MiniTrainDIT:
+    """Seeded random weights: every Linear weight ~ truncated normal with
+    std 1/sqrt(fan_in) (cut at 3 std), biases 0, norm weights 1. The
+    generator must live on the parameters' device."""
+    for module in net.modules():
+        if isinstance(module, nn.Linear):
+            std = 1.0 / math.sqrt(module.in_features)
+            nn.init.trunc_normal_(module.weight, 0.0, std, -3 * std, 3 * std, generator=generator)
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, RMSNorm):
+            module.weight.fill_(1.0)
+    return net
+
+
+def build_dit(cfg: DiTConfig, device: torch.device | str, seed: int) -> MiniTrainDIT:
+    """A MiniTrainDIT with seeded random fp32 weights, made on ``device``."""
+    with torch.device("meta"):
+        net = MiniTrainDIT(cfg)
+    net = net.to_empty(device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return init_dit_weights(net, gen).eval().requires_grad_(False)
