@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Video2World serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's Video2World serving and training paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
@@ -10,16 +10,28 @@ Phases, each printed with its wall time:
 2. build: compiles the hand-written kernels (cosmos_predict2_tpu_torch/csrc)
    with nvcc for sm_90a;
 3. kernels: each kernel against its plain PyTorch version (fp32, TF32 off)
-   on bf16 inputs at the main path's shapes, with max-abs and relative-L2
-   error and CUDA-event times;
+   on bf16 inputs at the main paths' shapes, with max-abs and relative-L2
+   error, CUDA-event times, the card's bound for the same work and, as a
+   yardstick the port never calls, one PyTorch call computing the same
+   function (scaled_dot_product_attention forward / backward, conv3d);
 4. small reference: a narrow pipeline (2 blocks, VAE dim 64) on the card
    against the same weights run in fp32 on the CPU through the plain
    versions;
-5. slice: the full-width 2B DiT and full-width Wan2.1 VAE on seeded random
-   weights serve a Text2World, an Image2World and a Video2World request
-   (93 frames at 192x320, 35 UniPC steps, CFG guidance 7) through
-   Video2WorldInference; checks the outputs and that both kernels ran, and
-   that flash attention ran 2 x 28 times per DiT forward.
+5. serving slice: the full-width 2B DiT and full-width Wan2.1 VAE on seeded
+   random weights serve a Text2World, an Image2World and a Video2World
+   request (93 frames at 192x320, 35 UniPC steps, CFG guidance 7) through
+   Video2WorldInference; checks the outputs and that K1 ran 2 x 28 times per
+   DiT forward and K2 ran; then profiles one batched-CFG DiT forward;
+6. small training reference: one training step of a narrow DiT (2 blocks)
+   in bf16 on the card against the same weights and draws in fp32 on the
+   CPU: loss and gradients;
+7. training slice: training/train.py's ``launch`` trains the full-width 2B
+   DiT (93 frames at 192x320, 2B text width, batch 1, EMA on) for one
+   warm-up step, a few timed steps and one step under torch.profiler
+   (device time by kernel) on mock data encoded by the VAE; checks finite
+   losses, a finite gradient on every parameter at step 1, that parameters
+   and EMA moved, and the launches per step (K1 4 x 28, K7 and K8 2 x 28)
+   and K2 in the data phase.
 
 Then it prints the kernels' JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero without that line.
@@ -44,11 +56,22 @@ KERNEL_REL_L2 = 1e-2
 # and in fp32 on the CPU: bf16 rounding through 2 DiT blocks, 2 UniPC steps
 # and the VAE gives 0.026 on the CPU (bf16 vs fp32, same weights); 3x margin.
 PIPELINE_REL_L2 = 8e-2
+# The small training step in bf16 on the card against fp32 on the CPU. On
+# the CPU, bf16 against fp32 (same weights, 4 draws) gives a loss within
+# 5.8e-4 relative, all gradients within 6.0e-3 relative L2 together and
+# every parameter's within 1.3e-2; about 3x margin on each.
+TRAIN_LOSS_REL = 2e-3
+TRAIN_GRAD_REL_L2 = 2e-2
+TRAIN_GRAD_TENSOR_REL_L2 = 4e-2
 NUM_BLOCKS = 28
 SIZE = (192, 320)
 NUM_FRAMES = 93
 NUM_STEPS = 35
 GUIDANCE = 7.0
+TRAIN_TIMED_STEPS = 3  # after one warm-up step; one more step runs under torch.profiler
+# published dense peaks of one H100 SXM at 700 W, for the bounds
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -88,6 +111,20 @@ def cuda_ms(fn, warmup: int = 1, iters: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the operations
+    at the bf16 tensor-core peak and the bytes at the memory rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def visible_pairs(sq: int, skv: int, frame_group: int) -> int:
+    """(query, key) pairs the mask leaves visible: the work the data needs."""
+    if frame_group <= 0:
+        return sq * skv
+    return int(np.minimum(skv, (np.arange(sq) // frame_group + 1) * frame_group).sum())
+
+
 def environment() -> str:
     import torch
 
@@ -107,22 +144,41 @@ def environment() -> str:
 def check_kernels(results: dict) -> None:
     import torch
 
+    import torch.nn.functional as F
+
     from cosmos_predict2_tpu_torch.ops.conv3d import conv3d_causal, conv3d_causal_plain
-    from cosmos_predict2_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_attention_plain
+    from cosmos_predict2_tpu_torch.ops.flash_attention import (
+        attention_delta,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+        flash_attention_plain,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     failures = []
 
-    def record(kernel, label, max_abs, rel, ms, plain_ms):
+    def fmt(x):
+        return x if isinstance(x, str) else "-" if x is None else f"{x:9.3f} ms"
+
+    def record(kernel, label, max_abs, rel, ms, plain_ms, library_ms, bnd):
         ok = rel <= KERNEL_REL_L2
-        log(f"  {kernel:20s} {label:44s} max_abs {max_abs:.3e} rel_l2 {rel:.3e} kernel {ms:9.3f} ms "
-            f"plain {plain_ms if isinstance(plain_ms, str) else f'{plain_ms:9.3f} ms'} {'ok' if ok else 'FAIL'}")
+        log(f"  {kernel:24s} {label:44s} max_abs {max_abs:.3e} rel_l2 {rel:.3e} kernel {ms:9.3f} ms "
+            f"plain {fmt(plain_ms)} library {fmt(library_ms)} bound {bnd[0]:.3f} ms ({bnd[1]}) "
+            f"{'ok' if ok else 'FAIL'}")
         entry = results.setdefault(kernel, {"max_abs_err": 0.0, "cases": []})
         entry["max_abs_err"] = max(entry["max_abs_err"], max_abs)
-        entry["cases"].append({"case": label, "max_abs": max_abs, "rel_l2": rel, "ms": ms, "plain_ms": plain_ms})
+        entry["cases"].append({"case": label, "max_abs": max_abs, "rel_l2": rel, "ms": ms, "plain_ms": plain_ms,
+                               "library_ms": library_ms, "bound_ms": bnd[0], "bound_by": bnd[1]})
         if not ok:
             failures.append(f"{kernel} {label}: rel_l2 {rel:.3e} > {KERNEL_REL_L2}")
+
+    def sdpa_mask(Sq, Skv, fg):
+        if fg <= 0:
+            return None
+        return (torch.arange(Skv, device=dev)[None, :] // fg) <= (torch.arange(Sq, device=dev)[:, None] // fg)
 
     # ---- K1: flash attention forward ----
     # (label, B, Sq, Skv, H, frame_group, query rows held against the plain version)
@@ -153,12 +209,76 @@ def check_kernels(results: dict) -> None:
             plain_ms = f"{cuda_ms(lambda: flash_attention_plain(qs, k, v, 0), 0, 1):.3f} ms for {rows} rows"
         max_abs, rel = errors(got, ref)
         lse_abs, _ = errors(got_lse, ref_lse)
-        log(f"  {'':20s} lse max_abs {lse_abs:.3e}")
+        log(f"  {'':24s} lse max_abs {lse_abs:.3e}")
         if not lse_abs < 1e-2:
             failures.append(f"flash_attention_fwd {label}: lse max_abs {lse_abs:.3e}")
+        del ref, ref_lse, got, got_lse
         ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, frame_group=fg))
-        record("flash_attention_fwd", label, max_abs, rel, ms, plain_ms)
-        del q, k, v, out, lse, ref, ref_lse, got, got_lse
+        qt, kt, vt, mask = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), sdpa_mask(Sq, Skv, fg)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
+        bnd = bound(4 * B * H * visible_pairs(Sq, Skv, fg) * 128, nbytes)
+        record("flash_attention_fwd", label, max_abs, rel, ms, plain_ms, library_ms, bnd)
+        del q, k, v, out, lse, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+
+    # ---- K7 (dQ) and K8 (dK, dV): flash attention backward, batch 1 as in training ----
+    # (label, Sq, Skv, frame_group, query rows held against the plain version)
+    bwd_cases = [
+        ("self  B1 S5760 H16 (smoke geometry)", 5760, 5760, 0, None),
+        ("cross B1 Sq5760 Skv512 H16", 5760, 512, 0, None),
+        ("self  B1 S5760 H16 frame_group=240", 5760, 5760, 240, None),
+        ("self  B1 S84480 H16 (720p, dQ on 1024 rows)", 84480, 84480, 0, 1024),
+    ]
+    B, H = 1, 16
+    for label, Sq, Skv, fg, rows in bwd_cases:
+        q, do = (torch.randn((B, Sq, H, 128), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((B, Skv, H, 128), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+        out, lse = flash_attention_fwd(q, k, v, frame_group=fg)
+        delta = attention_delta(out, do)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, fg)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, fg)
+        torch.cuda.synchronize()
+        if rows is None:
+            ref = flash_attention_bwd_plain(q, k, v, out, lse, do, fg)
+            errs = [errors(g, r) for g, r in zip((dq, dk, dv), ref)]
+            plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, out, lse, do, fg), 0, 1)
+            del ref
+        else:
+            # dQ of a row needs only that row's q, dO, out and lse: hold
+            # rows spread over the sequence; dK/dV are timed only
+            idx = torch.linspace(0, Sq - 1, rows, device=dev).round().long()
+            sub = lambda t: t[:, idx].contiguous()
+            ref_dq = flash_attention_bwd_plain(sub(q), k, v, sub(out), lse[:, :, idx].contiguous(), sub(do), 0)[0]
+            errs = [errors(dq[:, idx], ref_dq)]
+            plain_ms = "not measurable whole (logits of 0.46 TB)"
+            del ref_dq
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in (dq, dk, dv))
+        if not finite:
+            failures.append(f"flash attention backward {label}: non-finite gradients")
+        ms_dq = cuda_ms(lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, fg), 1, 3 if rows is None else 1)
+        ms_dkv = cuda_ms(lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, fg), 1, 3 if rows is None else 1)
+        # yardstick: scaled_dot_product_attention's autograd backward (dq, dk, dv in one call)
+        leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+        sd_out = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask(Sq, Skv, fg))
+        dot = do.transpose(1, 2)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(sd_out, leaves, dot, retain_graph=True), 1,
+                             3 if rows is None else 1)
+        del leaves, sd_out, dot
+        pairs = visible_pairs(Sq, Skv, fg)
+        io = 2 * q.numel() + 2 * do.numel() + 2 * k.numel() + 2 * v.numel() + 4 * lse.numel() + 4 * delta.numel()
+        bnd_dq = bound(6 * B * H * pairs * 128, io + 2 * q.numel())
+        bnd_dkv = bound(8 * B * H * pairs * 128, io + 2 * k.numel() + 2 * v.numel())
+        record("flash_attention_bwd_dq", label, *errs[0], ms_dq, plain_ms, library_ms, bnd_dq)
+        if rows is None:
+            dk_err = max(errs[1][0], errs[2][0]), max(errs[1][1], errs[2][1])
+            record("flash_attention_bwd_dkv", label, *dk_err, ms_dkv, plain_ms, library_ms, bnd_dkv)
+        else:
+            log(f"  {'flash_attention_bwd_dkv':24s} {label:44s} timed only: kernel {ms_dkv:9.3f} ms "
+                f"library (dq+dk+dv) {library_ms:9.3f} ms bound {bnd_dkv[0]:.3f} ms ({bnd_dkv[1]})")
+            results["flash_attention_bwd_dkv"]["cases"].append(
+                {"case": label, "ms": ms_dkv, "library_ms": library_ms, "bound_ms": bnd_dkv[0], "bound_by": bnd_dkv[1]})
+        del q, k, v, do, out, lse, delta, dq, dk, dv
         torch.cuda.empty_cache()
 
     # ---- K2: causal 3x3x3 conv ----
@@ -188,8 +308,13 @@ def check_kernels(results: dict) -> None:
         max_abs, rel = errors(out, ref)
         ms = cuda_ms(lambda: conv3d_causal(x, w, b))
         plain_ms = cuda_ms(lambda: conv3d_causal_plain(x, w, b))
-        record("conv3d_causal", label, max_abs, rel, ms, plain_ms)
-        del x, w, b, out, ref
+        # yardstick: cuDNN's conv3d on the same causally padded input (NDHWC
+        # viewed as channels-last NCDHW), spatial zero padding 1
+        xc, wc, bc = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous(), b.to(torch.bfloat16)
+        library_ms = cuda_ms(lambda: F.conv3d(xc, wc, bc, padding=(0, 1, 1)))
+        bnd = bound(2 * T * H * W * 27 * cin * cout, 2 * x.numel() + 2 * w.numel() + 4 * b.numel() + 2 * out.numel())
+        record("conv3d_causal", label, max_abs, rel, ms, plain_ms, library_ms, bnd)
+        del x, w, b, out, ref, xc, wc, bc
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError("kernel checks failed:\n  " + "\n  ".join(failures))
@@ -249,6 +374,7 @@ def serve_slice() -> dict:
     cfg = make_config("predict2_video2world_2b_rectified_flow")
     if cfg.model.net.num_blocks != NUM_BLOCKS or cfg.model.net.model_channels != 2048:
         raise AssertionError("the slice must run the full-width 2B DiT")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     net = build_dit(cfg.model.net, "cuda", seed=0)
     vae = build_vae(cfg.tokenizer, "cuda", seed=1)
@@ -295,7 +421,236 @@ def serve_slice() -> dict:
                              f"want 2 x {NUM_BLOCKS} x {forwards}")
     if counts["conv3d_causal"] == 0:
         raise AssertionError("conv3d_causal never ran on the main path")
-    return {"counts": counts, "serve_s": serve_s, "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    # a denoise step's device work: one batched-CFG DiT forward under torch.profiler
+    x = torch.randn((2, cfg.model.state_ch, (T - 1) // 4 + 1, H // 8, W // 8), device="cuda")
+    ctx = torch.from_numpy(np.concatenate([embs[0], np.zeros_like(embs[0])])).cuda()
+    ts = torch.full((2, 1), 500.0, device="cuda")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad():
+        net(x, ts, ctx)
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            t = time.perf_counter()  # inside the profiler: its start and teardown are not the forward's
+            net(x, ts, ctx)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+    log("  one batched-CFG DiT forward (batch 2, 5,760 tokens):")
+    device_time_table(prof, wall)
+    return {"counts": counts, "serve_s": serve_s, "peak_gb": peak_gb}
+
+
+def small_train_step(device: str, dtype, state_dict=None):
+    """One training step of a narrow DiT (2B experiment, 2 blocks of 256
+    channels, head_dim 128) with fixed weights, inputs and draws; returns
+    (loss, {name: grad fp32 on the CPU}, state_dict)."""
+    import torch
+
+    from cosmos_predict2_tpu_torch.conditioning.conditioner import apply_train_dropout, make_condition
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.models.video2world import Video2WorldModel
+    from cosmos_predict2_tpu_torch.networks.dit import build_dit
+
+    cfg = make_config("predict2_video2world_2b_rectified_flow")
+    net_cfg = dataclasses.replace(
+        cfg.model.net, model_channels=256, num_heads=2, num_blocks=2, adaln_lora_dim=32,
+        crossattn_proj_in_channels=64, crossattn_emb_channels=128, dtype=dtype,
+    )
+    net = build_dit(net_cfg, device, seed=10, trainable=True)
+    if state_dict is not None:
+        net.load_state_dict(state_dict)
+    model = Video2WorldModel(dataclasses.replace(cfg.model, net=net_cfg, state_t=4), net)
+    rng = np.random.default_rng(0)
+    x0 = torch.from_numpy(rng.standard_normal((1, 16, 4, 16, 24)).astype(np.float32)).to(device)
+    emb = torch.from_numpy(rng.standard_normal((1, 32, 64)).astype(np.float32)).to(device)
+    draws = model.sample_train_draws(torch.Generator().manual_seed(0), tuple(x0.shape)).to(device)
+    cond = apply_train_dropout(make_condition(emb).replace(gt_frames=x0), draws.text_keep, draws.use_video)
+    loss, _ = model.training_step(x0, cond, draws)
+    loss.backward()
+    grads = {n: p.grad.float().cpu() for n, p in net.named_parameters()}
+    return float(loss.detach()), grads, {k: v.cpu() for k, v in net.state_dict().items()}
+
+
+def small_train_reference() -> None:
+    """The small training step in bf16 on the card (K1, K7, K8) against the
+    same weights and draws in fp32 on the CPU (plain versions)."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+
+    _build.reset_launch_counts()
+    loss, grads, sd = small_train_step("cuda", torch.bfloat16)
+    counts = _build.launch_counts()
+    ref_loss, ref_grads, _ = small_train_step("cpu", torch.float32, sd)
+    num = sum(float((grads[n] - g).norm()) ** 2 for n, g in ref_grads.items()) ** 0.5
+    den = sum(float(g.norm()) ** 2 for g in ref_grads.values()) ** 0.5
+    worst = max((float((grads[n] - g).norm() / g.norm().clamp_min(1e-30)), n) for n, g in ref_grads.items())
+    loss_rel = abs(loss / ref_loss - 1)
+    log(f"  card bf16 loss {loss:.6f} vs cpu fp32 {ref_loss:.6f}: rel {loss_rel:.3e} (limit {TRAIN_LOSS_REL}); "
+        f"gradients rel_l2 {num / den:.3e} (limit {TRAIN_GRAD_REL_L2}), worst parameter {worst[0]:.3e} {worst[1]} "
+        f"(limit {TRAIN_GRAD_TENSOR_REL_L2}); launches {counts}")
+    if counts["flash_attention_bwd_dq"] != 4 or counts["flash_attention_bwd_dkv"] != 4:
+        raise AssertionError(f"the small training step did not run the backward kernels 2 x 2 times: {counts}")
+    if not (all(torch.isfinite(g).all() for g in grads.values()) and loss_rel <= TRAIN_LOSS_REL
+            and num / den <= TRAIN_GRAD_REL_L2 and worst[0] <= TRAIN_GRAD_TENSOR_REL_L2):
+        raise AssertionError("the small training step on the card disagrees with its fp32 CPU reference")
+
+
+def kernel_family(name: str) -> str:
+    for key, family in (("flash_attention_fwd", "K1 flash attention forward"),
+                        ("flash_attention_bwd_dq", "K7 flash attention dQ"),
+                        ("flash_attention_bwd_dkv", "K8 flash attention dK/dV"),
+                        ("conv3d_causal", "K2 causal conv"), ("nvjet", "GEMM (cuBLAS)"), ("gemm", "GEMM (cuBLAS)"),
+                        ("xmma", "GEMM (cuBLAS)"), ("cutlass", "GEMM (cuBLAS)"),
+                        ("multi_tensor_apply", "foreach (AdamW)"), ("memcpy", "memcpy / memset"),
+                        ("memset", "memcpy / memset"), ("reduce", "reductions"), ("copy", "copies and casts"),
+                        ("elementwise", "elementwise")):
+        if key in name.lower():
+            return family
+    return "other"
+
+
+def device_time_table(prof, wall_s: float) -> dict:
+    """Device kernel time of a profiled window by family and by kernel."""
+    import torch
+
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        # device kernels only: user annotations (e.g. Optimizer.step) span kernels already counted
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    total = sum(by_name.values())
+    families: dict[str, float] = {}
+    for name, ms in by_name.items():
+        families[kernel_family(name)] = families.get(kernel_family(name), 0.0) + ms
+    log(f"  profiled step: {wall_s * 1e3:.1f} ms on the host clock, {total:.1f} ms of device kernels "
+        f"(device busy {total / (wall_s * 1e3):.1%} of the step)")
+    for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
+        log(f"    {fam:28s} {ms:9.1f} ms {ms / total:6.1%}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"    top kernel {ms:9.1f} ms  {name[:110]}")
+    return {"device_ms": total, "wall_ms": wall_s * 1e3, "families": families}
+
+
+class TrainProbe:
+    """Training callback of the slice: per-step launches, losses and
+    timings; a finite gradient on every parameter at step 1; a few
+    parameters and their EMA kept from the start to check that both move;
+    torch.profiler around the step numbered ``profile_step``."""
+
+    WATCH = ("x_embedder.proj.1.weight", "blocks.0.self_attn.q_proj.weight", "blocks.27.mlp.layer2.weight",
+             "final_layer.linear.weight")
+
+    def __init__(self, profile_step: int):
+        self.steps, self.start, self.profile_step, self.profile = [], {}, profile_step, None
+
+    def on_train_start(self, trainer, state):
+        self.start = {n: (state.params[n].detach().clone(), state.ema_params[n].clone()) for n in self.WATCH}
+
+    def on_training_step_start(self, trainer, state, batch, iteration):
+        import torch
+
+        from cosmos_predict2_tpu_torch import _build
+
+        self.counts0 = _build.launch_counts()
+        if iteration + 1 == self.profile_step:
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.__enter__()
+
+    def on_training_step_end(self, trainer, state, metrics, iteration):
+        import torch
+
+        from cosmos_predict2_tpu_torch import _build
+
+        counts = {k: v - self.counts0[k] for k, v in _build.launch_counts().items()}
+        if iteration == self.profile_step:
+            self._prof.__exit__(None, None, None)
+            self.profile = device_time_table(self._prof, trainer.last_timings["step_s"])
+        if iteration == 1:
+            bad = [n for n, p in state.params.items() if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+            if bad:
+                raise AssertionError(f"{len(bad)} parameters without a finite gradient at step 1, e.g. {bad[:3]}")
+            log(f"  step 1: all {len(state.params)} trainable parameters have a finite gradient")
+        self.steps.append({"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                           "counts": counts, **trainer.last_timings})
+        st = self.steps[-1]
+        log(f"  step {iteration}: loss {st['loss']:.4f} grad_norm {st['grad_norm']:.3e} step {st['step_s']:.3f} s "
+            f"(data+vae {st['data_s']:.3f} s, fwd+bwd {st['forward_backward_s']:.3f} s, "
+            f"optimizer+ema {st['optimizer_s']:.3f} s) launches {counts}")
+
+    # the other hooks of trainer.Callback, written out: this file imports the
+    # port only inside functions, so that it fails cleanly where the port is absent
+    def on_save_checkpoint(self, trainer, state, iteration): ...
+
+    def on_train_end(self, trainer, state): ...
+
+    def moved(self, state) -> tuple[bool, bool]:
+        import torch
+
+        params = all(not torch.equal(state.params[n], p0) for n, (p0, _) in self.start.items())
+        ema = all(not torch.equal(state.ema_params[n], e0) for n, (_, e0) in self.start.items())
+        return params, ema
+
+
+def train_slice() -> dict:
+    """training/train.py's launch on the full-width 2B experiment."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.training.train import launch
+
+    H, W = SIZE
+    steps = 1 + TRAIN_TIMED_STEPS + 1
+    cfg = make_config("predict2_video2world_2b_rectified_flow", [
+        f"data_train.num_frames={NUM_FRAMES}", f"data_train.height={H}", f"data_train.width={W}",
+        "data_train.text_dim=100352", "data_train.batch_size=1",
+        f"trainer.max_iter={steps}", "trainer.save_iter=0", "trainer.logging_iter=1", "trainer.ema_enabled=True",
+    ])
+    net = cfg.model.net
+    if (net.num_blocks, net.model_channels, net.crossattn_proj_in_channels) != (NUM_BLOCKS, 2048, 100352):
+        raise AssertionError("the training slice must run the full-width 2B DiT")
+    probe = TrainProbe(profile_step=steps)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = launch(cfg, device="cuda", callbacks=[probe])
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  launches during the training slice: {counts}")
+
+    if len(probe.steps) != steps or state.step != steps:
+        raise AssertionError(f"trained {state.step} steps, want {steps}")
+    if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in probe.steps):
+        raise AssertionError(f"non-finite losses: {[s['loss'] for s in probe.steps]}")
+    want = {"flash_attention_fwd": 4 * NUM_BLOCKS, "flash_attention_bwd_dq": 2 * NUM_BLOCKS,
+            "flash_attention_bwd_dkv": 2 * NUM_BLOCKS}
+    for i, s in enumerate(probe.steps):
+        got = {k: s["counts"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"step {i + 1} launched {got}, want {want}")
+    if counts["conv3d_causal"] == 0:
+        raise AssertionError("conv3d_causal never ran in the training slice's VAE encode")
+    params_moved, ema_moved = probe.moved(state)
+    if not (params_moved and ema_moved):
+        raise AssertionError(f"parameters moved: {params_moved}, EMA moved: {ema_moved}")
+    timed = probe.steps[1:1 + TRAIN_TIMED_STEPS]
+    mean = lambda key: sum(s[key] for s in timed) / len(timed)
+    tokens = (1 + (NUM_FRAMES - 1) // 4) * (H // 16) * (W // 16)
+    out = {"counts": counts, "total_s": total_s, "peak_gb": peak_gb, "tokens_per_step": tokens,
+           "profile": probe.profile, **{k: mean(k) for k in ("step_s", "data_s", "forward_backward_s", "optimizer_s")}}
+    iteration_s = out["data_s"] + out["step_s"]
+    log(f"  {TRAIN_TIMED_STEPS} timed steps after a warm-up: iteration {iteration_s:.3f} s = data+vae "
+        f"{out['data_s']:.3f} s (host mock data, H2D, VAE encode) + train step {out['step_s']:.3f} s (fwd+bwd "
+        f"{out['forward_backward_s']:.3f} + optimizer+ema {out['optimizer_s']:.3f}); {tokens} tokens/step: "
+        f"{tokens / out['step_s']:.0f} tokens/s over the train step, {tokens / iteration_s:.0f} over the iteration; "
+        f"peak device memory {peak_gb:.2f} GiB; whole launch {total_s:.1f} s")
+    return out
 
 
 def main(argv=None) -> int:
@@ -319,27 +674,43 @@ def main(argv=None) -> int:
         check_kernels(results)
     with Phase("small reference: card bf16 vs cpu fp32"):
         small_reference()
-    with Phase("slice: serve text2world, image2world, video2world"):
+    with Phase("serving slice: text2world, image2world, video2world"):
         sl = serve_slice()
-    counts = sl["counts"]
     log(f"  served 3 requests in {sl['serve_s']:.2f} s; peak device memory {sl['peak_gb']:.2f} GiB")
+    with Phase("small training reference: card bf16 vs cpu fp32"):
+        small_train_reference()
+    with Phase("training slice: 2B DiT through training/train.py launch"):
+        tr = train_slice()
     reference = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "cosmos_predict2_tpu"))
     if reference:
-        raise AssertionError(f"the port's path imported JAX or the JAX package: {reference}")
+        raise AssertionError(f"the port's paths imported JAX or the JAX package: {reference}")
 
-    # the smoke-geometry cases whose times go into the JSON line
-    main_case = {"flash_attention_fwd": "self  B2 S5760 H16 (smoke geometry)", "conv3d_causal": "dec T8 192x320 96->96 (smoke)"}
+    # the smoke-geometry cases whose times go into the JSON line; launches
+    # are the training slice's (the path of this slice) with each path's
+    # counts beside them
+    main_case = {
+        "flash_attention_fwd": "self  B2 S5760 H16 (smoke geometry)",
+        "flash_attention_bwd_dq": "self  B1 S5760 H16 (smoke geometry)",
+        "flash_attention_bwd_dkv": "self  B1 S5760 H16 (smoke geometry)",
+        "conv3d_causal": "dec T8 192x320 96->96 (smoke)",
+    }
     source = {
         "flash_attention_fwd": ("cosmos_predict2_tpu_torch/csrc/flash_attention_fwd.cu",
                                 "cosmos_predict2_tpu/ops/flash_attention.py:91"),
+        "flash_attention_bwd_dq": ("cosmos_predict2_tpu_torch/csrc/flash_attention_bwd.cu",
+                                   "cosmos_predict2_tpu/ops/flash_attention.py:586"),
+        "flash_attention_bwd_dkv": ("cosmos_predict2_tpu_torch/csrc/flash_attention_bwd.cu",
+                                    "cosmos_predict2_tpu/ops/flash_attention.py:632"),
         "conv3d_causal": ("cosmos_predict2_tpu_torch/csrc/conv3d_causal.cu", "cosmos_predict2_tpu/ops/conv3d.py:284"),
     }
     kernels = []
     for name, (src, replaces) in source.items():
         case = next(c for c in results[name]["cases"] if c["case"] == main_case[name])
         kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces, "launches": counts[name],
+            "name": name, "route": "cuda", "source": src, "replaces": replaces, "launches": tr["counts"][name],
+            "launches_by_path": {"serve": sl["counts"][name], "train": tr["counts"][name]},
             "max_abs_err": results[name]["max_abs_err"], "ms": case["ms"], "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"], "bound_by": case["bound_by"], "library_ms": case["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -23,7 +23,7 @@ import threading
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention_fwd.cu", "conv3d_causal.cu")
+SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "conv3d_causal.cu")
 HEADERS = ("mma_bf16.cuh",)
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cosmos_torch_kernels"
 NVCC_FLAGS = (
@@ -90,6 +90,10 @@ def library() -> ctypes.CDLL:
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.cosmos_flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
             lib.cosmos_flash_attention_fwd.restype = i
+            lib.cosmos_flash_attention_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, p]
+            lib.cosmos_flash_attention_bwd_dq.restype = i
+            lib.cosmos_flash_attention_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, p]
+            lib.cosmos_flash_attention_bwd_dkv.restype = i
             lib.cosmos_conv3d_causal.argtypes = [p, p, p, p, i, i, i, i, i, p]
             lib.cosmos_conv3d_causal.restype = i
             _lib = lib
@@ -104,9 +108,18 @@ def check(err: int, name: str) -> None:
 
 def _wrappers() -> dict:
     from cosmos_predict2_tpu_torch.ops.conv3d import conv3d_causal
-    from cosmos_predict2_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from cosmos_predict2_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_fwd,
+    )
 
-    return {"flash_attention_fwd": flash_attention_fwd, "conv3d_causal": conv3d_causal}
+    return {
+        "flash_attention_fwd": flash_attention_fwd,
+        "flash_attention_bwd_dq": flash_attention_bwd_dq,
+        "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+        "conv3d_causal": conv3d_causal,
+    }
 
 
 def launch_counts() -> dict[str, int]:

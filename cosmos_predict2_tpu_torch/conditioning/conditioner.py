@@ -8,7 +8,9 @@ dataclass of tensors:
 * ``get_condition_uncondition``: the unconditional pass zeroes the text
   embedding and drops the video-condition flag;
 * ``edit_for_inference``: at inference the unconditional branch keeps
-  ``use_video_condition=True`` (no CFG on conditional frames).
+  ``use_video_condition=True`` (no CFG on conditional frames);
+* ``apply_train_dropout``: the training-time text and video-condition
+  dropout, from draws the caller makes.
 """
 
 from __future__ import annotations
@@ -42,15 +44,19 @@ class Video2WorldCondition:
     def replace(self, **changes) -> "Video2WorldCondition":
         return dataclasses.replace(self, **changes)
 
-    def set_video_condition(self, gt_frames: torch.Tensor, num_conditional_frames: int) -> "Video2WorldCondition":
-        """gt_frames + the mask of latent frames [0, k); all zeros for T == 1."""
+    def set_video_condition(
+        self, gt_frames: torch.Tensor, num_conditional_frames: Union[int, torch.Tensor]
+    ) -> "Video2WorldCondition":
+        """gt_frames + the mask of latent frames [0, k); ``k`` is an int or a
+        (B,) tensor of per-sample counts. All zeros for T == 1."""
         B, _, T, _, _ = gt_frames.shape
         if T == 1:
             mask = torch.zeros((B, 1, T, 1, 1), dtype=gt_frames.dtype, device=gt_frames.device)
         else:
+            k = torch.as_tensor(num_conditional_frames, device=gt_frames.device).expand(B)
             frame_idx = torch.arange(T, device=gt_frames.device)
-            mask = (frame_idx < num_conditional_frames).to(gt_frames.dtype)
-            mask = mask[None, None, :, None, None].expand(B, 1, T, 1, 1)
+            mask = (frame_idx[None, :] < k[:, None]).to(gt_frames.dtype)  # (B, T)
+            mask = mask[:, None, :, None, None]
         return self.replace(gt_frames=gt_frames, condition_video_mask=mask)
 
     def edit_for_inference(self, is_cfg_conditional: bool, num_conditional_frames: int) -> "Video2WorldCondition":
@@ -87,3 +93,15 @@ def get_condition_with_negative_prompt(
     """CFG pair whose unconditional branch uses the negative-prompt text."""
     uncond = condition.replace(crossattn_emb=negative_text_embeddings, use_video_condition=False)
     return condition, uncond
+
+
+def apply_train_dropout(
+    condition: Video2WorldCondition, text_keep: torch.Tensor, use_video: torch.Tensor
+) -> Video2WorldCondition:
+    """Training-time conditioning dropout from explicit draws: the text
+    embedding of sample b is zeroed where ``text_keep[b]`` (B,) is False
+    (TextAttr dropout), and ``use_video`` (one bool for the batch, as the
+    reference's BooleanFlag) sets ``use_video_condition``."""
+    emb = condition.crossattn_emb
+    emb = emb * text_keep.to(device=emb.device, dtype=emb.dtype)[:, None, None]
+    return condition.replace(crossattn_emb=emb, use_video_condition=use_video.to(emb.device))

@@ -2,8 +2,10 @@
 
 The reference's config module imports ``jax.numpy`` for dtypes, so the port
 defines its own: the flagship ``predict2_video2world_2b_rectified_flow``
-experiment (2B DiT, Wan2.1 VAE) and ``error-free_mock_data_smoke`` (the
-reference's plumbing config: 1024-channel 2-block DiT, dim-16 VAE). A CPU
+experiment (2B DiT, Wan2.1 VAE, the fused-AdamW recipe) and
+``error-free_mock_data_smoke`` (the reference's plumbing config:
+1024-channel 2-block DiT, dim-16 VAE, 3 iterations on 13-frame 64x64 mock
+clips). ``make_config`` takes the reference's ``key=value`` dotlist. A CPU
 test pins every field against the reference's ``make_config``.
 """
 
@@ -11,15 +13,20 @@ from __future__ import annotations
 
 import dataclasses
 
+from cosmos_predict2_tpu_torch.configs.registry import compose
+from cosmos_predict2_tpu_torch.data.mock import MockDataConfig
 from cosmos_predict2_tpu_torch.models.video2world import RFModelConfig
 from cosmos_predict2_tpu_torch.networks.dit import DiTConfig
 from cosmos_predict2_tpu_torch.tokenizers.wan_vae import WanVAEConfig
+from cosmos_predict2_tpu_torch.training.trainer import TrainerConfig
 
 
 @dataclasses.dataclass(frozen=True)
 class Config:
+    trainer: TrainerConfig = TrainerConfig()
     model: RFModelConfig = RFModelConfig()
     tokenizer: WanVAEConfig = WanVAEConfig()
+    data_train: MockDataConfig = MockDataConfig()
 
 
 NET_2B = DiTConfig(
@@ -50,13 +57,16 @@ EXPERIMENTS: dict[str, Config] = {
         tokenizer=WanVAEConfig(),
     ),
     "error-free_mock_data_smoke": Config(
+        trainer=TrainerConfig(max_iter=3, logging_iter=1),
         model=RFModelConfig(net=NET_MINI, state_t=4, resolution="720"),
         tokenizer=WanVAEConfig(dim=16),
+        data_train=MockDataConfig(num_frames=13, height=64, width=64),
     ),
 }
 
 
-def make_config(experiment: str = "predict2_video2world_2b_rectified_flow") -> Config:
+def make_config(experiment: str = "predict2_video2world_2b_rectified_flow", overrides: list[str] | None = None) -> Config:
+    """The experiment's config with ``a.b.c=value`` overrides applied."""
     if experiment not in EXPERIMENTS:
         raise KeyError(f"unknown experiment {experiment!r}; the port has {sorted(EXPERIMENTS)}")
-    return EXPERIMENTS[experiment]
+    return compose(EXPERIMENTS[experiment], overrides)

@@ -18,8 +18,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from cosmos_predict2_tpu.utils.flags import SMOKE
-from cosmos_predict2_tpu.utils.io import save_img_or_video
 from cosmos_predict2_tpu_torch.inference.pipeline import (
     _IMAGE_EXTS,
     _VIDEO_EXTS,
@@ -27,6 +25,8 @@ from cosmos_predict2_tpu_torch.inference.pipeline import (
     read_and_process_image,
     read_and_process_video,
 )
+from cosmos_predict2_tpu_torch.utils.flags import SMOKE
+from cosmos_predict2_tpu_torch.utils.io import save_img_or_video
 
 log = logging.getLogger("cosmos_predict2_tpu_torch")
 

@@ -3,7 +3,7 @@
     python -m cosmos_predict2_tpu_torch.inference.cli \
         --experiment=predict2_video2world_2b_rectified_flow \
         --checkpoint=model.pt --vae=Wan2.1_VAE.pth \
-        --text-embedding-path=prompt.npy --input=input.jpg [--batch samples.json]
+        --text-embedding-path=prompt.npy --input=input.jpg [--batch samples.json] [--device cpu]
 
 Weights: a reference torch state dict (``.pt``/``.pth``/``.safetensors``,
 loaded with ``strict=True``), or seeded random weights when none is given.
@@ -34,13 +34,14 @@ def parse_args(argv=None):
     p.add_argument("--resolution", default="480")
     p.add_argument("--num-conditional-frames", type=int, default=1)
     p.add_argument("--text-embedding-path", default=None, help=".npy precomputed embedding")
+    p.add_argument("--device", default="cuda", help="torch device; the CPU only when asked for (cpu)")
     return p.parse_args(argv)
 
 
 def _load_state_dict(path: str, prefixes: tuple[str, ...] = ()) -> dict:
     import torch
 
-    from cosmos_predict2_tpu.utils.checkpoint_convert import load_torch_state_dict, strip_prefix
+    from cosmos_predict2_tpu_torch.utils.checkpoint_convert import load_torch_state_dict, strip_prefix
 
     sd = load_torch_state_dict(path)
     for prefix in prefixes:
@@ -55,14 +56,14 @@ def build_pipeline(args):
     weights (``strict=True``) or seeded random weights."""
     import torch
 
-    from cosmos_predict2_tpu.utils.flags import SMOKE
     from cosmos_predict2_tpu_torch.configs.defaults import make_config
     from cosmos_predict2_tpu_torch.inference.pipeline import InferenceSetup, Video2WorldInference
     from cosmos_predict2_tpu_torch.networks.dit import build_dit
     from cosmos_predict2_tpu_torch.tokenizers.wan_vae import build_vae
+    from cosmos_predict2_tpu_torch.utils.flags import SMOKE
 
     log = logging.getLogger("cosmos_predict2_tpu_torch")
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = torch.device(args.device)
     config = make_config(args.experiment)
     model_cfg = config.model
     setup = InferenceSetup(
@@ -93,8 +94,8 @@ def build_pipeline(args):
 def main(argv=None) -> int:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="[%(asctime)s|%(levelname)s] %(message)s")
-    from cosmos_predict2_tpu.utils.flags import SMOKE
     from cosmos_predict2_tpu_torch.inference.api import Inference, InferenceArguments
+    from cosmos_predict2_tpu_torch.utils.flags import SMOKE
 
     api = Inference(build_pipeline(args), output_dir=args.output_dir)
     if args.batch:

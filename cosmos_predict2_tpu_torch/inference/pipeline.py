@@ -6,10 +6,6 @@ batched CFG and FRAME_REPLACE conditioning -> streaming VAE decode. Input
 prep follows the reference: an image becomes frame 0 of a zero video; a
 video contributes its last 4(k-1)+1 frames, padded with its last frame.
 The DMD2 sampler and autoregressive mode wait for later ports.
-
-The JAX package's framework-free ``utils/io.py`` is imported only where a
-file is read or a named resolution is looked up, so serving from arrays
-loads nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -28,6 +24,7 @@ from cosmos_predict2_tpu_torch.models.video2world import RFModelConfig, Video2Wo
 from cosmos_predict2_tpu_torch.networks.dit import MiniTrainDIT
 from cosmos_predict2_tpu_torch.tokenizers.wan_vae import WanVAE, WanVAEConfig
 from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import decode_streaming, encode_streaming
+from cosmos_predict2_tpu_torch.utils.io import get_resolution, read_image, read_video
 from cosmos_predict2_tpu_torch.utils.misc import arch_invariant_rand
 
 _IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".webp")
@@ -70,16 +67,12 @@ def video_to_input(frames_thw3: np.ndarray, num_video_frames: int, num_latent_co
 
 
 def read_and_process_image(path: str, height: int, width: int, num_video_frames: int) -> np.ndarray:
-    from cosmos_predict2_tpu.utils.io import read_image
-
     return image_to_input(resize_input(read_image(path)[None], height, width)[0], num_video_frames)
 
 
 def read_and_process_video(
     path: str, height: int, width: int, num_video_frames: int, num_latent_conditional_frames: int = 2
 ) -> np.ndarray:
-    from cosmos_predict2_tpu.utils.io import read_video
-
     frames, _ = read_video(path)
     clip = video_to_input(frames, num_video_frames, num_latent_conditional_frames)[0].transpose(1, 2, 3, 0)
     return resize_input(clip, height, width).transpose(3, 0, 1, 2)[None]
@@ -132,8 +125,6 @@ class Video2WorldInference:
     def video_size(self) -> tuple[int, int]:
         if self.setup.size_override is not None:
             return self.setup.size_override
-        from cosmos_predict2_tpu.utils.io import get_resolution
-
         w, h = get_resolution(self.setup.resolution, self.setup.aspect)
         return h, w
 

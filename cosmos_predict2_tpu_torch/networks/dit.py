@@ -11,6 +11,11 @@ so utils/checkpoint_convert.py::convert_dit_state_dict maps this module's
 
 Numerics follow the reference: fp32 parameters, matmuls in ``cfg.dtype``
 (bf16) returning that dtype, norms and AdaLN modulation in fp32.
+
+Training: with ``remat="block"`` (the default, as the reference) each block
+runs under ``torch.utils.checkpoint`` while gradients are recorded: only its
+input is kept and the block is computed again in the backward, the
+counterpart of ``nn.remat(Block)``.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from cosmos_predict2_tpu_torch.ops.attention import dot_product_attention
 from cosmos_predict2_tpu_torch.ops.normalization import layer_norm, rms_norm
@@ -51,6 +57,14 @@ class DiTConfig:
     timestep_scale: float = 1.0
     # compute dtype for matmuls; norms and modulation stay fp32
     dtype: torch.dtype = torch.bfloat16
+    # activation checkpointing of the blocks while training: "block" keeps
+    # each block's input and recomputes the block in the backward, "none"
+    # keeps every activation ("selective" and "mixed:K" wait for the port)
+    remat: str = "block"
+
+    def __post_init__(self):
+        if self.remat not in ("block", "none"):
+            raise NotImplementedError(f"remat={self.remat!r}: the port has 'block' and 'none'")
 
     @property
     def head_dim(self) -> int:
@@ -309,8 +323,12 @@ class MiniTrainDIT(nn.Module):
         if cfg.use_crossattn_projection:
             crossattn_emb = F.gelu(linear(self.crossattn_proj[0], crossattn_emb, cfg.dtype))
 
+        remat = cfg.remat == "block" and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x, emb, crossattn_emb, rope_angles, adaln_lora)
+            if remat:
+                x = checkpoint(block, x, emb, crossattn_emb, rope_angles, adaln_lora, use_reentrant=False)
+            else:
+                x = block(x, emb, crossattn_emb, rope_angles, adaln_lora)
 
         x = self.final_layer(x, emb, adaln_lora)
         # B T H W (p1 p2 t C) -> B C (T t) (H p1) (W p2)
@@ -335,10 +353,11 @@ def init_dit_weights(net: MiniTrainDIT, generator: torch.Generator) -> MiniTrain
     return net
 
 
-def build_dit(cfg: DiTConfig, device: torch.device | str, seed: int) -> MiniTrainDIT:
-    """A MiniTrainDIT with seeded random fp32 weights, made on ``device``."""
+def build_dit(cfg: DiTConfig, device: torch.device | str, seed: int, trainable: bool = False) -> MiniTrainDIT:
+    """A MiniTrainDIT with seeded random fp32 weights, made on ``device``:
+    frozen for serving, or with every parameter trainable."""
     with torch.device("meta"):
         net = MiniTrainDIT(cfg)
     net = net.to_empty(device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    return init_dit_weights(net, gen).eval().requires_grad_(False)
+    return init_dit_weights(net, gen).train(trainable).requires_grad_(trainable)

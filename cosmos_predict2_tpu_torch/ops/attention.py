@@ -2,16 +2,17 @@
 
 Counterpart of cosmos_predict2_tpu/ops/attention.py. All functions use the
 BSHD layout (batch, seq, heads, head_dim). The dispatch is by device, not
-by sequence length: :func:`dot_product_attention` calls the flash-attention
-wrapper (ops/flash_attention.py), which launches the hand-written kernel on
-a CUDA tensor and takes its plain version on a CPU tensor.
+by sequence length: :func:`dot_product_attention` goes through the
+differentiable flash attention (ops/flash_attention.py::FlashAttention),
+which launches the hand-written kernels on CUDA tensors (K1 forward, K7/K8
+backward) and takes their plain versions on CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cosmos_predict2_tpu_torch.ops.flash_attention import attention_logits, flash_attention_fwd
+from cosmos_predict2_tpu_torch.ops.flash_attention import FlashAttention, attention_logits
 
 
 def reference_attention(
@@ -28,7 +29,7 @@ def reference_attention(
 def dot_product_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, frame_group: int = 0
 ) -> torch.Tensor:
-    """q,k,v: (B, S, H, D) -> (B, Sq, H, D). CUDA tensors launch the flash
-    kernel (bf16, D = 128; anything else raises); CPU tensors take its
-    plain version."""
-    return flash_attention_fwd(q, k, v, frame_group=frame_group)[0]
+    """q,k,v: (B, S, H, D) -> (B, Sq, H, D), differentiable. CUDA tensors
+    launch the flash kernels (bf16, D = 128; anything else raises); CPU
+    tensors take their plain versions."""
+    return FlashAttention.apply(q, k, v, frame_group)

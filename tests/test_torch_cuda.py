@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions, on the card.
+"""The hand-written CUDA kernels against their plain PyTorch versions, on the card,
+and the DiT's gradients through them.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 no JAX, so it also runs where only PyTorch is installed, with
@@ -11,7 +12,15 @@ import pytest
 import torch
 
 from cosmos_predict2_tpu_torch.ops.conv3d import conv3d_causal, conv3d_causal_plain
-from cosmos_predict2_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_attention_plain
+from cosmos_predict2_tpu_torch.ops.flash_attention import (
+    FlashAttention,
+    attention_delta,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_plain,
+    flash_attention_fwd,
+    flash_attention_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -54,6 +63,69 @@ def test_conv_kernel_matches_plain_on_cuda(cuda, shape):
     assert float((out.float() - ref).norm() / ref.norm()) < 1e-2
 
 
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+@pytest.mark.parametrize("sq,skv,frame_group", [(1000, 1000, 0), (333, 512, 0), (1024, 1024, 100), (200, 77, 0)])
+def test_flash_bwd_kernels_match_plain_on_cuda(cuda, sq, skv, frame_group):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, do = (torch.randn((2, sq, 4, 128), generator=gen, device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn((2, skv, 4, 128), generator=gen, device=cuda).bfloat16() for _ in range(2))
+    out, lse = flash_attention_fwd(q, k, v, frame_group=frame_group)
+    delta = attention_delta(out, do)
+    before = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, frame_group)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, frame_group)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    ref = flash_attention_bwd_plain(q, k, v, out, lse, do, frame_group)
+    for name, got, want in zip("qkv", (dq, dk, dv), ref):
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all(), name
+        assert _rel(got, want) < 1e-2, name  # bf16 outputs, P and dS rounded to bf16 on both sides
+
+
+def test_flash_attention_function_grads_on_cuda(cuda):
+    """dot_product_attention's autograd on the card goes through K1, K7 and
+    K8 and gives the plain version's gradients."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v, do = (torch.randn((1, 300, 2, 128), generator=gen, device=cuda).bfloat16() for _ in range(4))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    counts = lambda: (flash_attention_fwd.launches, flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    before = counts()
+    FlashAttention.apply(*leaves, 0).backward(do)
+    torch.cuda.synchronize()
+    assert counts() == tuple(c + 1 for c in before)
+    out, lse = flash_attention_plain(q, k, v)
+    for name, x, want in zip("qkv", leaves, flash_attention_bwd_plain(q, k, v, out, lse, do)):
+        assert _rel(x.grad, want) < 1e-2, name
+
+
+def test_dit_training_step_gradients_on_cuda(cuda):
+    """One training step of a small bf16 DiT (head_dim 128) on the card with
+    per-block remat: every parameter gets a finite gradient, and attention
+    runs 4 forwards and 2 backwards per block."""
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.conditioning.conditioner import apply_train_dropout, make_condition
+    from cosmos_predict2_tpu_torch.models.video2world import RFModelConfig, Video2WorldModel
+    from cosmos_predict2_tpu_torch.networks.dit import DiTConfig, build_dit
+
+    cfg = DiTConfig(model_channels=256, num_heads=2, num_blocks=2, adaln_lora_dim=32, crossattn_emb_channels=128)
+    net = build_dit(cfg, cuda, seed=0, trainable=True)
+    model = Video2WorldModel(RFModelConfig(net=cfg, state_t=2), net)
+    x0 = torch.randn((1, 16, 2, 16, 16), device=cuda)
+    cond = make_condition(torch.randn((1, 24, 128), device=cuda)).replace(gt_frames=x0)
+    draws = model.sample_train_draws(torch.Generator().manual_seed(0), tuple(x0.shape)).to(cuda)
+    _build.reset_launch_counts()
+    loss, _ = model.training_step(x0, apply_train_dropout(cond, draws.text_keep, draws.use_video), draws)
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    assert (counts["flash_attention_fwd"], counts["flash_attention_bwd_dq"], counts["flash_attention_bwd_dkv"]) == (8, 4, 4)
+    for name, p in net.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
 def test_kernels_raise_on_what_they_do_not_take(cuda):
     q = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
@@ -63,3 +135,9 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
     x = torch.zeros((1, 4, 8, 8, 24), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
         conv3d_causal(x, torch.zeros((3, 3, 3, 24, 32), dtype=torch.bfloat16, device=cuda), torch.zeros(32, device=cuda))
+    q = torch.zeros((1, 64, 2, 128), dtype=torch.bfloat16, device=cuda)
+    lse = torch.zeros((1, 2, 64), device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention_bwd_dq(q.float(), q, q, q, lse, lse)  # fp32 q
+    with pytest.raises(ValueError):
+        flash_attention_bwd_dkv(q, q, q, q, lse[:, :1], lse)  # lse of the wrong shape

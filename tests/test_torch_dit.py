@@ -136,6 +136,10 @@ def test_config_fields_match_jax(experiment):
 
     same(t.model, j.model)
     same(t.tokenizer, j.tokenizer)
+    same(t.trainer, j.trainer)
+    same(t.data_train, j.data_train)
+    jo = j.trainer.optimizer
+    assert (jo.moments_dtype, jo.moments_offload, j.model.use_lora) == ("float32", False, False)
     jn = j.model.net
     assert (jn.n_dense_blocks, jn.temporal_causal, jn.camera_dim, jn.action_dim, jn.n_views) == (-1, False, None, None, 1)
     assert not (jn.concat_condition_mask or jn.enable_cross_view_attn or jn.scan_blocks or jn.cp_axis

@@ -197,7 +197,7 @@ def test_cli_smoke_on_cpu(tmp_path):
     config (1024-channel 2-block DiT, dim-16 VAE), COSMOS_SMOKE geometry."""
     env = dict(os.environ, COSMOS_SMOKE="1")
     cmd = [sys.executable, "-m", "cosmos_predict2_tpu_torch.inference.cli", "--experiment=error-free_mock_data_smoke",
-           "--prompt", "a robot", "--output-dir", str(tmp_path)]
+           "--prompt", "a robot", "--output-dir", str(tmp_path), "--device", "cpu"]
     proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = proc.stdout.strip().splitlines()[-1]
