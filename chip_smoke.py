@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Video2World serving and training paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's Video2World serving and training paths, dense and sparse, once on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
@@ -13,25 +13,34 @@ Phases, each printed with its wall time:
    on bf16 inputs at the main paths' shapes, with max-abs and relative-L2
    error, CUDA-event times, the card's bound for the same work and, as a
    yardstick the port never calls, one PyTorch call computing the same
-   function (scaled_dot_product_attention forward / backward, conv3d);
-4. small reference: a narrow pipeline (2 blocks, VAE dim 64) on the card
-   against the same weights run in fp32 on the CPU through the plain
-   versions;
+   function (scaled_dot_product_attention forward / backward, conv3d;
+   for neighborhood attention SDPA with the boolean window mask, or
+   flex_attention with a block mask from the same predicate at 720p);
+   K10, K11 and K12 at the sparse config's window at the smoke geometry, at
+   720p, at 480p (padded) and on a dilated 720p layer;
+4. small reference: a narrow pipeline (2 blocks, VAE dim 64), dense and
+   with a sparse block, on the card against the same weights run in fp32 on
+   the CPU through the plain versions;
 5. serving slice: the full-width 2B DiT and full-width Wan2.1 VAE on seeded
    random weights serve a Text2World, an Image2World and a Video2World
    request (93 frames at 192x320, 35 UniPC steps, CFG guidance 7) through
    Video2WorldInference; checks the outputs and that K1 ran 2 x 28 times per
    DiT forward and K2 ran; then profiles one batched-CFG DiT forward;
-6. small training reference: one training step of a narrow DiT (2 blocks)
-   in bf16 on the card against the same weights and draws in fp32 on the
-   CPU: loss and gradients;
+   the same for one Video2World request on the sparse 2B DiT
+   (predict2_video2world_2b_sparse: 7 dense blocks, 21 neighborhood
+   attention), with K1 35 and K10 21 times per DiT forward;
+6. small training reference: one training step of a narrow DiT (2 blocks,
+   dense and with a sparse block) in bf16 on the card against the same
+   weights and draws in fp32 on the CPU: loss and gradients;
 7. training slice: training/train.py's ``launch`` trains the full-width 2B
    DiT (93 frames at 192x320, 2B text width, batch 1, EMA on) for one
    warm-up step, a few timed steps and one step under torch.profiler
    (device time by kernel) on mock data encoded by the VAE; checks finite
    losses, a finite gradient on every parameter at step 1, that parameters
    and EMA moved, and the launches per step (K1 4 x 28, K7 and K8 2 x 28)
-   and K2 in the data phase.
+   and K2 in the data phase; then the sparse 2B DiT for one warm-up, two
+   timed and one profiled step, with K1 70, K10 42, K7 35, K8 35, K11 21
+   and K12 21 launches per step.
 
 Then it prints the kernels' JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero without that line.
@@ -41,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -69,6 +79,11 @@ NUM_FRAMES = 93
 NUM_STEPS = 35
 GUIDANCE = 7.0
 TRAIN_TIMED_STEPS = 3  # after one warm-up step; one more step runs under torch.profiler
+SPARSE_TRAIN_TIMED_STEPS = 2
+DENSE_EXPERIMENT = "predict2_video2world_2b_rectified_flow"
+SPARSE_EXPERIMENT = "predict2_video2world_2b_sparse"
+# the geometry the sparse config's window is tuned at (its natten_base_size)
+NA_BASE = (-1, 44, 80)
 # published dense peaks of one H100 SXM at 700 W, for the bounds
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -109,6 +124,18 @@ def cuda_ms(fn, warmup: int = 1, iters: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def yardstick_ms(fn, warmup: int = 1, iters: int = 3):
+    """cuda_ms of a library call that is only a yardstick: when it cannot run
+    (out of memory, no kernel for the case), the reason instead of a time."""
+    import torch
+
+    try:
+        return cuda_ms(fn, warmup, iters)
+    except Exception as e:
+        torch.cuda.empty_cache()
+        return f"none: {type(e).__name__}: {str(e).strip().splitlines()[0][:100]}"
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -163,15 +190,15 @@ def check_kernels(results: dict) -> None:
     def fmt(x):
         return x if isinstance(x, str) else "-" if x is None else f"{x:9.3f} ms"
 
-    def record(kernel, label, max_abs, rel, ms, plain_ms, library_ms, bnd):
+    def record(kernel, label, max_abs, rel, ms, plain_ms, library_ms, bnd, **extra):
         ok = rel <= KERNEL_REL_L2
         log(f"  {kernel:24s} {label:44s} max_abs {max_abs:.3e} rel_l2 {rel:.3e} kernel {ms:9.3f} ms "
             f"plain {fmt(plain_ms)} library {fmt(library_ms)} bound {bnd[0]:.3f} ms ({bnd[1]}) "
-            f"{'ok' if ok else 'FAIL'}")
+            f"{'ok' if ok else 'FAIL'}" + "".join(f" {k} {v}" for k, v in extra.items()))
         entry = results.setdefault(kernel, {"max_abs_err": 0.0, "cases": []})
         entry["max_abs_err"] = max(entry["max_abs_err"], max_abs)
         entry["cases"].append({"case": label, "max_abs": max_abs, "rel_l2": rel, "ms": ms, "plain_ms": plain_ms,
-                               "library_ms": library_ms, "bound_ms": bnd[0], "bound_by": bnd[1]})
+                               "library_ms": library_ms, "bound_ms": bnd[0], "bound_by": bnd[1], **extra})
         if not ok:
             failures.append(f"{kernel} {label}: rel_l2 {rel:.3e} > {KERNEL_REL_L2}")
 
@@ -316,11 +343,173 @@ def check_kernels(results: dict) -> None:
         record("conv3d_causal", label, max_abs, rel, ms, plain_ms, library_ms, bnd)
         del x, w, b, out, ref, xc, wc, bc
         torch.cuda.empty_cache()
+
+    check_na_kernels(gen, record, failures)
     if failures:
         raise AssertionError("kernel checks failed:\n  " + "\n  ".join(failures))
 
 
-def small_reference() -> None:
+def na_computed_pairs(plan, window, stride) -> int:
+    """(query, key) pairs K10 computes per (batch, head): 64 x 64 for every
+    pair of 64-row tiles that the plan lists and the t-window keeps."""
+    T, wt, st = plan.size.T, window[0], stride[0]
+    r_lo = (wt - 1) // 2
+    tiles = 0
+    for i in range(len(plan.counts)):
+        for u in range(plan.bt):
+            tq = int(plan.coords[i, 0]) + u
+            if tq >= T:
+                continue
+            lo, hi = 0, T - 1
+            if 0 <= wt < T:
+                c = (tq // st) * st + (st - 1) // 2 if st > 1 else tq
+                c = min(max(c, r_lo), T - 1 - (wt - 1 - r_lo))
+                lo, hi = c - r_lo, c + wt - 1 - r_lo
+            tk = plan.coords[plan.table[i, : plan.counts[i]], 0][:, None] + np.arange(plan.bt)[None, :]
+            tiles += int(((tk >= lo) & (tk <= hi)).sum())
+    return tiles * 64 * 64
+
+
+def flex_yardstick(q, k, v, do, size, window, stride, dilation):
+    """flex_attention with a block mask from the neighborhood predicate on
+    token-major (B, H, S, D) tensors: (forward ms, backward ms), or the
+    reason there is none."""
+    import torch
+
+    from cosmos_predict2_tpu_torch.ops.neighborhood_attention import na_mask
+
+    try:
+        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+        S = q.shape[2]
+        block_mask = torch.compile(create_block_mask)(
+            lambda b, h, qi, ki: na_mask(qi, ki, size, window, stride, dilation), None, None, S, S, device=q.device)
+        flex = torch.compile(flex_attention)
+        fwd_ms = cuda_ms(lambda: flex(q, k, v, block_mask=block_mask))
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        # the compiled backward does not keep its graph for a second call: time
+        # forward + backward and take the forward away
+        both_ms = cuda_ms(lambda: torch.autograd.grad(flex(*leaves, block_mask=block_mask), leaves, do))
+        return fwd_ms, both_ms - fwd_ms
+    except Exception as e:  # a yardstick only: the reason goes into the row
+        torch.cuda.empty_cache()
+        reason = f"none: flex_attention did not run ({type(e).__name__}: {str(e).strip().splitlines()[0][:100]})"
+        return reason, reason
+
+
+def check_na_kernels(gen, record, failures) -> None:
+    """K10, K11 and K12 against their plain versions on the tiled layout, 16
+    heads, forward at the case's batch and backward at batch 1."""
+    import torch
+    import torch.nn.functional as F
+
+    from cosmos_predict2_tpu_torch.ops import neighborhood_attention as na
+
+    dev = torch.device("cuda")
+    # (name, (T, H, W), window, stride, dilation, forward batch, library route):
+    # the 2B sparse config's window adapted to the smoke geometry (batch 2 as
+    # in batched CFG) and at 720p; the 480p grid (H and W padded to the
+    # tiles; strides 3 and 5); layer 0 of the 14B comb02 list (dilated) at 720p
+    cases = [
+        ("smoke", (24, 12, 20), (-1, 12, 24), (1, 4, 8), (1, 1, 1), 2, "sdpa"),
+        ("720p", (24, 44, 80), (-1, 12, 24), (1, 4, 8), (1, 1, 1), 1, "flex"),
+        ("480p padded", (24, 30, 52), (-1, 12, 24), (1, 4, 8), (1, 1, 1), 1, "sdpa"),
+        ("720p comb02 dilated", (24, 44, 80), (-1, 4, 16), (1, 1, 1), (1, 11, 5), 1, "flex"),
+    ]
+    H = 16
+    for name, grid, window, stride, dilation, bf, route in cases:
+        size = na.VideoSize(*grid)
+        w, s, d = na.adaptive_na_parameters(window, stride, grid, NA_BASE, dilation)
+        ew, es = na.effective_params(size, w, s, d)
+        plan = na.build_plan(size, ew, es, d)
+        S = grid[0] * grid[1] * grid[2]
+        label = f"{name} {grid[0]}x{grid[1]}x{grid[2]} w{w} s{s}" + (f" d{d}" if d != (1, 1, 1) else "")
+        pairs = na.visible_pairs(size, ew)
+        computed = na_computed_pairs(plan, ew, es)
+        extra = {"visible_pairs": pairs, "computed_pairs": computed, "s_pad": plan.s_pad}
+        real = na.permute_in(torch.ones((1, S, 1, 1), device=dev), plan)[0, 0, :, 0] > 0
+        mask = None
+        if route == "sdpa":
+            idx = torch.arange(S, device=dev)
+            mask = na.na_mask(idx[:, None], idx[None, :], size, w, s, d)
+
+        # ---- K10 forward ----
+        bshd = [torch.randn((bf, S, H, 128), generator=gen, device=dev).to(torch.bfloat16) for _ in range(3)]
+        q, k, v = (na.permute_in(x, plan) for x in bshd)
+        out, lse = na.na_fwd(q, k, v, plan, ew, es)
+        torch.cuda.synchronize()
+        ref, ref_lse = na.na_fwd_plain(q, k, v, plan, ew, es)
+        max_abs, rel = errors(out, ref)
+        lse_abs, _ = errors(lse[:, :, real], ref_lse[:, :, real])
+        log(f"  {'':24s} lse max_abs {lse_abs:.3e} (real rows); pad rows of out all zero: "
+            f"{bool((out[:, :, ~real] == 0).all())}")
+        if not lse_abs < 1e-2:
+            failures.append(f"na_fwd {label}: lse max_abs {lse_abs:.3e}")
+        del ref, ref_lse
+        plain_ms = cuda_ms(lambda: na.na_fwd_plain(q, k, v, plan, ew, es), 0, 1)
+        ms = cuda_ms(lambda: na.na_fwd(q, k, v, plan, ew, es))
+        layout_ms = cuda_ms(lambda: ([na.permute_in(x, plan) for x in bshd], na.permute_out(out, plan)))
+        qh, kh, vh = (x.transpose(1, 2) for x in bshd)
+        if route == "sdpa":
+            library_fwd = yardstick_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+        else:  # batch 1: the backward's yardstick comes from the same call
+            doh = torch.randn(qh.shape, generator=gen, device=dev).to(torch.bfloat16)
+            library_fwd, library_bwd = flex_yardstick(qh, kh, vh, doh, size, w, s, d)
+            del doh
+        # the bound's bytes count the S real tokens: pad slots of the tiled
+        # layout are neither keys nor queries, and their zero rows are the
+        # layout's own (s_pad beside the bound shows that overhead)
+        nbytes = 2 * 4 * bf * H * S * 128 + 4 * bf * H * S
+        record("na_fwd", label, max_abs, rel, ms, plain_ms, library_fwd, bound(4 * bf * H * pairs * 128, nbytes),
+               layout_ms=round(layout_ms, 3), **extra)
+        del bshd, q, k, v, out, lse, qh, kh, vh
+        torch.cuda.empty_cache()
+
+        # ---- K11 dQ and K12 dK/dV, batch 1 ----
+        bshd = [torch.randn((1, S, H, 128), generator=gen, device=dev).to(torch.bfloat16) for _ in range(4)]
+        q, k, v, do = (na.permute_in(x, plan) for x in bshd)
+        out, lse = na.na_fwd(q, k, v, plan, ew, es)
+        delta = na.na_delta(out, do)
+        dq = na.na_bwd_dq(q, k, v, do, lse, delta, plan, ew, es)
+        dk, dv = na.na_bwd_dkv(q, k, v, do, lse, delta, plan, ew, es)
+        torch.cuda.synchronize()
+        ref = na.na_bwd_plain(q, k, v, out, lse, do, plan, ew, es)
+        errs = [errors(g, r) for g, r in zip((dq, dk, dv), ref)]
+        del ref
+        if not all(bool(torch.isfinite(t.float()).all()) for t in (dq, dk, dv)):
+            failures.append(f"neighborhood attention backward {label}: non-finite gradients")
+        plain_ms = cuda_ms(lambda: na.na_bwd_plain(q, k, v, out, lse, do, plan, ew, es), 0, 1)
+        ms_dq = cuda_ms(lambda: na.na_bwd_dq(q, k, v, do, lse, delta, plan, ew, es))
+        ms_dkv = cuda_ms(lambda: na.na_bwd_dkv(q, k, v, do, lse, delta, plan, ew, es))
+        if route == "sdpa":
+            # yardstick: scaled_dot_product_attention's autograd backward with the mask (dq, dk, dv in one call)
+            leaves = [x.transpose(1, 2).detach().requires_grad_(True) for x in bshd[:3]]
+            dot = bshd[3].transpose(1, 2)
+            library_bwd = library_fwd  # the reason, where the forward did not run
+            if isinstance(library_fwd, float):
+                sd_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+                library_bwd = yardstick_ms(lambda: torch.autograd.grad(sd_out, leaves, dot, retain_graph=True))
+                del sd_out
+            del leaves, dot
+        # q, k, v and dO read, lse and delta read, over the S real tokens
+        grad_bytes = 2 * H * S * 128
+        io = 4 * grad_bytes + 2 * 4 * H * S
+        record("na_bwd_dq", label, *errs[0], ms_dq, plain_ms, library_bwd, bound(6 * H * pairs * 128, io + grad_bytes),
+               **extra)
+        dkv_err = max(errs[1][0], errs[2][0]), max(errs[1][1], errs[2][1])
+        record("na_bwd_dkv", label, *dkv_err, ms_dkv, plain_ms, library_bwd,
+               bound(8 * H * pairs * 128, io + 2 * grad_bytes), **extra)
+        del bshd, q, k, v, do, out, lse, delta, dq, dk, dv, mask
+        torch.cuda.empty_cache()
+
+
+# the narrow nets' sparse block: block 0 of 2 (n_dense_blocks=1 keeps block 1
+# dense), window 3 x 3 with stride 2 along W on the small pipeline's 4 x 4 and
+# the small training step's 8 x 12 token grid
+SMALL_SPARSE = dict(n_dense_blocks=1, natten_window=(-1, 3, 3), natten_stride=(1, 1, 2), natten_base_size=None)
+
+
+def small_reference(sparse: bool) -> None:
     """A narrow pipeline on the card (bf16, kernels) against the same weights
     in fp32 on the CPU (plain versions)."""
     import torch
@@ -330,10 +519,12 @@ def small_reference() -> None:
     from cosmos_predict2_tpu_torch.networks.dit import build_dit
     from cosmos_predict2_tpu_torch.tokenizers.wan_vae import build_vae
 
-    cfg = make_config("predict2_video2world_2b_rectified_flow")
+    from cosmos_predict2_tpu_torch import _build
+
+    cfg = make_config(SPARSE_EXPERIMENT if sparse else DENSE_EXPERIMENT)
     net_cfg = dataclasses.replace(
         cfg.model.net, model_channels=256, num_heads=2, num_blocks=2, adaln_lora_dim=32,
-        crossattn_proj_in_channels=64, crossattn_emb_channels=128,
+        crossattn_proj_in_channels=64, crossattn_emb_channels=128, **(SMALL_SPARSE if sparse else {}),
     )
     mc = dataclasses.replace(cfg.model, net=net_cfg, state_t=3)
     vc = dataclasses.replace(cfg.tokenizer, dim=64)
@@ -351,16 +542,23 @@ def small_reference() -> None:
     rng = np.random.default_rng(0)
     video = image_to_input(rng.integers(0, 256, (64, 64, 3), dtype=np.uint8), pipe.num_video_frames)
     emb = rng.standard_normal((1, 16, 64)).astype(np.float32)
+    _build.reset_launch_counts()
     got = pipe.generate_vid2world(video, emb, num_steps=2, num_conditional_frames=1)
+    counts = _build.launch_counts()
     ref = pipe32.generate_vid2world(video, emb, num_steps=2, num_conditional_frames=1)
     max_abs = float(np.abs(got - ref).max())
     rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
-    log(f"  card bf16 vs cpu fp32: shape {got.shape} max_abs {max_abs:.3e} rel_l2 {rel:.3e} (limit {PIPELINE_REL_L2})")
+    log(f"  {'sparse' if sparse else 'dense'}: card bf16 vs cpu fp32: shape {got.shape} max_abs {max_abs:.3e} "
+        f"rel_l2 {rel:.3e} (limit {PIPELINE_REL_L2}); launches {counts}")
+    if sparse and counts["na_fwd"] == 0:
+        raise AssertionError("the small sparse pipeline never ran K10")
     if not (got.shape == ref.shape == (9, 64, 64, 3) and np.isfinite(got).all() and rel <= PIPELINE_REL_L2):
         raise AssertionError(f"small pipeline disagrees with its fp32 CPU reference: rel_l2 {rel:.3e}")
 
 
-def serve_slice() -> dict:
+def serve_slice(experiment: str, names: tuple[str, ...]) -> dict:
+    """Full-width requests of ``experiment`` (those of ``names``); checks the
+    outputs and the launches per DiT forward."""
     import torch
 
     from cosmos_predict2_tpu_torch import _build
@@ -368,12 +566,13 @@ def serve_slice() -> dict:
     from cosmos_predict2_tpu_torch.inference.pipeline import (
         InferenceSetup, Video2WorldInference, image_to_input, video_to_input,
     )
-    from cosmos_predict2_tpu_torch.networks.dit import build_dit
+    from cosmos_predict2_tpu_torch.networks.dit import block_layout, build_dit
     from cosmos_predict2_tpu_torch.tokenizers.wan_vae import build_vae
 
-    cfg = make_config("predict2_video2world_2b_rectified_flow")
+    cfg = make_config(experiment)
     if cfg.model.net.num_blocks != NUM_BLOCKS or cfg.model.net.model_channels != 2048:
         raise AssertionError("the slice must run the full-width 2B DiT")
+    n_sparse = sum(p is not None for p in block_layout(cfg.model.net))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     net = build_dit(cfg.model.net, "cuda", seed=0)
@@ -391,6 +590,7 @@ def serve_slice() -> dict:
         ("image2world", image_to_input(rng.integers(0, 256, (H, W, 3), dtype=np.uint8), T), 1),
         ("video2world", video_to_input(rng.integers(0, 256, (9, H, W, 3), dtype=np.uint8), T, 2), 2),
     ]
+    requests = [r for r in requests if r[0] in names]
     embs = [rng.standard_normal((1, 512, cfg.model.net.crossattn_proj_in_channels)).astype(np.float32) for _ in requests]
 
     _build.reset_launch_counts()
@@ -416,9 +616,11 @@ def serve_slice() -> dict:
         if frames.std() == 0:
             raise AssertionError(f"{name}: output is constant")
     forwards = NUM_STEPS * len(requests)  # one batched-CFG DiT forward per UniPC step
-    if counts["flash_attention_fwd"] != 2 * NUM_BLOCKS * forwards:
-        raise AssertionError(f"flash_attention_fwd ran {counts['flash_attention_fwd']} times, "
-                             f"want 2 x {NUM_BLOCKS} x {forwards}")
+    # per forward: K1 for every cross-attention and dense self-attention, K10 for the sparse ones
+    want = {"flash_attention_fwd": (2 * NUM_BLOCKS - n_sparse) * forwards, "na_fwd": n_sparse * forwards}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"attention launches {({k: counts[k] for k in want})}, want {want} "
+                             f"({forwards} forwards, {n_sparse} sparse blocks)")
     if counts["conv3d_causal"] == 0:
         raise AssertionError("conv3d_causal never ran on the main path")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -436,15 +638,16 @@ def serve_slice() -> dict:
             net(x, ts, ctx)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
-    log("  one batched-CFG DiT forward (batch 2, 5,760 tokens):")
-    device_time_table(prof, wall)
-    return {"counts": counts, "serve_s": serve_s, "peak_gb": peak_gb}
+    log(f"  one batched-CFG DiT forward of {experiment} (batch 2, 5,760 tokens):")
+    profile = device_time_table(prof, wall)
+    return {"counts": counts, "serve_s": serve_s, "peak_gb": peak_gb, "profile": profile}
 
 
-def small_train_step(device: str, dtype, state_dict=None):
+def small_train_step(device: str, dtype, sparse: bool, state_dict=None):
     """One training step of a narrow DiT (2B experiment, 2 blocks of 256
-    channels, head_dim 128) with fixed weights, inputs and draws; returns
-    (loss, {name: grad fp32 on the CPU}, state_dict)."""
+    channels, head_dim 128; with ``sparse`` block 0 is neighborhood
+    attention) with fixed weights, inputs and draws; returns (loss, {name:
+    grad fp32 on the CPU}, state_dict)."""
     import torch
 
     from cosmos_predict2_tpu_torch.conditioning.conditioner import apply_train_dropout, make_condition
@@ -452,10 +655,10 @@ def small_train_step(device: str, dtype, state_dict=None):
     from cosmos_predict2_tpu_torch.models.video2world import Video2WorldModel
     from cosmos_predict2_tpu_torch.networks.dit import build_dit
 
-    cfg = make_config("predict2_video2world_2b_rectified_flow")
+    cfg = make_config(SPARSE_EXPERIMENT if sparse else DENSE_EXPERIMENT)
     net_cfg = dataclasses.replace(
         cfg.model.net, model_channels=256, num_heads=2, num_blocks=2, adaln_lora_dim=32,
-        crossattn_proj_in_channels=64, crossattn_emb_channels=128, dtype=dtype,
+        crossattn_proj_in_channels=64, crossattn_emb_channels=128, dtype=dtype, **(SMALL_SPARSE if sparse else {}),
     )
     net = build_dit(net_cfg, device, seed=10, trainable=True)
     if state_dict is not None:
@@ -472,17 +675,18 @@ def small_train_step(device: str, dtype, state_dict=None):
     return float(loss.detach()), grads, {k: v.cpu() for k, v in net.state_dict().items()}
 
 
-def small_train_reference() -> None:
-    """The small training step in bf16 on the card (K1, K7, K8) against the
-    same weights and draws in fp32 on the CPU (plain versions)."""
+def small_train_reference(sparse: bool) -> None:
+    """The small training step in bf16 on the card (K1, K7, K8; K10, K11,
+    K12 with ``sparse``) against the same weights and draws in fp32 on the
+    CPU (plain versions)."""
     import torch
 
     from cosmos_predict2_tpu_torch import _build
 
     _build.reset_launch_counts()
-    loss, grads, sd = small_train_step("cuda", torch.bfloat16)
+    loss, grads, sd = small_train_step("cuda", torch.bfloat16, sparse)
     counts = _build.launch_counts()
-    ref_loss, ref_grads, _ = small_train_step("cpu", torch.float32, sd)
+    ref_loss, ref_grads, _ = small_train_step("cpu", torch.float32, sparse, sd)
     num = sum(float((grads[n] - g).norm()) ** 2 for n, g in ref_grads.items()) ** 0.5
     den = sum(float(g.norm()) ** 2 for g in ref_grads.values()) ** 0.5
     worst = max((float((grads[n] - g).norm() / g.norm().clamp_min(1e-30)), n) for n, g in ref_grads.items())
@@ -490,15 +694,19 @@ def small_train_reference() -> None:
     log(f"  card bf16 loss {loss:.6f} vs cpu fp32 {ref_loss:.6f}: rel {loss_rel:.3e} (limit {TRAIN_LOSS_REL}); "
         f"gradients rel_l2 {num / den:.3e} (limit {TRAIN_GRAD_REL_L2}), worst parameter {worst[0]:.3e} {worst[1]} "
         f"(limit {TRAIN_GRAD_TENSOR_REL_L2}); launches {counts}")
-    if counts["flash_attention_bwd_dq"] != 4 or counts["flash_attention_bwd_dkv"] != 4:
-        raise AssertionError(f"the small training step did not run the backward kernels 2 x 2 times: {counts}")
+    # backward: one per attention call of the 2 blocks, 1 of them sparse with `sparse`
+    want = {"flash_attention_bwd_dq": 3, "flash_attention_bwd_dkv": 3, "na_bwd_dq": 1, "na_bwd_dkv": 1} if sparse \
+        else {"flash_attention_bwd_dq": 4, "flash_attention_bwd_dkv": 4, "na_bwd_dq": 0, "na_bwd_dkv": 0}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"the small training step's backward launches {counts}, want {want}")
     if not (all(torch.isfinite(g).all() for g in grads.values()) and loss_rel <= TRAIN_LOSS_REL
             and num / den <= TRAIN_GRAD_REL_L2 and worst[0] <= TRAIN_GRAD_TENSOR_REL_L2):
         raise AssertionError("the small training step on the card disagrees with its fp32 CPU reference")
 
 
 def kernel_family(name: str) -> str:
-    for key, family in (("flash_attention_fwd", "K1 flash attention forward"),
+    for key, family in (("na_fwd_kernel", "K10 NA forward"), ("na_bwd_dq_kernel", "K11 NA dQ"),
+                        ("na_bwd_dkv_kernel", "K12 NA dK/dV"), ("flash_attention_fwd", "K1 flash attention forward"),
                         ("flash_attention_bwd_dq", "K7 flash attention dQ"),
                         ("flash_attention_bwd_dkv", "K8 flash attention dK/dV"),
                         ("conv3d_causal", "K2 causal conv"), ("nvjet", "GEMM (cuBLAS)"), ("gemm", "GEMM (cuBLAS)"),
@@ -530,7 +738,14 @@ def device_time_table(prof, wall_s: float) -> dict:
         log(f"    {fam:28s} {ms:9.1f} ms {ms / total:6.1%}")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"    top kernel {ms:9.1f} ms  {name[:110]}")
-    return {"device_ms": total, "wall_ms": wall_s * 1e3, "families": families}
+    from cosmos_predict2_tpu_torch.ops.neighborhood_attention import LAYOUT_RANGE
+
+    # the device time of the kernels launched inside the NA layout ranges (permute_in / permute_out copies)
+    layout_ms = sum(e.device_time_total for e in prof.events()
+                    if e.name == LAYOUT_RANGE and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
+    if layout_ms:
+        log(f"    of which NA layout copies (permute_in / permute_out) {layout_ms:9.1f} ms {layout_ms / total:6.1%}")
+    return {"device_ms": total, "wall_ms": wall_s * 1e3, "families": families, "na_layout_ms": layout_ms}
 
 
 class TrainProbe:
@@ -594,17 +809,19 @@ class TrainProbe:
         return params, ema
 
 
-def train_slice() -> dict:
-    """training/train.py's launch on the full-width 2B experiment."""
+def train_slice(experiment: str, timed_steps: int) -> dict:
+    """training/train.py's launch on a full-width 2B experiment: one warm-up
+    step, ``timed_steps`` timed steps and one profiled step."""
     import torch
 
     from cosmos_predict2_tpu_torch import _build
     from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.networks.dit import block_layout
     from cosmos_predict2_tpu_torch.training.train import launch
 
     H, W = SIZE
-    steps = 1 + TRAIN_TIMED_STEPS + 1
-    cfg = make_config("predict2_video2world_2b_rectified_flow", [
+    steps = 1 + timed_steps + 1
+    cfg = make_config(experiment, [
         f"data_train.num_frames={NUM_FRAMES}", f"data_train.height={H}", f"data_train.width={W}",
         "data_train.text_dim=100352", "data_train.batch_size=1",
         f"trainer.max_iter={steps}", "trainer.save_iter=0", "trainer.logging_iter=1", "trainer.ema_enabled=True",
@@ -613,7 +830,9 @@ def train_slice() -> dict:
     if (net.num_blocks, net.model_channels, net.crossattn_proj_in_channels) != (NUM_BLOCKS, 2048, 100352):
         raise AssertionError("the training slice must run the full-width 2B DiT")
     probe = TrainProbe(profile_step=steps)
+    gc.collect()  # an earlier slice's trainer may sit in a reference cycle
     torch.cuda.empty_cache()
+    log(f"  device memory in use before the launch: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -628,8 +847,14 @@ def train_slice() -> dict:
         raise AssertionError(f"trained {state.step} steps, want {steps}")
     if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in probe.steps):
         raise AssertionError(f"non-finite losses: {[s['loss'] for s in probe.steps]}")
-    want = {"flash_attention_fwd": 4 * NUM_BLOCKS, "flash_attention_bwd_dq": 2 * NUM_BLOCKS,
-            "flash_attention_bwd_dkv": 2 * NUM_BLOCKS}
+    # per step, with block remat (forward and recompute): K1 for every cross-
+    # and dense self-attention and K10 for the sparse ones, twice; K7/K8 and
+    # K11/K12 once per attention call of each kind
+    n_sparse = sum(p is not None for p in block_layout(net))
+    n_dense_calls = 2 * NUM_BLOCKS - n_sparse
+    want = {"flash_attention_fwd": 2 * n_dense_calls, "flash_attention_bwd_dq": n_dense_calls,
+            "flash_attention_bwd_dkv": n_dense_calls, "na_fwd": 2 * n_sparse, "na_bwd_dq": n_sparse,
+            "na_bwd_dkv": n_sparse}
     for i, s in enumerate(probe.steps):
         got = {k: s["counts"][k] for k in want}
         if got != want:
@@ -639,13 +864,13 @@ def train_slice() -> dict:
     params_moved, ema_moved = probe.moved(state)
     if not (params_moved and ema_moved):
         raise AssertionError(f"parameters moved: {params_moved}, EMA moved: {ema_moved}")
-    timed = probe.steps[1:1 + TRAIN_TIMED_STEPS]
+    timed = probe.steps[1:1 + timed_steps]
     mean = lambda key: sum(s[key] for s in timed) / len(timed)
     tokens = (1 + (NUM_FRAMES - 1) // 4) * (H // 16) * (W // 16)
     out = {"counts": counts, "total_s": total_s, "peak_gb": peak_gb, "tokens_per_step": tokens,
            "profile": probe.profile, **{k: mean(k) for k in ("step_s", "data_s", "forward_backward_s", "optimizer_s")}}
     iteration_s = out["data_s"] + out["step_s"]
-    log(f"  {TRAIN_TIMED_STEPS} timed steps after a warm-up: iteration {iteration_s:.3f} s = data+vae "
+    log(f"  {experiment}: {timed_steps} timed steps after a warm-up: iteration {iteration_s:.3f} s = data+vae "
         f"{out['data_s']:.3f} s (host mock data, H2D, VAE encode) + train step {out['step_s']:.3f} s (fwd+bwd "
         f"{out['forward_backward_s']:.3f} + optimizer+ema {out['optimizer_s']:.3f}); {tokens} tokens/step: "
         f"{tokens / out['step_s']:.0f} tokens/s over the train step, {tokens / iteration_s:.0f} over the iteration; "
@@ -672,27 +897,50 @@ def main(argv=None) -> int:
     results: dict = {}
     with Phase("kernels vs plain versions"):
         check_kernels(results)
-    with Phase("small reference: card bf16 vs cpu fp32"):
-        small_reference()
+    with Phase("small reference: card bf16 vs cpu fp32, dense and sparse"):
+        small_reference(sparse=False)
+        small_reference(sparse=True)
     with Phase("serving slice: text2world, image2world, video2world"):
-        sl = serve_slice()
+        sl = serve_slice(DENSE_EXPERIMENT, ("text2world", "image2world", "video2world"))
     log(f"  served 3 requests in {sl['serve_s']:.2f} s; peak device memory {sl['peak_gb']:.2f} GiB")
-    with Phase("small training reference: card bf16 vs cpu fp32"):
-        small_train_reference()
+    with Phase("sparse serving slice: video2world on the sparse 2B DiT"):
+        ssl = serve_slice(SPARSE_EXPERIMENT, ("video2world",))
+    log(f"  served 1 request in {ssl['serve_s']:.2f} s; peak device memory {ssl['peak_gb']:.2f} GiB")
+    with Phase("small training reference: card bf16 vs cpu fp32, dense and sparse"):
+        small_train_reference(sparse=False)
+        small_train_reference(sparse=True)
     with Phase("training slice: 2B DiT through training/train.py launch"):
-        tr = train_slice()
+        tr = train_slice(DENSE_EXPERIMENT, TRAIN_TIMED_STEPS)
+    with Phase("sparse training slice: sparse 2B DiT through training/train.py launch"):
+        stl = train_slice(SPARSE_EXPERIMENT, SPARSE_TRAIN_TIMED_STEPS)
+    paths = {"serve": sl, "train": tr, "sparse_serve": ssl, "sparse_train": stl}
+    path_kernels = {
+        "serve": ("flash_attention_fwd", "conv3d_causal"),
+        "train": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal"),
+        "sparse_serve": ("flash_attention_fwd", "na_fwd", "conv3d_causal"),
+        "sparse_train": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "na_fwd",
+                         "na_bwd_dq", "na_bwd_dkv", "conv3d_causal"),
+    }
+    for path, names in path_kernels.items():
+        idle = [n for n in names if paths[path]["counts"][n] == 0]
+        if idle:
+            raise AssertionError(f"the {path} path never launched {idle}")
     reference = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "cosmos_predict2_tpu"))
     if reference:
         raise AssertionError(f"the port's paths imported JAX or the JAX package: {reference}")
 
     # the smoke-geometry cases whose times go into the JSON line; launches
-    # are the training slice's (the path of this slice) with each path's
-    # counts beside them
+    # are the sparse training slice's (the path of this slice, which runs
+    # every kernel) with each path's counts beside them
+    na_smoke = next(c["case"] for c in results["na_fwd"]["cases"] if c["case"].startswith("smoke"))
     main_case = {
         "flash_attention_fwd": "self  B2 S5760 H16 (smoke geometry)",
         "flash_attention_bwd_dq": "self  B1 S5760 H16 (smoke geometry)",
         "flash_attention_bwd_dkv": "self  B1 S5760 H16 (smoke geometry)",
         "conv3d_causal": "dec T8 192x320 96->96 (smoke)",
+        "na_fwd": na_smoke,
+        "na_bwd_dq": na_smoke,
+        "na_bwd_dkv": na_smoke,
     }
     source = {
         "flash_attention_fwd": ("cosmos_predict2_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -702,13 +950,19 @@ def main(argv=None) -> int:
         "flash_attention_bwd_dkv": ("cosmos_predict2_tpu_torch/csrc/flash_attention_bwd.cu",
                                     "cosmos_predict2_tpu/ops/flash_attention.py:632"),
         "conv3d_causal": ("cosmos_predict2_tpu_torch/csrc/conv3d_causal.cu", "cosmos_predict2_tpu/ops/conv3d.py:284"),
+        "na_fwd": ("cosmos_predict2_tpu_torch/csrc/neighborhood_attention.cu",
+                   "cosmos_predict2_tpu/ops/neighborhood_attention.py:377"),
+        "na_bwd_dq": ("cosmos_predict2_tpu_torch/csrc/neighborhood_attention.cu",
+                      "cosmos_predict2_tpu/ops/neighborhood_attention.py:425"),
+        "na_bwd_dkv": ("cosmos_predict2_tpu_torch/csrc/neighborhood_attention.cu",
+                       "cosmos_predict2_tpu/ops/neighborhood_attention.py:461"),
     }
     kernels = []
     for name, (src, replaces) in source.items():
         case = next(c for c in results[name]["cases"] if c["case"] == main_case[name])
         kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces, "launches": tr["counts"][name],
-            "launches_by_path": {"serve": sl["counts"][name], "train": tr["counts"][name]},
+            "name": name, "route": "cuda", "source": src, "replaces": replaces, "launches": stl["counts"][name],
+            "launches_by_path": {path: out["counts"][name] for path, out in paths.items()},
             "max_abs_err": results[name]["max_abs_err"], "ms": case["ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"], "library_ms": case["library_ms"],
         })

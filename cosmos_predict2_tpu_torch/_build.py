@@ -23,7 +23,7 @@ import threading
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "conv3d_causal.cu")
+SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "conv3d_causal.cu", "neighborhood_attention.cu")
 HEADERS = ("mma_bf16.cuh",)
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cosmos_torch_kernels"
 NVCC_FLAGS = (
@@ -96,6 +96,13 @@ def library() -> ctypes.CDLL:
             lib.cosmos_flash_attention_bwd_dkv.restype = i
             lib.cosmos_conv3d_causal.argtypes = [p, p, p, p, i, i, i, i, i, p]
             lib.cosmos_conv3d_causal.restype = i
+            geometry = [i] * 14 + [f, p]  # B, heads, S_pad, bt, max_cnt, T, H, W, 3 x window, 3 x stride; scale, stream
+            lib.cosmos_na_fwd.argtypes = [p] * 8 + geometry
+            lib.cosmos_na_fwd.restype = i
+            lib.cosmos_na_bwd_dq.argtypes = [p] * 10 + geometry
+            lib.cosmos_na_bwd_dq.restype = i
+            lib.cosmos_na_bwd_dkv.argtypes = [p] * 11 + geometry
+            lib.cosmos_na_bwd_dkv.restype = i
             _lib = lib
         return _lib
 
@@ -113,12 +120,16 @@ def _wrappers() -> dict:
         flash_attention_bwd_dq,
         flash_attention_fwd,
     )
+    from cosmos_predict2_tpu_torch.ops.neighborhood_attention import na_bwd_dkv, na_bwd_dq, na_fwd
 
     return {
         "flash_attention_fwd": flash_attention_fwd,
         "flash_attention_bwd_dq": flash_attention_bwd_dq,
         "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
         "conv3d_causal": conv3d_causal,
+        "na_fwd": na_fwd,
+        "na_bwd_dq": na_bwd_dq,
+        "na_bwd_dkv": na_bwd_dkv,
     }
 
 

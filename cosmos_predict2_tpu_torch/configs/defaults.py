@@ -2,7 +2,10 @@
 
 The reference's config module imports ``jax.numpy`` for dtypes, so the port
 defines its own: the flagship ``predict2_video2world_2b_rectified_flow``
-experiment (2B DiT, Wan2.1 VAE, the fused-AdamW recipe) and
+experiment (2B DiT, Wan2.1 VAE, the fused-AdamW recipe), its sparse-attention
+variant ``predict2_video2world_2b_sparse`` (the reference's sparse_2B.py
+tuning: 7 dense blocks, the other 21 neighborhood attention with window
+(-1, 12, 24) and stride (1, 4, 8) tuned at a 44 x 80 token grid) and
 ``error-free_mock_data_smoke`` (the reference's plumbing config:
 1024-channel 2-block DiT, dim-16 VAE, 3 iterations on 13-frame 64x64 mock
 clips). ``make_config`` takes the reference's ``key=value`` dotlist. A CPU
@@ -38,24 +41,32 @@ NET_2B = DiTConfig(
 )
 NET_MINI = dataclasses.replace(NET_2B, model_channels=1024, num_heads=8, num_blocks=2)
 
-EXPERIMENTS: dict[str, Config] = {
-    "predict2_video2world_2b_rectified_flow": Config(
-        model=RFModelConfig(
-            net=dataclasses.replace(
-                NET_2B,
-                rope_h_extrapolation_ratio=3.0,
-                rope_w_extrapolation_ratio=3.0,
-                rope_t_extrapolation_ratio=1.0,
-                rope_enable_fps_modulation=False,
-                use_crossattn_projection=True,
-                crossattn_proj_in_channels=100352,
-                crossattn_emb_channels=1024,
-            ),
-            state_t=24,
-            resolution="720",
+_VIDEO2WORLD_2B = Config(
+    model=RFModelConfig(
+        net=dataclasses.replace(
+            NET_2B,
+            rope_h_extrapolation_ratio=3.0,
+            rope_w_extrapolation_ratio=3.0,
+            rope_t_extrapolation_ratio=1.0,
+            rope_enable_fps_modulation=False,
+            use_crossattn_projection=True,
+            crossattn_proj_in_channels=100352,
+            crossattn_emb_channels=1024,
         ),
-        tokenizer=WanVAEConfig(),
+        state_t=24,
+        resolution="720",
     ),
+    tokenizer=WanVAEConfig(),
+)
+
+EXPERIMENTS: dict[str, Config] = {
+    "predict2_video2world_2b_rectified_flow": _VIDEO2WORLD_2B,
+    "predict2_video2world_2b_sparse": compose(_VIDEO2WORLD_2B, {
+        "model.net.n_dense_blocks": 7,
+        "model.net.natten_window": (-1, 12, 24),
+        "model.net.natten_stride": (1, 4, 8),
+        "model.net.natten_base_size": (-1, 44, 80),
+    }),
     "error-free_mock_data_smoke": Config(
         trainer=TrainerConfig(max_iter=3, logging_iter=1),
         model=RFModelConfig(net=NET_MINI, state_t=4, resolution="720"),

@@ -1,4 +1,5 @@
-"""MiniTrainDIT — the Cosmos video DiT, dense base configuration, in PyTorch.
+"""MiniTrainDIT — the Cosmos video DiT in PyTorch, dense or with sparse
+(neighborhood-attention) blocks.
 
 Counterpart of cosmos_predict2_tpu/networks/dit.py (patch embed with the
 padding-mask channel, 3D RoPE, sinusoidal timesteps + AdaLN-LoRA, N blocks
@@ -12,6 +13,12 @@ so utils/checkpoint_convert.py::convert_dit_state_dict maps this module's
 Numerics follow the reference: fp32 parameters, matmuls in ``cfg.dtype``
 (bf16) returning that dtype, norms and AdaLN modulation in fp32.
 
+Sparse blocks (``n_dense_blocks`` >= 0 or ``natten_parameters``, laid out
+by :func:`block_layout` as in the reference) run their self-attention
+through ops/neighborhood_attention.py with the window, stride and dilation
+scaled to the input's token grid (``adaptive_na_parameters``); a one-frame
+input (T == 1) takes dense attention there, as in the reference.
+
 Training: with ``remat="block"`` (the default, as the reference) each block
 runs under ``torch.utils.checkpoint`` while gradients are recorded: only its
 input is kept and the block is computed again in the backward, the
@@ -24,12 +31,14 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from cosmos_predict2_tpu_torch.ops.attention import dot_product_attention
+from cosmos_predict2_tpu_torch.ops.neighborhood_attention import VideoSize, adaptive_na_parameters, neighborhood_attention
 from cosmos_predict2_tpu_torch.ops.normalization import layer_norm, rms_norm
 from cosmos_predict2_tpu_torch.ops.rope import RopeSpec, apply_rope, rope_angles_3d
 
@@ -54,6 +63,18 @@ class DiTConfig:
     rope_w_extrapolation_ratio: float = 1.0
     rope_t_extrapolation_ratio: float = 1.0
     rope_enable_fps_modulation: bool = True
+    # sparse (neighborhood) attention: n_dense_blocks -1 all dense, 0 all
+    # sparse, k > 0 k dense blocks spread evenly; the sparse blocks use the
+    # window / stride / dilation below, scaled from natten_base_size to the
+    # input's token grid when it is set
+    n_dense_blocks: int = -1
+    natten_window: tuple[int, int, int] = (-1, 12, 24)
+    natten_stride: tuple[int, int, int] = (1, 1, 1)
+    natten_dilation: tuple[int, int, int] = (1, 1, 1)
+    natten_base_size: Optional[tuple[int, int, int]] = None
+    # per-block (window, stride, dilation, base_size), None for a dense
+    # block; when set it overrides n_dense_blocks and the natten_* fields
+    natten_parameters: Optional[tuple[Optional[tuple], ...]] = None
     timestep_scale: float = 1.0
     # compute dtype for matmuls; norms and modulation stay fp32
     dtype: torch.dtype = torch.bfloat16
@@ -116,7 +137,9 @@ class Attention(nn.Module):
         self.k_norm = RMSNorm(head_dim)
         self.output_proj = nn.Linear(inner, query_dim, bias=False)
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None, rope_angles=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None, rope_angles=None, na=None) -> torch.Tensor:
+        """``na``: (video_size, window, stride, dilation) sends self-attention
+        over a video of more than one frame to neighborhood attention."""
         ctx = x if context is None else context
         heads = lambda t: t.reshape(t.shape[:-1] + (self.n_heads, self.head_dim))
         q = self.q_norm(heads(linear(self.q_proj, x, self.dtype)))
@@ -125,7 +148,11 @@ class Attention(nn.Module):
         if context is None and rope_angles is not None:
             q = apply_rope(q, rope_angles)
             k = apply_rope(k, rope_angles)
-        out = dot_product_attention(q.contiguous(), k.contiguous(), v.contiguous())
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if context is None and na is not None and na[0][0] != 1:
+            out = neighborhood_attention(q, k, v, *na)
+        else:
+            out = dot_product_attention(q, k, v)
         return linear(self.output_proj, out.reshape(out.shape[:-2] + (-1,)), self.dtype)
 
 
@@ -155,12 +182,14 @@ def adaln_modulation(dim: int, n_chunks: int, use_lora: bool, lora_dim: int) -> 
 class Block(nn.Module):
     """x <- x + gate * f(layer_norm(x) * (1 + scale) + shift) for self-attn,
     cross-attn and MLP; (shift, scale, gate) from AdaLN (+ the shared LoRA
-    term)."""
+    term). A sparse block's self-attention is neighborhood attention with
+    ``na_params`` = (window, stride, dilation, base_size)."""
 
-    def __init__(self, cfg: DiTConfig):
+    def __init__(self, cfg: DiTConfig, na_params: Optional[tuple] = None):
         super().__init__()
         d = cfg.model_channels
         self.cfg = cfg
+        self.na_params = na_params
         self.self_attn = Attention(d, None, cfg.num_heads, cfg.head_dim, cfg.dtype)
         self.cross_attn = Attention(d, cfg.crossattn_emb_channels, cfg.num_heads, cfg.head_dim, cfg.dtype)
         self.mlp = GPT2FeedForward(d, int(d * cfg.mlp_ratio), cfg.dtype)
@@ -180,8 +209,15 @@ class Block(nn.Module):
         def modulated(shift, scale):
             return (layer_norm(x) * (1.0 + scale) + shift).to(dt)
 
+        na = None
+        if self.na_params is not None:
+            window, stride, dilation, base = self.na_params
+            if base is not None:
+                window, stride, dilation = adaptive_na_parameters(window, stride, (T, H, W), base, dilation)
+            na = (VideoSize(T, H, W), tuple(window), tuple(stride), tuple(dilation))
+
         shift, scale, gate = self._mod("self_attn", emb, adaln_lora)
-        out = self.self_attn(modulated(shift, scale).reshape(B, T * H * W, D), rope_angles=rope_angles)
+        out = self.self_attn(modulated(shift, scale).reshape(B, T * H * W, D), rope_angles=rope_angles, na=na)
         x = x + gate.to(x.dtype) * out.reshape(B, T, H, W, D).to(x.dtype)
 
         shift, scale, gate = self._mod("cross_attn", emb, adaln_lora)
@@ -191,6 +227,28 @@ class Block(nn.Module):
         shift, scale, gate = self._mod("mlp", emb, adaln_lora)
         out = self.mlp(modulated(shift, scale))
         return x + gate.to(x.dtype) * out.to(x.dtype)
+
+
+def block_layout(cfg: DiTConfig) -> list[Optional[tuple]]:
+    """Per block, None (dense) or the sparse block's (window, stride,
+    dilation, base_size): ``natten_parameters`` when given, else
+    ``n_dense_blocks`` dense blocks spread evenly (the reference's
+    replace_selfattn_op_with_sparse_attn_op)."""
+    n = cfg.num_blocks
+    if cfg.natten_parameters is not None:
+        if len(cfg.natten_parameters) != n:
+            raise ValueError(f"natten_parameters has {len(cfg.natten_parameters)} entries for {n} blocks")
+        return [None if p is None else tuple(p) for p in cfg.natten_parameters]
+    if cfg.n_dense_blocks == -1:
+        return [None] * n
+    if cfg.n_dense_blocks == 0:
+        dense = set()
+    elif cfg.n_dense_blocks == 1:
+        dense = {n // 2}
+    else:
+        dense = set(np.linspace(0, n - 1, cfg.n_dense_blocks, dtype=int).tolist())
+    params = (cfg.natten_window, cfg.natten_stride, cfg.natten_dilation, cfg.natten_base_size)
+    return [None if i in dense else params for i in range(n)]
 
 
 def timestep_sinusoid(timesteps_B_T: torch.Tensor, num_channels: int) -> torch.Tensor:
@@ -268,7 +326,7 @@ class FinalLayer(nn.Module):
 
 
 class MiniTrainDIT(nn.Module):
-    """The dense video DiT. x: (B, C, T, H, W); timesteps: (B,) or (B, T)."""
+    """The video DiT. x: (B, C, T, H, W); timesteps: (B,) or (B, T)."""
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
@@ -282,7 +340,7 @@ class MiniTrainDIT(nn.Module):
             self.crossattn_proj = nn.Sequential(
                 nn.Linear(cfg.crossattn_proj_in_channels, cfg.crossattn_emb_channels, bias=True), nn.GELU()
             )
-        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.num_blocks))
+        self.blocks = nn.ModuleList(Block(cfg, na_params) for na_params in block_layout(cfg))
         self.final_layer = FinalLayer(cfg)
 
     def forward(

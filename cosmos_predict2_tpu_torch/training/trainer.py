@@ -200,7 +200,7 @@ class Trainer:
         self.callbacks = CallbackGroup(callbacks if callbacks is not None else [IterSpeedCallback(config.logging_iter)])
         self.checkpointer = checkpointer
         self.stats = TrainingStats()
-        self.draw_fn = draw_fn if draw_fn is not None else self.default_draws
+        self.draw_fn = draw_fn  # None: default_draws (not stored as a bound method: no Trainer -> Trainer cycle)
         self.device = next(model.net.parameters()).device
         self.last_timings: dict[str, float] = {}
 
@@ -226,7 +226,7 @@ class Trainer:
         """One micro-step; updates ``state`` in place and returns the metrics."""
         cfg = self.config
         t0 = time.perf_counter()
-        draws = self.draw_fn(iteration, x0).to(self.device)
+        draws = (self.draw_fn or self.default_draws)(iteration, x0).to(self.device)
         condition = apply_train_dropout(condition, draws.text_keep, draws.use_video)
         for p in state.params.values():
             p.grad = None

@@ -1,5 +1,5 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the card,
-and the DiT's gradients through them.
+and the DiT's gradients through them (dense and sparse blocks).
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 no JAX, so it also runs where only PyTorch is installed, with
@@ -21,6 +21,7 @@ from cosmos_predict2_tpu_torch.ops.flash_attention import (
     flash_attention_fwd,
     flash_attention_plain,
 )
+from cosmos_predict2_tpu_torch.ops import neighborhood_attention as na
 
 pytestmark = pytest.mark.cuda
 
@@ -141,3 +142,108 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
         flash_attention_bwd_dq(q.float(), q, q, q, lse, lse)  # fp32 q
     with pytest.raises(ValueError):
         flash_attention_bwd_dkv(q, q, q, q, lse[:, :1], lse)  # lse of the wrong shape
+
+
+# (T, H, W), window, stride, dilation: padded, strided, dilated, and the 2B
+# sparse config's adapted window at the smoke geometry
+NA_CASES = [
+    ((3, 6, 10), (-1, 4, 6), (1, 1, 1), (1, 1, 1)),
+    ((4, 8, 16), (-1, 4, 8), (1, 2, 4), (1, 1, 1)),
+    ((2, 8, 16), (-1, 2, 4), (1, 1, 1), (1, 4, 4)),
+    ((24, 12, 20), (24, 3, 6), (1, 1, 2), (1, 1, 1)),
+]
+
+
+def _na_inputs(cuda, size, window, stride, dilation, heads=4, seed=3):
+    eff_w, eff_s = na.effective_params(na.VideoSize(*size), window, stride, dilation)
+    plan = na.build_plan(na.VideoSize(*size), eff_w, eff_s, dilation)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    S = size[0] * size[1] * size[2]
+    q, k, v, do = (na.permute_in(torch.randn((2, S, heads, 128), generator=gen, device=cuda).bfloat16(), plan)
+                   for _ in range(4))
+    return plan, eff_w, eff_s, (q, k, v, do)
+
+
+@pytest.mark.parametrize("size,window,stride,dilation", NA_CASES)
+def test_na_kernels_match_plain_on_cuda(cuda, size, window, stride, dilation):
+    plan, w, st, (q, k, v, do) = _na_inputs(cuda, size, window, stride, dilation)
+    counts = lambda: (na.na_fwd.launches, na.na_bwd_dq.launches, na.na_bwd_dkv.launches)
+    before = counts()
+    out, lse = na.na_fwd(q, k, v, plan, w, st)
+    delta = na.na_delta(out, do)
+    dq = na.na_bwd_dq(q, k, v, do, lse, delta, plan, w, st)
+    dk, dv = na.na_bwd_dkv(q, k, v, do, lse, delta, plan, w, st)
+    torch.cuda.synchronize()
+    assert counts() == tuple(c + 1 for c in before)
+    ref_out, ref_lse = na.na_fwd_plain(q, k, v, plan, w, st)
+    real = na.permute_in(torch.ones((1, size[0] * size[1] * size[2], 1, 1), device=cuda), plan)[0, 0, :, 0] > 0
+    assert _rel(out, ref_out) < 1e-2  # bf16 output (one rounding), fp32 sums in another order
+    assert float((lse - ref_lse)[:, :, real].abs().max()) < 1e-2
+    assert torch.all(out[:, :, ~real] == 0)  # pad rows: every key masked, row sum clamped
+    for name, got, want in zip("qkv", (dq, dk, dv), na.na_bwd_plain(q, k, v, out, lse, do, plan, w, st)):
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all(), name
+        assert _rel(got, want) < 1e-2, name  # P and dS rounded to bf16 on both sides
+
+
+def test_neighborhood_attention_function_grads_on_cuda(cuda):
+    """neighborhood_attention's autograd on the card goes through K10, K11
+    and K12 and gives the plain versions' gradients."""
+    size, window, stride = (4, 8, 16), (-1, 4, 8), (1, 2, 4)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, do = (torch.randn((1, 512, 2, 128), generator=gen, device=cuda).bfloat16() for _ in range(4))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    counts = lambda: (na.na_fwd.launches, na.na_bwd_dq.launches, na.na_bwd_dkv.launches)
+    before = counts()
+    na.neighborhood_attention(*leaves, size, window, stride).backward(do)
+    torch.cuda.synchronize()
+    assert counts() == tuple(c + 1 for c in before)
+    plan = na.build_plan(na.VideoSize(*size), window, stride, (1, 1, 1))
+    qt, kt, vt, dot = (na.permute_in(x, plan) for x in (q, k, v, do))
+    out, lse = na.na_fwd_plain(qt, kt, vt, plan, window, stride)
+    for name, x, want in zip("qkv", leaves, na.na_bwd_plain(qt, kt, vt, out, lse, dot, plan, window, stride)):
+        assert _rel(x.grad, na.permute_out(want, plan)) < 1e-2, name
+
+
+def test_sparse_dit_training_step_gradients_on_cuda(cuda):
+    """One training step of a small bf16 DiT with one dense and one sparse
+    block: every parameter gets a finite gradient; per step K1 runs 2 x 3
+    times (dense self-attention and both cross-attentions, forward and
+    recompute), K10 2 times, K7, K8, K11 and K12 3, 3, 1 and 1 times."""
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.conditioning.conditioner import apply_train_dropout, make_condition
+    from cosmos_predict2_tpu_torch.models.video2world import RFModelConfig, Video2WorldModel
+    from cosmos_predict2_tpu_torch.networks.dit import DiTConfig, build_dit
+
+    cfg = DiTConfig(model_channels=256, num_heads=2, num_blocks=2, adaln_lora_dim=32, crossattn_emb_channels=128,
+                    n_dense_blocks=1, natten_window=(-1, 3, 5), natten_stride=(1, 1, 2))
+    net = build_dit(cfg, cuda, seed=0, trainable=True)
+    model = Video2WorldModel(RFModelConfig(net=cfg, state_t=3), net)
+    x0 = torch.randn((1, 16, 3, 16, 24), device=cuda)
+    cond = make_condition(torch.randn((1, 24, 128), device=cuda)).replace(gt_frames=x0)
+    draws = model.sample_train_draws(torch.Generator().manual_seed(0), tuple(x0.shape)).to(cuda)
+    _build.reset_launch_counts()
+    loss, _ = model.training_step(x0, apply_train_dropout(cond, draws.text_keep, draws.use_video), draws)
+    loss.backward()
+    torch.cuda.synchronize()
+    c = _build.launch_counts()
+    assert (c["flash_attention_fwd"], c["na_fwd"], c["flash_attention_bwd_dq"], c["flash_attention_bwd_dkv"],
+            c["na_bwd_dq"], c["na_bwd_dkv"]) == (6, 2, 3, 3, 1, 1)
+    for name, p in net.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
+def test_na_kernels_raise_on_what_they_do_not_take(cuda):
+    plan = na.build_plan(na.VideoSize(3, 6, 10), (-1, 4, 6), (1, 1, 1), (1, 1, 1))
+    q = torch.zeros((1, 2, plan.s_pad, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError):
+        na.na_fwd(q.float(), q, q, plan, (-1, 4, 6), (1, 1, 1))  # fp32
+    with pytest.raises(ValueError):
+        na.na_fwd(q[..., :64].contiguous(), q, q, plan, (-1, 4, 6), (1, 1, 1))  # head_dim 64
+    with pytest.raises(ValueError):
+        na.na_fwd(q[:, :, :64].contiguous(), q, q, plan, (-1, 4, 6), (1, 1, 1))  # not the plan's S_pad
+    lse = torch.zeros((1, 2, plan.s_pad), device=cuda)
+    with pytest.raises(ValueError):
+        na.na_bwd_dkv(q, q, q, q, lse[:, :1], lse, plan, (-1, 4, 6), (1, 1, 1))  # lse of the wrong shape
+    x = torch.zeros((1, 96, 2, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError):
+        na.neighborhood_attention(x, x, x, (2, 6, 8), (1, 3, 3), (1, 1, 1), (1, 4, 1))  # dilation 4 on H = 6

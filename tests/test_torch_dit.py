@@ -115,7 +115,8 @@ def test_dit_bf16_forward_is_close_to_fp32():
 # --------------------------------- configs ---------------------------------
 
 
-@pytest.mark.parametrize("experiment", ["predict2_video2world_2b_rectified_flow", "error-free_mock_data_smoke"])
+@pytest.mark.parametrize("experiment", ["predict2_video2world_2b_rectified_flow", "error-free_mock_data_smoke",
+                                        "predict2_video2world_2b_sparse"])
 def test_config_fields_match_jax(experiment):
     """Every field of the port's config equals the JAX package's, and the
     JAX fields the port lacks are at their dense, plain defaults."""
@@ -141,7 +142,12 @@ def test_config_fields_match_jax(experiment):
     jo = j.trainer.optimizer
     assert (jo.moments_dtype, jo.moments_offload, j.model.use_lora) == ("float32", False, False)
     jn = j.model.net
-    assert (jn.n_dense_blocks, jn.temporal_causal, jn.camera_dim, jn.action_dim, jn.n_views) == (-1, False, None, None, 1)
+    assert (jn.temporal_causal, jn.camera_dim, jn.action_dim, jn.n_views) == (False, None, None, 1)
+    if "sparse" in experiment:
+        sparse = [p is not None for p in tdit.block_layout(t.model.net)]
+        assert [i for i, s in enumerate(sparse) if not s] == [0, 4, 9, 13, 18, 22, 27]
+    else:
+        assert jn.n_dense_blocks == -1
     assert not (jn.concat_condition_mask or jn.enable_cross_view_attn or jn.scan_blocks or jn.cp_axis
                 or jn.extra_per_block_abs_pos_emb)
     if experiment.startswith("predict2"):
@@ -149,3 +155,73 @@ def test_config_fields_match_jax(experiment):
         assert (net.model_channels, net.num_heads, net.head_dim, net.num_blocks) == (2048, 16, 128, 28)
         assert (net.crossattn_proj_in_channels, net.crossattn_emb_channels, t.model.state_t) == (100352, 1024, 24)
         assert t.tokenizer.dim == 96
+
+
+# ------------------------------ sparse blocks ------------------------------
+
+PER_LAYER = (
+    ((-1, 2, 2), (1, 1, 1), (1, 2, 2), (-1, 4, 4)),  # dilated, full sub-grid window
+    None,  # dense
+    ((-1, 3, 3), (1, 1, 2), (1, 1, 1), (-1, 4, 4)),
+)
+SPARSE_CASES = {
+    # 1 dense block of 3, window and stride scaled from a 16 x 24 grid to the input's 8 x 12
+    "interleave, adapted": dict(num_blocks=3, n_dense_blocks=1, natten_window=(-1, 8, 12), natten_stride=(1, 2, 4),
+                                natten_base_size=(-1, 16, 24)),
+    "per-layer list with a dilated layer": dict(num_blocks=3, natten_parameters=PER_LAYER),
+}
+
+
+@pytest.mark.parametrize("cfg", [dict(num_blocks=28, n_dense_blocks=7), dict(num_blocks=5, n_dense_blocks=1),
+                                 dict(num_blocks=4, n_dense_blocks=0), dict(num_blocks=3, natten_parameters=PER_LAYER)])
+def test_block_layout_matches_jax(cfg):
+    from cosmos_predict2_tpu.networks.dit import block_layout as jax_block_layout
+
+    jcfg, tcfg = tiny_configs(**cfg)
+    sparse, overrides = jax_block_layout(jcfg)
+    layout = tdit.block_layout(tcfg)
+    assert [p is not None for p in layout] == sparse
+    if cfg.get("natten_parameters") is not None:
+        assert layout == [None if o is None else tuple(o) for o in overrides]
+    else:
+        default = (tcfg.natten_window, tcfg.natten_stride, tcfg.natten_dilation, tcfg.natten_base_size)
+        assert overrides == [None] * tcfg.num_blocks and layout == [default if s else None for s in sparse]
+
+
+def _sparse_inputs(jcfg):
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((1, 16, 3, 16, 24)).astype(np.float32)  # 3 x 8 x 12 tokens: W padded to a 16-wide tile
+    t = np.asarray([700.0], np.float32)
+    ctx = rng.standard_normal((1, 6, jcfg.crossattn_emb_channels)).astype(np.float32)
+    return x, t, ctx
+
+
+@pytest.mark.parametrize("case", list(SPARSE_CASES))
+def test_sparse_dit_forward_matches_jax(case):
+    """A small DiT with sparse blocks (head_dim 128) on the same weights:
+    the port's neighborhood attention (plain versions of K10) against the
+    JAX DiT's (its CPU route, the dense masked reference)."""
+    jcfg, tcfg = tiny_configs(**SPARSE_CASES[case])
+    x, t, ctx = _sparse_inputs(jcfg)
+    params = seeded_jax_params(jcfg, x, t, ctx)
+    want = JDiT(jcfg).apply(params, x, t, ctx)
+    net = tdit.MiniTrainDIT(tcfg)
+    net.load_state_dict(jax_dit_params_to_torch(params, tcfg), strict=True)
+    with torch.no_grad():
+        got = net(*map(torch.from_numpy, (x, t, ctx)))
+        dense = tdit.MiniTrainDIT(dataclasses.replace(tcfg, n_dense_blocks=-1, natten_parameters=None))
+        dense.load_state_dict(net.state_dict(), strict=True)
+        assert float((got - dense(*map(torch.from_numpy, (x, t, ctx)))).abs().max()) > 1e-3  # the windows matter
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+def test_sparse_dit_with_full_window_equals_dense():
+    """All blocks sparse with a full window: the same network as the dense DiT."""
+    _, tcfg = tiny_configs(num_blocks=2)
+    dense = tdit.build_dit(tcfg, "cpu", seed=6)
+    full = tdit.MiniTrainDIT(dataclasses.replace(tcfg, n_dense_blocks=0, natten_window=(-1, -1, -1)))
+    full.load_state_dict(dense.state_dict(), strict=True)
+    x, t, ctx = _sparse_inputs(tcfg)
+    with torch.no_grad():
+        a, b = (net(*map(torch.from_numpy, (x, t, ctx))) for net in (dense, full))
+    torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)

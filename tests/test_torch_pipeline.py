@@ -33,6 +33,7 @@ from cosmos_predict2_tpu_torch.conditioning import conditioner as tcond
 from cosmos_predict2_tpu_torch.inference import pipeline as tpipe
 from cosmos_predict2_tpu_torch.models.video2world import RFModelConfig
 from cosmos_predict2_tpu_torch.networks.dit import DiTConfig, MiniTrainDIT
+from cosmos_predict2_tpu_torch.networks.dit import block_layout as tdit_block_layout
 from cosmos_predict2_tpu_torch.schedulers import unipc as tunipc
 from cosmos_predict2_tpu_torch.tokenizers.wan_vae import WanVAE, WanVAEConfig
 from cosmos_predict2_tpu_torch.utils.convert import jax_dit_params_to_torch, jax_vae_params_to_torch
@@ -82,15 +83,15 @@ def test_unipc_sample_loop_matches_jax():
 # ------------------------------ the whole slice ------------------------------
 
 
-@pytest.fixture(scope="module")
-def pipes():
+def _pipelines(size: tuple[int, int], **net_over):
     """JAX Video2WorldInference(streaming_vae=True) and the port's pipeline
     on the same (seeded) weights, converted with utils/convert.py."""
     jnet = JDiTConfig(model_channels=128, num_heads=2, num_blocks=2, adaln_lora_dim=16, crossattn_emb_channels=64,
                       use_crossattn_projection=True, crossattn_proj_in_channels=CTX_IN, rope_h_extrapolation_ratio=3.0,
-                      rope_w_extrapolation_ratio=3.0, rope_enable_fps_modulation=False, dtype=jnp.float32, remat="none")
+                      rope_w_extrapolation_ratio=3.0, rope_enable_fps_modulation=False, dtype=jnp.float32, remat="none",
+                      **net_over)
     jsetup = JSetup(model_config=JRFConfig(net=jnet, state_t=2, sampling_num_steps=2),
-                    vae_config=JVAEConfig(dim=16, dtype=jnp.float32), text_len=8, size_override=(SIZE, SIZE),
+                    vae_config=JVAEConfig(dim=16, dtype=jnp.float32), text_len=8, size_override=size,
                     streaming_vae=True)
     params = JModel(jsetup.model_config).init_params(jax.random.PRNGKey(0), (1, 16, 2, 4, 4), text_len=8)
     leaves, tdef = jax.tree.flatten(params)
@@ -106,8 +107,13 @@ def pipes():
     vae = WanVAE(WanVAEConfig(dim=16, dtype=torch.float32))
     vae.load_state_dict(jax_vae_params_to_torch(jax.tree.map(np.asarray, vae_params)), strict=True)
     setup = tpipe.InferenceSetup(model_config=RFModelConfig(net=tnet_cfg, state_t=2, sampling_num_steps=2),
-                                 vae_config=vae.config, size_override=(SIZE, SIZE))
+                                 vae_config=vae.config, size_override=size)
     return jpipe, tpipe.Video2WorldInference(setup, net, vae)
+
+
+@pytest.fixture(scope="module")
+def pipes():
+    return _pipelines((SIZE, SIZE))
 
 
 def _request(seed):
@@ -144,6 +150,21 @@ def test_batched_slice_with_negative_prompt_matches_jax(pipes):
     got = pipe.generate_vid2world_batch(videos, embs, neg_text_emb=neg, num_steps=2, num_conditional_frames=1,
                                         seeds=[3, 4])
     assert got.shape == want.shape == (2, 5, SIZE, SIZE, 3)
+    assert np.abs(got - want).max() <= 2e-3
+
+
+def test_sparse_slice_matches_jax_pipeline():
+    """Video2World through a DiT with one sparse block (window 3 x 3 and
+    stride 2 along W on the 4 x 6 token grid of 64 x 96 frames): both
+    packages' pipelines, same weights and noise, 2 steps; tolerance as above."""
+    jpipe, pipe = _pipelines((64, 96), n_dense_blocks=1, natten_window=(-1, 3, 3), natten_stride=(1, 1, 2))
+    assert [p is not None for p in tdit_block_layout(pipe.net.cfg)] == [True, False]
+    rng = np.random.default_rng(11)
+    video = rng.integers(0, 256, (1, 3, 5, 64, 96), dtype=np.uint8)
+    emb = rng.standard_normal((1, 8, CTX_IN)).astype(np.float32)
+    want = jpipe.generate_vid2world(video, jnp.asarray(emb), num_steps=2, num_conditional_frames=2)
+    got = pipe.generate_vid2world(video, emb, num_steps=2, num_conditional_frames=2)
+    assert got.shape == want.shape == (5, 64, 96, 3)
     assert np.abs(got - want).max() <= 2e-3
 
 

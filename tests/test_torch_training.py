@@ -198,18 +198,14 @@ def jax_draws(jmodel: JModel, seed: int, iteration: int, shape: tuple) -> tuple[
 
 # iterations whose JAX draws drop one text, mix per-sample k and (second
 # case) pick high sigmas for both samples with the video flag dropped
-@pytest.mark.parametrize("remat,high_sigma,iteration", [("block", False, 3), ("none", True, 34)])
-def test_training_step_loss_and_grads_match_jax(remat, high_sigma, iteration):
-    """Loss and every parameter's gradient of one training step, batch 2,
-    with conditioning dropout, per-sample conditional frames and (second
-    case) the high-sigma strategy, against jax.grad of JAX's training_step."""
-    jnet, tnet = nets(remat)
-    over = dict(state_t=2, use_high_sigma_strategy=high_sigma, high_sigma_ratio=0.5)
+def _training_step_matches_jax(jnet, tnet, over: dict, shape: tuple, iteration: int) -> None:
+    """Loss and every parameter's gradient of one training step against
+    jax.grad of JAX's training_step, on the same (perturbed) weights, inputs
+    and draws."""
     jmodel = JModel(JRFConfig(net=jnet, **over))
-    shape = (2,) + LATENT[1:]
     rng = np.random.default_rng(1)
     x0 = rng.standard_normal(shape).astype(np.float32)
-    emb = rng.standard_normal((2, 8, 1024)).astype(np.float32) * 0.1
+    emb = rng.standard_normal((shape[0], 8, 1024)).astype(np.float32) * 0.1
     params = jmodel.init_params(jax.random.PRNGKey(0), shape, text_len=8)
     leaves, tdef = jax.tree.flatten(params)
     params = jax.tree.unflatten(tdef, [np.asarray(l) + 0.05 * rng.standard_normal(l.shape).astype(np.float32)
@@ -229,7 +225,7 @@ def test_training_step_loss_and_grads_match_jax(remat, high_sigma, iteration):
     loss, metrics = model.training_step(t(x0), tc, draws)
     loss.backward()
     assert float(loss.detach()) == pytest.approx(float(jloss), rel=1e-4)
-    assert metrics["per_instance_loss"].shape == (2,)
+    assert metrics["per_instance_loss"].shape == (shape[0],)
     want = jax_dit_params_to_torch(jax.tree.map(np.asarray, jgrads), tnet)
     got = dict(net.named_parameters())
     assert got.keys() == want.keys()
@@ -239,6 +235,29 @@ def test_training_step_loss_and_grads_match_jax(remat, high_sigma, iteration):
         scale = max(float(w.abs().max()), 1e-6)
         assert float((g - w).abs().max()) <= 2.5e-4 * scale, (name, float((g - w).abs().max()), scale)
         assert float((g - w).norm()) <= 1e-4 * max(float(w.norm()), 1e-12), name
+
+
+# iterations whose JAX draws drop one text, mix per-sample k and (second
+# case) pick high sigmas for both samples with the video flag dropped
+@pytest.mark.parametrize("remat,high_sigma,iteration", [("block", False, 3), ("none", True, 34)])
+def test_training_step_loss_and_grads_match_jax(remat, high_sigma, iteration):
+    """Loss and every parameter's gradient of one training step, batch 2,
+    with conditioning dropout, per-sample conditional frames and (second
+    case) the high-sigma strategy, against jax.grad of JAX's training_step."""
+    jnet, tnet = nets(remat)
+    over = dict(state_t=2, use_high_sigma_strategy=high_sigma, high_sigma_ratio=0.5)
+    _training_step_matches_jax(jnet, tnet, over, (2,) + LATENT[1:], iteration)
+
+
+def test_sparse_training_step_loss_and_grads_match_jax():
+    """The same with one dense and one sparse block (head_dim 128, block
+    remat): the sparse block's window and stride scaled from a 16 x 24 grid
+    to the latent's 8 x 12 tokens. The port's gradient goes through the
+    NeighborhoodAttention Function (plain versions of K10, K11, K12), JAX's
+    through autodiff of its CPU route."""
+    sparse = dict(n_dense_blocks=1, natten_window=(-1, 6, 10), natten_stride=(1, 2, 4), natten_base_size=(-1, 16, 24))
+    jnet, tnet = (dataclasses.replace(n, **sparse) for n in nets("block"))
+    _training_step_matches_jax(jnet, tnet, dict(state_t=3), (1, 16, 3, 16, 24), iteration=3)
 
 
 # ------------------------------ the trainer ------------------------------
@@ -289,6 +308,23 @@ def test_trainer_reproduces_jax_golden_losses():
     np.testing.assert_allclose(losses.items, GOLDEN_LOSSES, rtol=1e-4)
     assert set(trainer.last_timings) == {"data_s", "forward_backward_s", "optimizer_s", "step_s"}
     assert trainer.stats.accum_video_sample_counter == 3
+
+
+def test_trainer_is_freed_without_the_cycle_collector():
+    """A Trainer holds no reference to itself (its default draws are not
+    stored as a bound method), so dropping the last reference frees it and
+    its model at once, not at the next garbage collection."""
+    import gc
+    import weakref
+
+    trainer = _trainer()
+    refs = weakref.ref(trainer), weakref.ref(trainer.model.net)
+    gc.disable()
+    try:
+        del trainer
+        assert [r() for r in refs] == [None, None]
+    finally:
+        gc.enable()
 
 
 def test_grad_accum_advances_ema_once_per_optimizer_step():
