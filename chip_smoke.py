@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Video2World serving and training paths, dense and sparse, once on one NVIDIA GPU.
+"""Drive the PyTorch port's Video2World serving and training paths, dense and sparse, and its interactive streaming path, once on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
@@ -17,7 +17,11 @@ Phases, each printed with its wall time:
    for neighborhood attention SDPA with the boolean window mask, or
    flex_attention with a block mask from the same predicate at 720p);
    K10, K11 and K12 at the sparse config's window at the smoke geometry, at
-   720p, at 480p (padded) and on a dilated 720p layer;
+   720p, at 480p (padded) and on a dilated 720p layer; K5 and K6 (the cache
+   decode, dense and row-windowed) at the interactive path's 352x640 block
+   at full and early fill, with 2-frame blocks, at 720p and on a prime row
+   count (23 x 40), with SDPA over the filled cache (K6: with the boolean
+   window mask) as the yardstick;
 4. small reference: a narrow pipeline (2 blocks, VAE dim 64), dense and
    with a sparse block, on the card against the same weights run in fp32 on
    the CPU through the plain versions;
@@ -40,7 +44,19 @@ Phases, each printed with its wall time:
    and EMA moved, and the launches per step (K1 4 x 28, K7 and K8 2 x 28)
    and K2 in the data phase; then the sparse 2B DiT for one warm-up, two
    timed and one profiled step, with K1 70, K10 42, K7 35, K8 35, K11 21
-   and K12 21 launches per step.
+   and K12 21 launches per step;
+8. small interactive reference: a narrow causal DiT (2 blocks) streams in
+   bf16 on the card through K5 and then K6 against the same weights, inputs
+   and noise in fp32 on the CPU through the plain versions;
+9. interactive slice: the full-width causal 2B DiT (built as
+   scripts/interactive_latency.py builds it, seeded random weights) streams
+   20 blocks of one latent frame at 352x640 after one prefilled frame
+   (cache 16 + 1 frames, 4 steps, the window slides 5 times) through
+   StreamingInference.generate, dense (K5) and with 7 of 22 rows (K6);
+   checks the outputs, the cache length after every block, the exact
+   launches (28 + 2,800 K5 or K6 and as many K1) and that the peak memory
+   holds one copy of the cache; profiles one steady-state block step; runs
+   the script's ``measure`` once for its result line.
 
 Then it prints the kernels' JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero without that line.
@@ -73,6 +89,11 @@ PIPELINE_REL_L2 = 8e-2
 TRAIN_LOSS_REL = 2e-3
 TRAIN_GRAD_REL_L2 = 2e-2
 TRAIN_GRAD_TENSOR_REL_L2 = 4e-2
+# The small causal stream in bf16 on the card against fp32 on the CPU. On the
+# CPU, bf16 against fp32 (same weights, inputs and noise; 5 blocks of 4 steps
+# with the loop's bf16 caches on both sides) gives a relative L2 of 3.35e-3
+# dense and 3.39e-3 with the window; about 3x margin.
+STREAM_REL_L2 = 1e-2
 NUM_BLOCKS = 28
 SIZE = (192, 320)
 NUM_FRAMES = 93
@@ -84,6 +105,14 @@ DENSE_EXPERIMENT = "predict2_video2world_2b_rectified_flow"
 SPARSE_EXPERIMENT = "predict2_video2world_2b_sparse"
 # the geometry the sparse config's window is tuned at (its natten_base_size)
 NA_BASE = (-1, 44, 80)
+# the interactive slice: 352x640 (latent 44 x 80, 22 x 40 tokens), a cache of
+# 16 frames plus the block, 4 steps, one prefilled frame, 20 streamed blocks;
+# the row window of the K6 run: 7 of 22 rows
+INTERACTIVE_HW = (44, 80)
+INTERACTIVE_CACHE_FRAMES = 16
+INTERACTIVE_STEPS = 4
+INTERACTIVE_BLOCKS = 20
+INTERACTIVE_WINDOW = 7
 # published dense peaks of one H100 SXM at 700 W, for the bounds
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -345,6 +374,7 @@ def check_kernels(results: dict) -> None:
         torch.cuda.empty_cache()
 
     check_na_kernels(gen, record, failures)
+    check_cache_kernels(gen, record, failures)
     if failures:
         raise AssertionError("kernel checks failed:\n  " + "\n  ".join(failures))
 
@@ -500,6 +530,89 @@ def check_na_kernels(gen, record, failures) -> None:
         record("na_bwd_dkv", label, *dkv_err, ms_dkv, plain_ms, library_bwd,
                bound(8 * H * pairs * 128, io + 2 * grad_bytes), **extra)
         del bshd, q, k, v, do, out, lse, delta, dq, dk, dv, mask
+        torch.cuda.empty_cache()
+
+
+def window_computed_pairs(sq: int, gh: int, gw: int, wh: int, filled: int) -> int:
+    """(query, key) pairs K6 computes per (batch, head): for each 64-row q
+    tile, 64 x 64 per kv tile over its window union's rows in every filled
+    frame (the kernel's own walk)."""
+    F, wh = gh * gw, min(wh, gh)
+    start = lambda y: min(max(y - (wh - 1) // 2, 0), gh - wh)
+    tiles = 0
+    for q0 in range(0, sq, 64):
+        first, last = q0, min(q0 + 64, sq) - 1
+        y_min, y_max = ((first % F) // gw, (last % F) // gw) if first // F == last // F else (0, gh - 1)
+        tiles += -(-(start(y_max) + wh - start(y_min)) * gw // 64)
+    return tiles * filled * 64 * 64
+
+
+def check_cache_kernels(gen, record, failures) -> None:
+    """K5 and K6 against their plain versions at the interactive path's
+    shapes: batch 1, 16 heads, q one block of whole frames, head-major
+    buffers with +-1e3 past the fill (it must not reach the output)."""
+    import torch
+    import torch.nn.functional as F
+
+    from cosmos_predict2_tpu_torch.ops.flash_attention import (
+        flash_attention_kv_cache,
+        flash_attention_kv_cache_window,
+        kv_cache_plain,
+        kv_cache_window_plain,
+        window_rows_bounds,
+    )
+
+    dev = torch.device("cuda")
+    H = 16
+    # (name, token grid gh x gw, frames per block, filled frames, buffer frames, window rows)
+    cases = [
+        ("352x640 steady", 22, 40, 1, 17, 17, INTERACTIVE_WINDOW),
+        ("352x640 early", 22, 40, 1, 4, 17, INTERACTIVE_WINDOW),
+        ("352x640 nb2", 22, 40, 2, 18, 18, INTERACTIVE_WINDOW),
+        ("720p", 44, 80, 1, 9, 9, 2 * INTERACTIVE_WINDOW),
+        ("prime gh 23x40", 23, 40, 1, 17, 17, INTERACTIVE_WINDOW),
+    ]
+    for name, gh, gw, nb, filled, frames, wh in cases:
+        Fr = gh * gw
+        Sq, fill = nb * Fr, filled * Fr
+        label = f"{name} Sq{Sq} fill {fill}"
+        q = torch.randn((1, Sq, H, 128), generator=gen, device=dev).to(torch.bfloat16)
+        kb, vb = (torch.randn((1, H, frames * Fr, 128), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+        kb[:, :, fill:] = 1e3
+        vb[:, :, fill:] = -1e3
+        # each input read once (q and the filled cache), the output written once
+        nbytes = 2 * 2 * q.numel() + 2 * 2 * H * fill * 128
+        qh, kh, vh = q.transpose(1, 2), kb[:, :, :fill], vb[:, :, :fill]
+
+        out = flash_attention_kv_cache(q, kb, vb, fill)
+        torch.cuda.synchronize()
+        max_abs, rel = errors(out, kv_cache_plain(q, kb, vb, fill))
+        if not bool(torch.isfinite(out.float()).all()):
+            failures.append(f"flash_attention_kv_cache {label}: non-finite output")
+        ms_k5 = cuda_ms(lambda: flash_attention_kv_cache(q, kb, vb, fill), 2, 10)
+        plain_ms = cuda_ms(lambda: kv_cache_plain(q, kb, vb, fill), 0, 1)
+        library_ms = yardstick_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 2, 10)
+        record("flash_attention_kv_cache", label, max_abs, rel, ms_k5, plain_ms, library_ms,
+               bound(4 * H * Sq * fill * 128, nbytes))
+
+        label_w = f"{label} rows {min(wh, gh)}/{gh}"
+        out = flash_attention_kv_cache_window(q, kb, vb, fill, (gh, gw), wh)
+        torch.cuda.synchronize()
+        max_abs, rel = errors(out, kv_cache_window_plain(q, kb, vb, fill, (gh, gw), wh))
+        if not bool(torch.isfinite(out.float()).all()):
+            failures.append(f"flash_attention_kv_cache_window {label_w}: non-finite output")
+        ms = cuda_ms(lambda: flash_attention_kv_cache_window(q, kb, vb, fill, (gh, gw), wh), 2, 10)
+        plain_ms = cuda_ms(lambda: kv_cache_window_plain(q, kb, vb, fill, (gh, gw), wh), 0, 1)
+        lo, hi = window_rows_bounds(torch.arange(Sq, device=dev), (gh, gw), wh)
+        yk = (torch.arange(fill, device=dev) % Fr) // gw
+        mask = (yk[None, :] >= lo[:, None]) & (yk[None, :] < hi[:, None])
+        library_ms = yardstick_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask), 2, 10)
+        pairs = Sq * min(wh, gh) * gw * filled
+        record("flash_attention_kv_cache_window", label_w, max_abs, rel, ms, plain_ms, library_ms,
+               bound(4 * H * pairs * 128, nbytes), visible_pairs=pairs,
+               computed_pairs=window_computed_pairs(Sq, gh, gw, wh, filled), k5_ms=round(ms_k5, 4),
+               k5_computed_pairs=-(-Sq // 64) * 64 * -(-fill // 64) * 64)
+        del q, kb, vb, qh, kh, vh, out, lo, hi, yk, mask
         torch.cuda.empty_cache()
 
 
@@ -705,7 +818,8 @@ def small_train_reference(sparse: bool) -> None:
 
 
 def kernel_family(name: str) -> str:
-    for key, family in (("na_fwd_kernel", "K10 NA forward"), ("na_bwd_dq_kernel", "K11 NA dQ"),
+    for key, family in (("flash_kv_cache_window_kernel", "K6 cache decode, window"),
+                        ("flash_kv_cache_kernel", "K5 cache decode"), ("na_fwd_kernel", "K10 NA forward"), ("na_bwd_dq_kernel", "K11 NA dQ"),
                         ("na_bwd_dkv_kernel", "K12 NA dK/dV"), ("flash_attention_fwd", "K1 flash attention forward"),
                         ("flash_attention_bwd_dq", "K7 flash attention dQ"),
                         ("flash_attention_bwd_dkv", "K8 flash attention dK/dV"),
@@ -724,16 +838,18 @@ def device_time_table(prof, wall_s: float) -> dict:
     import torch
 
     by_name: dict[str, float] = {}
+    n_kernels = 0
     for e in prof.events():
         # device kernels only: user annotations (e.g. Optimizer.step) span kernels already counted
         if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            n_kernels += 1
     total = sum(by_name.values())
     families: dict[str, float] = {}
     for name, ms in by_name.items():
         families[kernel_family(name)] = families.get(kernel_family(name), 0.0) + ms
     log(f"  profiled step: {wall_s * 1e3:.1f} ms on the host clock, {total:.1f} ms of device kernels "
-        f"(device busy {total / (wall_s * 1e3):.1%} of the step)")
+        f"(device busy {total / (wall_s * 1e3):.1%} of the step) in {n_kernels} launches")
     for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
         log(f"    {fam:28s} {ms:9.1f} ms {ms / total:6.1%}")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
@@ -745,7 +861,8 @@ def device_time_table(prof, wall_s: float) -> dict:
                     if e.name == LAYOUT_RANGE and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
     if layout_ms:
         log(f"    of which NA layout copies (permute_in / permute_out) {layout_ms:9.1f} ms {layout_ms / total:6.1%}")
-    return {"device_ms": total, "wall_ms": wall_s * 1e3, "families": families, "na_layout_ms": layout_ms}
+    return {"device_ms": total, "wall_ms": wall_s * 1e3, "families": families, "na_layout_ms": layout_ms,
+            "launches": n_kernels}
 
 
 class TrainProbe:
@@ -878,8 +995,162 @@ def train_slice(experiment: str, timed_steps: int) -> dict:
     return out
 
 
+def small_stream(device: str, dtype, window: int, state_dict=None):
+    """A narrow causal DiT (the tiny preset's 2 blocks of 3 heads of 128)
+    streams 5 one-frame blocks of 4 steps after one prefilled frame at a 16 x
+    24 latent (8 x 12 tokens), cache 3 + 1 frames (the window slides 3
+    times), with fixed inputs and noise. Returns (latents fp32 on the CPU,
+    launches, state_dict)."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.conditioning.conditioner import make_condition
+    from cosmos_predict2_tpu_torch.scripts.interactive_latency import NET_TINY, build_stream
+
+    stream = build_stream(dataclasses.replace(NET_TINY, dtype=dtype), 1, 3, 4, window, device, seed=20)
+    if state_dict is not None:
+        stream.model.net.load_state_dict(state_dict)
+    rng = np.random.default_rng(0)
+    emb = torch.from_numpy((rng.standard_normal((1, 8, 1024)) * 0.05).astype(np.float32)).to(device)
+    init = torch.from_numpy(rng.standard_normal((1, 16, 1, 16, 24)).astype(np.float32)).to(device)
+    draw = lambda step, shape: torch.from_numpy(np.random.default_rng(100 + step).standard_normal(shape).astype(np.float32))
+    _build.reset_launch_counts()
+    out = stream.generate(make_condition(emb), init, 6, (16, 24), draw=draw)
+    counts = _build.launch_counts()
+    return out.float().cpu(), counts, {k: v.cpu() for k, v in stream.model.net.state_dict().items()}
+
+
+def small_stream_reference() -> None:
+    """The small causal stream in bf16 on the card (K5, then K6 with 3 of 8
+    rows) against the same weights, inputs and noise in fp32 on the CPU."""
+    import torch
+
+    for window in (-1, 3):
+        got, counts, sd = small_stream("cuda", torch.bfloat16, window)
+        ref, _, _ = small_stream("cpu", torch.float32, window, sd)
+        max_abs, rel = errors(got, ref)
+        cached = "flash_attention_kv_cache_window" if window > 0 else "flash_attention_kv_cache"
+        log(f"  window {window}: card bf16 vs cpu fp32: shape {tuple(got.shape)} max_abs {max_abs:.3e} rel_l2 "
+            f"{rel:.3e} (limit {STREAM_REL_L2}); launches {counts}")
+        # per DiT forward: 2 cached self-attentions and 2 cross-attentions; 1 prefill + 5 x (4 steps + 1 commit)
+        want = 2 * (1 + 5 * 5)
+        if (counts[cached], counts["flash_attention_fwd"]) != (want, want):
+            raise AssertionError(f"the small stream launched {counts}, want {cached} and K1 {want} times each")
+        if not (got.shape == (1, 16, 6, 16, 24) and torch.isfinite(got).all() and rel <= STREAM_REL_L2):
+            raise AssertionError(f"the small stream disagrees with its fp32 CPU reference: rel_l2 {rel:.3e}")
+
+
+def interactive_slice(window: int, run_measure: bool) -> dict:
+    """StreamingInference.generate with the full-width causal 2B DiT at
+    352x640: one prefilled frame, INTERACTIVE_BLOCKS streamed one-frame
+    blocks; checks, timings, peak memory and one profiled block step."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.scripts import interactive_latency as il
+
+    h, w = INTERACTIVE_HW
+    tpf = (h // 2) * (w // 2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    stream = il.build_stream(il.NET_2B, 1, INTERACTIVE_CACHE_FRAMES, INTERACTIVE_STEPS, window, "cuda", seed=0)
+    net = stream.model.config.net
+    if (net.num_blocks, net.model_channels, net.num_heads, net.head_dim) != (NUM_BLOCKS, 2048, 16, 128):
+        raise AssertionError("the interactive slice must run the full-width causal 2B DiT")
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - base
+    log(f"  causal 2B DiT built in {time.perf_counter() - t0:.1f} s: {weights / 2**30:.2f} GiB of weights "
+        f"(matmul weights bf16, AdaLN fp32); window {window if window > 0 else 'dense'}")
+    cond = il.text_condition(stream, "cuda")
+    init = torch.randn((1, 16, 1, h, w), generator=torch.Generator(device="cuda").manual_seed(2), device="cuda")
+    s_max = (INTERACTIVE_CACHE_FRAMES + 1) * tpf
+    cache_bytes = NUM_BLOCKS * 2 * 16 * s_max * 128 * 2
+    laps, lens, state = [], [], {}
+
+    def on_block(step, x, caches):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        laps.append(now - state["t"])
+        state["t"], state["caches"] = now, caches
+        lens.append(sorted({c["len"] for c in caches}))
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    state["t"] = t_all = time.perf_counter()
+    out = stream.generate(cond, init, 1 + INTERACTIVE_BLOCKS, (h, w),
+                          generator=torch.Generator(device="cuda").manual_seed(3), on_block=on_block)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t_all
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+
+    cached = "flash_attention_kv_cache_window" if window > 0 else "flash_attention_kv_cache"
+    other = "flash_attention_kv_cache" if window > 0 else "flash_attention_kv_cache_window"
+    want = NUM_BLOCKS + INTERACTIVE_BLOCKS * (INTERACTIVE_STEPS + 1) * NUM_BLOCKS
+    got = (counts[cached], counts["flash_attention_fwd"], counts[other])
+    if got != (want, want, 0):
+        raise AssertionError(f"launches {cached}, K1, {other}: {got}, want ({want}, {want}, 0)")
+    if out.shape != (1, 16, 1 + INTERACTIVE_BLOCKS, h, w) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"streamed latents {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+    want_lens = [[min(1 + s, INTERACTIVE_CACHE_FRAMES) * tpf] for s in range(1, INTERACTIVE_BLOCKS + 1)]
+    if lens != want_lens:
+        raise AssertionError(f"cache lengths after each block {lens}, want {want_lens}")
+    slides = sum(1 + s > INTERACTIVE_CACHE_FRAMES for s in range(1, INTERACTIVE_BLOCKS + 1))
+    if peak - weights > 1.25 * cache_bytes:
+        raise AssertionError(f"peak {peak / 2**30:.2f} GiB over {weights / 2**30:.2f} GiB of weights: more than one "
+                             f"copy of the {cache_bytes / 2**30:.2f} GiB cache")
+    p50 = float(np.median(laps[1:]))  # laps[0] holds the prefill and the first block's warm-up
+    log(f"  streamed {INTERACTIVE_BLOCKS} blocks in {total_s:.2f} s ({slides} slides); first block with the prefill "
+        f"{laps[0] * 1e3:.1f} ms; p50 block latency {p50 * 1e3:.1f} ms (min {min(laps[1:]) * 1e3:.1f}, max "
+        f"{max(laps[1:]) * 1e3:.1f}) -> {1 / p50:.2f} latent frames/s = {4 / p50:.1f} pixel fps; launches {cached} "
+        f"{counts[cached]}, K1 {counts['flash_attention_fwd']}; peak device memory {peak / 2**30:.2f} GiB over the "
+        f"start = weights {weights / 2**30:.2f} + cache {cache_bytes / 2**30:.2f} GiB (bf16, 28 x k/v (1, 16, "
+        f"{s_max}, 128)) + {(peak - weights - cache_bytes) / 2**30:.2f} GiB")
+
+    # steady-state block steps (the cache full: 16 frames + the block): the
+    # host's time to queue one (nothing in it waits for the card) against
+    # the time until the card has run it; then one under torch.profiler
+    caches = state.pop("caches")
+    noise = torch.randn((1, 16, 1, h, w), device="cuda")
+    queued, done = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stream.generate_block(noise, cond, caches, 1 + INTERACTIVE_BLOCKS)
+        queued.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        done.append(time.perf_counter() - t)
+    queued_s, done_s = float(np.median(queued)), float(np.median(done))
+    log(f"  block step at full cache: queued by the host in {queued_s * 1e3:.1f} ms, run by the card "
+        f"{done_s * 1e3:.1f} ms after its start (medians of 3)")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stream.generate_block(noise, cond, caches, 1 + INTERACTIVE_BLOCKS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    log(f"  one block step at full cache ({INTERACTIVE_STEPS} denoise forwards + 1 commit):")
+    profile = device_time_table(prof, wall)
+    del stream, caches, cond, out, prof
+    result = {"counts": counts, "p50_s": p50, "latent_fps": 1 / p50, "pixel_fps": 4 / p50, "laps": laps,
+              "queued_s": queued_s, "done_s": done_s,
+              "total_s": total_s, "peak_gb": peak / 2**30, "weights_gb": weights / 2**30,
+              "cache_gb": cache_bytes / 2**30, "profile": profile}
+    if run_measure:
+        gc.collect()
+        torch.cuda.empty_cache()
+        result["measure"] = il.measure(INTERACTIVE_HW, 8, INTERACTIVE_CACHE_FRAMES,
+                                       cache_window_rows=window, device="cuda")
+    return result
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)  # --help; no options
+    t_start = time.perf_counter()
 
     with Phase("environment"):
         smi = environment()
@@ -913,13 +1184,22 @@ def main(argv=None) -> int:
         tr = train_slice(DENSE_EXPERIMENT, TRAIN_TIMED_STEPS)
     with Phase("sparse training slice: sparse 2B DiT through training/train.py launch"):
         stl = train_slice(SPARSE_EXPERIMENT, SPARSE_TRAIN_TIMED_STEPS)
-    paths = {"serve": sl, "train": tr, "sparse_serve": ssl, "sparse_train": stl}
+    with Phase("small interactive reference: card bf16 vs cpu fp32, K5 and K6"):
+        small_stream_reference()
+    with Phase("interactive slice: causal 2B DiT streaming at 352x640, dense cache (K5)"):
+        it = interactive_slice(-1, run_measure=True)
+    with Phase(f"interactive slice: causal 2B DiT streaming at 352x640, {INTERACTIVE_WINDOW}-row window (K6)"):
+        itw = interactive_slice(INTERACTIVE_WINDOW, run_measure=False)
+    paths = {"serve": sl, "train": tr, "sparse_serve": ssl, "sparse_train": stl, "interactive": it,
+             "interactive_window": itw}
     path_kernels = {
         "serve": ("flash_attention_fwd", "conv3d_causal"),
         "train": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal"),
         "sparse_serve": ("flash_attention_fwd", "na_fwd", "conv3d_causal"),
         "sparse_train": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "na_fwd",
                          "na_bwd_dq", "na_bwd_dkv", "conv3d_causal"),
+        "interactive": ("flash_attention_fwd", "flash_attention_kv_cache"),
+        "interactive_window": ("flash_attention_fwd", "flash_attention_kv_cache_window"),
     }
     for path, names in path_kernels.items():
         idle = [n for n in names if paths[path]["counts"][n] == 0]
@@ -929,9 +1209,9 @@ def main(argv=None) -> int:
     if reference:
         raise AssertionError(f"the port's paths imported JAX or the JAX package: {reference}")
 
-    # the smoke-geometry cases whose times go into the JSON line; launches
-    # are the sparse training slice's (the path of this slice, which runs
-    # every kernel) with each path's counts beside them
+    # the main-shape cases whose times go into the JSON line; launches are
+    # the sparse training slice's (it runs the seven earlier kernels) and,
+    # for K5 and K6, the interactive slices', with each path's counts beside them
     na_smoke = next(c["case"] for c in results["na_fwd"]["cases"] if c["case"].startswith("smoke"))
     main_case = {
         "flash_attention_fwd": "self  B2 S5760 H16 (smoke geometry)",
@@ -941,6 +1221,10 @@ def main(argv=None) -> int:
         "na_fwd": na_smoke,
         "na_bwd_dq": na_smoke,
         "na_bwd_dkv": na_smoke,
+        "flash_attention_kv_cache": next(c["case"] for c in results["flash_attention_kv_cache"]["cases"]
+                                         if c["case"].startswith("352x640 steady")),
+        "flash_attention_kv_cache_window": next(c["case"] for c in results["flash_attention_kv_cache_window"]["cases"]
+                                                if c["case"].startswith("352x640 steady")),
     }
     source = {
         "flash_attention_fwd": ("cosmos_predict2_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -956,16 +1240,23 @@ def main(argv=None) -> int:
                       "cosmos_predict2_tpu/ops/neighborhood_attention.py:425"),
         "na_bwd_dkv": ("cosmos_predict2_tpu_torch/csrc/neighborhood_attention.cu",
                        "cosmos_predict2_tpu/ops/neighborhood_attention.py:461"),
+        "flash_attention_kv_cache": ("cosmos_predict2_tpu_torch/csrc/flash_attention_kv_cache.cu",
+                                     "cosmos_predict2_tpu/ops/flash_attention.py:211"),
+        "flash_attention_kv_cache_window": ("cosmos_predict2_tpu_torch/csrc/flash_attention_kv_cache.cu",
+                                            "cosmos_predict2_tpu/ops/flash_attention.py:375"),
     }
+    launch_path = {"flash_attention_kv_cache": it, "flash_attention_kv_cache_window": itw}
     kernels = []
     for name, (src, replaces) in source.items():
         case = next(c for c in results[name]["cases"] if c["case"] == main_case[name])
         kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces, "launches": stl["counts"][name],
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launch_path.get(name, stl)["counts"][name],
             "launches_by_path": {path: out["counts"][name] for path, out in paths.items()},
             "max_abs_err": results[name]["max_abs_err"], "ms": case["ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"], "library_ms": case["library_ms"],
         })
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

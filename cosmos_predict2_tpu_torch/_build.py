@@ -23,7 +23,10 @@ import threading
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "conv3d_causal.cu", "neighborhood_attention.cu")
+SOURCES = (
+    "flash_attention_fwd.cu", "flash_attention_bwd.cu", "flash_attention_kv_cache.cu", "conv3d_causal.cu",
+    "neighborhood_attention.cu",
+)
 HEADERS = ("mma_bf16.cuh",)
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cosmos_torch_kernels"
 NVCC_FLAGS = (
@@ -94,6 +97,10 @@ def library() -> ctypes.CDLL:
             lib.cosmos_flash_attention_bwd_dq.restype = i
             lib.cosmos_flash_attention_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, p]
             lib.cosmos_flash_attention_bwd_dkv.restype = i
+            lib.cosmos_flash_kv_cache.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
+            lib.cosmos_flash_kv_cache.restype = i
+            lib.cosmos_flash_kv_cache_window.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f, p]
+            lib.cosmos_flash_kv_cache_window.restype = i
             lib.cosmos_conv3d_causal.argtypes = [p, p, p, p, i, i, i, i, i, p]
             lib.cosmos_conv3d_causal.restype = i
             geometry = [i] * 14 + [f, p]  # B, heads, S_pad, bt, max_cnt, T, H, W, 3 x window, 3 x stride; scale, stream
@@ -119,6 +126,8 @@ def _wrappers() -> dict:
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
         flash_attention_fwd,
+        flash_attention_kv_cache,
+        flash_attention_kv_cache_window,
     )
     from cosmos_predict2_tpu_torch.ops.neighborhood_attention import na_bwd_dkv, na_bwd_dq, na_fwd
 
@@ -126,6 +135,8 @@ def _wrappers() -> dict:
         "flash_attention_fwd": flash_attention_fwd,
         "flash_attention_bwd_dq": flash_attention_bwd_dq,
         "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+        "flash_attention_kv_cache": flash_attention_kv_cache,
+        "flash_attention_kv_cache_window": flash_attention_kv_cache_window,
         "conv3d_causal": conv3d_causal,
         "na_fwd": na_fwd,
         "na_bwd_dq": na_bwd_dq,

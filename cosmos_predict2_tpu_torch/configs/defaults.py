@@ -5,7 +5,10 @@ defines its own: the flagship ``predict2_video2world_2b_rectified_flow``
 experiment (2B DiT, Wan2.1 VAE, the fused-AdamW recipe), its sparse-attention
 variant ``predict2_video2world_2b_sparse`` (the reference's sparse_2B.py
 tuning: 7 dense blocks, the other 21 neighborhood attention with window
-(-1, 12, 24) and stride (1, 4, 8) tuned at a 44 x 80 token grid) and
+(-1, 12, 24) and stride (1, 4, 8) tuned at a 44 x 80 token grid), the
+interactive ``predict2_interactive_2b_causal`` (the 2B DiT made temporally
+block-causal, one latent frame per block, for KV-cache streaming; the
+reference's interactive/networks/dit_causal.py) and
 ``error-free_mock_data_smoke`` (the reference's plumbing config:
 1024-channel 2-block DiT, dim-16 VAE, 3 iterations on 13-frame 64x64 mock
 clips). ``make_config`` takes the reference's ``key=value`` dotlist. A CPU
@@ -66,6 +69,10 @@ EXPERIMENTS: dict[str, Config] = {
         "model.net.natten_window": (-1, 12, 24),
         "model.net.natten_stride": (1, 4, 8),
         "model.net.natten_base_size": (-1, 44, 80),
+    }),
+    "predict2_interactive_2b_causal": compose(_VIDEO2WORLD_2B, {
+        "model.net.temporal_causal": True,
+        "model.net.num_frame_per_block": 1,
     }),
     "error-free_mock_data_smoke": Config(
         trainer=TrainerConfig(max_iter=3, logging_iter=1),

@@ -1,5 +1,6 @@
 """MiniTrainDIT — the Cosmos video DiT in PyTorch, dense or with sparse
-(neighborhood-attention) blocks.
+(neighborhood-attention) blocks, and its temporally causal variant with
+KV-cache streaming.
 
 Counterpart of cosmos_predict2_tpu/networks/dit.py (patch embed with the
 padding-mask channel, 3D RoPE, sinusoidal timesteps + AdaLN-LoRA, N blocks
@@ -18,6 +19,18 @@ by :func:`block_layout` as in the reference) run their self-attention
 through ops/neighborhood_attention.py with the window, stride and dilation
 scaled to the input's token grid (``adaptive_na_parameters``); a one-frame
 input (T == 1) takes dense attention there, as in the reference.
+
+Causal (``temporal_causal``, the reference's CausalDIT): self-attention is
+block-causal over frames (K1's ``frame_group`` = num_frame_per_block * Hp *
+Wp). Given ``kv_caches`` (one per block: head-major k/v ring buffers and the
+filled length ``len``, a host int), ``forward`` runs a new frame block
+against the cache: each self-attention writes the block's k/v into the
+buffers IN PLACE at [len, len + s_new) and attends over [0, len + s_new)
+(K5, or K6 with ``cache_na_window_rows`` > 0); it returns (out, caches)
+whose ``len`` is advanced. A caller that keeps those caches commits the
+block; one that drops them keeps the old ``len``, and the slots written past
+it are never read. That is the JAX package's functional update without a
+copy of the cache per forward.
 
 Training: with ``remat="block"`` (the default, as the reference) each block
 runs under ``torch.utils.checkpoint`` while gradients are recorded: only its
@@ -38,6 +51,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from cosmos_predict2_tpu_torch.ops.attention import dot_product_attention
+from cosmos_predict2_tpu_torch.ops.flash_attention import flash_attention_kv_cache, flash_attention_kv_cache_window
 from cosmos_predict2_tpu_torch.ops.neighborhood_attention import VideoSize, adaptive_na_parameters, neighborhood_attention
 from cosmos_predict2_tpu_torch.ops.normalization import layer_norm, rms_norm
 from cosmos_predict2_tpu_torch.ops.rope import RopeSpec, apply_rope, rope_angles_3d
@@ -75,6 +89,13 @@ class DiTConfig:
     # per-block (window, stride, dilation, base_size), None for a dense
     # block; when set it overrides n_dense_blocks and the natten_* fields
     natten_parameters: Optional[tuple[Optional[tuple], ...]] = None
+    # interactive / causal: frame-block causal self-attention (frame t sees
+    # frames <= t, grouped by num_frame_per_block), which KV-cache streaming
+    # needs; cache_na_window_rows > 0: in the cached forward each query sees
+    # that many key rows (clamped around its own) of every cached frame
+    temporal_causal: bool = False
+    num_frame_per_block: int = 1
+    cache_na_window_rows: int = -1
     timestep_scale: float = 1.0
     # compute dtype for matmuls; norms and modulation stay fp32
     dtype: torch.dtype = torch.bfloat16
@@ -137,9 +158,17 @@ class Attention(nn.Module):
         self.k_norm = RMSNorm(head_dim)
         self.output_proj = nn.Linear(inner, query_dim, bias=False)
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None, rope_angles=None, na=None) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, context: Optional[torch.Tensor] = None, rope_angles=None, na=None, frame_group: int = 0,
+        kv_cache: Optional[dict] = None, cache_window: Optional[tuple] = None,
+    ):
         """``na``: (video_size, window, stride, dilation) sends self-attention
-        over a video of more than one frame to neighborhood attention."""
+        over a video of more than one frame to neighborhood attention;
+        ``frame_group`` > 0 makes self-attention frame-block causal.
+        ``kv_cache`` (self-attention only): attend over the cache with the
+        new block appended in place; ``cache_window`` = ((gh, gw),
+        window_rows) selects the row-windowed decode. Returns (out, cache)
+        with ``kv_cache``, else out."""
         ctx = x if context is None else context
         heads = lambda t: t.reshape(t.shape[:-1] + (self.n_heads, self.head_dim))
         q = self.q_norm(heads(linear(self.q_proj, x, self.dtype)))
@@ -149,11 +178,35 @@ class Attention(nn.Module):
             q = apply_rope(q, rope_angles)
             k = apply_rope(k, rope_angles)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        if context is None and na is not None and na[0][0] != 1:
+        new_cache = None
+        if kv_cache is not None:
+            out, new_cache = cached_attention(q, k, v, kv_cache, cache_window)
+        elif context is None and na is not None and na[0][0] != 1:
             out = neighborhood_attention(q, k, v, *na)
         else:
-            out = dot_product_attention(q, k, v)
-        return linear(self.output_proj, out.reshape(out.shape[:-2] + (-1,)), self.dtype)
+            out = dot_product_attention(q, k, v, frame_group=frame_group if context is None else 0)
+        out = linear(self.output_proj, out.reshape(out.shape[:-2] + (-1,)), self.dtype)
+        return out if kv_cache is None else (out, new_cache)
+
+
+def cached_attention(q, k, v, kv_cache: dict, cache_window: Optional[tuple]):
+    """Write the new block's k/v (B, s_new, H, D) into the head-major ring
+    buffers at [len, len + s_new) in place and attend q over [0, len +
+    s_new): K6 with ``cache_window`` = ((gh, gw), rows), else K5. Returns
+    (out, {"k", "v", "len": len + s_new})."""
+    if torch.is_grad_enabled() and q.requires_grad:
+        raise NotImplementedError("the cached forward has no backward in the port (self-forcing training waits)")
+    kb, vb, n = kv_cache["k"], kv_cache["v"], kv_cache["len"]
+    end = n + k.shape[1]
+    if end > kb.shape[2]:
+        raise ValueError(f"kv cache overflow: {n} + {k.shape[1]} tokens > capacity {kb.shape[2]}")
+    kb[:, :, n:end] = k.transpose(1, 2)
+    vb[:, :, n:end] = v.transpose(1, 2)
+    if cache_window is None:
+        out = flash_attention_kv_cache(q, kb, vb, end)
+    else:
+        out = flash_attention_kv_cache_window(q, kb, vb, end, *cache_window)
+    return out, {"k": kb, "v": vb, "len": end}
 
 
 class GPT2FeedForward(nn.Module):
@@ -202,9 +255,11 @@ class Block(nn.Module):
             out = out + adaln_lora
         return [c[:, :, None, None, :] for c in out.chunk(3, dim=-1)]  # (B, T, 1, 1, D)
 
-    def forward(self, x, emb, crossattn_emb, rope_angles, adaln_lora):
+    def forward(self, x, emb, crossattn_emb, rope_angles, adaln_lora, kv_cache=None):
+        """Returns x, or (x, cache) with ``kv_cache``."""
         B, T, H, W, D = x.shape
-        dt = self.cfg.dtype
+        cfg = self.cfg
+        dt = cfg.dtype
 
         def modulated(shift, scale):
             return (layer_norm(x) * (1.0 + scale) + shift).to(dt)
@@ -217,7 +272,13 @@ class Block(nn.Module):
             na = (VideoSize(T, H, W), tuple(window), tuple(stride), tuple(dilation))
 
         shift, scale, gate = self._mod("self_attn", emb, adaln_lora)
-        out = self.self_attn(modulated(shift, scale).reshape(B, T * H * W, D), rope_angles=rope_angles, na=na)
+        attn_in = modulated(shift, scale).reshape(B, T * H * W, D)
+        if kv_cache is not None:
+            window = ((H, W), cfg.cache_na_window_rows) if cfg.cache_na_window_rows > 0 else None
+            out, kv_cache = self.self_attn(attn_in, rope_angles=rope_angles, kv_cache=kv_cache, cache_window=window)
+        else:
+            frame_group = cfg.num_frame_per_block * H * W if cfg.temporal_causal else 0
+            out = self.self_attn(attn_in, rope_angles=rope_angles, na=na, frame_group=frame_group)
         x = x + gate.to(x.dtype) * out.reshape(B, T, H, W, D).to(x.dtype)
 
         shift, scale, gate = self._mod("cross_attn", emb, adaln_lora)
@@ -226,7 +287,8 @@ class Block(nn.Module):
 
         shift, scale, gate = self._mod("mlp", emb, adaln_lora)
         out = self.mlp(modulated(shift, scale))
-        return x + gate.to(x.dtype) * out.to(x.dtype)
+        x = x + gate.to(x.dtype) * out.to(x.dtype)
+        return x if kv_cache is None else (x, kv_cache)
 
 
 def block_layout(cfg: DiTConfig) -> list[Optional[tuple]]:
@@ -340,7 +402,11 @@ class MiniTrainDIT(nn.Module):
             self.crossattn_proj = nn.Sequential(
                 nn.Linear(cfg.crossattn_proj_in_channels, cfg.crossattn_emb_channels, bias=True), nn.GELU()
             )
-        self.blocks = nn.ModuleList(Block(cfg, na_params) for na_params in block_layout(cfg))
+        layout = block_layout(cfg)
+        if cfg.temporal_causal and any(p is not None for p in layout):
+            # the JAX package's sparse branch would drop the causal mask (dit.py:344)
+            raise NotImplementedError("temporal_causal with sparse (neighborhood-attention) blocks")
+        self.blocks = nn.ModuleList(Block(cfg, na_params) for na_params in layout)
         self.final_layer = FinalLayer(cfg)
 
     def forward(
@@ -350,7 +416,12 @@ class MiniTrainDIT(nn.Module):
         crossattn_emb: torch.Tensor,
         fps: Optional[torch.Tensor] = None,
         padding_mask: Optional[torch.Tensor] = None,
-    ) -> torch.Tensor:
+        kv_caches: Optional[list] = None,
+        t_start: int = 0,
+    ):
+        """Returns the output (B, C, T, H, W); with ``kv_caches`` (one per
+        block) it runs x as the new frame block at absolute latent frame
+        ``t_start`` against the caches and returns (output, caches)."""
         cfg = self.cfg
         B, C, T, H, W = x_B_C_T_H_W.shape
         ps, pt = cfg.patch_spatial, cfg.patch_temporal
@@ -367,7 +438,7 @@ class MiniTrainDIT(nn.Module):
 
         x = self.x_embedder(x_B_C_T_H_W)  # (B, T', H', W', D) in cfg.dtype
         Tt, Hp, Wp = T // pt, H // ps, W // ps
-        rope_angles = rope_angles_3d(cfg.rope_spec, Tt, Hp, Wp, fps=fps, device=x.device)
+        rope_angles = rope_angles_3d(cfg.rope_spec, Tt, Hp, Wp, fps=fps, device=x.device, t_start=t_start)
 
         if timesteps_B_T.ndim == 1:
             timesteps_B_T = timesteps_B_T[:, None]
@@ -381,9 +452,13 @@ class MiniTrainDIT(nn.Module):
         if cfg.use_crossattn_projection:
             crossattn_emb = F.gelu(linear(self.crossattn_proj[0], crossattn_emb, cfg.dtype))
 
-        remat = cfg.remat == "block" and torch.is_grad_enabled()
-        for block in self.blocks:
-            if remat:
+        remat = cfg.remat == "block" and torch.is_grad_enabled() and kv_caches is None
+        new_caches = None if kv_caches is None else []
+        for i, block in enumerate(self.blocks):
+            if kv_caches is not None:
+                x, cache = block(x, emb, crossattn_emb, rope_angles, adaln_lora, kv_cache=kv_caches[i])
+                new_caches.append(cache)
+            elif remat:
                 x = checkpoint(block, x, emb, crossattn_emb, rope_angles, adaln_lora, use_reentrant=False)
             else:
                 x = block(x, emb, crossattn_emb, rope_angles, adaln_lora)
@@ -392,7 +467,28 @@ class MiniTrainDIT(nn.Module):
         # B T H W (p1 p2 t C) -> B C (T t) (H p1) (W p2)
         x = x.reshape(B, Tt, Hp, Wp, ps, ps, pt, cfg.out_channels)
         x = x.permute(0, 7, 1, 6, 2, 4, 3, 5)
-        return x.reshape(B, cfg.out_channels, Tt * pt, Hp * ps, Wp * ps)
+        x = x.reshape(B, cfg.out_channels, Tt * pt, Hp * ps, Wp * ps)
+        return x if kv_caches is None else (x, new_caches)
+
+
+@torch.no_grad()
+def cast_matmul_weights(net: MiniTrainDIT) -> MiniTrainDIT:
+    """Store the weights that the DiT multiplies in ``cfg.dtype`` (patch
+    embed, attention projections, MLP, final linear, text projection) in
+    that dtype, once, for serving: :func:`linear` casts them on every call
+    otherwise. The outputs do not change (the same rounding, made once);
+    the AdaLN and timestep layers stay fp32, as they compute in fp32."""
+    dtype = net.cfg.dtype
+    layers = [net.x_embedder.proj[1], net.final_layer.linear]
+    if net.cfg.use_crossattn_projection:
+        layers.append(net.crossattn_proj[0])
+    for block in net.blocks:
+        for attn in (block.self_attn, block.cross_attn):
+            layers += [attn.q_proj, attn.k_proj, attn.v_proj, attn.output_proj]
+        layers += [block.mlp.layer1, block.mlp.layer2]
+    for layer in layers:
+        layer.weight.data = layer.weight.data.to(dtype)
+    return net
 
 
 @torch.no_grad()

@@ -4,11 +4,16 @@ Per head_dim D the bands are dim_h = dim_w = D // 6 * 2 and
 dim_t = D - 2 * dim_h; axis frequencies 1 / theta_a ** (arange(0, dim_a, 2)
 / dim_a) with theta_a = 10000 * ratio_a ** (dim_a / (dim_a - 2)). The angle
 table is cat([t, h, w] bands) repeated twice (GPT-NeoX half rotation).
+Temporal positions start at ``t_start`` (a streaming block's absolute
+latent frame) and, with fps modulation on, are scaled by base_fps / fps
+only when the table has more than one frame, as in the JAX package: a
+one-frame streaming block is never fps-modulated.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -38,6 +43,15 @@ def _axis_freqs(dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta**rng)
 
 
+@functools.lru_cache(maxsize=None)
+def _axis_freqs_tensor(dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The axis frequencies as an fp32 tensor on ``device``, made once. A
+    tensor made from host memory on every forward is a pageable copy, for
+    which the host waits until the card has finished all work queued before
+    it: one forward could not be queued while the last one runs."""
+    return torch.tensor(_axis_freqs(dim, theta), dtype=torch.float32, device=device)
+
+
 def rope_angles_3d(
     spec: RopeSpec,
     T: int,
@@ -45,18 +59,21 @@ def rope_angles_3d(
     W: int,
     fps: Optional[torch.Tensor] = None,
     device: torch.device | str | None = None,
+    t_start: int = 0,
 ) -> torch.Tensor:
-    """Angle table of shape (T*H*W, head_dim), fp32."""
+    """Angle table of shape (T*H*W, head_dim), fp32, for frames
+    ``t_start .. t_start + T - 1``."""
     dim_h, dim_t = spec.dim_h, spec.dim_t
     h_theta = 10000.0 * spec.h_extrapolation_ratio ** (dim_h / (dim_h - 2))
     w_theta = 10000.0 * spec.w_extrapolation_ratio ** (dim_h / (dim_h - 2))
     t_theta = 10000.0 * spec.t_extrapolation_ratio ** (dim_t / (dim_t - 2))
     f32 = dict(dtype=torch.float32, device=device)
-    h_freqs = torch.tensor(_axis_freqs(dim_h, h_theta), **f32)
-    w_freqs = torch.tensor(_axis_freqs(dim_h, w_theta), **f32)
-    t_freqs = torch.tensor(_axis_freqs(dim_t, t_theta), **f32)
+    dev = torch.device("cpu" if device is None else device)
+    h_freqs = _axis_freqs_tensor(dim_h, h_theta, dev)
+    w_freqs = _axis_freqs_tensor(dim_h, w_theta, dev)
+    t_freqs = _axis_freqs_tensor(dim_t, t_theta, dev)
 
-    t_pos = torch.arange(T, **f32)
+    t_pos = torch.arange(T, **f32) + float(t_start)
     if spec.enable_fps_modulation and fps is not None and T > 1:
         t_pos = t_pos / fps.reshape(()).to(**f32) * spec.base_fps
     h_pos = torch.arange(H, **f32)

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the card,
-and the DiT's gradients through them (dense and sparse blocks).
+the DiT's gradients through them (dense and sparse blocks), and the causal
+DiT's streaming loop through the cache-decode kernels K5 and K6.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 no JAX, so it also runs where only PyTorch is installed, with
@@ -19,7 +20,11 @@ from cosmos_predict2_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dq,
     flash_attention_bwd_plain,
     flash_attention_fwd,
+    flash_attention_kv_cache,
+    flash_attention_kv_cache_window,
     flash_attention_plain,
+    kv_cache_plain,
+    kv_cache_window_plain,
 )
 from cosmos_predict2_tpu_torch.ops import neighborhood_attention as na
 
@@ -247,3 +252,88 @@ def test_na_kernels_raise_on_what_they_do_not_take(cuda):
     x = torch.zeros((1, 96, 2, 128), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(NotImplementedError):
         na.neighborhood_attention(x, x, x, (2, 6, 8), (1, 3, 3), (1, 1, 1), (1, 4, 1))  # dilation 4 on H = 6
+
+
+def _cache_inputs(cuda, sq, s_max, fill, heads=4, seed=5):
+    """bf16 q (2, sq, H, 128) and head-major buffers (2, H, s_max, 128) with
+    +-1e3 past the fill frontier, which must not reach the output."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((2, sq, heads, 128), generator=gen, device=cuda).bfloat16()
+    kb, vb = (torch.randn((2, heads, s_max, 128), generator=gen, device=cuda).bfloat16() for _ in range(2))
+    kb[:, :, fill:] = 1e3
+    vb[:, :, fill:] = -1e3
+    return q, kb, vb
+
+
+# (Sq, S_max, fill): the 352x640 geometry's block at full and early fill, a
+# ragged block and fill, a fill of one tile
+KV_CASES = [(880, 17 * 880, 17 * 880), (880, 17 * 880, 4 * 880), (100, 512, 301), (64, 1024, 64)]
+
+
+@pytest.mark.parametrize("sq,s_max,fill", KV_CASES)
+def test_kv_cache_kernel_matches_plain_on_cuda(cuda, sq, s_max, fill):
+    q, kb, vb = _cache_inputs(cuda, sq, s_max, fill)
+    before = flash_attention_kv_cache.launches
+    out = flash_attention_kv_cache(q, kb, vb, fill)
+    torch.cuda.synchronize()
+    assert flash_attention_kv_cache.launches == before + 1
+    assert torch.isfinite(out.float()).all()
+    assert _rel(out, kv_cache_plain(q, kb, vb, fill)) < 1e-2  # P rounded to bf16 on both sides
+
+
+# (gh, gw, window rows, frames per block, filled frames, buffer frames): the
+# path's 7-of-22 rows, a prime gh, a 2-frame block whose q tiles cross a
+# frame, a window wider than the grid, a width that is no multiple of 8
+WINDOW_CASES = [(22, 40, 7, 1, 5, 6), (23, 40, 7, 1, 4, 5), (6, 8, 3, 2, 3, 4), (5, 6, 9, 1, 2, 3), (7, 5, 2, 1, 3, 3)]
+
+
+@pytest.mark.parametrize("gh,gw,wh,nb,filled,frames", WINDOW_CASES)
+def test_kv_cache_window_kernel_matches_plain_on_cuda(cuda, gh, gw, wh, nb, filled, frames):
+    F = gh * gw
+    q, kb, vb = _cache_inputs(cuda, nb * F, frames * F, filled * F)
+    before = flash_attention_kv_cache_window.launches
+    out = flash_attention_kv_cache_window(q, kb, vb, filled * F, (gh, gw), wh)
+    torch.cuda.synchronize()
+    assert flash_attention_kv_cache_window.launches == before + 1
+    assert torch.isfinite(out.float()).all()
+    assert _rel(out, kv_cache_window_plain(q, kb, vb, filled * F, (gh, gw), wh)) < 1e-2
+
+
+def test_kv_cache_kernels_raise_on_what_they_do_not_take(cuda):
+    q, kb, vb = _cache_inputs(cuda, 48, 192, 96)
+    with pytest.raises(TypeError):
+        flash_attention_kv_cache(q.float(), kb, vb, 96)  # fp32
+    with pytest.raises(ValueError):
+        flash_attention_kv_cache(q[..., :64].contiguous(), kb[..., :64].contiguous(), vb[..., :64].contiguous(), 96)
+    with pytest.raises(ValueError):
+        flash_attention_kv_cache(q, kb[:, :, ::2], vb[:, :, ::2], 96)  # not contiguous
+    with pytest.raises(ValueError):
+        flash_attention_kv_cache(q, kb, vb, 193)  # past the buffer
+    with pytest.raises(ValueError):
+        flash_attention_kv_cache_window(q, kb, vb, 90, (6, 8), 3)  # not a whole number of frames
+    with pytest.raises(TypeError):
+        flash_attention_kv_cache_window(q, kb.float(), vb, 96, (6, 8), 3)
+
+
+@pytest.mark.parametrize("window", [-1, 2])
+def test_streaming_runs_through_the_cache_kernels_on_cuda(cuda, window):
+    """A narrow causal DiT (2 blocks, 3 heads of 128) streams 3 blocks of
+    one frame with a 2-frame window after one prefilled frame: 2 x (1 + 3 x
+    (2 steps + 1 commit)) cached self-attentions, all K5 (or K6), and as
+    many cross-attentions on K1; finite output."""
+    import dataclasses
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.conditioning.conditioner import make_condition
+    from cosmos_predict2_tpu_torch.scripts.interactive_latency import NET_TINY, build_stream
+
+    stream = build_stream(dataclasses.replace(NET_TINY, dtype=torch.bfloat16), 1, 2, 2, window, cuda)
+    cond = make_condition(torch.randn((1, 8, 1024), device=cuda))
+    init = torch.randn((1, 16, 1, 16, 16), device=cuda)
+    _build.reset_launch_counts()
+    out = stream.generate(cond, init, 4, (16, 16), generator=torch.Generator(device=cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    c = _build.launch_counts()
+    cached = "flash_attention_kv_cache_window" if window > 0 else "flash_attention_kv_cache"
+    assert c[cached] == c["flash_attention_fwd"] == 2 * (1 + 3 * 3)
+    assert out.shape == (1, 16, 4, 16, 16) and torch.isfinite(out).all()

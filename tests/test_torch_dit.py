@@ -116,7 +116,7 @@ def test_dit_bf16_forward_is_close_to_fp32():
 
 
 @pytest.mark.parametrize("experiment", ["predict2_video2world_2b_rectified_flow", "error-free_mock_data_smoke",
-                                        "predict2_video2world_2b_sparse"])
+                                        "predict2_video2world_2b_sparse", "predict2_interactive_2b_causal"])
 def test_config_fields_match_jax(experiment):
     """Every field of the port's config equals the JAX package's, and the
     JAX fields the port lacks are at their dense, plain defaults."""
@@ -142,7 +142,9 @@ def test_config_fields_match_jax(experiment):
     jo = j.trainer.optimizer
     assert (jo.moments_dtype, jo.moments_offload, j.model.use_lora) == ("float32", False, False)
     jn = j.model.net
-    assert (jn.temporal_causal, jn.camera_dim, jn.action_dim, jn.n_views) == (False, None, None, 1)
+    assert (jn.temporal_causal, jn.camera_dim, jn.action_dim, jn.n_views) == ("interactive" in experiment, None, None, 1)
+    if "interactive" in experiment:
+        assert (t.model.net.num_frame_per_block, t.model.net.cache_na_window_rows) == (1, -1)
     if "sparse" in experiment:
         sparse = [p is not None for p in tdit.block_layout(t.model.net)]
         assert [i for i, s in enumerate(sparse) if not s] == [0, 4, 9, 13, 18, 22, 27]
