@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels; read and reset their launch counts.
 
 The kernels are CUDA C++ under ``csrc/``, compiled at first use by ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface and loaded
-with ``ctypes`` (no PyTorch headers, so a build takes seconds, not minutes).
+for ``sm_90a`` (one nvcc per source, all started together, then one link)
+into one shared library with a plain C interface and loaded with
+``ctypes`` (no PyTorch headers, so a build takes seconds, not minutes).
 The library lands in ``build/cosmos_torch_kernels/`` at the repository root
 (``build/`` is git-ignored) under a name carrying a hash of the sources and
 flags, so an edited source triggers a rebuild and an unchanged one loads the
@@ -25,13 +26,13 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     "flash_attention_fwd.cu", "flash_attention_bwd.cu", "flash_attention_kv_cache.cu", "conv3d_causal.cu",
-    "neighborhood_attention.cu",
+    "neighborhood_attention.cu", "flash_attention_jvp.cu",
 )
 HEADERS = ("mma_bf16.cuh",)
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cosmos_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # register / shared-memory / spill report, kept in the build log
 )
 
@@ -74,12 +75,25 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{source_hash()}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(src).stem}.{tag}.o" for src in SOURCES]
+    cmds = [[nvcc_path(), *NVCC_FLAGS, "-c", str(CSRC_DIR / src), "-o", str(obj)] for src, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for cmd in cmds]
+    outputs = [proc.communicate()[0] for proc in procs]
     tmp = lib.with_suffix(f".tmp{os.getpid()}")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    link = [nvcc_path(), "-shared", "-o", str(tmp), *(str(o) for o in objs)]
+    failed = [(cmd, out) for cmd, proc, out in zip(cmds, procs, outputs) if proc.returncode != 0]
+    report = "".join(" ".join(cmd) + "\n" + out for cmd, out in zip(cmds, outputs))
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        report += " ".join(link) + "\n" + proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed = [(link, proc.stdout + proc.stderr)]
+    (BUILD_DIR / "build.log").write_text(report)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(" ".join(cmd) + "\n" + out for cmd, out in failed))
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees a partial file
     return lib
 
@@ -97,6 +111,8 @@ def library() -> ctypes.CDLL:
             lib.cosmos_flash_attention_bwd_dq.restype = i
             lib.cosmos_flash_attention_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, p]
             lib.cosmos_flash_attention_bwd_dkv.restype = i
+            lib.cosmos_flash_attention_jvp.argtypes = [p] * 8 + [i, i, i, i, i, f, p]
+            lib.cosmos_flash_attention_jvp.restype = i
             lib.cosmos_flash_kv_cache.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
             lib.cosmos_flash_kv_cache.restype = i
             lib.cosmos_flash_kv_cache_window.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f, p]
@@ -129,6 +145,7 @@ def _wrappers() -> dict:
         flash_attention_kv_cache,
         flash_attention_kv_cache_window,
     )
+    from cosmos_predict2_tpu_torch.ops.flash_attention_jvp import flash_attention_jvp
     from cosmos_predict2_tpu_torch.ops.neighborhood_attention import na_bwd_dkv, na_bwd_dq, na_fwd
 
     return {
@@ -137,6 +154,7 @@ def _wrappers() -> dict:
         "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
         "flash_attention_kv_cache": flash_attention_kv_cache,
         "flash_attention_kv_cache_window": flash_attention_kv_cache_window,
+        "flash_attention_jvp": flash_attention_jvp,
         "conv3d_causal": conv3d_causal,
         "na_fwd": na_fwd,
         "na_bwd_dq": na_bwd_dq,

@@ -8,7 +8,9 @@ tuning: 7 dense blocks, the other 21 neighborhood attention with window
 (-1, 12, 24) and stride (1, 4, 8) tuned at a 44 x 80 token grid), the
 interactive ``predict2_interactive_2b_causal`` (the 2B DiT made temporally
 block-causal, one latent frame per block, for KV-cache streaming; the
-reference's interactive/networks/dit_causal.py) and
+reference's interactive/networks/dit_causal.py), the DMD2 students
+``dmd2_trigflow_distill_cosmos_predict2_2B_bidirectional`` and its
+``_w_discriminator`` variant (4 sampling steps over the 2B base) and
 ``error-free_mock_data_smoke`` (the reference's plumbing config:
 1024-channel 2-block DiT, dim-16 VAE, 3 iterations on 13-frame 64x64 mock
 clips). ``make_config`` takes the reference's ``key=value`` dotlist. A CPU
@@ -74,6 +76,12 @@ EXPERIMENTS: dict[str, Config] = {
         "model.net.temporal_causal": True,
         "model.net.num_frame_per_block": 1,
     }),
+    # DMD2 TrigFlow distillation (the reference's experiments_dmd2_trigflow.py):
+    # the 4-step student over the 2B base; the _w_discriminator variant names
+    # the run with the GAN head on DiT features (its recipe is the same here)
+    "dmd2_trigflow_distill_cosmos_predict2_2B_bidirectional": compose(_VIDEO2WORLD_2B, {
+        "model.sampling_num_steps": 4,
+    }),
     "error-free_mock_data_smoke": Config(
         trainer=TrainerConfig(max_iter=3, logging_iter=1),
         model=RFModelConfig(net=NET_MINI, state_t=4, resolution="720"),
@@ -81,6 +89,10 @@ EXPERIMENTS: dict[str, Config] = {
         data_train=MockDataConfig(num_frames=13, height=64, width=64),
     ),
 }
+
+
+EXPERIMENTS["dmd2_trigflow_distill_cosmos_predict2_2B_bidirectional_w_discriminator"] = EXPERIMENTS[
+    "dmd2_trigflow_distill_cosmos_predict2_2B_bidirectional"]
 
 
 def make_config(experiment: str = "predict2_video2world_2b_rectified_flow", overrides: list[str] | None = None) -> Config:

@@ -1,9 +1,11 @@
 """Public Inference API, counterpart of cosmos_predict2_tpu/inference/api.py.
 
 Typed per-sample arguments, batch loading from json/jsonl and media
-export, over the port's streaming Video2World pipeline. Image mode, the
-DMD2 sampler and autoregressive mode wait for later ports and are refused;
-the guardrail hooks wait too.
+export, over the port's streaming Video2World pipeline, with the UniPC
+sampler or the distilled DMD2 sampler (``sampler="dmd2"``: served one
+request at a time, as the batched pass is the UniPC CFG program). Image
+mode and autoregressive mode wait for later ports and are refused; the
+guardrail hooks wait too.
 """
 
 from __future__ import annotations
@@ -63,10 +65,10 @@ class InferenceArguments:
 
 
 def _check_supported(args: InferenceArguments) -> None:
-    if args.mode != "video" or args.sampler != "unipc" or args.enable_autoregressive:
+    if args.mode != "video" or args.enable_autoregressive:
         raise NotImplementedError(
-            f"sample {args.name}: the PyTorch port serves video mode with the UniPC sampler only "
-            f"(mode={args.mode!r}, sampler={args.sampler!r}, autoregressive={args.enable_autoregressive})"
+            f"sample {args.name}: the PyTorch port serves video mode only "
+            f"(mode={args.mode!r}, autoregressive={args.enable_autoregressive})"
         )
 
 
@@ -125,8 +127,10 @@ class Inference:
 
     def generate_batch(self, samples: list[InferenceArguments]) -> dict[str, str]:
         """Serve N same-geometry video requests in one sampling pass; falls
-        back to the sequential loop when the batch is not batchable."""
-        if len(samples) <= 1 or len({self.batch_key(a) for a in samples}) != 1:
+        back to the sequential loop when the batch is not batchable (mixed
+        keys, or the dmd2 sampler: the batched pass is the UniPC CFG
+        program)."""
+        if len(samples) <= 1 or len({self.batch_key(a) for a in samples}) != 1 or samples[0].sampler != "unipc":
             outputs: dict[str, str] = {}
             for a in samples:
                 try:
@@ -172,6 +176,6 @@ class Inference:
         neg = self._text_embedding(args, args.negative_prompt) if args.negative_prompt else None
         frames = self.pipe.generate_vid2world(
             video, emb, neg_text_emb=neg, guidance=args.guidance, num_steps=args.num_steps,
-            num_conditional_frames=k, seed=args.seed, pixel_format="uint8",
+            num_conditional_frames=k, seed=args.seed, pixel_format="uint8", sampler=args.sampler,
         )
         return self._finish(args, frames)

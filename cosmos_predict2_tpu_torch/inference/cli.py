@@ -3,7 +3,7 @@
     python -m cosmos_predict2_tpu_torch.inference.cli \
         --experiment=predict2_video2world_2b_rectified_flow \
         --checkpoint=model.pt --vae=Wan2.1_VAE.pth \
-        --text-embedding-path=prompt.npy --input=input.jpg [--batch samples.json] [--device cpu]
+        --text-embedding-path=prompt.npy --input=input.jpg [--batch samples.json] [--sampler dmd2] [--device cpu]
 
 Weights: a reference torch state dict (``.pt``/``.pth``/``.safetensors``,
 loaded with ``strict=True``), or seeded random weights when none is given.
@@ -34,6 +34,8 @@ def parse_args(argv=None):
     p.add_argument("--resolution", default="480")
     p.add_argument("--num-conditional-frames", type=int, default=1)
     p.add_argument("--text-embedding-path", default=None, help=".npy precomputed embedding")
+    p.add_argument("--sampler", choices=["unipc", "dmd2"], default="unipc",
+                   help="dmd2 = few-step distilled path (no CFG; needs distilled weights)")
     p.add_argument("--device", default="cuda", help="torch device; the CPU only when asked for (cpu)")
     return p.parse_args(argv)
 
@@ -107,11 +109,12 @@ def main(argv=None) -> int:
                 prompt=args.prompt,
                 negative_prompt=args.negative_prompt,
                 input_path=args.input_path,
-                num_steps=args.num_steps or (1 if SMOKE else 35),
+                num_steps=args.num_steps or ((1 if SMOKE else 35) if args.sampler == "unipc" else 4),
                 guidance=args.guidance,
                 seed=args.seed,
                 num_conditional_frames=args.num_conditional_frames,
                 text_embedding_path=args.text_embedding_path,
+                sampler=args.sampler,
             )
         ]
     outputs = api.generate(samples)

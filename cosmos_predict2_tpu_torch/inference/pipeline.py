@@ -2,10 +2,11 @@
 
 Counterpart of cosmos_predict2_tpu/inference/pipeline.py::Video2WorldInference
 with ``streaming_vae=True``: uint8 clip -> streaming VAE encode -> UniPC with
-batched CFG and FRAME_REPLACE conditioning -> streaming VAE decode. Input
-prep follows the reference: an image becomes frame 0 of a zero video; a
-video contributes its last 4(k-1)+1 frames, padded with its last frame.
-The DMD2 sampler and autoregressive mode wait for later ports.
+batched CFG and FRAME_REPLACE conditioning (or, with ``sampler="dmd2"``, the
+distilled 4-step TrigFlow sampler without CFG) -> streaming VAE decode.
+Input prep follows the reference: an image becomes frame 0 of a zero video;
+a video contributes its last 4(k-1)+1 frames, padded with its last frame.
+Autoregressive mode waits for a later port.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from cosmos_predict2_tpu_torch.conditioning.conditioner import DataType, make_condition
+from cosmos_predict2_tpu_torch.models.distillation import DistillationConfig, DistillationModel
 from cosmos_predict2_tpu_torch.models.video2world import RFModelConfig, Video2WorldModel
 from cosmos_predict2_tpu_torch.networks.dit import MiniTrainDIT
 from cosmos_predict2_tpu_torch.tokenizers.wan_vae import WanVAE, WanVAEConfig
@@ -114,6 +116,7 @@ class Video2WorldInference:
         self.net = net
         self.vae = vae
         self.model = Video2WorldModel(setup.model_config, net)
+        self.distilled = DistillationModel(DistillationConfig(model=setup.model_config))
         self.text_encoder = text_encoder
         self.device = next(net.parameters()).device
         self.last_timings: dict[str, float] = {}
@@ -137,7 +140,10 @@ class Video2WorldInference:
         return None if a is None else torch.as_tensor(a).to(self.device)
 
     def _run_streaming(self, video_u8, text_emb, neg_text_emb, noise, guidance, num_steps, num_conditional_frames,
-                       pixel_format="float") -> torch.Tensor:
+                       pixel_format="float", sampler="unipc") -> torch.Tensor:
+        """Encode, sample, decode; ``sampler="dmd2"`` samples with the
+        distilled few-step TrigFlow loop (``num_steps`` of its times, no
+        CFG: the guidance and negative prompt are not used)."""
         times: dict[str, float] = {}
         t0 = time.perf_counter()
         clip = torch.tensor(video_u8).to(self.device).permute(0, 2, 3, 4, 1)
@@ -146,14 +152,18 @@ class Video2WorldInference:
         _sync(self.device)
         t1 = time.perf_counter()
         condition = make_condition(self._as_device(text_emb), data_type=DataType.VIDEO).replace(gt_frames=gt_latents)
-        samples = self.model.generate(
-            noise,
-            condition,
-            guidance=guidance,
-            num_steps=num_steps,
-            num_conditional_frames=num_conditional_frames,
-            negative_text_embeddings=self._as_device(neg_text_emb),
-        )
+        if sampler == "dmd2":
+            samples = self.distilled.generate(self.net, noise, condition, num_steps=num_steps,
+                                              num_conditional_frames=num_conditional_frames)
+        else:
+            samples = self.model.generate(
+                noise,
+                condition,
+                guidance=guidance,
+                num_steps=num_steps,
+                num_conditional_frames=num_conditional_frames,
+                negative_text_embeddings=self._as_device(neg_text_emb),
+            )
         if not torch.isfinite(samples).all():
             raise FloatingPointError("sampling produced non-finite latents")
         _sync(self.device)
@@ -182,17 +192,23 @@ class Video2WorldInference:
         num_conditional_frames: int = 1,
         seed: int = 1,
         pixel_format: str = "float",
+        sampler: str = "unipc",
     ) -> np.ndarray:
         """(1, 3, T, H, W) uint8 -> (T, H, W, 3) float in [-1, 1] (default)
         or uint8 [0, 255] with ``pixel_format="uint8"`` (quantized on the
-        device)."""
+        device). ``sampler``: "unipc" (CFG) or "dmd2" (the distilled
+        few-step path: min(num_steps, 4) steps, no CFG)."""
         if pixel_format not in ("float", "uint8"):
             raise ValueError(f"unknown pixel_format {pixel_format!r}")
+        if sampler not in ("unipc", "dmd2"):
+            raise ValueError(f"unknown sampler {sampler!r}")
         mc = self.setup.model_config
         _, _, T, H, W = video_u8.shape
         noise = arch_invariant_rand((1, mc.state_ch, 1 + (T - 1) // 4, H // 8, W // 8), seed=seed, device=self.device)
+        if sampler == "dmd2":
+            num_steps = min(num_steps, len(self.distilled.config.selected_sampling_time))
         frames = self._run_streaming(
-            video_u8, text_emb, neg_text_emb, noise, guidance, num_steps, num_conditional_frames, pixel_format
+            video_u8, text_emb, neg_text_emb, noise, guidance, num_steps, num_conditional_frames, pixel_format, sampler
         )
         return self._to_pixel_format(frames)[0]
 

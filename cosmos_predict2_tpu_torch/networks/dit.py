@@ -418,10 +418,14 @@ class MiniTrainDIT(nn.Module):
         padding_mask: Optional[torch.Tensor] = None,
         kv_caches: Optional[list] = None,
         t_start: int = 0,
+        intermediate_feature_ids: Optional[tuple[int, ...]] = None,
     ):
         """Returns the output (B, C, T, H, W); with ``kv_caches`` (one per
         block) it runs x as the new frame block at absolute latent frame
-        ``t_start`` against the caches and returns (output, caches)."""
+        ``t_start`` against the caches and returns (output, caches). With
+        ``intermediate_feature_ids`` (the GAN head's taps) it returns
+        (output, [the output of each listed block, in block order, as (B,
+        L, model_channels)])."""
         cfg = self.cfg
         B, C, T, H, W = x_B_C_T_H_W.shape
         ps, pt = cfg.patch_spatial, cfg.patch_temporal
@@ -454,6 +458,7 @@ class MiniTrainDIT(nn.Module):
 
         remat = cfg.remat == "block" and torch.is_grad_enabled() and kv_caches is None
         new_caches = None if kv_caches is None else []
+        intermediates = []
         for i, block in enumerate(self.blocks):
             if kv_caches is not None:
                 x, cache = block(x, emb, crossattn_emb, rope_angles, adaln_lora, kv_cache=kv_caches[i])
@@ -462,13 +467,19 @@ class MiniTrainDIT(nn.Module):
                 x = checkpoint(block, x, emb, crossattn_emb, rope_angles, adaln_lora, use_reentrant=False)
             else:
                 x = block(x, emb, crossattn_emb, rope_angles, adaln_lora)
+            if intermediate_feature_ids and i in intermediate_feature_ids:
+                intermediates.append(x.reshape(B, -1, cfg.model_channels))
 
         x = self.final_layer(x, emb, adaln_lora)
         # B T H W (p1 p2 t C) -> B C (T t) (H p1) (W p2)
         x = x.reshape(B, Tt, Hp, Wp, ps, ps, pt, cfg.out_channels)
         x = x.permute(0, 7, 1, 6, 2, 4, 3, 5)
         x = x.reshape(B, cfg.out_channels, Tt * pt, Hp * ps, Wp * ps)
-        return x if kv_caches is None else (x, new_caches)
+        if kv_caches is not None:
+            return x, new_caches
+        if intermediate_feature_ids:
+            return x, intermediates
+        return x
 
 
 @torch.no_grad()

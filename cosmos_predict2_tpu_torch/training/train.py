@@ -34,15 +34,31 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
+def mock_latent_batches(data_config, vae, device: torch.device):
+    """Endless (latents (B, C, T, H, W) fp32, condition) batches: mock
+    clips of ``data_config`` encoded by the exact streaming VAE encode
+    under no_grad, with their text embeddings and fps."""
+    from cosmos_predict2_tpu_torch.conditioning.conditioner import make_condition
+    from cosmos_predict2_tpu_torch.data.mock import MockDataLoader
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import encode_streaming
+
+    for batch in MockDataLoader(data_config):
+        clip = torch.from_numpy(batch["video"]).to(device).permute(0, 2, 3, 4, 1)  # (B, T, H, W, 3) uint8
+        with torch.no_grad():
+            latents = encode_streaming(vae, clip, pixel_format="uint8")
+        latents = latents.permute(0, 4, 1, 2, 3).float()  # (B, C, T, H, W)
+        cond = make_condition(
+            torch.from_numpy(batch["t5_text_embeddings"]).to(device), fps=torch.from_numpy(batch["fps"]).to(device)
+        ).replace(gt_frames=latents)
+        yield latents, cond
+
+
 def launch(config, ckpt_dir: Optional[str] = None, device: str = "cuda", callbacks: Optional[list] = None):
     """Train ``config`` on ``device``; returns the final TrainState. Extra
     ``callbacks`` run after the trainer's own logging callback."""
-    from cosmos_predict2_tpu_torch.conditioning.conditioner import make_condition
-    from cosmos_predict2_tpu_torch.data.mock import MockDataLoader
     from cosmos_predict2_tpu_torch.models.video2world import Video2WorldModel
     from cosmos_predict2_tpu_torch.networks.dit import build_dit
     from cosmos_predict2_tpu_torch.tokenizers.wan_vae import build_vae
-    from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import encode_streaming
     from cosmos_predict2_tpu_torch.training.checkpointing import Checkpointer
     from cosmos_predict2_tpu_torch.training.trainer import IterSpeedCallback, Trainer
     from cosmos_predict2_tpu_torch.utils.flags import SMOKE
@@ -56,7 +72,6 @@ def launch(config, ckpt_dir: Optional[str] = None, device: str = "cuda", callbac
     net = build_dit(config.model.net, device, seed=trainer_cfg.seed, trainable=True)
     model = Video2WorldModel(config.model, net)
     vae = build_vae(config.tokenizer, device, seed=trainer_cfg.seed + 1)
-    loader = MockDataLoader(config.data_train)
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
     trainer = Trainer(trainer_cfg, model, callbacks=[IterSpeedCallback(trainer_cfg.logging_iter), *(callbacks or [])],
                       checkpointer=ckpt)
@@ -68,18 +83,7 @@ def launch(config, ckpt_dir: Optional[str] = None, device: str = "cuda", callbac
         start_iteration = state.step
         log.info(f"resumed from iteration {start_iteration}")
 
-    def batches():
-        for batch in loader:
-            clip = torch.from_numpy(batch["video"]).to(device).permute(0, 2, 3, 4, 1)  # (B, T, H, W, 3) uint8
-            with torch.no_grad():
-                latents = encode_streaming(vae, clip, pixel_format="uint8")
-            latents = latents.permute(0, 4, 1, 2, 3).float()  # (B, C, T, H, W)
-            cond = make_condition(
-                torch.from_numpy(batch["t5_text_embeddings"]).to(device), fps=torch.from_numpy(batch["fps"]).to(device)
-            ).replace(gt_frames=latents)
-            yield latents, cond
-
-    return trainer.train(state, batches(), start_iteration=start_iteration)
+    return trainer.train(state, mock_latent_batches(config.data_train, vae, device), start_iteration=start_iteration)
 
 
 def main(argv=None) -> int:

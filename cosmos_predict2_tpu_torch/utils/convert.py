@@ -6,7 +6,8 @@ the reference torch checkpoint's names and layouts, so a parameter tree of
 the JAX package (as NumPy arrays) becomes a ``state_dict`` that loads with
 ``strict=True``. Flax kernels (in, out) become Linear weights (out, in);
 DHWIO conv weights become OIDHW, HWIO become OIHW; RMS_norm gammas regain
-their (C, 1, 1, 1) shape, (C, 1, 1) in the attention blocks.
+their (C, 1, 1, 1) shape, (C, 1, 1) in the attention blocks. The DMD2
+discriminator head's ``Dense`` layers keep their names.
 """
 
 from __future__ import annotations
@@ -62,6 +63,14 @@ def jax_dit_params_to_torch(params_np: Mapping[str, Any], cfg) -> dict[str, torc
     if n_blocks != cfg.num_blocks:
         raise ValueError(f"parameter tree has {n_blocks} blocks, config expects {cfg.num_blocks}")
     return sd
+
+
+def jax_discriminator_params_to_torch(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX DiscriminatorHead params -> the port's DiscriminatorHead state
+    dict: ``{name}.kernel`` (in, out) -> ``{name}.weight`` (out, in),
+    ``{name}.bias`` as it is."""
+    return {f"{path[0]}.{'weight' if path[1] == 'kernel' else path[1]}": _tensor(a.T if path[1] == "kernel" else a)
+            for path, a in _flatten(_params(params_np))}
 
 
 # ------------------------------- VAE -------------------------------

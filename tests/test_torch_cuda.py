@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the card,
-the DiT's gradients through them (dense and sparse blocks), and the causal
-DiT's streaming loop through the cache-decode kernels K5 and K6.
+the DiT's gradients through them (dense and sparse blocks), the causal
+DiT's streaming loop through the cache-decode kernels K5 and K6, and the
+fused forward-mode kernel K9 under torch.func.jvp and forward_ad.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 no JAX, so it also runs where only PyTorch is installed, with
@@ -27,6 +28,11 @@ from cosmos_predict2_tpu_torch.ops.flash_attention import (
     kv_cache_window_plain,
 )
 from cosmos_predict2_tpu_torch.ops import neighborhood_attention as na
+from cosmos_predict2_tpu_torch.ops.flash_attention_jvp import (
+    flash_attention_fwdmode,
+    flash_attention_jvp,
+    flash_attention_jvp_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -337,3 +343,63 @@ def test_streaming_runs_through_the_cache_kernels_on_cuda(cuda, window):
     cached = "flash_attention_kv_cache_window" if window > 0 else "flash_attention_kv_cache"
     assert c[cached] == c["flash_attention_fwd"] == 2 * (1 + 3 * 3)
     assert out.shape == (1, 16, 4, 16, 16) and torch.isfinite(out).all()
+
+
+# ------------------------- fused forward mode (K9) -------------------------
+
+
+@pytest.mark.parametrize("sq,skv,frame_group,tangents", [
+    (1000, 1000, 0, "qkv"), (333, 200, 0, "qkv"), (1024, 1024, 256, "qkv"), (512, 512, 0, "v"), (300, 300, 100, "qk"),
+])
+def test_jvp_kernel_matches_plain_on_cuda(cuda, sq, skv, frame_group, tangents):
+    """K9's (o, do) against its plain version; skv 200 has a kv tail, "v"
+    the dv-only tangents of time-derivative losses (dq = dk = 0)."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((1, s, 4, 128), generator=gen, device=cuda).bfloat16() for s in (sq, skv, skv))
+    dq, dk, dv = (torch.randn(x.shape, generator=gen, device=cuda).bfloat16() if name in tangents
+                  else torch.zeros_like(x) for name, x in zip("qkv", (q, k, v)))
+    before = flash_attention_jvp.launches
+    o, do = flash_attention_jvp(q, k, v, dq, dk, dv, frame_group)
+    torch.cuda.synchronize()
+    assert flash_attention_jvp.launches == before + 1
+    ref_o, ref_do = flash_attention_jvp_plain(q, k, v, dq, dk, dv, frame_group)
+    assert torch.isfinite(do.float()).all()
+    assert _rel(o, ref_o) < 1e-2 and _rel(do, ref_do) < 1e-2
+
+
+def test_fwdmode_launches_k1_and_k9_once_under_jvp_on_cuda(cuda):
+    """torch.func.jvp and forward_ad each launch one K1 (the primal) and
+    one K9 (the tangent), and match the plain version."""
+    import torch.autograd.forward_ad as fwAD
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, dq, dk, dv = (torch.randn((1, 640, 2, 128), generator=gen, device=cuda).bfloat16() for _ in range(6))
+    ref_o, ref_do = flash_attention_jvp_plain(q, k, v, dq, dk, dv)
+    counts = lambda: (flash_attention_fwd.launches, flash_attention_jvp.launches)  # noqa: E731
+    before = counts()
+    o, do = torch.func.jvp(flash_attention_fwdmode, (q, k, v), (dq, dk, dv))
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1)
+    assert _rel(o, ref_o) < 1e-2 and _rel(do, ref_do) < 1e-2
+    with fwAD.dual_level():
+        out = flash_attention_fwdmode(*(fwAD.make_dual(p, t) for p, t in zip((q, k, v), (dq, dk, dv))))
+        o2, do2 = fwAD.unpack_dual(out)
+        torch.cuda.synchronize()
+    assert counts() == (before[0] + 2, before[1] + 2)
+    assert _rel(o2, ref_o) < 1e-2 and _rel(do2, ref_do) < 1e-2
+
+
+def test_jvp_kernel_raises_on_what_it_does_not_take(cuda):
+    x = torch.zeros((1, 64, 2, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention_jvp(*(torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device=cuda),) * 6)  # head_dim 64
+    with pytest.raises(TypeError):
+        flash_attention_jvp(*(x.half(),) * 6)  # fp16 primals
+    with pytest.raises(ValueError):
+        flash_attention_jvp(x, x, x, x, x[:, :32], x)  # dk shaped unlike k
+    with pytest.raises(ValueError):
+        flash_attention_jvp(x, x, x, x, x, x.transpose(1, 2).contiguous().transpose(1, 2))  # not contiguous
+    with pytest.raises(ValueError):
+        flash_attention_jvp(x, x, x, x, x, x, frame_group=-1)
+    o, do = flash_attention_jvp(x, x, x, x.float(), x.float(), x.float())  # tangents take the primal's dtype
+    assert o.dtype == do.dtype == torch.bfloat16

@@ -116,7 +116,9 @@ def test_dit_bf16_forward_is_close_to_fp32():
 
 
 @pytest.mark.parametrize("experiment", ["predict2_video2world_2b_rectified_flow", "error-free_mock_data_smoke",
-                                        "predict2_video2world_2b_sparse", "predict2_interactive_2b_causal"])
+                                        "predict2_video2world_2b_sparse", "predict2_interactive_2b_causal",
+                                        "dmd2_trigflow_distill_cosmos_predict2_2B_bidirectional",
+                                        "dmd2_trigflow_distill_cosmos_predict2_2B_bidirectional_w_discriminator"])
 def test_config_fields_match_jax(experiment):
     """Every field of the port's config equals the JAX package's, and the
     JAX fields the port lacks are at their dense, plain defaults."""

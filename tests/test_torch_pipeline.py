@@ -6,7 +6,9 @@ and must be bit-equal; the sampler loop on a toy velocity agrees to fp32
 rounding (1e-6); the whole slice (streaming VAE encode, 2 UniPC steps with
 batched CFG through a 2-block DiT, streaming decode) agrees to ~2e-5 on
 [-1, 1] pixels, checked at 2e-3 max-abs; uint8 outputs may differ by one
-level where a value sits on a rounding boundary.
+level where a value sits on a rounding boundary. The distilled dmd2 slice
+(2 to 4 TrigFlow steps, no CFG) agrees to <= 2.4e-5, checked at the same
+2e-3.
 """
 
 import dataclasses
@@ -168,6 +170,21 @@ def test_sparse_slice_matches_jax_pipeline():
     assert np.abs(got - want).max() <= 2e-3
 
 
+@pytest.mark.parametrize("k,num_steps", [(1, 4), (2, 9), (0, 2)])
+def test_dmd2_slice_matches_jax_pipeline(pipes, k, num_steps):
+    """The distilled path (JAX ``_run_dmd2``): the same student weights and
+    noise, min(num_steps, 4) TrigFlow steps without CFG, streaming VAE
+    encode and decode; tolerance as the UniPC slice's."""
+    jpipe, pipe = pipes
+    video, emb = _request(20 + k)
+    want = jpipe.generate_vid2world(video, jnp.asarray(emb), num_steps=num_steps, num_conditional_frames=k,
+                                    sampler="dmd2")
+    got = pipe.generate_vid2world(video, emb, num_steps=num_steps, num_conditional_frames=k, sampler="dmd2")
+    assert got.shape == want.shape == (5, SIZE, SIZE, 3)
+    assert np.abs(got - want).max() <= 2e-3
+    assert pipe.last_timings["denoise_step_s"] == pytest.approx(pipe.last_timings["denoise_s"] / min(num_steps, 4))
+
+
 def test_input_prep_matches_jax(tmp_path):
     """Image -> frame 0 of a zero clip; video -> last 4(k-1)+1 frames padded
     with the last; files already at the target size pass unchanged."""
@@ -209,17 +226,36 @@ def test_inference_api_writes_samples(pipes, tmp_path):
     assert len(outputs) == 2 and all(os.path.exists(p) for p in outputs)
     batch = api.generate_batch([dataclasses.replace(args[0], name="b0"), dataclasses.replace(args[0], name="b1", seed=7)])
     assert sorted(batch) == ["b0", "b1"] and all(os.path.exists(p) for p in batch.values())
+    # the distilled sampler serves too: one request at a time, never through the batched UniPC pass
+    (dmd2,) = api.generate([dataclasses.replace(args[1], name="d0", sampler="dmd2", num_steps=4)])
+    assert os.path.exists(dmd2)
+    batched = pipe.generate_vid2world_batch
+    pipe.generate_vid2world_batch = lambda *a, **k: pytest.fail("a dmd2 batch went through the UniPC pass")
+    try:
+        pair = api.generate_batch([dataclasses.replace(args[0], name=f"d{i}", sampler="dmd2", seed=i) for i in (1, 2)])
+    finally:
+        pipe.generate_vid2world_batch = batched
+    assert sorted(pair) == ["d1", "d2"] and all(os.path.exists(p) for p in pair.values())
     with pytest.raises(NotImplementedError):
-        api.generate([dataclasses.replace(args[0], sampler="dmd2")])
+        api.generate([dataclasses.replace(args[0], enable_autoregressive=True)])
+
+
+def _cli_smoke(out_dir, *extra):
+    env = dict(os.environ, COSMOS_SMOKE="1")
+    cmd = [sys.executable, "-m", "cosmos_predict2_tpu_torch.inference.cli", "--experiment=error-free_mock_data_smoke",
+           "--prompt", "a robot", "--output-dir", str(out_dir), "--device", "cpu", *extra]
+    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = proc.stdout.strip().splitlines()[-1]
+    assert out.startswith(str(out_dir)) and os.path.exists(out)
 
 
 def test_cli_smoke_on_cpu(tmp_path):
     """The port's CLI end to end on the CPU: random weights, the plumbing
     config (1024-channel 2-block DiT, dim-16 VAE), COSMOS_SMOKE geometry."""
-    env = dict(os.environ, COSMOS_SMOKE="1")
-    cmd = [sys.executable, "-m", "cosmos_predict2_tpu_torch.inference.cli", "--experiment=error-free_mock_data_smoke",
-           "--prompt", "a robot", "--output-dir", str(tmp_path), "--device", "cpu"]
-    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    out = proc.stdout.strip().splitlines()[-1]
-    assert out.startswith(str(tmp_path)) and os.path.exists(out)
+    _cli_smoke(tmp_path)
+
+
+def test_cli_smoke_dmd2_on_cpu(tmp_path):
+    """The same with ``--sampler dmd2``: the distilled path, 4 steps by default."""
+    _cli_smoke(tmp_path, "--sampler", "dmd2")
