@@ -8,12 +8,16 @@ Phases, each printed with its wall time:
 1. environment: refuses to run without CUDA; prints the card's name and
    power limit (nvidia-smi) and the torch, CUDA and nvcc versions;
 2. build: compiles the hand-written kernels (cosmos_predict2_tpu_torch/csrc)
-   with nvcc for sm_90a;
+   with nvcc for sm_90a; prints K7's and K8's registers, shared memory and
+   spills from ptxas's report and fails on a spill;
 3. kernels: each kernel against its plain PyTorch version (fp32, TF32 off)
    on bf16 inputs at the main paths' shapes, with max-abs and relative-L2
    error, CUDA-event times, the card's bound for the same work and, as a
    yardstick the port never calls, one PyTorch call computing the same
    function (scaled_dot_product_attention forward / backward, conv3d;
+   K7 + K8 against SDPA's backward, which computes dq, dk and dv in one
+   call, at self- and cross-attention, a frame group, 720p and ragged tails
+   on K8's split route, each called twice to show the bits repeat;
    for neighborhood attention SDPA with the boolean window mask, or
    flex_attention with a block mask from the same predicate at 720p);
    K10, K11 and K12 at the sparse config's window at the smoke geometry, at
@@ -219,6 +223,31 @@ def environment() -> str:
     return smi
 
 
+def bwd_kernel_resources() -> dict:
+    """K7's and K8's registers, shared memory and spills from the build's
+    ptxas report (build/cosmos_torch_kernels/build.log); fails on a spill."""
+    from cosmos_predict2_tpu_torch import _build
+
+    report, lib = _build.ptxas_report(), _build.library()
+    out = {}
+    for label, key, dynamic in (
+        ("K7", "flash_attention_bwd_dq_kernel", lib.cosmos_flash_attention_bwd_smem_bytes(0)),
+        ("K8", "flash_attention_bwd_dkv_kernel", lib.cosmos_flash_attention_bwd_smem_bytes(1)),
+        ("K8 sum of split partials", "flash_attention_bwd_dkv_reduce_kernel", 0),
+    ):
+        found = [v for name, v in report.items() if key in name]
+        if len(found) != 1:
+            raise AssertionError(f"ptxas report: {len(found)} entries for {key}")
+        r = dict(found[0], dynamic_smem_bytes=dynamic)
+        log(f"  {label:26s} {r.get('registers')} registers a thread at launch, {r.get('smem_bytes', 0)} bytes static and "
+            f"{dynamic} bytes dynamic shared memory, stack {r.get('stack_bytes')} bytes, spill stores "
+            f"{r.get('spill_stores')} loads {r.get('spill_loads')} bytes")
+        if r.get("spill_stores") or r.get("spill_loads"):
+            raise AssertionError(f"{label} ({key}) spills registers: {r}")
+        out[label] = r
+    return out
+
+
 def check_kernels(results: dict) -> None:
     import torch
 
@@ -227,6 +256,7 @@ def check_kernels(results: dict) -> None:
     from cosmos_predict2_tpu_torch.ops.conv3d import conv3d_causal, conv3d_causal_plain
     from cosmos_predict2_tpu_torch.ops.flash_attention import (
         attention_delta,
+        dkv_split_plan,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
         flash_attention_bwd_plain,
@@ -307,6 +337,7 @@ def check_kernels(results: dict) -> None:
         ("cross B1 Sq5760 Skv512 H16", 5760, 512, 0, None),
         ("self  B1 S5760 H16 frame_group=240", 5760, 5760, 240, None),
         ("self  B1 S84480 H16 (720p, dQ on 1024 rows)", 84480, 84480, 0, 1024),
+        ("tail  B1 Sq5800 Skv333 H16 (ragged tiles, K8 split)", 5800, 333, 0, None),
     ]
     B, H = 1, 16
     for label, Sq, Skv, fg, rows in bwd_cases:
@@ -316,7 +347,12 @@ def check_kernels(results: dict) -> None:
         delta = attention_delta(out, do)
         dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, fg)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, fg)
+        # no atomics: a second call gives the same bits
+        repeat = (flash_attention_bwd_dq(q, k, v, do, lse, delta, fg), *flash_attention_bwd_dkv(q, k, v, do, lse, delta, fg))
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), repeat)):
+            failures.append(f"flash attention backward {label}: two calls differ")
+        del repeat
         if rows is None:
             ref = flash_attention_bwd_plain(q, k, v, out, lse, do, fg)
             errs = [errors(g, r) for g, r in zip((dq, dk, dv), ref)]
@@ -347,15 +383,21 @@ def check_kernels(results: dict) -> None:
         io = 2 * q.numel() + 2 * do.numel() + 2 * k.numel() + 2 * v.numel() + 4 * lse.numel() + 4 * delta.numel()
         bnd_dq = bound(6 * B * H * pairs * 128, io + 2 * q.numel())
         bnd_dkv = bound(8 * B * H * pairs * 128, io + 2 * k.numel() + 2 * v.numel())
-        record("flash_attention_bwd_dq", label, *errs[0], ms_dq, plain_ms, library_ms, bnd_dq)
+        # K7 + K8 against SDPA's backward, which computes dq, dk and dv in one call
+        ratio = (ms_dq + ms_dkv) / library_ms
+        splits = dkv_split_plan(Sq, Skv, H, B, fg, torch.cuda.get_device_properties(dev).multi_processor_count).splits
+        record("flash_attention_bwd_dq", label, *errs[0], ms_dq, plain_ms, library_ms, bnd_dq, pair_over_library=ratio)
         if rows is None:
             dk_err = max(errs[1][0], errs[2][0]), max(errs[1][1], errs[2][1])
-            record("flash_attention_bwd_dkv", label, *dk_err, ms_dkv, plain_ms, library_ms, bnd_dkv)
+            record("flash_attention_bwd_dkv", label, *dk_err, ms_dkv, plain_ms, library_ms, bnd_dkv, splits=splits)
         else:
             log(f"  {'flash_attention_bwd_dkv':24s} {label:44s} timed only: kernel {ms_dkv:9.3f} ms "
                 f"library (dq+dk+dv) {library_ms:9.3f} ms bound {bnd_dkv[0]:.3f} ms ({bnd_dkv[1]})")
             results["flash_attention_bwd_dkv"]["cases"].append(
-                {"case": label, "ms": ms_dkv, "library_ms": library_ms, "bound_ms": bnd_dkv[0], "bound_by": bnd_dkv[1]})
+                {"case": label, "ms": ms_dkv, "library_ms": library_ms, "bound_ms": bnd_dkv[0], "bound_by": bnd_dkv[1],
+                 "splits": splits})
+        log(f"  {'K7 + K8':24s} {label:44s} {ms_dq + ms_dkv:9.3f} ms against SDPA's backward {library_ms:9.3f} ms: "
+            f"{ratio:.2f}x (K8 splits {splits})")
         del q, k, v, do, out, lse, delta, dq, dk, dv
         torch.cuda.empty_cache()
 
@@ -1636,6 +1678,7 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         _build.library()
         log(f"  kernels built and loaded in {time.perf_counter() - t:.2f} s: {_build.library_path()}")
+        bwd_kernel_resources()
     results: dict = {}
     with Phase("kernels vs plain versions"):
         check_kernels(results)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,7 +29,7 @@ SOURCES = (
     "flash_attention_fwd.cu", "flash_attention_bwd.cu", "flash_attention_kv_cache.cu", "conv3d_causal.cu",
     "neighborhood_attention.cu", "flash_attention_jvp.cu",
 )
-HEADERS = ("mma_bf16.cuh",)
+HEADERS = ("mma_bf16.cuh", "sm90_bf16.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cosmos_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -109,8 +110,10 @@ def library() -> ctypes.CDLL:
             lib.cosmos_flash_attention_fwd.restype = i
             lib.cosmos_flash_attention_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, p]
             lib.cosmos_flash_attention_bwd_dq.restype = i
-            lib.cosmos_flash_attention_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, p]
+            lib.cosmos_flash_attention_bwd_dkv.argtypes = [p] * 10 + [i, i, i, i, i, i, f, p]
             lib.cosmos_flash_attention_bwd_dkv.restype = i
+            lib.cosmos_flash_attention_bwd_smem_bytes.argtypes = [i]
+            lib.cosmos_flash_attention_bwd_smem_bytes.restype = i
             lib.cosmos_flash_attention_jvp.argtypes = [p] * 8 + [i, i, i, i, i, f, p]
             lib.cosmos_flash_attention_jvp.restype = i
             lib.cosmos_flash_kv_cache.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
@@ -128,6 +131,29 @@ def library() -> ctypes.CDLL:
             lib.cosmos_na_bwd_dkv.restype = i
             _lib = lib
         return _lib
+
+
+def ptxas_report(log: str | None = None) -> dict[str, dict[str, int]]:
+    """Per kernel entry point (mangled name) of the last build, what
+    ``-Xptxas=-v`` reported: registers, static shared memory, stack frame
+    and spill bytes. Reads ``build.log`` unless given its text."""
+    text = (BUILD_DIR / "build.log").read_text() if log is None else log
+    report: dict[str, dict[str, int]] = {}
+    current = None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            current = report.setdefault(m.group(1), {})
+            continue
+        if current is None:
+            continue
+        for key, pattern in (("stack_bytes", r"(\d+) bytes stack frame"), ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"), ("registers", r"Used (\d+) registers"),
+                             ("smem_bytes", r"(\d+) bytes smem")):
+            found = re.search(pattern, line)
+            if found:
+                current[key] = int(found.group(1))
+    return report
 
 
 def check(err: int, name: str) -> None:

@@ -5,354 +5,528 @@
 // ::_dkv_kernel (the Pallas TPU kernels driven by _bwd). Same contract:
 // BSHD q/k/v/dO/dQ/dK/dV, head_dim 128, scale 1/sqrt(128), the forward's
 // row logsumexp `lse` (B, H, Sq) and delta = rowsum(dO * O) (B, H, Sq),
-// both fp32. With P = exp(scale * Q K^T - lse), dP = dO V^T and
-// dS = P * (dP - delta):
+// both fp32 and computed outside. With P = exp(scale * Q K^T - lse),
+// dP = dO V^T and dS = P * (dP - delta):
 //   dQ = scale * dS K,   dK = scale * dS^T Q,   dV = P^T dO.
 // P is rounded to bf16 before P^T dO and dS before dS K and dS^T Q, as the
 // TPU kernels do. Masked entries (kv tail, q tail, frame-block mask: key i
-// visible to query j iff i / frame_group <= j / frame_group) take the
-// finite logit -1e30 and an explicit P = 0, so they contribute exactly 0
-// whatever lse holds; the tails of the tiles in shared memory are
-// zero-filled so 0 * garbage cannot inject NaN. Fully masked tiles are
-// skipped, the bound of each TPU kernel.
+// visible to query j iff i / frame_group <= j / frame_group) take an
+// explicit P = 0 (the finite logit -1e30 of the plain version), so they
+// contribute exactly 0 whatever lse holds; TMA fills rows past the sequence
+// with zeros, so 0 * garbage cannot inject NaN. Fully masked tiles are
+// skipped, the bound of each TPU kernel. No atomics: results are
+// deterministic.
 //
 // What bounds them on the H100: K7 does 3 matrix products of 2*D FLOPs per
-// (q, kv) pair (S, dP, dS K) and K8 four (S^T, dP^T, P^T dO, dS^T Q), against
-// 2*D*2 bytes per q or kv row read once: at the main path's 5,760 tokens
-// (and 512 text tokens for cross-attention) that is hundreds to thousands
-// of FLOP per byte, far above the card's ~295 FLOP/byte line, so the bound
-// is the tensor-core rate (6 and 8 * B*H*Sq*Skv*D FLOPs at 989 TFLOP/s).
+// visible (q, kv) pair (S, dP, dS K) and K8 four (S^T, dP^T, P^T dO,
+// dS^T Q), against 2*D*2 bytes per q or kv row read once: hundreds to
+// thousands of FLOP per byte at the main path's 5,760 tokens (512 text
+// tokens for cross-attention), far above the card's ~295 FLOP/byte line,
+// so the bound is the tensor-core rate: 6 and 8 * B*H*pairs*D FLOPs at
+// 989 TFLOP/s.
 //
-// Design (first, simple version). The TPU kernels carry dq_acc, dk_acc and
-// dv_acc across a sequential grid axis in VMEM; GPU blocks run in no order,
-// so that axis becomes a loop inside one block and the accumulators live in
-// registers. Two kernels, no atomics: results are deterministic.
-// - K7: one block of 4 warps per (64-row q tile, head, batch). Q and dO tiles
-//   sit in shared memory; a loop walks 64-row K/V tiles. Each warp owns 16 q
-//   rows: S = Q K^T and dP = dO V^T on the tensor cores (mma.sync m16n8k16),
-//   P and dS in fp32 registers, dS rounded to bf16 and reused from the
-//   accumulator registers as the A operand of dQ += dS K (K as the B operand
-//   by a transposed pair load from shared memory); 16 x 128 fp32 dQ per warp.
-// - K8: one block of 4 warps per (64-row kv tile, head, batch). K and V tiles
-//   sit in shared memory; a loop walks 32-row Q/dO tiles (with lse and delta
-//   staged beside them). Each warp owns 16 kv rows and computes S^T = K Q^T
-//   and dP^T = V dO^T directly with the kv rows as the M dimension, as the
-//   TPU kernel does, so P^T and dS^T land in the accumulator layout and feed
-//   dV += P^T dO and dK += dS^T Q as A operands straight from registers; dO
-//   and Q are the B operands, read k-major by a transposed pair load. The q
-//   tile is 32 rows so that dK and dV (2 x 16 x 128 fp32 per warp) and the
-//   S^T / dP^T tiles fit the register file without spilling.
-// wgmma, TMA, ldmatrix and warp specialisation are later work.
+// Design (Hopper). Each kernel is warp-specialised: one producer warpgroup
+// (setmaxnreg down to 24; one thread issues TMA loads) and two consumer
+// warpgroups (setmaxnreg up to 240) that run wgmma. What the first version
+// (mma.sync m16n8k16, 4 warps) lacked and what this one does about it:
+// 1. Transposed operands: every tile lands in shared memory by TMA with the
+//    128-byte swizzle, and wgmma reads it through a descriptor, K-major for
+//    Q K^T-style products and MN-major (the transpose flag) for dS K,
+//    P^T dO and dS^T Q: no scalar loads, no bank conflicts.
+// 2. Overlap: the streamed operand goes through a ring of kStages buffers,
+//    each with a "full" mbarrier (TMA transaction bytes) and an "empty" one
+//    (one arrival per consumer warp); loads for the next tiles are in flight
+//    while the consumers compute, and no __syncthreads is left in the loop.
+// 3. Tensor cores: wgmma m64nNk16, asynchronous, with the fp32 products in
+//    registers; P^T, dS^T and dS are rounded to bf16 in registers and fed
+//    back as the register A operand (the accumulator layout is the A
+//    fragment layout), never touching shared memory.
+// 4. Work per synchronisation and occupancy: each consumer warpgroup owns
+//    64 rows and each step is a 64 x 64 x 128 product pair plus a 64 x 128
+//    x 64 pair, against 16 x 32 x 128 per warp before; one 384-thread CTA
+//    per SM.
+// - K7: one CTA per (128 q rows, head, batch). Q, dO, lse and delta are
+//   loaded once; K and V stream in 64-row tiles. S = Q K^T and dP = dO V^T
+//   (m64n64k16, both operands from shared memory), dS masked in registers,
+//   dQ += dS K (m64n128k16, dS from registers, K MN-major). 128-row kv
+//   tiles (twice the S and dP registers) and a third ring stage were no
+//   faster at any shape scripts/flash_bwd_variants.py times (PERF.md §6),
+//   so K7 takes 64 rows and both kernels two stages.
+// - K8: one CTA per (128 kv rows, head, batch, q split). K and V are loaded
+//   once; Q, dO, lse and delta stream in 64-row tiles. S^T = K Q^T and
+//   dP^T = V dO^T put kv rows on the M side, so P^T and dS^T are the A
+//   operands of dV += P^T dO and dK += dS^T Q (dO and Q MN-major); dK and
+//   dV are 2 x 64 x 128 fp32 per warpgroup. When the (kv tile, head, batch)
+//   grid is under one wave of the card, the wrapper splits each kv tile's q
+//   range over `splits` CTAs (ops/flash_attention.py::dkv_split_plan, the
+//   same chunks as dkv_q_chunk below); each writes fp32 partials and a
+//   second kernel sums them in split order, scales dK and casts.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include <algorithm>
+
+#include "sm90_bf16.cuh"
 
 namespace {
 
-using cosmos_kernels::ld_pair;
-using cosmos_kernels::mma_16816;
-using cosmos_kernels::pack_float_pair;
-using cosmos_kernels::pack_pair;
+using namespace cosmos_sm90;
 
 constexpr int kD = 128;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kLds = kD + 8;  // padded shared-memory row, in bf16 elements
-constexpr float kNegInf = -1e30f;
+constexpr int kConsumerThreads = 256;          // two warpgroups
+constexpr int kThreads = kConsumerThreads + 128;  // plus the producer warpgroup
+constexpr int kConsumerWarps = kConsumerThreads / 32;
+constexpr int kStages = 2;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
 
-// K7 tiles
-constexpr int kDqBlockQ = 64;
+// a tile of R rows x 128 columns as two swizzled 64-column boxes of R x 128 bytes
+template <int R>
+struct Tile {
+  static constexpr int kBoxBytes = R * 128;
+  static constexpr int kBytes = 2 * kBoxBytes;
+};
+
+// K7: 128 q rows (two warpgroups of 64), 64-row kv tiles
+constexpr int kDqBlockQ = 128;
 constexpr int kDqBlockKV = 64;
-constexpr int kDqSmemBytes = (2 * kDqBlockQ + 2 * kDqBlockKV) * kLds * 2;
-// K8 tiles
-constexpr int kDkvBlockKV = 64;
-constexpr int kDkvBlockQ = 32;
-constexpr int kDkvSmemBytes = (2 * kDkvBlockKV + 2 * kDkvBlockQ) * kLds * 2 + 2 * kDkvBlockQ * 4;
+struct DqSmem {
+  alignas(1024) unsigned char q[Tile<kDqBlockQ>::kBytes];
+  alignas(1024) unsigned char dout[Tile<kDqBlockQ>::kBytes];
+  alignas(1024) unsigned char k[kStages][Tile<kDqBlockKV>::kBytes];
+  alignas(1024) unsigned char v[kStages][Tile<kDqBlockKV>::kBytes];
+  uint64_t q_full;
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+};
 
-// rows [row0, row0 + rows) of a (S, H, D) sequence at head h into a padded
-// shared tile; rows past `limit` are zero
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src_bh, size_t seq_stride,
-                                           int row0, int rows, int limit, int tid) {
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = tid; i < rows * (kD / 8); i += kThreads) {
-    const int r = i / (kD / 8);
-    const int c = (i % (kD / 8)) * 8;
-    uint4 val = zero;
-    if (row0 + r < limit) val = *reinterpret_cast<const uint4*>(src_bh + static_cast<size_t>(row0 + r) * seq_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * kLds + c) = val;
-  }
+// K8: 128 kv rows (two warpgroups of 64), 64-row q tiles
+constexpr int kDkvBlockKV = 128;
+constexpr int kDkvBlockQ = 64;
+struct DkvSmem {
+  alignas(1024) unsigned char k[Tile<kDkvBlockKV>::kBytes];
+  alignas(1024) unsigned char v[Tile<kDkvBlockKV>::kBytes];
+  alignas(1024) unsigned char q[kStages][Tile<kDkvBlockQ>::kBytes];
+  alignas(1024) unsigned char dout[kStages][Tile<kDkvBlockQ>::kBytes];
+  float lse[kStages][kDkvBlockQ];  // lse * log2(e)
+  float delta[kStages][kDkvBlockQ];
+  uint64_t kv_full;
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+};
+
+// dynamic shared memory rounded up to the 1,024-byte swizzle atom
+template <typename T>
+__device__ __forceinline__ T& smem_storage(unsigned char* raw) {
+  const uint32_t addr = smem_addr(raw);
+  return *reinterpret_cast<T*>(raw + (((addr + 1023) & ~1023u) - addr));
 }
 
-// the A fragment (16 x 16, k-step kk over D) of the 16 rows starting at `row`
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int row, int kk, int g, int t) {
-  const __nv_bfloat16* p = tile + (row + g) * kLds + kk * 16 + 2 * t;
-  a[0] = ld_pair(p);
-  a[1] = ld_pair(p + 8 * kLds);
-  a[2] = ld_pair(p + 8);
-  a[3] = ld_pair(p + 8 * kLds + 8);
+template <int R>
+__device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int row, int h,
+                                         int b) {
+  tma_load_4d(dst, map, bar, 0, h, row, b);
+  tma_load_4d(dst + Tile<R>::kBoxBytes, map, bar, 64, h, row, b);
 }
 
-__device__ __forceinline__ bool frame_visible(int key, int query, int frame_group) {
-  return frame_group <= 0 || (key / frame_group) <= (query / frame_group);
+// the q tiles [begin, end) (of 64 rows) that split `split` of kv tile
+// `kv_tile` covers: the tiles from the first one a query of which sees the
+// tile's first key, cut into `splits` runs of equal length (the last ones may
+// be short or empty)
+__device__ __forceinline__ void dkv_q_chunk(int kv_tile, int split, int splits, int Sq, int frame_group, int& begin,
+                                            int& end) {
+  const int q_tiles = (Sq + kDkvBlockQ - 1) / kDkvBlockQ;
+  int first = 0;
+  if (frame_group > 0) first = (kv_tile * kDkvBlockKV / frame_group) * frame_group / kDkvBlockQ;
+  const int n = q_tiles > first ? q_tiles - first : 0;
+  const int per = (n + splits - 1) / splits;
+  begin = min(first + split * per, q_tiles);
+  end = min(begin + per, q_tiles);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // ------------------------------------ K7 ------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-flash_attention_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                              const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
                               const float* __restrict__ lse, const float* __restrict__ delta,
                               __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int H, int frame_group, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sdO = sQ + kDqBlockQ * kLds;
-  __nv_bfloat16* sK = sdO + kDqBlockQ * kLds;
-  __nv_bfloat16* sV = sK + kDqBlockKV * kLds;
-
+  extern __shared__ unsigned char smem_raw[];
+  DqSmem& sm = smem_storage<DqSmem>(smem_raw);
   const int q0 = blockIdx.x * kDqBlockQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-
-  const size_t seq_stride = static_cast<size_t>(H) * kD;
-  const size_t q_off = (static_cast<size_t>(b) * Sq * H + h) * kD;
-  const size_t kv_off = (static_cast<size_t>(b) * Skv * H + h) * kD;
-
-  stage_rows(sQ, q + q_off, seq_stride, q0, kDqBlockQ, Sq, tid);
-  stage_rows(sdO, dout + q_off, seq_stride, q0, kDqBlockQ, Sq, tid);
-
-  const int row0 = q0 + warp * 16 + g;  // query row of c[0], c[1]; row0 + 8 for c[2], c[3]
-  const int rows[2] = {row0, row0 + 8};
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool valid = rows[r] < Sq;
-    const size_t idx = (static_cast<size_t>(b) * H + h) * Sq + (valid ? rows[r] : 0);
-    lse_r[r] = valid ? lse[idx] : 0.f;
-    delta_r[r] = valid ? delta[idx] : 0.f;
-  }
-
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int n = 0; n < kD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
 
   // frame-causal: kv tiles past the last frame group visible to any row of
   // this q tile are skipped (the TPU kernel's bound)
   int kv_end = Skv;
   if (frame_group > 0) {
-    const long long q_last = q0 + kDqBlockQ - 1;
-    const long long max_visible = (q_last / frame_group) * frame_group + frame_group;
-    if (max_visible < kv_end) kv_end = static_cast<int>(max_visible);
+    const int q_last = min(q0 + kDqBlockQ, Sq) - 1;
+    kv_end = min(Skv, (q_last / frame_group + 1) * frame_group);
   }
+  const int n_tiles = (kv_end + kDqBlockKV - 1) / kDqBlockKV;
 
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kDqBlockKV) {
-    __syncthreads();  // every warp is done with the previous K/V tile (and Q/dO are staged)
-    stage_rows(sK, k + kv_off, seq_stride, kv0, kDqBlockKV, Skv, tid);
-    stage_rows(sV, v + kv_off, seq_stride, kv0, kDqBlockKV, Skv, tid);
-    __syncthreads();
-
-    // ---- S = Q K^T and dP = dO V^T: 16 x 64 per warp ----
-    float s[kDqBlockKV / 8][4], dp[kDqBlockKV / 8][4];
-#pragma unroll
-    for (int j = 0; j < kDqBlockKV / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumerWarps);
     }
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a(qa, sQ, warp * 16, kk, g, t);
-      load_a(da, sdO, warp * 16, kk, g, t);
-#pragma unroll
-      for (int j = 0; j < kDqBlockKV / 8; ++j) {
-        const int off = (j * 8 + g) * kLds + kk * 16 + 2 * t;
-        mma_16816(s[j], qa, ld_pair(sK + off), ld_pair(sK + off + 8));
-        mma_16816(dp[j], da, ld_pair(sV + off), ld_pair(sV + off + 8));
-      }
-    }
-
-    // ---- P = exp(scale S - lse) with masks, dS = P (dP - delta), kept in s ----
-#pragma unroll
-    for (int j = 0; j < kDqBlockKV / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kv0 + j * 8 + 2 * t + (e & 1);
-        const int r = e >> 1;
-        const bool visible = col < Skv && frame_visible(col, rows[r], frame_group);
-        const float logit = visible ? s[j][e] * scale : kNegInf;
-        const float p = visible ? __expf(logit - lse_r[r]) : 0.f;
-        s[j][e] = p * (dp[j][e] - delta_r[r]);
-      }
-    }
-
-    // ---- dQ += dS K: dS (bf16) from registers as the A operand ----
-#pragma unroll
-    for (int kk = 0; kk < kDqBlockKV / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_float_pair(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_float_pair(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_float_pair(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_float_pair(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* kp = sK + (kk * 16 + 2 * t) * kLds + g;
-#pragma unroll
-      for (int n = 0; n < kD / 8; ++n) {
-        const __nv_bfloat16* p = kp + n * 8;
-        mma_16816(acc[n], a, pack_pair(p[0], p[kLds]), pack_pair(p[8 * kLds], p[9 * kLds]));
-      }
-    }
+    mbar_fence_init();
   }
+  __syncthreads();
 
+  if (wg == 2) {
+    // ------------------------------ producer ------------------------------
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 0 && lane == 0) {
+      mbar_arrive_expect_tx(&sm.q_full, 2 * Tile<kDqBlockQ>::kBytes);
+      tma_tile<kDqBlockQ>(sm.q, &map_q, &sm.q_full, q0, h, b);
+      tma_tile<kDqBlockQ>(sm.dout, &map_do, &sm.q_full, q0, h, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&sm.full[s], 2 * Tile<kDqBlockKV>::kBytes);
+        tma_tile<kDqBlockKV>(sm.k[s], &map_k, &sm.full[s], it * kDqBlockKV, h, b);
+        tma_tile<kDqBlockKV>(sm.v[s], &map_v, &sm.full[s], it * kDqBlockKV, h, b);
+      }
+    }
+  } else {
+    // ------------------------------ consumers -----------------------------
+    setmaxnreg_inc<kConsumerRegs>();
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const float scale_log2 = scale * kLog2e;
+    int rows[2], kmax[2];
+    float lse2[2], dlt[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= Sq) continue;
-    __nv_bfloat16* drow = dq + q_off + static_cast<size_t>(rows[r]) * seq_stride;
+    for (int r = 0; r < 2; ++r) {
+      rows[r] = q0 + 64 * wg + 16 * warp + g + 8 * r;
+      const bool valid = rows[r] < Sq;
+      const size_t idx = (static_cast<size_t>(b) * H + h) * Sq + (valid ? rows[r] : 0);
+      lse2[r] = valid ? lse[idx] * kLog2e : 0.f;
+      dlt[r] = valid ? delta[idx] : 0.f;
+      kmax[r] = frame_group > 0 ? min(Skv, (rows[r] / frame_group + 1) * frame_group) : Skv;
+    }
+    float acc[64];
 #pragma unroll
-    for (int n = 0; n < kD / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(drow + n * 8 + 2 * t) =
-          pack_float_pair(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    const int wg_off = 64 * wg * 128;  // this warpgroup's 64 rows in each Q / dO box
+
+    mbar_wait(&sm.q_full, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      mbar_wait(&sm.full[s], (it / kStages) & 1);
+
+      // S = Q K^T and dP = dO V^T (64 x 64 per warpgroup)
+      float sc[kDqBlockKV / 2], dp[kDqBlockKV / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int box = (kk / 4);
+        wgmma_ss<0>(sc, kmajor_desc(sm.q + box * Tile<kDqBlockQ>::kBoxBytes + wg_off, kk % 4),
+                              kmajor_desc(sm.k[s] + box * Tile<kDqBlockKV>::kBoxBytes, kk % 4), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int box = (kk / 4);
+        wgmma_ss<0>(dp, kmajor_desc(sm.dout + box * Tile<kDqBlockQ>::kBoxBytes + wg_off, kk % 4),
+                              kmajor_desc(sm.v[s] + box * Tile<kDqBlockKV>::kBoxBytes, kk % 4), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(sc);
+      fence_operands(dp);
+
+      // dS = P (dP - delta), P = exp(scale S - lse) on visible entries, else 0
+      const int kv0 = it * kDqBlockKV;
+#pragma unroll
+      for (int i = 0; i < kDqBlockKV / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        const int col = kv0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        const float p = col < kmax[r] ? exp2f(sc[i] * scale_log2 - lse2[r]) : 0.f;
+        sc[i] = p * (dp[i] - dlt[r]);
+      }
+
+      // dQ += dS K: dS (bf16) from registers, K MN-major
+      uint32_t a[kDqBlockKV / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kDqBlockKV / 16; ++kk) a_fragment(a[kk], sc, kk);
+      wgmma_fence();
+      fence_operands(acc);
+#pragma unroll
+      for (int kk = 0; kk < kDqBlockKV / 16; ++kk)
+        wgmma_rs<1>(acc, a[kk], mnmajor_desc(sm.k[s], Tile<kDqBlockKV>::kBoxBytes, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[s]);
+    }
+
+    const size_t seq_stride = static_cast<size_t>(H) * kD;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (rows[r] >= Sq) continue;
+      __nv_bfloat16* drow = dq + (static_cast<size_t>(b) * Sq + rows[r]) * seq_stride + static_cast<size_t>(h) * kD;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<uint32_t*>(drow + 8 * j + 2 * t) =
+            pack_bf16(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
     }
   }
 }
 
 // ------------------------------------ K8 ------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-flash_attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                               const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                               const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
                                const float* __restrict__ lse, const float* __restrict__ delta,
-                               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq, int Skv,
-                               int H, int frame_group, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + kDkvBlockKV * kLds;
-  __nv_bfloat16* sQ = sV + kDkvBlockKV * kLds;
-  __nv_bfloat16* sdO = sQ + kDkvBlockQ * kLds;
-  float* sLse = reinterpret_cast<float*>(sdO + kDkvBlockQ * kLds);
-  float* sDelta = sLse + kDkvBlockQ;
-
+                               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                               float* __restrict__ partial_k, float* __restrict__ partial_v, int B, int Sq, int Skv,
+                               int H, int frame_group, int splits, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  DkvSmem& sm = smem_storage<DkvSmem>(smem_raw);
   const int kv0 = blockIdx.x * kDkvBlockKV;
   const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  const int b = blockIdx.z / splits;
+  const int split = blockIdx.z % splits;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
 
-  const size_t seq_stride = static_cast<size_t>(H) * kD;
-  const size_t q_off = (static_cast<size_t>(b) * Sq * H + h) * kD;
-  const size_t kv_off = (static_cast<size_t>(b) * Skv * H + h) * kD;
-  const float* lse_bh = lse + (static_cast<size_t>(b) * H + h) * Sq;
-  const float* delta_bh = delta + (static_cast<size_t>(b) * H + h) * Sq;
+  int tile_begin, tile_end;
+  dkv_q_chunk(blockIdx.x, split, splits, Sq, frame_group, tile_begin, tile_end);
+  const int n_tiles = tile_end - tile_begin;
 
-  stage_rows(sK, k + kv_off, seq_stride, kv0, kDkvBlockKV, Skv, tid);
-  stage_rows(sV, v + kv_off, seq_stride, kv0, kDkvBlockKV, Skv, tid);
-
-  const int krow0 = kv0 + warp * 16 + g;  // kv row of c[0], c[1]; krow0 + 8 for c[2], c[3]
-  const int krows[2] = {krow0, krow0 + 8};
-
-  float acc_k[kD / 8][4], acc_v[kD / 8][4];
-#pragma unroll
-  for (int n = 0; n < kD / 8; ++n) {
-    acc_k[n][0] = acc_k[n][1] = acc_k[n][2] = acc_k[n][3] = 0.f;
-    acc_v[n][0] = acc_v[n][1] = acc_v[n][2] = acc_v[n][3] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 32);  // the producer warp's lanes (lse and delta), one with the TMA bytes
+      mbar_init(&sm.empty[s], kConsumerWarps);
+    }
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  // frame-causal: q tiles that end before the first query that can see this
-  // kv tile are skipped (the TPU kernel's bound)
-  int q_start = 0;
-  if (frame_group > 0) q_start = ((kv0 / frame_group) * frame_group / kDkvBlockQ) * kDkvBlockQ;
-
-  for (int qt0 = q_start; qt0 < Sq; qt0 += kDkvBlockQ) {
-    __syncthreads();  // every warp is done with the previous Q/dO tile (and K/V are staged)
-    stage_rows(sQ, q + q_off, seq_stride, qt0, kDkvBlockQ, Sq, tid);
-    stage_rows(sdO, dout + q_off, seq_stride, qt0, kDkvBlockQ, Sq, tid);
-    if (tid < kDkvBlockQ) {
-      const bool valid = qt0 + tid < Sq;
-      sLse[tid] = valid ? lse_bh[qt0 + tid] : 0.f;
-      sDelta[tid] = valid ? delta_bh[qt0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    // ---- S^T = K Q^T and dP^T = V dO^T: 16 kv rows x 32 q columns per warp ----
-    float st[kDkvBlockQ / 8][4], dpt[kDkvBlockQ / 8][4];
+  if (wg == 2) {
+    // ------------------------------ producer ------------------------------
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 0 && n_tiles > 0) {
+      const float* lse_bh = lse + (static_cast<size_t>(b) * H + h) * Sq;
+      const float* delta_bh = delta + (static_cast<size_t>(b) * H + h) * Sq;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&sm.kv_full, 2 * Tile<kDkvBlockKV>::kBytes);
+        tma_tile<kDkvBlockKV>(sm.k, &map_k, &sm.kv_full, kv0, h, b);
+        tma_tile<kDkvBlockKV>(sm.v, &map_v, &sm.kv_full, kv0, h, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        const int qt0 = (tile_begin + it) * kDkvBlockQ;
+        mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
 #pragma unroll
-    for (int j = 0; j < kDkvBlockQ / 8; ++j) {
-      st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
-      dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a(ka, sK, warp * 16, kk, g, t);
-      load_a(va, sV, warp * 16, kk, g, t);
-#pragma unroll
-      for (int j = 0; j < kDkvBlockQ / 8; ++j) {
-        const int off = (j * 8 + g) * kLds + kk * 16 + 2 * t;
-        mma_16816(st[j], ka, ld_pair(sQ + off), ld_pair(sQ + off + 8));
-        mma_16816(dpt[j], va, ld_pair(sdO + off), ld_pair(sdO + off + 8));
+        for (int r = lane; r < kDkvBlockQ; r += 32) {
+          const bool valid = qt0 + r < Sq;
+          sm.lse[s][r] = valid ? lse_bh[qt0 + r] * kLog2e : 0.f;
+          sm.delta[s][r] = valid ? delta_bh[qt0 + r] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&sm.full[s], 2 * Tile<kDkvBlockQ>::kBytes);
+          tma_tile<kDkvBlockQ>(sm.q[s], &map_q, &sm.full[s], qt0, h, b);
+          tma_tile<kDkvBlockQ>(sm.dout[s], &map_do, &sm.full[s], qt0, h, b);
+        } else {
+          mbar_arrive(&sm.full[s]);
+        }
       }
     }
+  } else {
+    // ------------------------------ consumers -----------------------------
+    setmaxnreg_inc<kConsumerRegs>();
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const float scale_log2 = scale * kLog2e;
+    // kv rows of this thread's accumulator entries, and the first query that
+    // sees each (past the sequence: none)
+    int krows[2], qmin[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      krows[r] = kv0 + 64 * wg + 16 * warp + g + 8 * r;
+      qmin[r] = krows[r] >= Skv ? 0x7fffffff : frame_group > 0 ? (krows[r] / frame_group) * frame_group : 0;
+    }
+    float acc_k[64], acc_v[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc_k[i] = acc_v[i] = 0.f;
+    const int wg_off = 64 * wg * 128;  // this warpgroup's 64 rows in each K / V box
 
-    // ---- P^T (in st) and dS^T = P^T (dP^T - delta) (in dpt) ----
+    if (n_tiles > 0) mbar_wait(&sm.kv_full, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      const int qt0 = (tile_begin + it) * kDkvBlockQ;
+      mbar_wait(&sm.full[s], (it / kStages) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T (64 kv x 64 q per warpgroup)
+      float st[32], dpt[32];
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kDkvBlockQ / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + 2 * t + (e & 1);  // q column within the tile
-        const int qcol = qt0 + c;
-        const int krow = krows[e >> 1];
-        const bool visible = qcol < Sq && krow < Skv && frame_visible(krow, qcol, frame_group);
-        const float logit = visible ? st[j][e] * scale : kNegInf;
-        const float p = visible ? __expf(logit - sLse[c]) : 0.f;
-        st[j][e] = p;
-        dpt[j][e] = p * (dpt[j][e] - sDelta[c]);
+      for (int kk = 0; kk < 8; ++kk) {
+        const int box = kk / 4;
+        wgmma_ss<0>(st, kmajor_desc(sm.k + box * Tile<kDkvBlockKV>::kBoxBytes + wg_off, kk % 4),
+                              kmajor_desc(sm.q[s] + box * Tile<kDkvBlockQ>::kBoxBytes, kk % 4), kk > 0);
       }
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int box = kk / 4;
+        wgmma_ss<0>(dpt, kmajor_desc(sm.v + box * Tile<kDkvBlockKV>::kBoxBytes + wg_off, kk % 4),
+                              kmajor_desc(sm.dout[s] + box * Tile<kDkvBlockQ>::kBoxBytes, kk % 4), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(st);
+      fence_operands(dpt);
+
+      // P^T (in st) and dS^T = P^T (dP^T - delta) (in dpt)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;  // q column within the tile
+        const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse[s][c]);
+        const float2 dl = *reinterpret_cast<const float2*>(&sm.delta[s][c]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          const int qcol = qt0 + c + (e & 1);
+          const bool visible = qcol >= qmin[e >> 1] && qcol < Sq;
+          const float p = visible ? exp2f(st[i] * scale_log2 - ((e & 1) ? l2.y : l2.x)) : 0.f;
+          st[i] = p;
+          dpt[i] = p * (dpt[i] - ((e & 1) ? dl.y : dl.x));
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q: A from registers, dO and Q MN-major
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        a_fragment(pa[kk], st, kk);
+        a_fragment(da[kk], dpt, kk);
+      }
+      wgmma_fence();
+      fence_operands(acc_v);
+      fence_operands(acc_k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<1>(acc_v, pa[kk], mnmajor_desc(sm.dout[s], Tile<kDkvBlockQ>::kBoxBytes, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<1>(acc_k, da[kk], mnmajor_desc(sm.q[s], Tile<kDkvBlockQ>::kBoxBytes, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(acc_v);
+      fence_operands(acc_k);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[s]);
     }
 
-    // ---- dV += P^T dO and dK += dS^T Q: A from registers, B by transposed pair loads ----
+    const size_t seq_stride = static_cast<size_t>(H) * kD;
 #pragma unroll
-    for (int kk = 0; kk < kDkvBlockQ / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      pa[0] = pack_float_pair(st[2 * kk][0], st[2 * kk][1]);
-      pa[1] = pack_float_pair(st[2 * kk][2], st[2 * kk][3]);
-      pa[2] = pack_float_pair(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-      pa[3] = pack_float_pair(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-      da[0] = pack_float_pair(dpt[2 * kk][0], dpt[2 * kk][1]);
-      da[1] = pack_float_pair(dpt[2 * kk][2], dpt[2 * kk][3]);
-      da[2] = pack_float_pair(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
-      da[3] = pack_float_pair(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
-      const int base = (kk * 16 + 2 * t) * kLds + g;
+    for (int r = 0; r < 2; ++r) {
+      if (krows[r] >= Skv) continue;
+      const size_t off = (static_cast<size_t>(b) * Skv + krows[r]) * seq_stride + static_cast<size_t>(h) * kD;
+      if (splits > 1) {
+        const size_t part = static_cast<size_t>(split) * B * Skv * seq_stride + off;
 #pragma unroll
-      for (int n = 0; n < kD / 8; ++n) {
-        const __nv_bfloat16* po = sdO + base + n * 8;
-        const __nv_bfloat16* pq = sQ + base + n * 8;
-        mma_16816(acc_v[n], pa, pack_pair(po[0], po[kLds]), pack_pair(po[8 * kLds], po[9 * kLds]));
-        mma_16816(acc_k[n], da, pack_pair(pq[0], pq[kLds]), pack_pair(pq[8 * kLds], pq[9 * kLds]));
+        for (int j = 0; j < 16; ++j) {
+          *reinterpret_cast<float2*>(partial_k + part + 8 * j + 2 * t) =
+              make_float2(acc_k[4 * j + 2 * r], acc_k[4 * j + 2 * r + 1]);
+          *reinterpret_cast<float2*>(partial_v + part + 8 * j + 2 * t) =
+              make_float2(acc_v[4 * j + 2 * r], acc_v[4 * j + 2 * r + 1]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          *reinterpret_cast<uint32_t*>(dk + off + 8 * j + 2 * t) =
+              pack_bf16(acc_k[4 * j + 2 * r] * scale, acc_k[4 * j + 2 * r + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dv + off + 8 * j + 2 * t) =
+              pack_bf16(acc_v[4 * j + 2 * r], acc_v[4 * j + 2 * r + 1]);
+        }
       }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (krows[r] >= Skv) continue;
-    const size_t off = kv_off + static_cast<size_t>(krows[r]) * seq_stride;
-#pragma unroll
-    for (int n = 0; n < kD / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + off + n * 8 + 2 * t) =
-          pack_float_pair(acc_k[n][2 * r] * scale, acc_k[n][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + off + n * 8 + 2 * t) = pack_float_pair(acc_v[n][2 * r], acc_v[n][2 * r + 1]);
     }
   }
 }
 
+// K8's second pass on the split route: dK = scale * sum of the partials and
+// dV = their sum, in split order, cast to bf16
+__global__ void __launch_bounds__(256)
+flash_attention_bwd_dkv_reduce_kernel(const float4* __restrict__ partial_k, const float4* __restrict__ partial_v,
+                                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int splits,
+                                      size_t n4, float scale) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n4;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float4 sk = partial_k[i], sv = partial_v[i];
+    for (int s = 1; s < splits; ++s) {
+      const float4 pk = partial_k[s * n4 + i], pv = partial_v[s * n4 + i];
+      sk.x += pk.x, sk.y += pk.y, sk.z += pk.z, sk.w += pk.w;
+      sv.x += pv.x, sv.y += pv.y, sv.z += pv.z, sv.w += pv.w;
+    }
+    *reinterpret_cast<uint2*>(dk + 4 * i) = make_uint2(pack_bf16(sk.x * scale, sk.y * scale),
+                                                       pack_bf16(sk.z * scale, sk.w * scale));
+    *reinterpret_cast<uint2*>(dv + 4 * i) = make_uint2(pack_bf16(sv.x, sv.y), pack_bf16(sv.z, sv.w));
+  }
+}
+
+// ---------------------------------- host ------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of the CUDA driver API, found through the
+// runtime's entry-point query, so the library needs no -lcuda
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a (B, S, H, 128) bf16 tensor as a 4-d TMA map of boxes of `rows` x 64,
+// 128-byte swizzled; reads past S give zeros
+int make_bshd_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD), static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(kD) * 2, static_cast<cuuint64_t>(H) * kD * 2,
+                                 static_cast<cuuint64_t>(S) * H * kD * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+                              elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
+
+extern "C" int cosmos_flash_attention_bwd_smem_bytes(int dkv);
 
 // q, dout, dq: (B, Sq, H, 128) bf16; k, v: (B, Skv, H, 128) bf16; all
 // contiguous and 16-byte aligned. lse, delta: (B, H, Sq) fp32. Returns the
@@ -360,29 +534,59 @@ flash_attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_b
 extern "C" int cosmos_flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                              const void* lse, const void* delta, void* dq, int B, int Sq, int Skv,
                                              int H, int frame_group, float scale, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kDqSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap mq, mk, mv, mdo;
+  int err = make_bshd_map(&mq, q, B, Sq, H, kDqBlockQ);
+  if (!err) err = make_bshd_map(&mdo, dout, B, Sq, H, kDqBlockQ);
+  if (!err) err = make_bshd_map(&mk, k, B, Skv, H, kDqBlockKV);
+  if (!err) err = make_bshd_map(&mv, v, B, Skv, H, kDqBlockKV);
+  if (err) return err;
+  const int smem = cosmos_flash_attention_bwd_smem_bytes(0);
+  cudaError_t cerr =
+      cudaFuncSetAttribute(flash_attention_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const dim3 grid((Sq + kDqBlockQ - 1) / kDqBlockQ, H, B);
-  flash_attention_bwd_dq_kernel<<<grid, kThreads, kDqSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), Sq, Skv, H, frame_group, scale);
+  flash_attention_bwd_dq_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dq), Sq, Skv, H, frame_group, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// as above; dk, dv: (B, Skv, H, 128) bf16.
+// as above; dk, dv: (B, Skv, H, 128) bf16. splits > 1: each kv tile's q
+// range is cut into `splits` chunks whose fp32 partials go to partial_k and
+// partial_v, (splits, B, Skv, H, 128) each, and a second kernel sums them.
 extern "C" int cosmos_flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                                              const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
-                                              int Skv, int H, int frame_group, float scale, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_bwd_dkv_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Skv + kDkvBlockKV - 1) / kDkvBlockKV, H, B);
-  flash_attention_bwd_dkv_kernel<<<grid, kThreads, kDkvSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Sq, Skv, H,
-      frame_group, scale);
+                                              const void* lse, const void* delta, void* dk, void* dv, void* partial_k,
+                                              void* partial_v, int B, int Sq, int Skv, int H, int frame_group,
+                                              int splits, float scale, void* stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  int err = make_bshd_map(&mq, q, B, Sq, H, kDkvBlockQ);
+  if (!err) err = make_bshd_map(&mdo, dout, B, Sq, H, kDkvBlockQ);
+  if (!err) err = make_bshd_map(&mk, k, B, Skv, H, kDkvBlockKV);
+  if (!err) err = make_bshd_map(&mv, v, B, Skv, H, kDkvBlockKV);
+  if (err) return err;
+  if (splits < 1 || (splits > 1 && (partial_k == nullptr || partial_v == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = cosmos_flash_attention_bwd_smem_bytes(1);
+  cudaError_t cerr =
+      cudaFuncSetAttribute(flash_attention_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((Skv + kDkvBlockKV - 1) / kDkvBlockKV, H, B * splits);
+  flash_attention_bwd_dkv_kernel<<<grid, kThreads, smem, st>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), static_cast<float*>(partial_k),
+      static_cast<float*>(partial_v), B, Sq, Skv, H, frame_group, splits, scale);
+  cerr = cudaGetLastError();
+  if (cerr != cudaSuccess || splits == 1) return static_cast<int>(cerr);
+  const size_t n4 = static_cast<size_t>(B) * Skv * H * kD / 4;
+  const int blocks = static_cast<int>(std::min<size_t>((n4 + 255) / 256, 132 * 8));
+  flash_attention_bwd_dkv_reduce_kernel<<<blocks, 256, 0, st>>>(
+      static_cast<const float4*>(partial_k), static_cast<const float4*>(partial_v), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), splits, n4, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// dynamic shared memory a CTA of K7 (dkv 0) or K8 (dkv 1) takes, in bytes
+extern "C" int cosmos_flash_attention_bwd_smem_bytes(int dkv) {
+  return static_cast<int>(dkv ? sizeof(DkvSmem) : sizeof(DqSmem)) + 1024;
 }

@@ -5,8 +5,11 @@
         --checkpoint=model.pt --vae=Wan2.1_VAE.pth \
         --text-embedding-path=prompt.npy --input=input.jpg [--batch samples.json] [--sampler dmd2] [--device cpu]
 
-Weights: a reference torch state dict (``.pt``/``.pth``/``.safetensors``,
-loaded with ``strict=True``), or seeded random weights when none is given.
+Weights: a reference torch state dict (``.pt``/``.pth``/``.safetensors``),
+read as the JAX CLI reads it: every key the model has must be there with its
+shape, and other entries are ignored and logged
+(utils/checkpoint_convert.py::load_reference_state_dict); or seeded random
+weights when none is given.
 COSMOS_SMOKE=1 uses random weights, 1 step, the 192x320 geometry and zero
 text embeddings for plumbing checks.
 """
@@ -41,27 +44,29 @@ def parse_args(argv=None):
 
 
 def _load_state_dict(path: str, prefixes: tuple[str, ...] = ()) -> dict:
-    import torch
-
+    """The file's entries as NumPy arrays, under the first of ``prefixes``
+    that any key carries, with that prefix stripped (as the JAX
+    ``convert_model_checkpoint`` picks ``net_ema.`` before ``net.``)."""
     from cosmos_predict2_tpu_torch.utils.checkpoint_convert import load_torch_state_dict, strip_prefix
 
     sd = load_torch_state_dict(path)
     for prefix in prefixes:
         if any(k.startswith(prefix) for k in sd):
-            sd = strip_prefix(sd, prefix)
-            break
-    return {k: torch.from_numpy(v) for k, v in sd.items()}
+            return strip_prefix(sd, prefix)
+    return sd
 
 
 def build_pipeline(args):
     """Video2WorldInference from the experiment config, with checkpoint
-    weights (``strict=True``) or seeded random weights."""
+    weights (every model key present with its shape, other entries ignored)
+    or seeded random weights."""
     import torch
 
     from cosmos_predict2_tpu_torch.configs.defaults import make_config
     from cosmos_predict2_tpu_torch.inference.pipeline import InferenceSetup, Video2WorldInference
     from cosmos_predict2_tpu_torch.networks.dit import build_dit
     from cosmos_predict2_tpu_torch.tokenizers.wan_vae import build_vae
+    from cosmos_predict2_tpu_torch.utils.checkpoint_convert import load_reference_state_dict
     from cosmos_predict2_tpu_torch.utils.flags import SMOKE
 
     log = logging.getLogger("cosmos_predict2_tpu_torch")
@@ -76,12 +81,12 @@ def build_pipeline(args):
     )
     net = build_dit(model_cfg.net, device, seed=0)
     if args.checkpoint and not SMOKE:
-        net.load_state_dict(_load_state_dict(args.checkpoint, ("net_ema.", "net.")), strict=True)
+        load_reference_state_dict(net, _load_state_dict(args.checkpoint, ("net_ema.", "net.")), "DiT checkpoint")
     else:
         log.warning("no checkpoint given (or SMOKE): using random DiT weights")
     vae = build_vae(config.tokenizer, device, seed=1)
     if args.vae and not SMOKE:
-        vae.load_state_dict(_load_state_dict(args.vae), strict=True)
+        load_reference_state_dict(vae, _load_state_dict(args.vae), "VAE checkpoint")
     else:
         log.warning("no VAE checkpoint given (or SMOKE): using random VAE weights")
 

@@ -23,12 +23,21 @@ reference, and only self-forcing training (not ported) needs it.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from cosmos_predict2_tpu_torch import _build
 
 HEAD_DIM = 128
 NEG_INF = -1e30
+# K8's tiles: kv rows per CTA, q rows per step; a split of a kv tile's q range
+# covers at least DKV_MIN_SPLIT_TILES steps, so that loading K and V and
+# writing the fp32 partials stay small beside its products
+DKV_BLOCK_KV = 128
+DKV_BLOCK_Q = 64
+DKV_MIN_SPLIT_TILES = 4
 
 
 def attention_logits(q: torch.Tensor, k: torch.Tensor, frame_group: int = 0) -> torch.Tensor:
@@ -200,13 +209,69 @@ def flash_attention_bwd_dq(
 flash_attention_bwd_dq.launches = 0
 
 
+@dataclasses.dataclass(frozen=True)
+class DkvPlan:
+    """How K8 covers the q range of each of its 128-row kv tiles: in
+    ``splits`` CTAs, each over a run of 64-row q tiles (see
+    :func:`dkv_split_plan`)."""
+
+    sq: int
+    skv: int
+    frame_group: int
+    splits: int
+
+    @property
+    def kv_tiles(self) -> int:
+        return -(-self.skv // DKV_BLOCK_KV)
+
+    def q_ranges(self, kv_tile: int) -> list[tuple[int, int]]:
+        """The q rows [begin, end) of each split of ``kv_tile``, in split
+        order: the q tiles from the first one holding a query that sees the
+        tile's first key (frame_group > 0; else from 0) to the end, cut into
+        ``splits`` runs of ceil(n / splits) tiles, the last ones short or
+        empty. The kernel computes the same runs (dkv_q_chunk in
+        csrc/flash_attention_bwd.cu)."""
+        q_tiles = -(-self.sq // DKV_BLOCK_Q)
+        first = 0
+        if self.frame_group > 0:
+            first = (kv_tile * DKV_BLOCK_KV // self.frame_group) * self.frame_group // DKV_BLOCK_Q
+        per = -(-max(q_tiles - first, 0) // self.splits)
+        ranges = []
+        for split in range(self.splits):
+            begin = min(first + split * per, q_tiles)
+            end = min(begin + per, q_tiles)
+            ranges.append((min(begin * DKV_BLOCK_Q, self.sq), min(end * DKV_BLOCK_Q, self.sq)))
+        return ranges
+
+
+def dkv_split_plan(sq: int, skv: int, heads: int, batch: int, frame_group: int, sms: int) -> DkvPlan:
+    """K8's plan: one CTA per (kv tile, head, batch) fills the card when
+    there are at least ``sms`` of them (one 384-thread CTA per SM). Fewer
+    (cross-attention to 512 text tokens: 4 x 16 at batch 1) split each kv
+    tile's q range over up to sms // CTAs CTAs, each covering at least
+    DKV_MIN_SPLIT_TILES q tiles; their fp32 partials are summed in split
+    order by a second pass."""
+    ctas = -(-skv // DKV_BLOCK_KV) * heads * batch
+    splits = 1
+    if 0 < ctas < sms:
+        splits = max(1, min(sms // ctas, -(-sq // DKV_BLOCK_Q) // DKV_MIN_SPLIT_TILES))
+    return DkvPlan(sq, skv, frame_group, splits)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def flash_attention_bwd_dkv(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
     frame_group: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv), each (B, Skv, H, 128), with the arguments of
     :func:`flash_attention_bwd_dq`. CPU tensors take the plain version; CUDA
-    tensors launch K8 and raise on what it does not take."""
+    tensors launch K8 and raise on what it does not take. On a grid under
+    one wave (:func:`dkv_split_plan`) K8 writes fp32 partials into scratch
+    allocated here and a second kernel sums them; that is one launch."""
     if not q.is_cuda:
         return _dkv_plain(*_probs_ds(q, k, v, do, lse, delta, frame_group), q, k, v, do)
     _check_bwd_args("flash_attention_bwd_dkv", q, k, v, do, lse, delta, frame_group)
@@ -215,12 +280,18 @@ def flash_attention_bwd_dkv(
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if Skv == 0 or B == 0:
         return dk, dv
+    splits = dkv_split_plan(Sq, Skv, H, B, frame_group, _sm_count(q.device)).splits
+    partial_k = partial_v = None
+    if splits > 1:
+        partial_k, partial_v = (torch.empty((splits, *k.shape), dtype=torch.float32, device=k.device) for _ in range(2))
     lib = _build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.cosmos_flash_attention_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, Sq, Skv, H, frame_group, 1.0 / D**0.5, stream,
+            dv.data_ptr(), None if partial_k is None else partial_k.data_ptr(),
+            None if partial_v is None else partial_v.data_ptr(), B, Sq, Skv, H, frame_group, splits, 1.0 / D**0.5,
+            stream,
         )
     _build.check(err, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1

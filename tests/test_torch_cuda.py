@@ -17,6 +17,7 @@ from cosmos_predict2_tpu_torch.ops.conv3d import conv3d_causal, conv3d_causal_pl
 from cosmos_predict2_tpu_torch.ops.flash_attention import (
     FlashAttention,
     attention_delta,
+    dkv_split_plan,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
     flash_attention_bwd_plain,
@@ -79,13 +80,24 @@ def _rel(a, b):
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-@pytest.mark.parametrize("sq,skv,frame_group", [(1000, 1000, 0), (333, 512, 0), (1024, 1024, 100), (200, 77, 0)])
-def test_flash_bwd_kernels_match_plain_on_cuda(cuda, sq, skv, frame_group):
-    gen = torch.Generator(device=cuda).manual_seed(1)
+# K7 / K8 cases: ragged tails against the 64- and 128-row tiles (5800, 1000,
+# 333, 200, 77), K8's split route (Skv 512 with Sq 2000: 32 CTAs at B2 H4),
+# frame groups that do not divide the tiles (100, 240)
+BWD_CASES = [(1000, 1000, 0), (333, 512, 0), (1024, 1024, 100), (200, 77, 0), (5800, 5800, 0), (1000, 333, 0),
+             (2000, 512, 0), (1000, 1000, 240), (5800, 5800, 100)]
+
+
+def _bwd_inputs(cuda, sq, skv, frame_group, seed=1):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
     q, do = (torch.randn((2, sq, 4, 128), generator=gen, device=cuda).bfloat16() for _ in range(2))
     k, v = (torch.randn((2, skv, 4, 128), generator=gen, device=cuda).bfloat16() for _ in range(2))
     out, lse = flash_attention_fwd(q, k, v, frame_group=frame_group)
-    delta = attention_delta(out, do)
+    return q, k, v, do, out, lse, attention_delta(out, do)
+
+
+@pytest.mark.parametrize("sq,skv,frame_group", BWD_CASES)
+def test_flash_bwd_kernels_match_plain_on_cuda(cuda, sq, skv, frame_group):
+    q, k, v, do, out, lse, delta = _bwd_inputs(cuda, sq, skv, frame_group)
     before = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, frame_group)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, frame_group)
@@ -95,6 +107,22 @@ def test_flash_bwd_kernels_match_plain_on_cuda(cuda, sq, skv, frame_group):
     for name, got, want in zip("qkv", (dq, dk, dv), ref):
         assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all(), name
         assert _rel(got, want) < 1e-2, name  # bf16 outputs, P and dS rounded to bf16 on both sides
+
+
+@pytest.mark.parametrize("sq,skv,frame_group", [(2000, 512, 0), (5800, 5800, 100)])
+def test_flash_bwd_kernels_are_deterministic_on_cuda(cuda, sq, skv, frame_group):
+    """No atomics: two calls give bitwise-equal dq, dk and dv, on K8's split
+    route (partials summed in split order) and on the frame mask."""
+    q, k, v, do, out, lse, delta = _bwd_inputs(cuda, sq, skv, frame_group, seed=3)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert (dkv_split_plan(sq, skv, 4, 2, frame_group, sms).splits > 1) == (skv == 512)
+    first = (flash_attention_bwd_dq(q, k, v, do, lse, delta, frame_group),
+             *flash_attention_bwd_dkv(q, k, v, do, lse, delta, frame_group))
+    second = (flash_attention_bwd_dq(q, k, v, do, lse, delta, frame_group),
+              *flash_attention_bwd_dkv(q, k, v, do, lse, delta, frame_group))
+    torch.cuda.synchronize()
+    for name, a, b in zip("qkv", first, second):
+        assert torch.equal(a, b), name
 
 
 def test_flash_attention_function_grads_on_cuda(cuda):

@@ -20,8 +20,13 @@ from jax.experimental.pallas import tpu as pltpu
 from cosmos_predict2_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 from cosmos_predict2_tpu_torch.ops.attention import dot_product_attention, reference_attention
 from cosmos_predict2_tpu_torch.ops.flash_attention import (
+    DKV_BLOCK_KV,
+    DKV_BLOCK_Q,
     FlashAttention,
+    _dkv_plain,
+    _probs_ds,
     attention_delta,
+    dkv_split_plan,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
     flash_attention_bwd_plain,
@@ -109,3 +114,55 @@ def test_bf16_plain_backward_rounds_like_the_kernels():
     for a, b in zip(g32, g16):
         assert b.dtype == torch.bfloat16 and torch.isfinite(b.float()).all()
         assert float((a - b.float()).norm() / a.norm()) < 2e-2
+
+
+# K8's split plan: the main path's geometries (H16, B1, 132 SMs) and one head
+# (fewer CTAs, so the q ranges split), at the frame groups of the tests and
+# of the card checks
+PLAN_CASES = [(sq, skv, heads, fg) for sq, skv in ((5760, 512), (5760, 5760), (84480, 84480))
+              for heads in (16, 1) for fg in ((0,) if skv == 512 else (0, 50, 100, 240))]
+
+
+@pytest.mark.parametrize("sq,skv,heads,fg", PLAN_CASES)
+def test_dkv_split_plan_covers_every_visible_q_tile_once(sq, skv, heads, fg):
+    plan = dkv_split_plan(sq, skv, heads, 1, fg, sms=132)
+    assert plan.splits >= 1 and (plan.splits == 1) == (plan.kv_tiles * heads >= 132)
+    q_tiles = -(-sq // DKV_BLOCK_Q)
+    for t in range(plan.kv_tiles):
+        ranges = plan.q_ranges(t)
+        assert len(ranges) == plan.splits
+        # the runs are consecutive, in split order, and end at the sequence's end
+        assert ranges[-1][1] == sq or ranges[-1][0] == ranges[-1][1] == sq
+        for (b0, e0), (b1, _) in zip(ranges, ranges[1:]):
+            assert e0 == b1
+        begin = ranges[0][0]
+        assert begin % DKV_BLOCK_Q == 0 and all(b % DKV_BLOCK_Q == 0 or b == sq for b, _ in ranges)
+        # every q tile holding a query that sees a key of this kv tile is inside
+        first_visible = (t * DKV_BLOCK_KV // fg) * fg if fg > 0 else 0
+        assert begin <= first_visible
+        # and none before it: the tile before `begin` sees none of the kv tile
+        assert begin == 0 or begin // DKV_BLOCK_Q == first_visible // DKV_BLOCK_Q
+        assert sum(e - b for b, e in ranges) == sq - begin <= q_tiles * DKV_BLOCK_Q
+
+
+@pytest.mark.parametrize("sq,skv,fg", [(600, 512, 0), (600, 600, 100), (520, 520, 240)])
+def test_split_partials_sum_to_the_unsplit_gradients(sq, skv, fg):
+    """The plain dK/dV summed over the plan's q ranges (in split order, per
+    kv tile) equal the unsplit plain dK/dV within fp32 round-off (1e-5
+    relative and absolute on O(1) values: two or three partial sums against
+    one)."""
+    q, k, v, do = map(torch.from_numpy, _inputs(sq, skv, seed=5))
+    out, lse = flash_attention_fwd(q, k, v, frame_group=fg)
+    probs, ds = _probs_ds(q, k, v, do, lse, attention_delta(out, do), fg)
+    want_k, want_v = _dkv_plain(probs, ds, q, k, v, do)
+    plan = dkv_split_plan(sq, skv, 1, 1, fg, sms=132)
+    assert plan.splits > 1
+    got_k, got_v = torch.zeros_like(want_k), torch.zeros_like(want_v)
+    for t in range(plan.kv_tiles):
+        kv = slice(t * DKV_BLOCK_KV, min((t + 1) * DKV_BLOCK_KV, skv))
+        for b, e in plan.q_ranges(t):
+            dk, dv = _dkv_plain(probs[..., b:e, kv], ds[..., b:e, kv], q[:, b:e], k[:, kv], v[:, kv], do[:, b:e])
+            got_k[:, kv] += dk
+            got_v[:, kv] += dv
+    np.testing.assert_allclose(got_k.numpy(), want_k.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_v.numpy(), want_v.numpy(), rtol=1e-5, atol=1e-5)
