@@ -8,11 +8,14 @@ Phases, each printed with its wall time:
 1. environment: refuses to run without CUDA; prints the card's name and
    power limit (nvidia-smi) and the torch, CUDA and nvcc versions;
 2. build: compiles the hand-written kernels (cosmos_predict2_tpu_torch/csrc)
-   with nvcc for sm_90a; prints K7's and K8's registers, shared memory and
-   spills from ptxas's report and fails on a spill;
+   with nvcc for sm_90a; prints the registers, shared memory and spills of
+   the warp-specialised kernels (K1, K5, K7, K8 and their second passes)
+   from ptxas's report and fails on a spill or on a launch register count
+   other than the one their setmaxnreg budget balances at (168);
 3. kernels: each kernel against its plain PyTorch version (fp32, TF32 off)
    on bf16 inputs at the main paths' shapes, with max-abs and relative-L2
-   error, CUDA-event times, the card's bound for the same work and, as a
+   error, a second call that must give the same bits (K1, K5, K7, K8),
+   CUDA-event times, the card's bound for the same work and, as a
    yardstick the port never calls, one PyTorch call computing the same
    function (scaled_dot_product_attention forward / backward, conv3d;
    K7 + K8 against SDPA's backward, which computes dq, dk and dv in one
@@ -24,8 +27,9 @@ Phases, each printed with its wall time:
    720p, at 480p (padded) and on a dilated 720p layer; K5 and K6 (the cache
    decode, dense and row-windowed) at the interactive path's 352x640 block
    at full and early fill, with 2-frame blocks, at 720p and on a prime row
-   count (23 x 40), with SDPA over the filled cache (K6: with the boolean
-   window mask) as the yardstick; K9 (fused forward mode) at B1 S8320 and
+   count (23 x 40), K5 also with NaN past the fill and with its split-KV
+   plan's splits printed, with SDPA over the filled cache (K6: with the
+   boolean window mask) as the yardstick; K9 (fused forward mode) at B1 S8320 and
    S5760 H16, on a kv tail with frame_group 256 and with dv-only tangents,
    against its plain version by heads, beside K1 at the same shape and
    torch.func.jvp of SDPA (the first backend that takes it);
@@ -223,28 +227,46 @@ def environment() -> str:
     return smi
 
 
-def bwd_kernel_resources() -> dict:
-    """K7's and K8's registers, shared memory and spills from the build's
-    ptxas report (build/cosmos_torch_kernels/build.log); fails on a spill."""
+# the warp-specialised kernels: setmaxnreg moves the producer warpgroup to
+# 24 registers and the two consumer warpgroups to 240, which balances only
+# if the 384-thread CTA starts at 168 (else the consumers wait forever)
+SETMAXNREG_LAUNCH_REGISTERS = 168
+
+
+def kernel_resources() -> dict:
+    """The warp-specialised kernels' registers, shared memory and spills from
+    the build's ptxas report (build/cosmos_torch_kernels/build.log); fails
+    on a spill or on a setmaxnreg kernel not at 168 registers at launch."""
     from cosmos_predict2_tpu_torch import _build
 
     report, lib = _build.ptxas_report(), _build.library()
+    fwd_smem = lib.cosmos_flash_attention_fwd_smem_bytes()
     out = {}
-    for label, key, dynamic in (
-        ("K7", "flash_attention_bwd_dq_kernel", lib.cosmos_flash_attention_bwd_smem_bytes(0)),
-        ("K8", "flash_attention_bwd_dkv_kernel", lib.cosmos_flash_attention_bwd_smem_bytes(1)),
-        ("K8 sum of split partials", "flash_attention_bwd_dkv_reduce_kernel", 0),
+    for label, key, dynamic, setmaxnreg in (
+        ("K1", "attention_fwd_kernelILb0E", fwd_smem, True),
+        ("K5", "attention_fwd_kernelILb1E", fwd_smem, True),
+        ("K5 combine of split partials", "kv_cache_combine_kernel", 0, False),
+        ("K7", "flash_attention_bwd_dq_kernel", lib.cosmos_flash_attention_bwd_smem_bytes(0), True),
+        ("K8", "flash_attention_bwd_dkv_kernel", lib.cosmos_flash_attention_bwd_smem_bytes(1), True),
+        ("K8 sum of split partials", "flash_attention_bwd_dkv_reduce_kernel", 0, False),
     ):
         found = [v for name, v in report.items() if key in name]
         if len(found) != 1:
             raise AssertionError(f"ptxas report: {len(found)} entries for {key}")
         r = dict(found[0], dynamic_smem_bytes=dynamic)
-        log(f"  {label:26s} {r.get('registers')} registers a thread at launch, {r.get('smem_bytes', 0)} bytes static and "
+        log(f"  {label:30s} {r.get('registers')} registers a thread at launch, {r.get('smem_bytes', 0)} bytes static and "
             f"{dynamic} bytes dynamic shared memory, stack {r.get('stack_bytes')} bytes, spill stores "
             f"{r.get('spill_stores')} loads {r.get('spill_loads')} bytes")
         if r.get("spill_stores") or r.get("spill_loads"):
             raise AssertionError(f"{label} ({key}) spills registers: {r}")
+        if setmaxnreg and r.get("registers") != SETMAXNREG_LAUNCH_REGISTERS:
+            raise AssertionError(f"{label} ({key}) starts at {r.get('registers')} registers, not "
+                                 f"{SETMAXNREG_LAUNCH_REGISTERS}: its setmaxnreg budget would not balance")
         out[label] = r
+    # ptxas's performance advisories (for example wgmma products it had to serialise)
+    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
+        if "Performance Loss" in line:
+            log(f"  ptxas: {line.strip()}")
     return out
 
 
@@ -302,7 +324,14 @@ def check_kernels(results: dict) -> None:
         k = torch.randn((B, Skv, H, 128), generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn((B, Skv, H, 128), generator=gen, device=dev).to(torch.bfloat16)
         out, lse = flash_attention_fwd(q, k, v, frame_group=fg)
+        # no atomics: a second call gives the same bits
+        repeat = flash_attention_fwd(q, k, v, frame_group=fg)
         torch.cuda.synchronize()
+        if not (torch.equal(out, repeat[0]) and torch.equal(lse, repeat[1])):
+            failures.append(f"flash_attention_fwd {label}: two calls differ")
+        del repeat
+        if not bool(torch.isfinite(out.float()).all()):
+            failures.append(f"flash_attention_fwd {label}: non-finite output")
         if rows is None:
             ref, ref_lse = flash_attention_plain(q, k, v, fg)
             got, got_lse = out, lse
@@ -615,7 +644,9 @@ def window_computed_pairs(sq: int, gh: int, gw: int, wh: int, filled: int) -> in
 def check_cache_kernels(gen, record, failures) -> None:
     """K5 and K6 against their plain versions at the interactive path's
     shapes: batch 1, 16 heads, q one block of whole frames, head-major
-    buffers with +-1e3 past the fill (it must not reach the output)."""
+    buffers with +-1e3 past the fill (it must not reach the output); K5
+    once more with NaN past the fill, which a mask alone does not keep out
+    (0 x NaN is NaN)."""
     import torch
     import torch.nn.functional as F
 
@@ -623,34 +654,42 @@ def check_cache_kernels(gen, record, failures) -> None:
         flash_attention_kv_cache,
         flash_attention_kv_cache_window,
         kv_cache_plain,
+        kv_cache_split_plan,
         kv_cache_window_plain,
         window_rows_bounds,
     )
 
     dev = torch.device("cuda")
     H = 16
-    # (name, token grid gh x gw, frames per block, filled frames, buffer frames, window rows)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # (name, token grid gh x gw, frames per block, filled frames, buffer frames, window rows; None: K5 only)
     cases = [
         ("352x640 steady", 22, 40, 1, 17, 17, INTERACTIVE_WINDOW),
         ("352x640 early", 22, 40, 1, 4, 17, INTERACTIVE_WINDOW),
         ("352x640 nb2", 22, 40, 2, 18, 18, INTERACTIVE_WINDOW),
         ("720p", 44, 80, 1, 9, 9, 2 * INTERACTIVE_WINDOW),
         ("prime gh 23x40", 23, 40, 1, 17, 17, INTERACTIVE_WINDOW),
+        ("352x640 NaN past a ragged fill", 22, 40, 1, 12, 17, None),
     ]
     for name, gh, gw, nb, filled, frames, wh in cases:
         Fr = gh * gw
         Sq, fill = nb * Fr, filled * Fr
+        if wh is None:
+            fill -= 77  # the frontier inside a kv tile
         label = f"{name} Sq{Sq} fill {fill}"
         q = torch.randn((1, Sq, H, 128), generator=gen, device=dev).to(torch.bfloat16)
         kb, vb = (torch.randn((1, H, frames * Fr, 128), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
-        kb[:, :, fill:] = 1e3
-        vb[:, :, fill:] = -1e3
+        kb[:, :, fill:] = 1e3 if wh is not None else float("nan")
+        vb[:, :, fill:] = -1e3 if wh is not None else float("nan")
         # each input read once (q and the filled cache), the output written once
         nbytes = 2 * 2 * q.numel() + 2 * 2 * H * fill * 128
         qh, kh, vh = q.transpose(1, 2), kb[:, :, :fill], vb[:, :, :fill]
 
         out = flash_attention_kv_cache(q, kb, vb, fill)
+        repeat = flash_attention_kv_cache(q, kb, vb, fill)  # the split route's combine is in split order
         torch.cuda.synchronize()
+        if not torch.equal(out, repeat):
+            failures.append(f"flash_attention_kv_cache {label}: two calls differ")
         max_abs, rel = errors(out, kv_cache_plain(q, kb, vb, fill))
         if not bool(torch.isfinite(out.float()).all()):
             failures.append(f"flash_attention_kv_cache {label}: non-finite output")
@@ -658,7 +697,12 @@ def check_cache_kernels(gen, record, failures) -> None:
         plain_ms = cuda_ms(lambda: kv_cache_plain(q, kb, vb, fill), 0, 1)
         library_ms = yardstick_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 2, 10)
         record("flash_attention_kv_cache", label, max_abs, rel, ms_k5, plain_ms, library_ms,
-               bound(4 * H * Sq * fill * 128, nbytes))
+               bound(4 * H * Sq * fill * 128, nbytes), splits=kv_cache_split_plan(Sq, fill, H, 1, sms).splits)
+        del out, repeat
+        if wh is None:
+            del q, kb, vb, qh, kh, vh
+            torch.cuda.empty_cache()
+            continue
 
         label_w = f"{label} rows {min(wh, gh)}/{gh}"
         out = flash_attention_kv_cache_window(q, kb, vb, fill, (gh, gw), wh)
@@ -888,8 +932,9 @@ def small_train_reference(sparse: bool) -> None:
 
 def kernel_family(name: str) -> str:
     for key, family in (("flash_kv_cache_window_kernel", "K6 cache decode, window"),
-                        ("flash_kv_cache_kernel", "K5 cache decode"), ("na_fwd_kernel", "K10 NA forward"), ("na_bwd_dq_kernel", "K11 NA dQ"),
-                        ("na_bwd_dkv_kernel", "K12 NA dK/dV"), ("flash_attention_fwd", "K1 flash attention forward"),
+                        ("attention_fwd_kernel<true>", "K5 cache decode"), ("kv_cache_combine_kernel", "K5 cache decode"),
+                        ("na_fwd_kernel", "K10 NA forward"), ("na_bwd_dq_kernel", "K11 NA dQ"),
+                        ("na_bwd_dkv_kernel", "K12 NA dK/dV"), ("attention_fwd_kernel<false>", "K1 flash attention forward"),
                         ("flash_attention_bwd_dq", "K7 flash attention dQ"),
                         ("flash_attention_bwd_dkv", "K8 flash attention dK/dV"),
                         ("conv3d_causal", "K2 causal conv"), ("nvjet", "GEMM (cuBLAS)"), ("gemm", "GEMM (cuBLAS)"),
@@ -1678,7 +1723,7 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         _build.library()
         log(f"  kernels built and loaded in {time.perf_counter() - t:.2f} s: {_build.library_path()}")
-        bwd_kernel_resources()
+        kernel_resources()
     results: dict = {}
     with Phase("kernels vs plain versions"):
         check_kernels(results)
@@ -1770,7 +1815,7 @@ def main(argv=None) -> int:
                       "cosmos_predict2_tpu/ops/neighborhood_attention.py:425"),
         "na_bwd_dkv": ("cosmos_predict2_tpu_torch/csrc/neighborhood_attention.cu",
                        "cosmos_predict2_tpu/ops/neighborhood_attention.py:461"),
-        "flash_attention_kv_cache": ("cosmos_predict2_tpu_torch/csrc/flash_attention_kv_cache.cu",
+        "flash_attention_kv_cache": ("cosmos_predict2_tpu_torch/csrc/flash_attention_fwd.cu",
                                      "cosmos_predict2_tpu/ops/flash_attention.py:211"),
         "flash_attention_kv_cache_window": ("cosmos_predict2_tpu_torch/csrc/flash_attention_kv_cache.cu",
                                             "cosmos_predict2_tpu/ops/flash_attention.py:375"),

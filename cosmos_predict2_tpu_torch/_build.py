@@ -116,7 +116,9 @@ def library() -> ctypes.CDLL:
             lib.cosmos_flash_attention_bwd_smem_bytes.restype = i
             lib.cosmos_flash_attention_jvp.argtypes = [p] * 8 + [i, i, i, i, i, f, p]
             lib.cosmos_flash_attention_jvp.restype = i
-            lib.cosmos_flash_kv_cache.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
+            lib.cosmos_flash_attention_fwd_smem_bytes.argtypes = []
+            lib.cosmos_flash_attention_fwd_smem_bytes.restype = i
+            lib.cosmos_flash_kv_cache.argtypes = [p] * 6 + [i] * 6 + [f, p]
             lib.cosmos_flash_kv_cache.restype = i
             lib.cosmos_flash_kv_cache_window.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f, p]
             lib.cosmos_flash_kv_cache_window.restype = i

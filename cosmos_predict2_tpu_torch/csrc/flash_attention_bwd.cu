@@ -83,13 +83,6 @@ constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// a tile of R rows x 128 columns as two swizzled 64-column boxes of R x 128 bytes
-template <int R>
-struct Tile {
-  static constexpr int kBoxBytes = R * 128;
-  static constexpr int kBytes = 2 * kBoxBytes;
-};
-
 // K7: 128 q rows (two warpgroups of 64), 64-row kv tiles
 constexpr int kDqBlockQ = 128;
 constexpr int kDqBlockKV = 64;
@@ -118,20 +111,6 @@ struct DkvSmem {
   uint64_t empty[kStages];
 };
 
-// dynamic shared memory rounded up to the 1,024-byte swizzle atom
-template <typename T>
-__device__ __forceinline__ T& smem_storage(unsigned char* raw) {
-  const uint32_t addr = smem_addr(raw);
-  return *reinterpret_cast<T*>(raw + (((addr + 1023) & ~1023u) - addr));
-}
-
-template <int R>
-__device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int row, int h,
-                                         int b) {
-  tma_load_4d(dst, map, bar, 0, h, row, b);
-  tma_load_4d(dst + Tile<R>::kBoxBytes, map, bar, 64, h, row, b);
-}
-
 // the q tiles [begin, end) (of 64 rows) that split `split` of kv tile
 // `kv_tile` covers: the tiles from the first one a query of which sees the
 // tile's first key, cut into `splits` runs of equal length (the last ones may
@@ -145,11 +124,6 @@ __device__ __forceinline__ void dkv_q_chunk(int kv_tile, int split, int splits, 
   const int per = (n + splits - 1) / splits;
   begin = min(first + split * per, q_tiles);
   end = min(begin + per, q_tiles);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // ------------------------------------ K7 ------------------------------------
@@ -192,14 +166,14 @@ flash_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q, const _
     setmaxnreg_dec<kProducerRegs>();
     if (warp == 0 && lane == 0) {
       mbar_arrive_expect_tx(&sm.q_full, 2 * Tile<kDqBlockQ>::kBytes);
-      tma_tile<kDqBlockQ>(sm.q, &map_q, &sm.q_full, q0, h, b);
-      tma_tile<kDqBlockQ>(sm.dout, &map_do, &sm.q_full, q0, h, b);
+      tma_tile_bshd<kDqBlockQ>(sm.q, &map_q, &sm.q_full, q0, h, b);
+      tma_tile_bshd<kDqBlockQ>(sm.dout, &map_do, &sm.q_full, q0, h, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
         mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(&sm.full[s], 2 * Tile<kDqBlockKV>::kBytes);
-        tma_tile<kDqBlockKV>(sm.k[s], &map_k, &sm.full[s], it * kDqBlockKV, h, b);
-        tma_tile<kDqBlockKV>(sm.v[s], &map_v, &sm.full[s], it * kDqBlockKV, h, b);
+        tma_tile_bshd<kDqBlockKV>(sm.k[s], &map_k, &sm.full[s], it * kDqBlockKV, h, b);
+        tma_tile_bshd<kDqBlockKV>(sm.v[s], &map_v, &sm.full[s], it * kDqBlockKV, h, b);
       }
     }
   } else {
@@ -329,8 +303,8 @@ flash_attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const 
       const float* delta_bh = delta + (static_cast<size_t>(b) * H + h) * Sq;
       if (lane == 0) {
         mbar_arrive_expect_tx(&sm.kv_full, 2 * Tile<kDkvBlockKV>::kBytes);
-        tma_tile<kDkvBlockKV>(sm.k, &map_k, &sm.kv_full, kv0, h, b);
-        tma_tile<kDkvBlockKV>(sm.v, &map_v, &sm.kv_full, kv0, h, b);
+        tma_tile_bshd<kDkvBlockKV>(sm.k, &map_k, &sm.kv_full, kv0, h, b);
+        tma_tile_bshd<kDkvBlockKV>(sm.v, &map_v, &sm.kv_full, kv0, h, b);
       }
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
@@ -344,8 +318,8 @@ flash_attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const 
         }
         if (lane == 0) {
           mbar_arrive_expect_tx(&sm.full[s], 2 * Tile<kDkvBlockQ>::kBytes);
-          tma_tile<kDkvBlockQ>(sm.q[s], &map_q, &sm.full[s], qt0, h, b);
-          tma_tile<kDkvBlockQ>(sm.dout[s], &map_do, &sm.full[s], qt0, h, b);
+          tma_tile_bshd<kDkvBlockQ>(sm.q[s], &map_q, &sm.full[s], qt0, h, b);
+          tma_tile_bshd<kDkvBlockQ>(sm.dout[s], &map_do, &sm.full[s], qt0, h, b);
         } else {
           mbar_arrive(&sm.full[s]);
         }
@@ -484,46 +458,6 @@ flash_attention_bwd_dkv_reduce_kernel(const float4* __restrict__ partial_k, cons
   }
 }
 
-// ---------------------------------- host ------------------------------------
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of the CUDA driver API, found through the
-// runtime's entry-point query, so the library needs no -lcuda
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// a (B, S, H, 128) bf16 tensor as a 4-d TMA map of boxes of `rows` x 64,
-// 128-byte swizzled; reads past S give zeros
-int make_bshd_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int rows) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD), static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(kD) * 2, static_cast<cuuint64_t>(H) * kD * 2,
-                                 static_cast<cuuint64_t>(S) * H * kD * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-                              elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 }  // namespace
 
 extern "C" int cosmos_flash_attention_bwd_smem_bytes(int dkv);
@@ -541,8 +475,8 @@ extern "C" int cosmos_flash_attention_bwd_dq(const void* q, const void* k, const
   if (!err) err = make_bshd_map(&mv, v, B, Skv, H, kDqBlockKV);
   if (err) return err;
   const int smem = cosmos_flash_attention_bwd_smem_bytes(0);
-  cudaError_t cerr =
-      cudaFuncSetAttribute(flash_attention_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static bool configured[kMaxDevices] = {};
+  cudaError_t cerr = set_smem_once(reinterpret_cast<const void*>(flash_attention_bwd_dq_kernel), smem, configured);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const dim3 grid((Sq + kDqBlockQ - 1) / kDqBlockQ, H, B);
   flash_attention_bwd_dq_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -567,8 +501,8 @@ extern "C" int cosmos_flash_attention_bwd_dkv(const void* q, const void* k, cons
   if (splits < 1 || (splits > 1 && (partial_k == nullptr || partial_v == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = cosmos_flash_attention_bwd_smem_bytes(1);
-  cudaError_t cerr =
-      cudaFuncSetAttribute(flash_attention_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static bool configured[kMaxDevices] = {};
+  cudaError_t cerr = set_smem_once(reinterpret_cast<const void*>(flash_attention_bwd_dkv_kernel), smem, configured);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((Skv + kDkvBlockKV - 1) / kDkvBlockKV, H, B * splits);

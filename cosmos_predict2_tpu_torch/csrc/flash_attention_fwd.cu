@@ -1,249 +1,457 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in, fp32 accumulate.
+// Flash-attention forward (K1) and the KV-cache decode (K5) for Hopper
+// (sm_90a), bf16 in, fp32 accumulate: one warp-specialised body, two
+// entry points.
 //
-// Replaces cosmos_predict2_tpu/ops/flash_attention.py::_fwd_kernel (the
-// Pallas TPU kernel driven by _fwd / flash_attention). Same contract:
-// non-causal online-softmax attention, BSHD in and out, head_dim 128,
-// scale 1/sqrt(128), output in bf16 and the row logsumexp `lse`
-// (B, H, Sq) in fp32, the kv tail masked, and the optional frame-block
-// mask (key i visible to query j iff i / frame_group <= j / frame_group)
-// with fully masked kv tiles skipped. Masked logits take the finite value
-// -1e30 like the TPU kernel (_NEG_INF), so exp(m_prev - m_new) never sees
-// inf - inf.
+// K1 replaces cosmos_predict2_tpu/ops/flash_attention.py::_fwd_kernel (the
+// Pallas TPU kernel driven by _fwd / flash_attention). Contract:
+// non-causal online-softmax attention, BSHD q (B, Sq, H, 128) and k, v
+// (B, Skv, H, 128) in, the output (B, Sq, H, 128) in bf16 and the row
+// logsumexp `lse` (B, H, Sq) in fp32 out, scale 1/sqrt(128), the kv tail
+// masked, and the optional frame-block mask (key i visible to query j iff
+// i / frame_group <= j / frame_group) with fully masked kv tiles skipped.
 //
-// What bounds it on the H100: at the main-path shapes (Sq = Skv = 5,760 to
-// 84,480 tokens, D = 128) the kernel does ~4*Skv*D FLOPs per query row
-// against 2*D*2 bytes of that row's q and output, and re-reads K/V once per
-// 64-row q tile: arithmetic intensity in the hundreds to thousands of
-// FLOP/byte, far above the card's ~295 FLOP/byte line, so the bound is the
-// tensor-core rate.
+// K5 replaces ::_fwd_cache_kernel (driven by _flash_kv_cache_impl /
+// flash_attention_kv_cache): the queries of a new frame block, q (B, Sq, H,
+// 128) token-major, attend over the first kv_valid positions of HEAD-MAJOR
+// ring buffers k_buf / v_buf (B, H, S_max, 128); the block sees itself whole
+// (no mask inside it); output (B, Sq, H, 128) bf16, no lse.
 //
-// Design (first, simple version): one block of 4 warps per (64-row q tile,
-// head, batch). The q tile is staged in shared memory once and held in
-// registers as mma.sync A fragments; a loop inside the block walks 64-row
-// K/V tiles staged in shared memory (zero-filled past Skv). Each warp owns
-// 16 query rows: S = Q K^T on the tensor cores in fp32, scale and masks,
-// the online softmax in fp32 (row max / sum reduced across the 4 lanes of
-// a quad), P rounded to bf16 and reused from registers as the A operand of
-// O += P V, an fp32 accumulator rescaled per tile; O = acc / l and
-// lse = m + log l at the end. The TPU's VMEM-driven block auto-pick is not
-// carried over: tiles are fixed at 64 x 64 for 227 KB of shared memory and
-// occupancy. wgmma, TMA and warp specialisation are later work.
+// Both round P to bf16 before P V, as the TPU kernels do. Masked logits take
+// the finite -1e30 (the TPU kernel's _NEG_INF) and masked entries an
+// explicit P = 0, so the lse matches the plain version's and a masked
+// entry adds exactly nothing.
+//
+// What bounds them on the H100: 4 * 128 FLOPs per visible (query, key) pair
+// against 2 * 128 * 2 bytes per q, k, v or output row read or written once.
+// At K1's main-path shapes (5,760 to 84,480 tokens, or 512 text keys) and at
+// K5's (a block of 880 to 3,520 queries over a 3,520- to 31,680-row cache)
+// that is hundreds to thousands of FLOP per byte, above the card's ~295
+// FLOP/byte line: the bound is the tensor-core rate, 989 TFLOP/s.
+//
+// Design. One CTA per (128 q rows, head, batch) of 384 threads: a producer
+// warpgroup (setmaxnreg down to 24; one thread issues TMA) and two consumer
+// warpgroups of 64 q rows each (setmaxnreg up to 240). What the first
+// versions (mma.sync m16n8k16, 4 warps, 64 x 64 tiles, synchronous 16-byte
+// staging with two __syncthreads per tile, V read through scalar pairs)
+// lacked, and what this one does about it:
+// 1. Overlap. The q tile is loaded once; K and V stream in 128-row tiles
+//    through a ring of kStages stages, K and V of a stage on mbarriers of
+//    their own (S = Q K^T starts while V lands) and one "empty" mbarrier
+//    (one arrival per consumer warp). No __syncthreads in the kv loop. The
+//    tensor maps are 4-d, so TMA fills rows past the sequence (K1: past Sq
+//    or Skv inside each batch; K5: at or past kv_valid, whatever the cache
+//    holds there, NaN included) with zeros.
+// 2. Tensor cores. S = Q K^T is wgmma m64n128k16 with both operands
+//    K-major in shared memory; the online softmax runs in fp32 on the
+//    accumulator's layout (row max and sum over the quad with shfl_xor 1
+//    and 2); P is rounded to bf16 in registers and fed as the register A
+//    operand of O += P V (wgmma m64n128k16, V MN-major): P never touches
+//    shared memory.
+// 3. Masks only where needed. The kv-tail mask runs on the tile that holds
+//    the end of the keys, the frame mask only on the tiles past the keys
+//    that every row of a consumer warpgroup sees; tiles no row of a
+//    warpgroup sees are skipped by it, and those no row of the CTA sees
+//    are not loaded. 64-row kv tiles, a third ring stage and a ping-pong of
+//    the two consumer warpgroups on named barriers were slower or no faster
+//    (scripts/flash_fwd_variants.py), so 128 rows, two stages, no ping-pong.
+// 4. Epilogue. O / l is rounded to bf16, staged in the warpgroup's own rows
+//    of the q tile and written with 16-byte stores; lse = m + log l in fp32.
+// 5. K5's grid can leave SMs idle while each CTA walks the whole cache.
+//    Split-KV (flash-decoding): the wrapper cuts the cache's kv tiles into
+//    `splits` runs (ops/flash_attention.py::kv_cache_split_plan; run s
+//    covers tiles [s T / splits, (s + 1) T / splits)) where that pays; each
+//    CTA writes its rows' normalised fp32 partial O and partial lse, and a
+//    second kernel combines them in split order (max-shifted, lse-weighted),
+//    so the result is deterministic. With one split (the interactive
+//    path's one-frame block: 112 CTAs are one wave whatever the split) the
+//    main kernel writes bf16 directly.
+// The host sets the shared-memory attribute once per kernel and device and
+// encodes the tensor maps per call (K5's fill changes every block).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include <algorithm>
+
+#include "sm90_bf16.cuh"
 
 namespace {
 
-using cosmos_kernels::ld_pair;
-using cosmos_kernels::mma_16816;
-using cosmos_kernels::pack_float_pair;
-using cosmos_kernels::pack_pair;
+using namespace cosmos_sm90;
 
 constexpr int kD = 128;
-constexpr int kBlockQ = 64;
-constexpr int kBlockKV = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kLds = kD + 8;  // padded shared-memory row, in bf16 elements
+constexpr int kBlockQ = 128;  // two consumer warpgroups of 64 rows
+constexpr int kBlockKV = 128;
+constexpr int kStages = 2;
+constexpr int kConsumerThreads = 256;
+constexpr int kThreads = kConsumerThreads + 128;  // plus the producer warpgroup
+constexpr int kConsumerWarps = kConsumerThreads / 32;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInf = -1e30f;
-constexpr int kSmemBytes = (kBlockQ + 2 * kBlockKV) * kLds * 2;
 
-__global__ void __launch_bounds__(kThreads)
-flash_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                           float* __restrict__ lse, int Sq, int Skv, int H, int frame_group, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK = sQ + kBlockQ * kLds;
-  __nv_bfloat16* sV = sK + kBlockKV * kLds;
+struct Smem {
+  alignas(1024) unsigned char q[Tile<kBlockQ>::kBytes];  // the q tile, then each warpgroup's output rows
+  alignas(1024) unsigned char k[kStages][Tile<kBlockKV>::kBytes];
+  alignas(1024) unsigned char v[kStages][Tile<kBlockKV>::kBytes];
+  uint64_t q_full;
+  uint64_t k_full[kStages];
+  uint64_t v_full[kStages];
+  uint64_t empty[kStages];
+};
 
+struct Params {
+  __nv_bfloat16* out;  // (B, Sq, H, 128)
+  float* lse;          // K1: (B, H, Sq)
+  float* partial_o;    // K5 with splits > 1: (splits, B, Sq, H, 128)
+  float* partial_lse;  // K5 with splits > 1: (splits, B, Sq, H)
+  int Sq;
+  int Skv;  // K5: kv_valid
+  int H;
+  int frame_group;  // K1; 0: none
+  int splits;       // K5; 1 for K1
+  float scale;
+};
+
+// S = Q K^T of this warpgroup's 64 q rows and one kv tile, issued
+__device__ __forceinline__ void issue_qk(float (&sc)[kBlockKV / 2], const unsigned char* q, const unsigned char* k) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const int box = kk / 4;
+    wgmma_ss<0>(sc, kmajor_desc(q + box * Tile<kBlockQ>::kBoxBytes, kk % 4),
+                kmajor_desc(k + box * Tile<kBlockKV>::kBoxBytes, kk % 4), kk > 0);
+  }
+}
+
+// O += P V with P (bf16) from registers and V MN-major, issued
+__device__ __forceinline__ void issue_pv(float (&o)[64], const uint32_t (&pa)[kBlockKV / 16][4],
+                                         const unsigned char* v) {
+#pragma unroll
+  for (int kk = 0; kk < kBlockKV / 16; ++kk) wgmma_rs<1>(o, pa[kk], mnmajor_desc(v, Tile<kBlockKV>::kBoxBytes, kk), 1);
+}
+
+// the online softmax of one S tile (columns kv0 ..) in fp32, in place: the
+// masks where `masked` (column >= kmax of the row: logit -1e30, P = 0), the
+// running row max (times scale * log2(e)) and this lane's part of the
+// running sum; corr: the factor for O
+__device__ __forceinline__ void softmax_tile(float (&sc)[kBlockKV / 2], float (&m_run)[2], float (&l_run)[2],
+                                             float (&corr)[2], int kv0, int t, const int (&kmax)[2], bool masked,
+                                             float scale_log2) {
+  if (masked) {
+#pragma unroll
+    for (int i = 0; i < kBlockKV / 2; ++i) {
+      if (kv0 + 8 * (i >> 2) + 2 * t + (i & 1) >= kmax[(i >> 1) & 1]) sc[i] = kNegInf;
+    }
+  }
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < kBlockKV / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m_run[r], mx[r] * scale_log2);
+    corr[r] = exp2_approx(m_run[r] - m_new);
+    m_run[r] = m_new;
+  }
+  float psum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kBlockKV / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    float pv = exp2_approx(fmaf(sc[i], scale_log2, -m_run[r]));
+    if (masked && kv0 + 8 * (i >> 2) + 2 * t + (i & 1) >= kmax[r]) pv = 0.f;
+    sc[i] = pv;
+    psum[r] += pv;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + psum[r];
+}
+
+// kCache false: K1 (BSHD k / v, lse out). true: K5 (head-major cache, no
+// frame mask, split-KV).
+template <bool kCache>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = smem_storage<Smem>(smem_raw);
   const int q0 = blockIdx.x * kBlockQ;
   const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  const int b = blockIdx.z / p.splits;
+  const int split = blockIdx.z % p.splits;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int fg = kCache ? 0 : p.frame_group;
 
-  const size_t seq_stride = static_cast<size_t>(H) * kD;  // elements between sequence positions
-  const __nv_bfloat16* qb = q + (static_cast<size_t>(b) * Sq * H + h) * kD;
-  const __nv_bfloat16* kb = k + (static_cast<size_t>(b) * Skv * H + h) * kD;
-  const __nv_bfloat16* vb = v + (static_cast<size_t>(b) * Skv * H + h) * kD;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  // the kv tiles this CTA walks: [tile_begin, tile_end)
+  const int kv_tiles = (p.Skv + kBlockKV - 1) / kBlockKV;
+  int tile_begin = 0, tile_end = kv_tiles;
+  if (kCache) {
+    tile_begin = split * kv_tiles / p.splits;
+    tile_end = (split + 1) * kv_tiles / p.splits;
+  } else if (fg > 0) {  // past the last frame group any row of this q tile sees: skipped
+    const int q_last = min(q0 + kBlockQ, p.Sq) - 1;
+    tile_end = (min(p.Skv, (q_last / fg + 1) * fg) + kBlockKV - 1) / kBlockKV;
+  }
+  const int n_tiles = tile_end - tile_begin;
 
-  // ---- stage the q tile (rows past Sq are zero) ----
-  for (int i = tid; i < kBlockQ * (kD / 8); i += kThreads) {
-    const int r = i / (kD / 8);
-    const int c = (i % (kD / 8)) * 8;
-    uint4 val = zero;
-    if (q0 + r < Sq) val = *reinterpret_cast<const uint4*>(qb + static_cast<size_t>(q0 + r) * seq_stride + c);
-    *reinterpret_cast<uint4*>(sQ + r * kLds + c) = val;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.k_full[s], 1);
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.empty[s], kConsumerWarps);
+    }
+    mbar_fence_init();
   }
   __syncthreads();
 
-  // this warp's 16 query rows as A fragments, 8 k-steps of 16 over D
-  uint32_t qf[kD / 16][4];
-  {
-    const __nv_bfloat16* p0 = sQ + (warp * 16 + g) * kLds + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      const __nv_bfloat16* p = p0 + kk * 16;
-      qf[kk][0] = ld_pair(p);
-      qf[kk][1] = ld_pair(p + 8 * kLds);
-      qf[kk][2] = ld_pair(p + 8);
-      qf[kk][3] = ld_pair(p + 8 * kLds + 8);
-    }
-  }
-
-  float o[kD / 8][4];
-#pragma unroll
-  for (int n = 0; n < kD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_run[2] = {kNegInf, kNegInf};
-  float l_run[2] = {0.f, 0.f};  // this lane's partial row sums; quad-reduced at the end
-
-  const int row0 = q0 + warp * 16 + g;  // query row of c[0], c[1]; row0 + 8 for c[2], c[3]
-  const int rows[2] = {row0, row0 + 8};
-
-  // frame-causal: kv tiles past the last frame group visible to any row
-  // of this q tile are skipped (same bound as the TPU kernel)
-  int kv_end = Skv;
-  if (frame_group > 0) {
-    const long long q_last = q0 + kBlockQ - 1;
-    const long long max_visible = (q_last / frame_group) * frame_group + frame_group;
-    if (max_visible < kv_end) kv_end = static_cast<int>(max_visible);
-  }
-
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kBlockKV) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    for (int i = tid; i < kBlockKV * (kD / 8); i += kThreads) {
-      const int r = i / (kD / 8);
-      const int c = (i % (kD / 8)) * 8;
-      uint4 kval = zero, vval = zero;
-      if (kv0 + r < Skv) {
-        const size_t off = static_cast<size_t>(kv0 + r) * seq_stride + c;
-        kval = *reinterpret_cast<const uint4*>(kb + off);
-        vval = *reinterpret_cast<const uint4*>(vb + off);
-      }
-      *reinterpret_cast<uint4*>(sK + r * kLds + c) = kval;
-      *reinterpret_cast<uint4*>(sV + r * kLds + c) = vval;
-    }
-    __syncthreads();
-
-    // ---- S = Q K^T: 16 x 64 per warp, 8 n-tiles of 8 kv columns ----
-    float s[kBlockKV / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlockKV / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* kp = sK + (j * 8 + g) * kLds + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        mma_16816(s[j], qf[kk], ld_pair(kp + kk * 16), ld_pair(kp + kk * 16 + 8));
+  if (wg == 2) {
+    // ------------------------------ producer ------------------------------
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 0 && lane == 0) {
+      mbar_arrive_expect_tx(&sm.q_full, Tile<kBlockQ>::kBytes);
+      tma_tile_bshd<kBlockQ>(sm.q, &map_q, &sm.q_full, q0, h, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        const int row = (tile_begin + it) * kBlockKV;
+        mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&sm.k_full[s], Tile<kBlockKV>::kBytes);
+        mbar_arrive_expect_tx(&sm.v_full[s], Tile<kBlockKV>::kBytes);
+        if (kCache) {
+          tma_tile_head_major<kBlockKV>(sm.k[s], &map_k, &sm.k_full[s], row, h, b);
+          tma_tile_head_major<kBlockKV>(sm.v[s], &map_v, &sm.v_full[s], row, h, b);
+        } else {
+          tma_tile_bshd<kBlockKV>(sm.k[s], &map_k, &sm.k_full[s], row, h, b);
+          tma_tile_bshd<kBlockKV>(sm.v[s], &map_v, &sm.v_full[s], row, h, b);
+        }
       }
     }
-
-    // ---- scale, kv-tail and frame masks ----
-#pragma unroll
-    for (int j = 0; j < kBlockKV / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kv0 + j * 8 + 2 * t + (e & 1);
-        const int row = rows[e >> 1];
-        bool visible = col < Skv;
-        if (frame_group > 0) visible = visible && (col / frame_group) <= (row / frame_group);
-        s[j][e] = visible ? s[j][e] * scale : kNegInf;
-      }
-    }
-
-    // ---- online softmax in fp32 ----
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < kBlockKV / 8; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-    }
-    float corr[2], psum[2] = {0.f, 0.f};
+  } else {
+    // ------------------------------ consumers -----------------------------
+    setmaxnreg_inc<kConsumerRegs>();
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const float scale_log2 = p.scale * kLog2e;
+    const int wg_row0 = q0 + 64 * wg;
+    // this thread's two query rows and the end of the keys each sees
+    int rows[2], kmax[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      corr[r] = __expf(m_run[r] - m_new);
-      m_run[r] = m_new;
+      rows[r] = wg_row0 + 16 * warp + g + 8 * r;
+      kmax[r] = fg > 0 ? min(p.Skv, (rows[r] / fg + 1) * fg) : p.Skv;
     }
-#pragma unroll
-    for (int j = 0; j < kBlockKV / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = __expf(s[j][e] - m_run[e >> 1]);
-        psum[e >> 1] += s[j][e];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + psum[r];
-#pragma unroll
-    for (int n = 0; n < kD / 8; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
+    // keys below wg_full are seen by every row of this warpgroup (no mask);
+    // keys at or past wg_end by none of them (the tile is skipped)
+    int wg_full = p.Skv, wg_end = p.Skv;
+    if (fg > 0) {
+      const int last = min(wg_row0 + 64, p.Sq) - 1;
+      wg_full = min(p.Skv, (wg_row0 / fg + 1) * fg);
+      wg_end = last < wg_row0 ? 0 : min(p.Skv, (last / fg + 1) * fg);
     }
 
-    // ---- O += P V: P (bf16) straight from registers as the A operand ----
+    // the tiles this warpgroup computes: the CTA's below wg_end (a prefix)
+    const int n_wg = min(n_tiles, max(0, (wg_end - tile_begin * kBlockKV + kBlockKV - 1) / kBlockKV));
+    const unsigned char* q_rows = sm.q + 64 * wg * 128;  // this warpgroup's 64 rows in each q box
+    float o[64];
 #pragma unroll
-    for (int kk = 0; kk < kBlockKV / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_float_pair(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_float_pair(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_float_pair(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_float_pair(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* vp = sV + (kk * 16 + 2 * t) * kLds + g;
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float m_run[2] = {kNegInf, kNegInf};  // running row max of the logits times scale * log2(e)
+    float l_run[2] = {0.f, 0.f};          // this lane's part of the running row sum
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[s]);
+    };
+
+    mbar_wait(&sm.q_full, 0);
+    for (int it = 0; it < n_wg; ++it) {
+      const int s = it % kStages;
+      const uint32_t parity = (it / kStages) & 1;
+      const int kv0 = (tile_begin + it) * kBlockKV;
+      mbar_wait(&sm.k_full[s], parity);
+      float sc[kBlockKV / 2];
+      wgmma_fence();
+      issue_qk(sc, q_rows, sm.k[s]);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(sc);
+      float corr[2];
+      softmax_tile(sc, m_run, l_run, corr, kv0, t, kmax, kv0 + kBlockKV > wg_full, scale_log2);
 #pragma unroll
-      for (int n = 0; n < kD / 8; ++n) {
-        const __nv_bfloat16* p = vp + n * 8;
-        const uint32_t b0 = pack_pair(p[0], p[kLds]);
-        const uint32_t b1 = pack_pair(p[8 * kLds], p[9 * kLds]);
-        mma_16816(o[n], pa, b0, b1);
+      for (int i = 0; i < 64; ++i) o[i] *= corr[(i >> 1) & 1];
+      uint32_t pa[kBlockKV / 16][4];  // P (bf16) as the register A operand of P V
+#pragma unroll
+      for (int kk = 0; kk < kBlockKV / 16; ++kk) a_fragment(pa[kk], sc, kk);
+      mbar_wait(&sm.v_full[s], parity);
+      wgmma_fence();
+      fence_operands(o);
+      issue_pv(o, pa, sm.v[s]);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(o);
+      release(s);
+    }
+    // the CTA's tiles no row of this warpgroup sees: released as they land
+    for (int it = n_wg; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      mbar_wait(&sm.k_full[s], (it / kStages) & 1);
+      mbar_wait(&sm.v_full[s], (it / kStages) & 1);
+      release(s);
+    }
+
+    // ------------------------------ epilogue ------------------------------
+    float inv_l[2], row_lse[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+      inv_l[r] = 1.f / l_run[r];
+      row_lse[r] = (m_run[r] + __log2f(l_run[r])) * kLn2;  // natural log, unscaled logits
+    }
+    const size_t seq_stride = static_cast<size_t>(p.H) * kD;
+    if (kCache && p.splits > 1) {
+      // normalised fp32 partial O and partial lse of this split
+      const int B = gridDim.z / p.splits;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (rows[r] >= p.Sq) continue;
+        const size_t row_idx = ((static_cast<size_t>(split) * B + b) * p.Sq + rows[r]) * p.H + h;
+        float* dst = p.partial_o + row_idx * kD;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<float2*>(dst + 8 * j + 2 * t) =
+              make_float2(o[4 * j + 2 * r] * inv_l[r], o[4 * j + 2 * r + 1] * inv_l[r]);
+        if (t == 0) p.partial_lse[row_idx] = row_lse[r];
+      }
+    } else {
+      // O / l in bf16, staged in this warpgroup's rows of the q tile (chunk c
+      // of row r at chunk c ^ (r % 8) of its box), then 16-byte stores
+      named_barrier_sync(1 + wg, 128);  // every warp of the warpgroup is done reading its q rows
+      unsigned char* stage = sm.q + 64 * wg * 128;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row_l = 16 * warp + g + 8 * r;
+          *reinterpret_cast<uint32_t*>(stage + (j / 8) * Tile<kBlockQ>::kBoxBytes + row_l * 128 +
+                                       (((j % 8) ^ (row_l % 8)) * 16) + 4 * t) =
+              pack_bf16(o[4 * j + 2 * r] * inv_l[r], o[4 * j + 2 * r + 1] * inv_l[r]);
+        }
+      }
+      named_barrier_sync(1 + wg, 128);
+      const int tid = threadIdx.x % 128;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int idx = n * 128 + tid;
+        const int row_l = idx / 16, c16 = idx % 16;
+        const int row = wg_row0 + row_l;
+        if (row >= p.Sq) continue;
+        const uint4 val = *reinterpret_cast<const uint4*>(stage + (c16 / 8) * Tile<kBlockQ>::kBoxBytes + row_l * 128 +
+                                                          (((c16 % 8) ^ (row_l % 8)) * 16));
+        *reinterpret_cast<uint4*>(p.out + (static_cast<size_t>(b) * p.Sq + row) * seq_stride +
+                                  static_cast<size_t>(h) * kD + 8 * c16) = val;
+      }
+      if (!kCache && t == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (rows[r] < p.Sq) p.lse[(static_cast<size_t>(b) * p.H + h) * p.Sq + rows[r]] = row_lse[r];
       }
     }
   }
+}
 
-  // ---- finalize: O = acc / l, lse = m + log l ----
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = rows[r];
-    if (row >= Sq) continue;
-    __nv_bfloat16* orow = out + (static_cast<size_t>(b) * Sq + row) * seq_stride + static_cast<size_t>(h) * kD;
-#pragma unroll
-    for (int n = 0; n < kD / 8; ++n) {
-      const uint32_t packed = pack_float_pair(o[n][2 * r] / l_run[r], o[n][2 * r + 1] / l_run[r]);
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) = packed;
+// K5's second pass on the split route: per (batch, query, head) row, the
+// partials' lse-weighted sum in split order, shifted by their max, in fp32,
+// then bf16. One thread per 8 columns of a row.
+__global__ void __launch_bounds__(256)
+kv_cache_combine_kernel(const float* __restrict__ partial_o, const float* __restrict__ partial_lse,
+                        __nv_bfloat16* __restrict__ out, size_t n_rows, int splits) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n_rows * 16;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t row = i / 16;
+    const int c = static_cast<int>(i % 16) * 8;
+    float m = kNegInf;
+    for (int s = 0; s < splits; ++s) m = fmaxf(m, partial_lse[s * n_rows + row]);
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float wsum = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float w = __expf(partial_lse[s * n_rows + row] - m);
+      const float4* src = reinterpret_cast<const float4*>(partial_o + (s * n_rows + row) * kD + c);
+      const float4 a = src[0], b = src[1];
+      acc[0] += w * a.x, acc[1] += w * a.y, acc[2] += w * a.z, acc[3] += w * a.w;
+      acc[4] += w * b.x, acc[5] += w * b.y, acc[6] += w * b.z, acc[7] += w * b.w;
+      wsum += w;
     }
-    if (t == 0) lse[(static_cast<size_t>(b) * H + h) * Sq + row] = m_run[r] + logf(l_run[r]);
+    const float inv = 1.f / wsum;
+    *reinterpret_cast<uint4*>(out + row * kD + c) =
+        make_uint4(pack_bf16(acc[0] * inv, acc[1] * inv), pack_bf16(acc[2] * inv, acc[3] * inv),
+                   pack_bf16(acc[4] * inv, acc[5] * inv), pack_bf16(acc[6] * inv, acc[7] * inv));
   }
+}
+
+template <bool kCache>
+int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, const Params& p, int B,
+           cudaStream_t stream) {
+  static bool configured[kMaxDevices] = {};
+  const int smem = static_cast<int>(sizeof(Smem)) + 1024;
+  const cudaError_t err =
+      set_smem_once(reinterpret_cast<const void*>(attention_fwd_kernel<kCache>), smem, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.Sq + kBlockQ - 1) / kBlockQ, p.H, B * p.splits);
+  attention_fwd_kernel<kCache><<<grid, kThreads, smem, stream>>>(mq, mk, mv, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, out: (B, S, H, 128) bf16, contiguous, 16-byte aligned;
-// lse: (B, H, Sq) fp32. Returns the CUDA error code (0 on success).
+// K1. q, out: (B, Sq, H, 128) bf16; k, v: (B, Skv, H, 128) bf16; all
+// contiguous and 16-byte aligned; lse: (B, H, Sq) fp32. Returns the CUDA
+// error code (0 on success).
 extern "C" int cosmos_flash_attention_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                                           int B, int Sq, int Skv, int H, int frame_group, float scale,
                                           void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
-  flash_attention_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), Sq, Skv,
-      H, frame_group, scale);
+  CUtensorMap mq, mk, mv;
+  int err = make_bshd_map(&mq, q, B, Sq, H, kBlockQ);
+  if (!err) err = make_bshd_map(&mk, k, B, Skv, H, kBlockKV);
+  if (!err) err = make_bshd_map(&mv, v, B, Skv, H, kBlockKV);
+  if (err) return err;
+  const Params p{static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), nullptr, nullptr, Sq, Skv, H,
+                 frame_group, 1, scale};
+  return launch<false>(mq, mk, mv, p, B, static_cast<cudaStream_t>(stream));
+}
+
+// K5. q, out: (B, Sq, H, 128) bf16; k_buf, v_buf: (B, H, S_max, 128) bf16;
+// all contiguous and 16-byte aligned; 0 < kv_valid <= S_max. splits > 1:
+// partial_o (splits, B, Sq, H, 128) and partial_lse (splits, B, Sq, H), fp32
+// scratch, and at most one split per kv tile of 128 rows. Returns the CUDA
+// error code (0 on success).
+extern "C" int cosmos_flash_kv_cache(const void* q, const void* k_buf, const void* v_buf, void* out, void* partial_o,
+                                     void* partial_lse, int B, int Sq, int S_max, int H, int kv_valid, int splits,
+                                     float scale, void* stream) {
+  if (splits < 1 || splits > (kv_valid + kBlockKV - 1) / kBlockKV ||
+      (splits > 1 && (partial_o == nullptr || partial_lse == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv;
+  int err = make_bshd_map(&mq, q, B, Sq, H, kBlockQ);
+  if (!err) err = make_head_major_map(&mk, k_buf, B, H, kv_valid, S_max, kBlockKV);
+  if (!err) err = make_head_major_map(&mv, v_buf, B, H, kv_valid, S_max, kBlockKV);
+  if (err) return err;
+  const Params p{static_cast<__nv_bfloat16*>(out), nullptr, static_cast<float*>(partial_o),
+                 static_cast<float*>(partial_lse), Sq, kv_valid, H, 0, splits, scale};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = launch<true>(mq, mk, mv, p, B, st);
+  if (err || splits == 1) return err;
+  const size_t n_rows = static_cast<size_t>(B) * Sq * H;
+  const int blocks = static_cast<int>(std::min<size_t>((n_rows * 16 + 255) / 256, 132 * 8));
+  kv_cache_combine_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(partial_o),
+                                                  static_cast<const float*>(partial_lse),
+                                                  static_cast<__nv_bfloat16*>(out), n_rows, splits);
   return static_cast<int>(cudaGetLastError());
 }
+
+// dynamic shared memory a CTA of K1 or K5 takes, in bytes
+extern "C" int cosmos_flash_attention_fwd_smem_bytes() { return static_cast<int>(sizeof(Smem)) + 1024; }

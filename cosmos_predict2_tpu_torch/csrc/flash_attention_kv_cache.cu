@@ -1,50 +1,41 @@
-// KV-cache decode attention for Hopper (sm_90a), bf16 in, fp32 accumulate:
-// K5 (dense cache) and K6 (row-windowed cache), two entry points over one
-// templated body.
+// Row-windowed KV-cache decode attention (K6) for Hopper (sm_90a), bf16 in,
+// fp32 accumulate.
 //
-// K5 replaces cosmos_predict2_tpu/ops/flash_attention.py::_fwd_cache_kernel
-// (driven by _flash_kv_cache_impl / flash_attention_kv_cache): the queries of
-// a new frame block, q (B, Sq, H, 128) token-major, attend over the first
-// kv_valid positions of HEAD-MAJOR ring buffers k_buf / v_buf (B, H, S_max,
-// 128); the block sees itself whole (no mask inside it); output (B, Sq, H,
-// 128) bf16, no lse.
-//
-// K6 replaces _fwd_cache_window_kernel (driven by
-// _flash_kv_cache_window_impl / flash_attention_kv_cache_window): q holds
-// whole frames of a gh x gw token grid, row-major (frame, row, col), and the
+// Replaces cosmos_predict2_tpu/ops/flash_attention.py::_fwd_cache_window_kernel
+// (driven by _flash_kv_cache_window_impl / flash_attention_kv_cache_window):
+// the queries of a new frame block, q (B, Sq, H, 128) token-major, attend
+// over the first kv_valid positions of HEAD-MAJOR ring buffers k_buf / v_buf
+// (B, H, S_max, 128); output (B, Sq, H, 128) bf16, no lse. q holds whole
+// frames of a gh x gw token grid, row-major (frame, row, col), and the
 // buffers' S axis is whole frames too. Query row yq sees, in every filled
 // frame, the full-width key rows [s, s + wh) with s = clamp(yq - (wh-1)/2,
 // 0, gh - wh). kv_valid is a whole number of frames (the wrapper checks).
+// The dense cache decode (K5) is in flash_attention_fwd.cu.
 //
-// Both round P to bf16 before P V, as the TPU kernels do, and give masked
+// It rounds P to bf16 before P V, as the TPU kernel does, and gives masked
 // entries an explicit P = 0, so a tile in which a row sees nothing adds
 // nothing to it (the TPU window kernel's exp(-inf - -inf) gave NaN there,
 // flash_attention.py:391).
 //
-// What bounds them on the H100: at the interactive path's steady state
-// (352x640, cache 16 + 1 frames: Sq 880, kv_valid 14,960, B1 H16) K5 does
-// 1.08e11 FLOPs (0.109 ms at 989 TFLOP/s) against 130 MB of cache, q and
-// output (0.039 ms at 3.35 TB/s): tensor-core bound. K6 at 7 of 22 rows
-// does a third of the FLOPs and reads the same bytes: memory bound on
-// paper. In practice the grid is the limit: 14 q tiles x 16 heads = 224
-// blocks of 4 warps on 132 SMs, each walking the whole fill level alone.
-// Splitting the kv range over blocks (flash-decoding) is the fix, later.
+// What bounds it on the H100: at the interactive path's steady state
+// (352x640, cache 16 + 1 frames: Sq 880, kv_valid 14,960, B1 H16) with 7 of
+// 22 rows it does a third of a dense decode's 1.08e11 FLOPs and reads the
+// same 130 MB: memory bound on paper (0.039 ms at 3.35 TB/s).
 //
-// Design (first, simple version, as K1 in flash_attention_fwd.cu): one
-// block of 4 warps per (64-row q tile, head, batch); the q tile staged once
-// in shared memory and held as mma.sync A fragments; a loop over 64-row K/V
-// tiles of the head's contiguous (S_max, 128) slice of the buffers (no
-// relayout of the cache: the head-major layout is the one the kernel
-// reads), staged in shared memory and zero-filled past the range's end;
-// online softmax in fp32 per warp (16 query rows). K5 walks the tiles of
-// [0, kv_valid) only, so its cost follows the fill level, not S_max. K6
-// walks, in each filled frame, only the tiles of the rows that the union of
-// the tile's windows covers: s() is monotone in the row, so that union is
-// the contiguous row range [s(y_min), s(y_max) + wh), computed once per
-// block; each thread computes its two rows' window bounds once, and the
-// mask is two compares per element. Unlike the TPU kernel there is no band
-// unrolling, so no band-divisor constraint on gh (the TPU banding went
-// dense for a prime gh, flash_attention.py:357) and no gw % 8 rule.
+// Design (first, simple version): one block of 4 warps per (64-row q tile,
+// head, batch); the q tile staged once in shared memory and held as
+// mma.sync A fragments; a loop over 64-row K/V tiles of the head's
+// contiguous (S_max, 128) slice of the buffers (no relayout of the cache:
+// the head-major layout is the one the kernel reads), staged in shared
+// memory and zero-filled past the range's end; online softmax in fp32 per
+// warp (16 query rows). It walks, in each filled frame, only the tiles of
+// the rows that the union of the tile's windows covers: s() is monotone in
+// the row, so that union is the contiguous row range [s(y_min), s(y_max) +
+// wh), computed once per block; each thread computes its two rows' window
+// bounds once, and the mask is two compares per element. Unlike the TPU
+// kernel there is no band unrolling, so no band-divisor constraint on gh
+// (the TPU banding went dense for a prime gh, flash_attention.py:357) and
+// no gw % 8 rule.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,12 +62,10 @@ __device__ __forceinline__ int window_start(int yq, int gh, int wh) {
   return min(max(yq - (wh - 1) / 2, 0), gh - wh);
 }
 
-template <bool kWindow>
-__device__ __forceinline__ void kv_cache_decode(const __nv_bfloat16* __restrict__ q,
-                                                const __nv_bfloat16* __restrict__ k_buf,
-                                                const __nv_bfloat16* __restrict__ v_buf,
-                                                __nv_bfloat16* __restrict__ out, int Sq, int S_max, int H,
-                                                int kv_valid, int gh, int gw, int wh, float scale) {
+__global__ void __launch_bounds__(kThreads)
+flash_kv_cache_window_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_buf,
+                             const __nv_bfloat16* __restrict__ v_buf, __nv_bfloat16* __restrict__ out, int Sq,
+                             int S_max, int H, int kv_valid, int gh, int gw, int wh, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sK = sQ + kBlockQ * kLds;
@@ -130,29 +119,25 @@ __device__ __forceinline__ void kv_cache_decode(const __nv_bfloat16* __restrict_
   const int row0 = q0 + warp * 16 + g;  // query row of c[0], c[1]; row0 + 8 for c[2], c[3]
   const int rows[2] = {row0, row0 + 8};
 
-  // K5: one range [0, kv_valid). K6: in each of the kv_valid / F filled
-  // frames, the token range [seg_lo, seg_hi) of the tile's window union;
-  // each row's own window [lo, hi) in tokens from its frame's start
-  // (empty for a row past Sq).
-  int n_frames = 1, frame = 0, seg_lo = 0, seg_hi = kv_valid;
+  // in each of the kv_valid / F filled frames, the token range [seg_lo,
+  // seg_hi) of the tile's window union; each row's own window [lo, hi) in
+  // tokens from its frame's start (empty for a row past Sq)
+  const int frame = gh * gw;
+  const int n_frames = kv_valid / frame;
   int lo[2] = {0, 0}, hi[2] = {0, 0};
-  if (kWindow) {
-    frame = gh * gw;
-    n_frames = kv_valid / frame;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (rows[r] < Sq) {
-        const int s = window_start((rows[r] % frame) / gw, gh, wh);
-        lo[r] = s * gw;
-        hi[r] = (s + wh) * gw;
-      }
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] < Sq) {
+      const int s = window_start((rows[r] % frame) / gw, gh, wh);
+      lo[r] = s * gw;
+      hi[r] = (s + wh) * gw;
     }
-    const int first = q0, last = min(q0 + kBlockQ, Sq) - 1;
-    int y_min = (first % frame) / gw, y_max = (last % frame) / gw;
-    if (first / frame != last / frame) y_min = 0, y_max = gh - 1;  // the tile ends one frame and starts the next
-    seg_lo = window_start(y_min, gh, wh) * gw;
-    seg_hi = (window_start(y_max, gh, wh) + wh) * gw;
   }
+  const int first = q0, last = min(q0 + kBlockQ, Sq) - 1;
+  int y_min = (first % frame) / gw, y_max = (last % frame) / gw;
+  if (first / frame != last / frame) y_min = 0, y_max = gh - 1;  // the tile ends one frame and starts the next
+  const int seg_lo = window_start(y_min, gh, wh) * gw;
+  const int seg_hi = (window_start(y_max, gh, wh) + wh) * gw;
 
   for (int f = 0; f < n_frames; ++f) {
     const int base = f * frame;
@@ -185,19 +170,13 @@ __device__ __forceinline__ void kv_cache_decode(const __nv_bfloat16* __restrict_
         }
       }
 
-      // ---- scale and mask: the fill frontier (K5) or the row window (K6) ----
+      // ---- scale and mask: the row window ----
 #pragma unroll
       for (int j = 0; j < kBlockKV / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int col = kv0 + j * 8 + 2 * t + (e & 1);
-          bool visible;
-          if (kWindow) {
-            const int local = col - base;
-            visible = local >= lo[e >> 1] && local < hi[e >> 1];
-          } else {
-            visible = col < end;
-          }
+          const int local = kv0 + j * 8 + 2 * t + (e & 1) - base;
+          const bool visible = local >= lo[e >> 1] && local < hi[e >> 1];
           s[j][e] = visible ? s[j][e] * scale : kNegInf;
         }
       }
@@ -276,51 +255,22 @@ __device__ __forceinline__ void kv_cache_decode(const __nv_bfloat16* __restrict_
   }
 }
 
-// K5 and K6 as kernels of their own names (the profiler tells them apart)
-__global__ void __launch_bounds__(kThreads)
-flash_kv_cache_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_buf,
-                      const __nv_bfloat16* __restrict__ v_buf, __nv_bfloat16* __restrict__ out, int Sq, int S_max,
-                      int H, int kv_valid, int gh, int gw, int wh, float scale) {
-  kv_cache_decode<false>(q, k_buf, v_buf, out, Sq, S_max, H, kv_valid, gh, gw, wh, scale);
-}
+}  // namespace
 
-__global__ void __launch_bounds__(kThreads)
-flash_kv_cache_window_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_buf,
-                             const __nv_bfloat16* __restrict__ v_buf, __nv_bfloat16* __restrict__ out, int Sq,
-                             int S_max, int H, int kv_valid, int gh, int gw, int wh, float scale) {
-  kv_cache_decode<true>(q, k_buf, v_buf, out, Sq, S_max, H, kv_valid, gh, gw, wh, scale);
-}
-
-using KernelFn = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*, __nv_bfloat16*, int, int,
-                          int, int, int, int, int, float);
-
-int launch(KernelFn kernel, const void* q, const void* k_buf, const void* v_buf, void* out, int B, int Sq, int S_max,
-           int H, int kv_valid, int gh, int gw, int wh, float scale, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+// K6. q, out: (B, Sq, H, 128) bf16; k_buf, v_buf: (B, H, S_max, 128) bf16;
+// all contiguous and 16-byte aligned; Sq, S_max and kv_valid whole frames of
+// gh * gw tokens, 0 < kv_valid <= S_max; wh = min(window_rows, gh) visible
+// rows per query. Returns the CUDA error code (0 on success).
+extern "C" int cosmos_flash_kv_cache_window(const void* q, const void* k_buf, const void* v_buf, void* out, int B,
+                                            int Sq, int S_max, int H, int kv_valid, int gh, int gw, int wh,
+                                            float scale, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(flash_kv_cache_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
-  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  flash_kv_cache_window_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_buf),
       static_cast<const __nv_bfloat16*>(v_buf), static_cast<__nv_bfloat16*>(out), Sq, S_max, H, kv_valid, gh, gw,
       wh, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// K5. q, out: (B, Sq, H, 128) bf16; k_buf, v_buf: (B, H, S_max, 128) bf16;
-// all contiguous and 16-byte aligned; 0 < kv_valid <= S_max. Returns the
-// CUDA error code (0 on success).
-extern "C" int cosmos_flash_kv_cache(const void* q, const void* k_buf, const void* v_buf, void* out, int B, int Sq,
-                                     int S_max, int H, int kv_valid, float scale, void* stream) {
-  return launch(flash_kv_cache_kernel, q, k_buf, v_buf, out, B, Sq, S_max, H, kv_valid, 0, 0, 0, scale, stream);
-}
-
-// K6. As K5, with Sq, S_max and kv_valid whole frames of gh * gw tokens and
-// wh = min(window_rows, gh) visible rows per query.
-extern "C" int cosmos_flash_kv_cache_window(const void* q, const void* k_buf, const void* v_buf, void* out, int B,
-                                            int Sq, int S_max, int H, int kv_valid, int gh, int gw, int wh,
-                                            float scale, void* stream) {
-  return launch(flash_kv_cache_window_kernel, q, k_buf, v_buf, out, B, Sq, S_max, H, kv_valid, gh, gw, wh, scale,
-                stream);
 }

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's warp-specialised
 // kernels: TMA tile loads into shared memory, mbarriers, shared-memory matrix
 // descriptors for 128-byte-swizzled tiles, and warpgroup matrix products
-// (wgmma, bf16 x bf16 -> fp32) with A from shared memory or from registers.
+// (wgmma, bf16 x bf16 -> fp32) with A from shared memory or from registers;
+// on the host, the 4-d tensor maps of (B, S, H, 128) and head-major
+// (B, H, S, 128) bf16 tensors and the one-time shared-memory attribute.
 //
 // Tiles. A TMA box of R rows x 64 bf16 (128 bytes a row) loaded with
 // CU_TENSOR_MAP_SWIZZLE_128B lands as R rows of 128 bytes, the 16-byte chunk
@@ -32,6 +34,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace cosmos_sm90 {
@@ -86,6 +89,55 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// a tile of R rows x 128 columns as two swizzled 64-column boxes of R x 128 bytes
+template <int R>
+struct Tile {
+  static constexpr int kBoxBytes = R * 128;
+  static constexpr int kBytes = 2 * kBoxBytes;
+};
+
+// R rows from sequence row `row` of head h, batch b: a (B, S, H, 128) map
+// (make_bshd_map) or a head-major (B, H, S, 128) one (make_head_major_map)
+template <int R>
+__device__ __forceinline__ void tma_tile_bshd(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int row, int h,
+                                              int b) {
+  tma_load_4d(dst, map, bar, 0, h, row, b);
+  tma_load_4d(dst + Tile<R>::kBoxBytes, map, bar, 64, h, row, b);
+}
+
+template <int R>
+__device__ __forceinline__ void tma_tile_head_major(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int row,
+                                                    int h, int b) {
+  tma_load_4d(dst, map, bar, 0, row, h, b);
+  tma_load_4d(dst + Tile<R>::kBoxBytes, map, bar, 64, row, h, b);
+}
+
+// dynamic shared memory rounded up to the 1,024-byte swizzle atom
+template <typename T>
+__device__ __forceinline__ T& smem_storage(unsigned char* raw) {
+  const uint32_t addr = smem_addr(raw);
+  return *reinterpret_cast<T*>(raw + (((addr + 1023) & ~1023u) - addr));
+}
+
+// ------------------------------- small helpers -------------------------------
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x by the special-function unit (flushes denormals: 2^x < 2^-126 gives 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// named barrier `id` (1..15; 0 is __syncthreads) over `count` threads
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ------------------------------ register budget ------------------------------
@@ -214,6 +266,74 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TransB));
+}
+
+// ----------------------------------- host ------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of the CUDA driver API, found through the
+// runtime's entry-point query, so the library needs no -lcuda
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a 4-d bf16 tensor map of innermost extent 128 and boxes of 64 x 1 x ... ,
+// 128-byte swizzled; reads outside `dims` give zeros. strides in bytes.
+inline int make_map_4d(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4], const cuuint64_t (&strides)[3],
+                       const cuuint32_t (&box)[4]) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+                              elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// a (B, S, H, 128) bf16 tensor in boxes of `rows` x 64 (tma_tile_bshd);
+// reads past S give zeros
+inline int make_bshd_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int rows) {
+  const cuuint64_t dims[4] = {128, static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {256, static_cast<cuuint64_t>(H) * 256, static_cast<cuuint64_t>(S) * H * 256};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  return make_map_4d(map, ptr, dims, strides, box);
+}
+
+// the first `S` rows of each head of a head-major (B, H, S_max, 128) bf16
+// tensor in boxes of `rows` x 64 (tma_tile_head_major); reads at or past S
+// give zeros, whatever the buffer holds there
+inline int make_head_major_map(CUtensorMap* map, const void* ptr, int B, int H, int S, int S_max, int rows) {
+  const cuuint64_t dims[4] = {128, static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {256, static_cast<cuuint64_t>(S_max) * 256, static_cast<cuuint64_t>(H) * S_max * 256};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  return make_map_4d(map, ptr, dims, strides, box);
+}
+
+// cudaFuncSetAttribute(kernel, MaxDynamicSharedMemorySize, bytes) once per
+// device: `done` is the caller's flag per device for this kernel
+constexpr int kMaxDevices = 64;
+inline cudaError_t set_smem_once(const void* kernel, int bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
 }
 
 }  // namespace cosmos_sm90

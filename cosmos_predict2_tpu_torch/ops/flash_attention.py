@@ -1,8 +1,8 @@
 """Flash attention, forward and backward, and the KV-cache decode: the
-Hopper kernels (csrc/flash_attention_fwd.cu: K1; csrc/flash_attention_bwd.cu:
-K7 dQ and K8 dK/dV; csrc/flash_attention_kv_cache.cu: K5 cache decode and K6
-row-windowed cache decode), their plain PyTorch versions and the autograd
-Function over the first three.
+Hopper kernels (csrc/flash_attention_fwd.cu: K1 and K5 cache decode;
+csrc/flash_attention_bwd.cu: K7 dQ and K8 dK/dV;
+csrc/flash_attention_kv_cache.cu: K6 row-windowed cache decode), their
+plain PyTorch versions and the autograd Function over K1, K7 and K8.
 
 Counterpart of cosmos_predict2_tpu/ops/flash_attention.py::flash_attention
 (``_fwd`` / ``_fwd_kernel``, ``_bwd`` / ``_dq_kernel`` / ``_dkv_kernel``,
@@ -38,6 +38,17 @@ NEG_INF = -1e30
 DKV_BLOCK_KV = 128
 DKV_BLOCK_Q = 64
 DKV_MIN_SPLIT_TILES = 4
+# K5's tiles: q rows per CTA, kv rows per step. Its split plan's cost model,
+# in the time of one kv step of a CTA (~1.8 us on the H100: 0.215 ms for
+# the 117 steps of the interactive steady state): a CTA's fixed cost (the q
+# tile's load, the ring's fill, the epilogue), and the bytes the card moves
+# in that time at ~3 TB/s (the split route writes and reads back fp32
+# partials)
+KV_BLOCK_Q = 128
+KV_BLOCK_KV = 128
+KV_SPLIT_CTA_STEPS = 1.0
+KV_SPLIT_BYTES_PER_STEP = 5.7e6
+KV_MAX_SPLITS = 8
 
 
 def attention_logits(q: torch.Tensor, k: torch.Tensor, frame_group: int = 0) -> torch.Tensor:
@@ -350,6 +361,79 @@ def kv_cache_plain(q: torch.Tensor, k_buf: torch.Tensor, v_buf: torch.Tensor, kv
     return torch.einsum("bhqk,bhkd->bqhd", probs.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class KvCachePlan:
+    """How K5 covers the fill: its 128-row kv tiles cut into ``splits`` runs
+    (see :func:`kv_cache_split_plan`), one CTA per (q tile, head, batch,
+    run)."""
+
+    kv_valid: int
+    splits: int
+
+    @property
+    def kv_tiles(self) -> int:
+        return -(-self.kv_valid // KV_BLOCK_KV)
+
+    def tile_runs(self) -> list[tuple[int, int]]:
+        """The kv tiles [begin, end) of each run, in split order: run s
+        covers [s T // splits, (s + 1) T // splits) of the T tiles, as the
+        kernel computes them (csrc/flash_attention_fwd.cu)."""
+        T = self.kv_tiles
+        return [(s * T // self.splits, (s + 1) * T // self.splits) for s in range(self.splits)]
+
+    def kv_ranges(self) -> list[tuple[int, int]]:
+        """The cache rows [begin, end) of each run, the last cut at the fill."""
+        return [(b * KV_BLOCK_KV, min(e * KV_BLOCK_KV, self.kv_valid)) for b, e in self.tile_runs()]
+
+
+@functools.lru_cache(maxsize=None)
+def kv_cache_split_plan(sq: int, kv_valid: int, heads: int, batch: int, sms: int) -> KvCachePlan:
+    """K5's split-KV plan (flash-decoding). One CTA per (128 q rows, head,
+    batch) walks all T kv tiles of the fill; with ``splits`` runs there are
+    that many times the CTAs (one 384-thread CTA per SM), each walking
+    about T / splits tiles, plus a second pass over fp32 partials. The plan
+    takes the splits (at most T and KV_MAX_SPLITS) of least estimated time:
+    waves x (tiles per run + a CTA's fixed cost) + the partials' traffic,
+    ties to fewer splits. At the interactive path's 112 CTAs a run is one
+    wave whatever the split, so one split; a query block of one or two q
+    tiles over a long cache splits."""
+    ctas = -(-sq // KV_BLOCK_Q) * heads * batch
+    tiles = -(-kv_valid // KV_BLOCK_KV)
+    partial_bytes = batch * sq * heads * (HEAD_DIM + 1) * 4 * 2  # each split's partials, written and read back
+
+    def cost(splits: int) -> float:
+        steps = -(-ctas * splits // sms) * (-(-tiles // splits) + KV_SPLIT_CTA_STEPS)
+        return steps + (splits * partial_bytes / KV_SPLIT_BYTES_PER_STEP if splits > 1 else 0.0)
+
+    splits = min(range(1, min(tiles, KV_MAX_SPLITS) + 1), key=lambda s: (cost(s), s))
+    return KvCachePlan(kv_valid, splits)
+
+
+def kv_cache_split_plain(q: torch.Tensor, k_buf: torch.Tensor, v_buf: torch.Tensor, kv_valid: int,
+                         plan: KvCachePlan) -> torch.Tensor:
+    """K5's split route in plain PyTorch: for each run of ``plan`` the
+    normalised partial output (P rounded to v's dtype, as in
+    :func:`kv_cache_plain`) and its lse in fp32, then the second pass: their
+    lse-weighted sum shifted by the max lse, in split order; output in q's
+    dtype."""
+    _check_cache("kv_cache_split_plain", q, k_buf, v_buf, kv_valid)
+    outs, lses = [], []
+    for begin, end in plan.kv_ranges():
+        k, v = k_buf[:, :, begin:end], v_buf[:, :, begin:end]
+        logits = torch.einsum("bqhd,bhkd->bqhk", q.float(), k.float()) * (1.0 / q.shape[-1] ** 0.5)
+        lse = torch.logsumexp(logits, dim=-1)
+        probs = torch.exp(logits - lse[..., None])
+        outs.append(torch.einsum("bqhk,bhkd->bqhd", probs.to(v.dtype).float(), v.float()))
+        lses.append(lse)
+    m = torch.stack(lses).max(dim=0).values
+    out, wsum = torch.zeros_like(outs[0]), torch.zeros_like(m)
+    for o_s, lse_s in zip(outs, lses):
+        w = torch.exp(lse_s - m)
+        out = out + w[..., None] * o_s
+        wsum = wsum + w
+    return (out / wsum[..., None]).to(q.dtype)
+
+
 def window_rows_bounds(rows: torch.Tensor, grid_hw: tuple[int, int], window_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
     """For token indices ``rows`` of a block of whole frames (row-major
     (frame, row, col) on a gh x gw grid), the first and one-past-last
@@ -411,7 +495,10 @@ def flash_attention_kv_cache(q: torch.Tensor, k_buf: torch.Tensor, v_buf: torch.
     buffers k_buf / v_buf (B, H, S_max, 128); the block sees itself whole.
 
     CPU tensors take :func:`kv_cache_plain`. CUDA tensors launch K5, which
-    takes contiguous bf16 tensors and raises on anything else.
+    takes contiguous bf16 tensors and raises on anything else. When
+    :func:`kv_cache_split_plan` splits the fill, K5 writes fp32 partials
+    into one scratch tensor allocated here and a second kernel combines
+    them; that is one launch.
     """
     if not q.is_cuda:
         return kv_cache_plain(q, k_buf, v_buf, kv_valid)
@@ -421,12 +508,19 @@ def flash_attention_kv_cache(q: torch.Tensor, k_buf: torch.Tensor, v_buf: torch.
     out = torch.empty_like(q)
     if Sq == 0 or B == 0:
         return out
+    splits = kv_cache_split_plan(Sq, kv_valid, H, B, _sm_count(q.device)).splits
+    partial_o = partial_lse = None
+    if splits > 1:
+        rows = splits * B * Sq * H
+        scratch = torch.empty(rows * (D + 1), dtype=torch.float32, device=q.device)
+        partial_o, partial_lse = scratch[: rows * D], scratch[rows * D:]
     lib = _build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.cosmos_flash_kv_cache(
             q.data_ptr(), k_buf.data_ptr(), v_buf.data_ptr(), out.data_ptr(),
-            B, Sq, k_buf.shape[2], H, kv_valid, 1.0 / D**0.5, stream,
+            None if partial_o is None else partial_o.data_ptr(), None if partial_lse is None else partial_lse.data_ptr(),
+            B, Sq, k_buf.shape[2], H, kv_valid, splits, 1.0 / D**0.5, stream,
         )
     _build.check(err, "flash_attention_kv_cache")
     flash_attention_kv_cache.launches += 1

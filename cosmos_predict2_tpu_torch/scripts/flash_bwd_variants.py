@@ -21,15 +21,12 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import json
-import shutil
-import subprocess
 import sys
-from pathlib import Path
 
 import torch
 
-# only names that a baseline checkout's package has too (time_tree runs there)
+# only names that a baseline checkout's package has too (time_tree runs
+# there), and the shared helpers of this tree (_kernel_variants.time_baseline)
 from cosmos_predict2_tpu_torch import _build
 from cosmos_predict2_tpu_torch.ops.flash_attention import (
     attention_delta,
@@ -38,9 +35,11 @@ from cosmos_predict2_tpu_torch.ops.flash_attention import (
     flash_attention_fwd,
 )
 
+from cosmos_predict2_tpu_torch.scripts._kernel_variants import build_variant, cuda_ms, finish, time_baseline
+
 VARIANTS = {
-    "kv128": ("constexpr int kDqBlockKV = 64;", "constexpr int kDqBlockKV = 128;"),
-    "stages3": ("constexpr int kStages = 2;", "constexpr int kStages = 3;"),
+    "kv128": [("constexpr int kDqBlockKV = 64;", "constexpr int kDqBlockKV = 128;")],
+    "stages3": [("constexpr int kStages = 2;", "constexpr int kStages = 3;")],
 }
 # (label, Sq, Skv, timed calls)
 SHAPES = [("self 5760", 5760, 5760, 10), ("cross 5760/512", 5760, 512, 10), ("720p 84480", 84480, 84480, 1)]
@@ -56,40 +55,12 @@ def inputs(sq: int, skv: int, seed: int = SEED):
     return q, k, v, do, lse, attention_delta(out, do)
 
 
-def cuda_ms(fn, iters: int) -> float:
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 class Variant:
     """The backward kernels compiled from a patched copy of their source."""
 
-    def __init__(self, name: str, old: str, new: str):
-        src_dir = _build.BUILD_DIR / "variants" / name
-        src_dir.mkdir(parents=True, exist_ok=True)
-        for f in ("flash_attention_bwd.cu", *_build.HEADERS):
-            shutil.copy(_build.CSRC_DIR / f, src_dir / f)
-        src = src_dir / "flash_attention_bwd.cu"
-        text = src.read_text()
-        if old not in text:
-            raise RuntimeError(f"variant {name}: {old!r} is not in the source")
-        src.write_text(text.replace(old, new))
-        lib_path = src_dir / f"lib{name}.so"
-        proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib_path), str(src)],
-                              capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"variant {name}: nvcc failed\n{proc.stdout}{proc.stderr}")
-        report = {k: v for k, v in _build.ptxas_report(proc.stdout + proc.stderr).items() if "flash_attention_bwd" in k}
-        if any(r.get("spill_stores") or r.get("spill_loads") for r in report.values()):
-            raise RuntimeError(f"variant {name} spills: {report}")
+    def __init__(self, name: str, patches: list[tuple[str, str]]):
         self.name = name
-        self.lib = ctypes.CDLL(str(lib_path))
+        self.lib = build_variant("flash_attention_bwd.cu", name, patches, "flash_attention_bwd")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         self.lib.cosmos_flash_attention_bwd_dq.argtypes = [p] * 7 + [i] * 5 + [f, p]
         self.lib.cosmos_flash_attention_bwd_dkv.argtypes = [p] * 10 + [i] * 6 + [f, p]
@@ -130,17 +101,6 @@ def time_tree() -> dict:
     return times
 
 
-def time_baseline(directory: str) -> dict:
-    """time_tree() of the checkout in ``directory``, in a subprocess that
-    imports that checkout's package (its wrappers and its kernels)."""
-    code = (f"import json, runpy, sys; sys.path.insert(0, '.'); "
-            f"print(json.dumps(runpy.run_path({str(Path(__file__).resolve())!r})['time_tree']()))")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=directory, capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"baseline in {directory} failed:\n{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", default=None, help="another checkout whose K7 and K8 to time alongside")
@@ -149,10 +109,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("flash_bwd_variants: needs a CUDA card")
     _build.library()
-    variants = [Variant(name, *patch) for name, patch in VARIANTS.items()]
+    variants = [Variant(name, patches) for name, patches in VARIANTS.items()]
     summary: dict = {"baseline": [], "tree": [], "variants": {v.name: {} for v in variants}, "library": {}}
     if args.baseline:
-        summary["baseline"].append(time_baseline(args.baseline))
+        summary["baseline"].append(time_baseline(__file__, args.baseline))
     summary["tree"].append(time_tree())
     for label, sq, skv, iters in SHAPES:
         q, k, v, do, lse, delta = args_ = inputs(sq, skv)
@@ -173,15 +133,11 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     summary["tree"].append(time_tree())
     if args.baseline:
-        summary["baseline"].append(time_baseline(args.baseline))
+        summary["baseline"].append(time_baseline(__file__, args.baseline))
     for who in ("tree", "baseline"):
         for run in summary[who]:
             print(who, " ".join(f"{label}: K7 {t[0]:.3f} K8 {t[1]:.3f}" for label, t in run.items()), flush=True)
-    summary["device"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                                       capture_output=True, text=True).stdout.strip()
-    print(json.dumps(summary))
-    if args.out:
-        Path(args.out).write_text(json.dumps(summary, indent=1))
+    finish(summary, args.out)
     return 0
 
 

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the card,
 the DiT's gradients through them (dense and sparse blocks), the causal
-DiT's streaming loop through the cache-decode kernels K5 and K6, and the
+DiT's streaming loop through the cache-decode kernels K5 (one split and the
+split-KV route, NaN past the fill) and K6, and the
 fused forward-mode kernel K9 under torch.func.jvp and forward_ad.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
@@ -26,6 +27,7 @@ from cosmos_predict2_tpu_torch.ops.flash_attention import (
     flash_attention_kv_cache_window,
     flash_attention_plain,
     kv_cache_plain,
+    kv_cache_split_plan,
     kv_cache_window_plain,
 )
 from cosmos_predict2_tpu_torch.ops import neighborhood_attention as na
@@ -47,7 +49,17 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("sq,skv,frame_group", [(1000, 1000, 0), (333, 512, 0), (1024, 1024, 100)])
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+# K1 cases (batch 2): ragged q and kv tails against the 128-row tiles (1000,
+# 333, 77), q and kv below one tile (64 / 77, 1 / 512), frame groups that do
+# not divide the tiles (100, 240 with a ragged Sq)
+K1_CASES = [(1000, 1000, 0), (333, 512, 0), (1024, 1024, 100), (64, 77, 0), (1, 512, 0), (1000, 1000, 240)]
+
+
+@pytest.mark.parametrize("sq,skv,frame_group", K1_CASES)
 def test_flash_kernel_matches_plain_on_cuda(cuda, sq, skv, frame_group):
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn((2, s, 4, 128), generator=gen, device=cuda).bfloat16() for s in (sq, skv, skv))
@@ -59,6 +71,20 @@ def test_flash_kernel_matches_plain_on_cuda(cuda, sq, skv, frame_group):
     # bf16 output (one rounding) and another fp32 summation order
     assert float((out.float() - ref.float()).norm() / ref.float().norm()) < 1e-2
     assert float((lse - ref_lse).abs().max()) < 1e-2
+    # the last batch's rows of the last, ragged q tile on their own
+    tail = slice(sq - sq % 128 if sq % 128 else sq - 128, sq)
+    assert _rel(out[-1, tail], ref[-1, tail]) < 1e-2
+    assert float((lse[-1, :, tail] - ref_lse[-1, :, tail]).abs().max()) < 1e-2
+
+
+@pytest.mark.parametrize("sq,skv,frame_group", [(1000, 1000, 240), (333, 77, 0)])
+def test_flash_kernel_is_deterministic_on_cuda(cuda, sq, skv, frame_group):
+    """No atomics: two calls give bitwise-equal output and lse."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn((2, s, 4, 128), generator=gen, device=cuda).bfloat16() for s in (sq, skv, skv))
+    first, second = (flash_attention_fwd(q, k, v, frame_group=frame_group) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 @pytest.mark.parametrize("shape", [(2, 24, 40, 384, 384), (3, 17, 29, 96, 192), (1, 8, 8, 64, 80)])
@@ -74,10 +100,6 @@ def test_conv_kernel_matches_plain_on_cuda(cuda, shape):
     assert conv3d_causal.launches == before + 1
     ref = conv3d_causal_plain(x, w, b, out_dtype=torch.float32)
     assert float((out.float() - ref).norm() / ref.norm()) < 1e-2
-
-
-def _rel(a, b):
-    return float((a.float() - b.float()).norm() / b.float().norm())
 
 
 # K7 / K8 cases: ragged tails against the 64- and 128-row tiles (5800, 1000,
@@ -300,8 +322,10 @@ def _cache_inputs(cuda, sq, s_max, fill, heads=4, seed=5):
 
 
 # (Sq, S_max, fill): the 352x640 geometry's block at full and early fill, a
-# ragged block and fill, a fill of one tile
-KV_CASES = [(880, 17 * 880, 17 * 880), (880, 17 * 880, 4 * 880), (100, 512, 301), (64, 1024, 64)]
+# ragged block and fill (3 splits), a fill of one tile, a short block over a
+# long ragged fill (split-KV)
+KV_CASES = [(880, 17 * 880, 17 * 880), (880, 17 * 880, 4 * 880), (100, 512, 301), (64, 1024, 64),
+            (64, 17 * 880, 17 * 880 - 77)]
 
 
 @pytest.mark.parametrize("sq,s_max,fill", KV_CASES)
@@ -313,6 +337,24 @@ def test_kv_cache_kernel_matches_plain_on_cuda(cuda, sq, s_max, fill):
     assert flash_attention_kv_cache.launches == before + 1
     assert torch.isfinite(out.float()).all()
     assert _rel(out, kv_cache_plain(q, kb, vb, fill)) < 1e-2  # P rounded to bf16 on both sides
+
+
+@pytest.mark.parametrize("sq,s_max,fill,heads,split", [(880, 17 * 880, 12 * 880 - 77, 16, False),
+                                                       (64, 17 * 880, 17 * 880 - 77, 4, True)])
+def test_kv_cache_kernel_keeps_nan_past_the_fill_out_on_cuda(cuda, sq, s_max, fill, heads, split):
+    """Buffers that hold NaN past the fill (as torch.empty may): the output
+    stays finite and matches, on one split and on the split route, and two
+    calls give the same bits."""
+    q, kb, vb = _cache_inputs(cuda, sq, s_max, fill, heads=heads)
+    kb[:, :, fill:] = float("nan")
+    vb[:, :, fill:] = float("nan")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert (kv_cache_split_plan(sq, fill, heads, 2, sms).splits > 1) == split
+    out, repeat = (flash_attention_kv_cache(q, kb, vb, fill) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out, repeat)
+    assert _rel(out, kv_cache_plain(q, kb, vb, fill)) < 1e-2
 
 
 # (gh, gw, window rows, frames per block, filled frames, buffer frames): the
