@@ -9,14 +9,17 @@ Phases, each printed with its wall time:
    power limit (nvidia-smi) and the torch, CUDA and nvcc versions;
 2. build: compiles the hand-written kernels (cosmos_predict2_tpu_torch/csrc)
    with nvcc for sm_90a; prints the registers, shared memory and spills of
-   the warp-specialised kernels (K1, K5, K7, K8 and their second passes)
+   the warp-specialised kernels (K1, K5, K7, K8, K10, K12 and the second
+   passes of K5 and K8)
    from ptxas's report and fails on a spill or on a launch register count
    other than the one their setmaxnreg budget balances at (168);
 3. kernels: each kernel against its plain PyTorch version (fp32, TF32 off)
    on bf16 inputs at the main paths' shapes, with max-abs and relative-L2
-   error, a second call that must give the same bits (K1, K5, K7, K8),
-   CUDA-event times, the card's bound for the same work and, as a
-   yardstick the port never calls, one PyTorch call computing the same
+   error, a second call that must give the same bits (K1, K5, K7, K8,
+   K10, K12), CUDA-event times, the card's bound for the same work (for
+   K10-K12 also the pairs their walk computes, the time those take at the
+   bf16 peak and the kernel's rate on them) and, as a yardstick the port
+   never calls, one PyTorch call computing the same
    function (scaled_dot_product_attention forward / backward, conv3d;
    K7 + K8 against SDPA's backward, which computes dq, dk and dv in one
    call, at self- and cross-attention, a frame group, 720p and ragged tails
@@ -249,6 +252,8 @@ def kernel_resources() -> dict:
         ("K7", "flash_attention_bwd_dq_kernel", lib.cosmos_flash_attention_bwd_smem_bytes(0), True),
         ("K8", "flash_attention_bwd_dkv_kernel", lib.cosmos_flash_attention_bwd_smem_bytes(1), True),
         ("K8 sum of split partials", "flash_attention_bwd_dkv_reduce_kernel", 0, False),
+        ("K10", "na_fwd_kernel", lib.cosmos_na_smem_bytes(0), True),
+        ("K12", "na_bwd_dkv_kernel", lib.cosmos_na_smem_bytes(1), True),
     ):
         found = [v for name, v in report.items() if key in name]
         if len(found) != 1:
@@ -474,8 +479,9 @@ def check_kernels(results: dict) -> None:
 
 
 def na_computed_pairs(plan, window, stride) -> int:
-    """(query, key) pairs K10 computes per (batch, head): 64 x 64 for every
-    pair of 64-row tiles that the plan lists and the t-window keeps."""
+    """(query, key) pairs K11 computes per (batch, head): 64 x 64 for every
+    pair of 64-row tiles that the plan lists and the t-window keeps (K10 and
+    K12 walk 128-row tiles: neighborhood_attention.walk_computed_pairs)."""
     T, wt, st = plan.size.T, window[0], stride[0]
     r_lo = (wt - 1) // 2
     tiles = 0
@@ -550,7 +556,17 @@ def check_na_kernels(gen, record, failures) -> None:
         label = f"{name} {grid[0]}x{grid[1]}x{grid[2]} w{w} s{s}" + (f" d{d}" if d != (1, 1, 1) else "")
         pairs = na.visible_pairs(size, ew)
         computed = na_computed_pairs(plan, ew, es)
-        extra = {"visible_pairs": pairs, "computed_pairs": computed, "s_pad": plan.s_pad}
+        walked = na.walk_computed_pairs(plan)
+        extra = {"visible_pairs": pairs, "s_pad": plan.s_pad}
+
+        def on_computed(kernel, flops_per_pair, batch, ms):
+            """The kernel's own work: the pairs its walk computes, the time they
+            take at the bf16 peak, and the kernel's rate on them."""
+            n = walked.get(kernel, computed)
+            flops = flops_per_pair * batch * H * n * 128
+            return {"computed_pairs": n, "computed_pairs_64x64": computed,
+                    "computed_at_peak_ms": round(flops / PEAK_BF16_FLOPS * 1e3, 3),
+                    "tflops_on_computed": round(flops / ms / 1e9, 1)}
         real = na.permute_in(torch.ones((1, S, 1, 1), device=dev), plan)[0, 0, :, 0] > 0
         mask = None
         if route == "sdpa":
@@ -561,7 +577,12 @@ def check_na_kernels(gen, record, failures) -> None:
         bshd = [torch.randn((bf, S, H, 128), generator=gen, device=dev).to(torch.bfloat16) for _ in range(3)]
         q, k, v = (na.permute_in(x, plan) for x in bshd)
         out, lse = na.na_fwd(q, k, v, plan, ew, es)
+        # no atomics: a second call gives the same bits
+        repeat = na.na_fwd(q, k, v, plan, ew, es)
         torch.cuda.synchronize()
+        if not (torch.equal(out, repeat[0]) and torch.equal(lse, repeat[1])):
+            failures.append(f"na_fwd {label}: two calls differ")
+        del repeat
         ref, ref_lse = na.na_fwd_plain(q, k, v, plan, ew, es)
         max_abs, rel = errors(out, ref)
         lse_abs, _ = errors(lse[:, :, real], ref_lse[:, :, real])
@@ -585,7 +606,7 @@ def check_na_kernels(gen, record, failures) -> None:
         # layout's own (s_pad beside the bound shows that overhead)
         nbytes = 2 * 4 * bf * H * S * 128 + 4 * bf * H * S
         record("na_fwd", label, max_abs, rel, ms, plain_ms, library_fwd, bound(4 * bf * H * pairs * 128, nbytes),
-               layout_ms=round(layout_ms, 3), **extra)
+               layout_ms=round(layout_ms, 3), **extra, **on_computed("na_fwd", 4, bf, ms))
         del bshd, q, k, v, out, lse, qh, kh, vh
         torch.cuda.empty_cache()
 
@@ -596,7 +617,11 @@ def check_na_kernels(gen, record, failures) -> None:
         delta = na.na_delta(out, do)
         dq = na.na_bwd_dq(q, k, v, do, lse, delta, plan, ew, es)
         dk, dv = na.na_bwd_dkv(q, k, v, do, lse, delta, plan, ew, es)
+        repeat = na.na_bwd_dkv(q, k, v, do, lse, delta, plan, ew, es)
         torch.cuda.synchronize()
+        if not (torch.equal(dk, repeat[0]) and torch.equal(dv, repeat[1])):
+            failures.append(f"na_bwd_dkv {label}: two calls differ")
+        del repeat
         ref = na.na_bwd_plain(q, k, v, out, lse, do, plan, ew, es)
         errs = [errors(g, r) for g, r in zip((dq, dk, dv), ref)]
         del ref
@@ -619,10 +644,10 @@ def check_na_kernels(gen, record, failures) -> None:
         grad_bytes = 2 * H * S * 128
         io = 4 * grad_bytes + 2 * 4 * H * S
         record("na_bwd_dq", label, *errs[0], ms_dq, plain_ms, library_bwd, bound(6 * H * pairs * 128, io + grad_bytes),
-               **extra)
+               **extra, **on_computed("na_bwd_dq", 6, 1, ms_dq))
         dkv_err = max(errs[1][0], errs[2][0]), max(errs[1][1], errs[2][1])
         record("na_bwd_dkv", label, *dkv_err, ms_dkv, plain_ms, library_bwd,
-               bound(8 * H * pairs * 128, io + 2 * grad_bytes), **extra)
+               bound(8 * H * pairs * 128, io + 2 * grad_bytes), **extra, **on_computed("na_bwd_dkv", 8, 1, ms_dkv))
         del bshd, q, k, v, do, out, lse, delta, dq, dk, dv, mask
         torch.cuda.empty_cache()
 

@@ -124,13 +124,16 @@ def library() -> ctypes.CDLL:
             lib.cosmos_flash_kv_cache_window.restype = i
             lib.cosmos_conv3d_causal.argtypes = [p, p, p, p, i, i, i, i, i, p]
             lib.cosmos_conv3d_causal.restype = i
-            geometry = [i] * 14 + [f, p]  # B, heads, S_pad, bt, max_cnt, T, H, W, 3 x window, 3 x stride; scale, stream
+            # B, heads, S_pad, bt, table or walk width, T, H, W, 3 x window, 3 x stride; scale, stream
+            geometry = [i] * 14 + [f, p]
             lib.cosmos_na_fwd.argtypes = [p] * 8 + geometry
             lib.cosmos_na_fwd.restype = i
             lib.cosmos_na_bwd_dq.argtypes = [p] * 10 + geometry
             lib.cosmos_na_bwd_dq.restype = i
             lib.cosmos_na_bwd_dkv.argtypes = [p] * 11 + geometry
             lib.cosmos_na_bwd_dkv.restype = i
+            lib.cosmos_na_smem_bytes.argtypes = [i]
+            lib.cosmos_na_smem_bytes.restype = i
             _lib = lib
         return _lib
 

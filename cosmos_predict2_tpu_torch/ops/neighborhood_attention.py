@@ -9,16 +9,18 @@ the query and clamped at the borders (window -1: the whole axis), with the
 GNA stride (queries of a stride group share their representative's window)
 and DiNA dilation (attention inside each interleaved sub-grid).
 
-The host side is the JAX package's, copied (NumPy and PyTorch layout code):
-tokens are permuted into spatial-tile-major order, the (H, W) grid cut into
-4 x 16 tiles and laid out as (tile_h, tile_w, t, intra_h, intra_w), so a
-64-row tile is one t-slice of one spatial tile and its coordinates are bit
-math on the row index; ``build_plan`` lists, for each ``block``-row q block,
-the kv blocks that can hold a key of its window (``table``, ``counts``) and
-the exact transpose of that list for the dK/dV pass (``tableT``,
-``countsT``). Dilation is a class-major reorder of the axis that turns
-dilated attention into blocked attention (window == stride == sub-grid
-length), so the kernels take window and stride only.
+The host side is the JAX package's, copied (NumPy and PyTorch layout
+code): tokens are permuted into spatial-tile-major order, the (H, W) grid
+cut into 4 x 16 tiles and laid out as (tile_h, tile_w, t, intra_h,
+intra_w), so a 64-row tile is one t-slice of one spatial tile and its
+coordinates are bit math on the row index; ``build_plan`` lists, for each
+``block``-row q block, the kv blocks that can hold a key of its window
+(``table``, ``counts``) and the exact transpose of that list for the dK/dV
+pass (``tableT``, ``countsT``). From those the port builds the walks K10
+and K12 follow (``fwd_walk``, ``dkv_walk``: the 128-row tiles each CTA
+loads after the t test). Dilation is a class-major reorder of the axis
+that turns dilated attention into blocked attention (window == stride ==
+sub-grid length), so the kernels take window and stride only.
 
 Public entry: :func:`neighborhood_attention` on BSHD tensors. CUDA tensors
 run K10 in the forward and K11 and K12 in the backward; CPU tensors take
@@ -188,6 +190,12 @@ class NAPlan(NamedTuple):
     counts: np.ndarray  # (n_blocks,)
     tableT: np.ndarray  # (n_blocks, max_cntT) q block ids per kv block (exact transpose)
     countsT: np.ndarray  # (n_blocks,)
+    window: tuple  # the effective window and stride the tables were built for
+    stride: tuple
+    walk: np.ndarray  # (S_pad / 128, max_len) K10's schedule (fwd_walk)
+    walk_counts: np.ndarray  # (S_pad / 128,)
+    walkT: np.ndarray  # (S_pad / 128, max_lenT) K12's schedule (dkv_walk)
+    walkT_counts: np.ndarray  # (S_pad / 128,)
     device_tables: dict  # str(device) -> the tables above as int32 tensors there (plan_tensors)
 
 
@@ -265,10 +273,94 @@ def build_plan(size: VideoSize, window: tuple, stride: tuple, dilation: tuple, b
         for j in r:
             rows_t[j].append(i)
     table_t, counts_t = pack(rows_t)
+    t_vis = _t_visibility(T, t_pad, wt, st_t)
+    walk, walk_counts = _pack_walk(fwd_walk(coords, table, counts, bt, t_vis))
+    walk_t, walk_t_counts = _pack_walk(dkv_walk(coords, table_t, counts_t, bt, t_vis))
     return NAPlan(
         VideoSize(T, H, W), tuple(dilation), t_pad, nth, ntw, bt, block, s_pad, coords, table, counts, table_t,
-        counts_t, {},
+        counts_t, tuple(window), tuple(stride), walk, walk_counts, walk_t, walk_t_counts, {},
     )
+
+
+# ---------------------------------------------------------------------------
+# the kernels' walks (host side): which tiles each CTA of K10 and K12 loads
+# ---------------------------------------------------------------------------
+
+TILE_ROWS = 2 * PER_T  # rows of a K10 q tile or a K12 kv tile: two t-slices of one block (bt is even)
+
+
+def _t_visibility(T: int, t_pad: int, window: int, stride: int) -> np.ndarray:
+    """(t_pad, t_pad) bool: frame ``j`` lies in the t-window of frame ``i``,
+    both real frames (pad frames are neither queries nor keys)."""
+    t = torch.arange(t_pad)
+    vis = (t < T)[:, None] & (t < T)[None, :]
+    ok = _axis_window_ok(t[:, None], t[None, :], T, window, stride)
+    return (vis if ok is None else vis & ok).numpy()
+
+
+def fwd_walk(coords: np.ndarray, table: np.ndarray, counts: np.ndarray, bt: int,
+             t_vis: np.ndarray) -> list[np.ndarray]:
+    """K10's schedule. For each 128-row q tile x (t-slices 2u and 2u + 1 of
+    block x // (bt / 2), u = x % (bt / 2)), in table order, the 128-row kv
+    tiles of its table row's blocks that some row of the tile sees on the t
+    axis: entries ``kv_tile << 4 | bits``, bit 2 wg + half set where the q
+    tile's t-slice wg sees the kv tile's t-slice half (``t_vis``, from
+    :func:`_t_visibility`). The h and w axes are left to the kernel's mask."""
+    half = bt // 2
+    walks = []
+    for x in range(coords.shape[0] * half):
+        qblk, u = divmod(x, half)
+        tq = int(coords[qblk, 0]) + 2 * u
+        ids = table[qblk, : counts[qblk]].astype(np.int64)
+        kv_tiles = (ids[:, None] * half + np.arange(half)[None, :]).reshape(-1)  # table order, then t
+        tk = coords[ids, 0][:, None] + 2 * np.arange(half)[None, :]
+        bits = np.zeros(tk.shape, dtype=np.int64)
+        for wg in range(2):
+            for h in range(2):
+                bits |= t_vis[tq + wg, tk + h].astype(np.int64) << (2 * wg + h)
+        bits = bits.reshape(-1)
+        walks.append((kv_tiles[bits != 0] << 4) | bits[bits != 0])
+    return walks
+
+
+def dkv_walk(coords: np.ndarray, table_t: np.ndarray, counts_t: np.ndarray, bt: int,
+             t_vis: np.ndarray) -> list[np.ndarray]:
+    """K12's schedule. For each 128-row kv tile x (t-slices 2u and 2u + 1 of
+    block x // (bt / 2)), in transposed-table order, the 64-row q t-slices
+    of its ``tableT`` row's blocks whose t-window holds one of the tile's
+    t-slices: entries ``q_slice << 2 | bits``, bit wg set where the kv tile's
+    t-slice wg lies in the window (the query's window, since clamped NA is
+    not symmetric)."""
+    half = bt // 2
+    walks = []
+    for x in range(coords.shape[0] * half):
+        kblk, u = divmod(x, half)
+        tk = int(coords[kblk, 0]) + 2 * u
+        ids = table_t[kblk, : counts_t[kblk]].astype(np.int64)
+        q_slices = (ids[:, None] * bt + np.arange(bt)[None, :]).reshape(-1)
+        tq = (coords[ids, 0][:, None] + np.arange(bt)[None, :]).reshape(-1)
+        bits = t_vis[tq, tk].astype(np.int64) | t_vis[tq, tk + 1].astype(np.int64) << 1
+        walks.append((q_slices[bits != 0] << 2) | bits[bits != 0])
+    return walks
+
+
+def _pack_walk(walks: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
+    counts = np.asarray([len(w) for w in walks], dtype=np.int32)
+    packed = np.zeros((len(walks), max(int(counts.max()), 1)), dtype=np.int32)
+    for i, w in enumerate(walks):
+        packed[i, : len(w)] = w
+    return packed, counts
+
+
+def walk_computed_pairs(plan: NAPlan) -> dict[str, int]:
+    """(query, key) pairs per (batch, head) that K10 and K12 compute on
+    their walks: K10 64 x 128 per (consumer warpgroup, kv tile) it sees, K12
+    64 x 64 per (warpgroup, q t-slice)."""
+    fwd = sum(int(((plan.walk[x, :n] & 3) != 0).sum() + ((plan.walk[x, :n] & 12) != 0).sum())
+              for x, n in enumerate(plan.walk_counts))
+    dkv = sum(int((plan.walkT[x, :n] & 1).sum() + ((plan.walkT[x, :n] >> 1) & 1).sum())
+              for x, n in enumerate(plan.walkT_counts))
+    return {"na_fwd": fwd * 64 * TILE_ROWS, "na_bwd_dkv": dkv * 64 * 64}
 
 
 def plan_tensors(plan: NAPlan, device: torch.device) -> dict[str, torch.Tensor]:
@@ -279,7 +371,8 @@ def plan_tensors(plan: NAPlan, device: torch.device) -> dict[str, torch.Tensor]:
     if key not in plan.device_tables:
         plan.device_tables[key] = {
             name: torch.from_numpy(np.ascontiguousarray(getattr(plan, name))).to(device)
-            for name in ("table", "counts", "coords", "tableT", "countsT")
+            for name in ("table", "counts", "coords", "tableT", "countsT", "walk", "walk_counts", "walkT",
+                         "walkT_counts")
         }
     return plan.device_tables[key]
 
@@ -461,6 +554,8 @@ def _check(name: str, plan: NAPlan, window, stride, tensors: dict, rows: dict) -
     for L, w_, st_ in zip(plan.size, window, stride):
         if st_ < 1 or (0 <= w_ < L and st_ > w_):
             raise ValueError(f"{name}: stride {stride} must be in [1, window {window}]")
+    if tuple(map(int, window)) != plan.window or tuple(map(int, stride)) != plan.stride:
+        raise ValueError(f"{name}: window {window} and stride {stride} are not the plan's {plan.window}, {plan.stride}")
 
 
 def _geometry(plan: NAPlan, window, stride) -> tuple[int, ...]:
@@ -472,8 +567,9 @@ def na_fwd(qt, kt, vt, plan: NAPlan, window, stride) -> tuple[torch.Tensor, torc
     (B, heads, S_pad, 128) from :func:`permute_in`; ``window`` and ``stride``
     the effective ones the plan was built for.
 
-    CPU tensors take :func:`na_fwd_plain`. CUDA tensors launch K10, which
-    takes contiguous bf16 tensors with head_dim 128 and raises on anything
+    CPU tensors take :func:`na_fwd_plain`. CUDA tensors launch K10 on the
+    plan's walk (:func:`fwd_walk`), which takes contiguous bf16 tensors with
+    head_dim 128 and the plan's window and stride, and raises on anything
     else."""
     if not qt.is_cuda:
         return na_fwd_plain(qt, kt, vt, plan, window, stride)
@@ -489,8 +585,8 @@ def na_fwd(qt, kt, vt, plan: NAPlan, window, stride) -> tuple[torch.Tensor, torc
         stream = torch.cuda.current_stream(qt.device).cuda_stream
         err = lib.cosmos_na_fwd(
             qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            tabs["table"].data_ptr(), tabs["counts"].data_ptr(), tabs["coords"].data_ptr(),
-            B, Hh, S_pad, plan.bt, plan.table.shape[1], *_geometry(plan, window, stride), 1.0 / D**0.5, stream,
+            tabs["walk"].data_ptr(), tabs["walk_counts"].data_ptr(), tabs["coords"].data_ptr(),
+            B, Hh, S_pad, plan.bt, plan.walk.shape[1], *_geometry(plan, window, stride), 1.0 / D**0.5, stream,
         )
     _build.check(err, "na_fwd")
     na_fwd.launches += 1
@@ -532,7 +628,8 @@ na_bwd_dq.launches = 0
 def na_bwd_dkv(qt, kt, vt, do_t, lse, delta, plan: NAPlan, window, stride) -> tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv), each (B, heads, S_pad, 128), with the arguments of
     :func:`na_bwd_dq`; iterates the transposed table. CPU tensors take the
-    plain version; CUDA tensors launch K12 and raise on what it does not take."""
+    plain version; CUDA tensors launch K12 on the plan's walk
+    (:func:`dkv_walk`) and raise on what it does not take."""
     if not qt.is_cuda:
         return _bwd_plain(qt, kt, vt, do_t, lse, delta, plan, window, stride, False, True)[1:]
     _check("na_bwd_dkv", plan, window, stride, {"q": qt, "k": kt, "v": vt, "do": do_t}, {"lse": lse, "delta": delta})
@@ -546,8 +643,8 @@ def na_bwd_dkv(qt, kt, vt, do_t, lse, delta, plan: NAPlan, window, stride) -> tu
         stream = torch.cuda.current_stream(qt.device).cuda_stream
         err = lib.cosmos_na_bwd_dkv(
             qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), do_t.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), tabs["tableT"].data_ptr(), tabs["countsT"].data_ptr(),
-            tabs["coords"].data_ptr(), B, Hh, S_pad, plan.bt, plan.tableT.shape[1], *_geometry(plan, window, stride),
+            dk.data_ptr(), dv.data_ptr(), tabs["walkT"].data_ptr(), tabs["walkT_counts"].data_ptr(),
+            tabs["coords"].data_ptr(), B, Hh, S_pad, plan.bt, plan.walkT.shape[1], *_geometry(plan, window, stride),
             1.0 / D**0.5, stream,
         )
     _build.check(err, "na_bwd_dkv")

@@ -305,6 +305,8 @@ def test_na_kernels_raise_on_what_they_do_not_take(cuda):
     lse = torch.zeros((1, 2, plan.s_pad), device=cuda)
     with pytest.raises(ValueError):
         na.na_bwd_dkv(q, q, q, q, lse[:, :1], lse, plan, (-1, 4, 6), (1, 1, 1))  # lse of the wrong shape
+    with pytest.raises(ValueError):
+        na.na_fwd(q, q, q, plan, (2, 4, 6), (1, 1, 1))  # not the window the plan's walks were built for
     x = torch.zeros((1, 96, 2, 128), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(NotImplementedError):
         na.neighborhood_attention(x, x, x, (2, 6, 8), (1, 3, 3), (1, 1, 1), (1, 4, 1))  # dilation 4 on H = 6
