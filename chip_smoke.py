@@ -9,16 +9,18 @@ Phases, each printed with its wall time:
    power limit (nvidia-smi) and the torch, CUDA and nvcc versions;
 2. build: compiles the hand-written kernels (cosmos_predict2_tpu_torch/csrc)
    with nvcc for sm_90a; prints the registers, shared memory and spills of
-   the warp-specialised kernels (K1, K5, K7, K8, K10, K12 and the second
-   passes of K5 and K8)
+   the warp-specialised kernels (K2 at each of its wgmma widths, K1, K5,
+   K7, K8, K10, K11, K12 and the second passes of K5 and K8)
    from ptxas's report and fails on a spill or on a launch register count
    other than the one their setmaxnreg budget balances at (168);
 3. kernels: each kernel against its plain PyTorch version (fp32, TF32 off)
    on bf16 inputs at the main paths' shapes, with max-abs and relative-L2
-   error, a second call that must give the same bits (K1, K5, K7, K8,
-   K10, K12), CUDA-event times, the card's bound for the same work (for
+   error, a second call that must give the same bits (K1, K2, K5, K7, K8,
+   K10-K12), CUDA-event times, the card's bound for the same work (for
    K10-K12 also the pairs their walk computes, the time those take at the
-   bf16 peak and the kernel's rate on them) and, as a yardstick the port
+   bf16 peak and the kernel's rate on them; for K2 its plan, rate and share
+   of the bf16 peak at each stage of the smoke geometry's VAE and the 720p
+   decoder's shapes) and, as a yardstick the port
    never calls, one PyTorch call computing the same
    function (scaled_dot_product_attention forward / backward, conv3d;
    K7 + K8 against SDPA's backward, which computes dq, dk and dv in one
@@ -47,7 +49,8 @@ Phases, each printed with its wall time:
    random weights serve a Text2World, an Image2World and a Video2World
    request (93 frames at 192x320, 35 UniPC steps, CFG guidance 7) through
    Video2WorldInference; checks the outputs and that K1 ran 2 x 28 times per
-   DiT forward and K2 ran; then profiles one batched-CFG DiT forward;
+   DiT forward and K2 ran; then profiles one batched-CFG DiT forward and
+   one streaming VAE encode and decode of a request's clip;
    the same for one Video2World request on the sparse 2B DiT
    (predict2_video2world_2b_sparse: 7 dense blocks, 21 neighborhood
    attention), with K1 35 and K10 21 times per DiT forward; then one dmd2
@@ -242,10 +245,15 @@ def kernel_resources() -> dict:
     on a spill or on a setmaxnreg kernel not at 168 registers at launch."""
     from cosmos_predict2_tpu_torch import _build
 
+    from cosmos_predict2_tpu_torch.ops.conv3d import WIDTHS
+
     report, lib = _build.ptxas_report(), _build.library()
     fwd_smem = lib.cosmos_flash_attention_fwd_smem_bytes()
+    # K2: one instantiation per wgmma width
+    conv = [(f"K2 n{n}", f"conv3d_causal_kernelILi{n}E", lib.cosmos_conv3d_causal_smem_bytes(n), True) for n in WIDTHS]
     out = {}
     for label, key, dynamic, setmaxnreg in (
+        *conv,
         ("K1", "attention_fwd_kernelILb0E", fwd_smem, True),
         ("K5", "attention_fwd_kernelILb1E", fwd_smem, True),
         ("K5 combine of split partials", "kv_cache_combine_kernel", 0, False),
@@ -253,6 +261,7 @@ def kernel_resources() -> dict:
         ("K8", "flash_attention_bwd_dkv_kernel", lib.cosmos_flash_attention_bwd_smem_bytes(1), True),
         ("K8 sum of split partials", "flash_attention_bwd_dkv_reduce_kernel", 0, False),
         ("K10", "na_fwd_kernel", lib.cosmos_na_smem_bytes(0), True),
+        ("K11", "na_bwd_dq_kernel", lib.cosmos_na_smem_bytes(2), True),
         ("K12", "na_bwd_dkv_kernel", lib.cosmos_na_smem_bytes(1), True),
     ):
         found = [v for name, v in report.items() if key in name]
@@ -280,7 +289,7 @@ def check_kernels(results: dict) -> None:
 
     import torch.nn.functional as F
 
-    from cosmos_predict2_tpu_torch.ops.conv3d import conv3d_causal, conv3d_causal_plain
+    from cosmos_predict2_tpu_torch.ops.conv3d import conv3d_causal, conv3d_causal_plain, conv_plan, conv_weight_taps
     from cosmos_predict2_tpu_torch.ops.flash_attention import (
         attention_delta,
         dkv_split_plan,
@@ -456,19 +465,27 @@ def check_kernels(results: dict) -> None:
         x = torch.randn((1, T + 2, H, W, cin), generator=gen, device=dev).to(torch.bfloat16)
         w = (torch.randn((3, 3, 3, cin, cout), generator=gen, device=dev) / (27 * cin) ** 0.5).to(torch.bfloat16)
         b = torch.randn((cout,), generator=gen, device=dev)
-        out = conv3d_causal(x, w, b)
+        w_taps = conv_weight_taps(w)  # made once per conv, as the streaming VAE keeps it
+        out = conv3d_causal(x, w, b, w_taps=w_taps)
+        # no atomics: a second call gives the same bits
+        if not torch.equal(out, conv3d_causal(x, w, b, w_taps=w_taps)):
+            failures.append(f"conv3d_causal {label}: two calls differ")
         torch.cuda.synchronize()
         ref = conv3d_causal_plain(x, w, b, out_dtype=torch.float32)
         max_abs, rel = errors(out, ref)
-        ms = cuda_ms(lambda: conv3d_causal(x, w, b))
+        ms = cuda_ms(lambda: conv3d_causal(x, w, b, w_taps=w_taps))
         plain_ms = cuda_ms(lambda: conv3d_causal_plain(x, w, b))
         # yardstick: cuDNN's conv3d on the same causally padded input (NDHWC
         # viewed as channels-last NCDHW), spatial zero padding 1
         xc, wc, bc = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous(), b.to(torch.bfloat16)
         library_ms = cuda_ms(lambda: F.conv3d(xc, wc, bc, padding=(0, 1, 1)))
-        bnd = bound(2 * T * H * W * 27 * cin * cout, 2 * x.numel() + 2 * w.numel() + 4 * b.numel() + 2 * out.numel())
-        record("conv3d_causal", label, max_abs, rel, ms, plain_ms, library_ms, bnd)
-        del x, w, b, out, ref, xc, wc, bc
+        flops = 2 * T * H * W * 27 * cin * cout
+        bnd = bound(flops, 2 * x.numel() + 2 * w.numel() + 4 * b.numel() + 2 * out.numel())
+        plan = conv_plan(H, W, cin, cout)
+        record("conv3d_causal", label, max_abs, rel, ms, plain_ms, library_ms, bnd,
+               tflops=round(flops / ms / 1e9, 1), share_of_peak=round(flops / ms / 1e9 / PEAK_BF16_FLOPS * 1e12, 3),
+               plan=f"{plan.box_h}x{plan.box_w} n{plan.n}x{plan.n_split}")
+        del x, w, w_taps, b, out, ref, xc, wc, bc
         torch.cuda.empty_cache()
 
     check_na_kernels(gen, record, failures)
@@ -476,28 +493,6 @@ def check_kernels(results: dict) -> None:
     check_jvp_kernel(gen, record, failures)
     if failures:
         raise AssertionError("kernel checks failed:\n  " + "\n  ".join(failures))
-
-
-def na_computed_pairs(plan, window, stride) -> int:
-    """(query, key) pairs K11 computes per (batch, head): 64 x 64 for every
-    pair of 64-row tiles that the plan lists and the t-window keeps (K10 and
-    K12 walk 128-row tiles: neighborhood_attention.walk_computed_pairs)."""
-    T, wt, st = plan.size.T, window[0], stride[0]
-    r_lo = (wt - 1) // 2
-    tiles = 0
-    for i in range(len(plan.counts)):
-        for u in range(plan.bt):
-            tq = int(plan.coords[i, 0]) + u
-            if tq >= T:
-                continue
-            lo, hi = 0, T - 1
-            if 0 <= wt < T:
-                c = (tq // st) * st + (st - 1) // 2 if st > 1 else tq
-                c = min(max(c, r_lo), T - 1 - (wt - 1 - r_lo))
-                lo, hi = c - r_lo, c + wt - 1 - r_lo
-            tk = plan.coords[plan.table[i, : plan.counts[i]], 0][:, None] + np.arange(plan.bt)[None, :]
-            tiles += int(((tk >= lo) & (tk <= hi)).sum())
-    return tiles * 64 * 64
 
 
 def flex_yardstick(q, k, v, do, size, window, stride, dilation):
@@ -555,17 +550,15 @@ def check_na_kernels(gen, record, failures) -> None:
         S = grid[0] * grid[1] * grid[2]
         label = f"{name} {grid[0]}x{grid[1]}x{grid[2]} w{w} s{s}" + (f" d{d}" if d != (1, 1, 1) else "")
         pairs = na.visible_pairs(size, ew)
-        computed = na_computed_pairs(plan, ew, es)
         walked = na.walk_computed_pairs(plan)
         extra = {"visible_pairs": pairs, "s_pad": plan.s_pad}
 
         def on_computed(kernel, flops_per_pair, batch, ms):
             """The kernel's own work: the pairs its walk computes, the time they
             take at the bf16 peak, and the kernel's rate on them."""
-            n = walked.get(kernel, computed)
+            n = walked[kernel]
             flops = flops_per_pair * batch * H * n * 128
-            return {"computed_pairs": n, "computed_pairs_64x64": computed,
-                    "computed_at_peak_ms": round(flops / PEAK_BF16_FLOPS * 1e3, 3),
+            return {"computed_pairs": n, "computed_at_peak_ms": round(flops / PEAK_BF16_FLOPS * 1e3, 3),
                     "tflops_on_computed": round(flops / ms / 1e9, 1)}
         real = na.permute_in(torch.ones((1, S, 1, 1), device=dev), plan)[0, 0, :, 0] > 0
         mask = None
@@ -617,10 +610,11 @@ def check_na_kernels(gen, record, failures) -> None:
         delta = na.na_delta(out, do)
         dq = na.na_bwd_dq(q, k, v, do, lse, delta, plan, ew, es)
         dk, dv = na.na_bwd_dkv(q, k, v, do, lse, delta, plan, ew, es)
-        repeat = na.na_bwd_dkv(q, k, v, do, lse, delta, plan, ew, es)
+        repeat = (na.na_bwd_dq(q, k, v, do, lse, delta, plan, ew, es), *na.na_bwd_dkv(q, k, v, do, lse, delta, plan, ew, es))
         torch.cuda.synchronize()
-        if not (torch.equal(dk, repeat[0]) and torch.equal(dv, repeat[1])):
-            failures.append(f"na_bwd_dkv {label}: two calls differ")
+        for name, got, again in (("na_bwd_dq", dq, repeat[0]), ("na_bwd_dkv", dk, repeat[1]), ("na_bwd_dkv", dv, repeat[2])):
+            if not torch.equal(got, again):
+                failures.append(f"{name} {label}: two calls differ")
         del repeat
         ref = na.na_bwd_plain(q, k, v, out, lse, do, plan, ew, es)
         errs = [errors(g, r) for g, r in zip((dq, dk, dv), ref)]
@@ -891,7 +885,21 @@ def serve_slice(experiment: str, names: tuple[str, ...]) -> dict:
             wall = time.perf_counter() - t
     log(f"  one batched-CFG DiT forward of {experiment} (batch 2, 5,760 tokens):")
     profile = device_time_table(prof, wall)
-    return {"counts": counts, "serve_s": serve_s, "peak_gb": peak_gb, "profile": profile}
+    vae_profile = None
+    if len(requests) > 1:  # the dense slice: a request's VAE work (K2's share), encode and decode of one clip
+        from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import decode_streaming, encode_streaming
+
+        clip = torch.from_numpy(requests[1][1]).cuda().permute(0, 2, 3, 4, 1)
+        with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            z = encode_streaming(vae, clip, pixel_format="uint8")
+            decode_streaming(vae, z, chunk_latent_frames=setup.decode_chunk_latent_frames, pixel_format="uint8")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        log(f"  one streaming VAE encode and decode of a request's clip ({T} frames, {H}x{W}):")
+        vae_profile = device_time_table(prof, wall)
+    return {"counts": counts, "serve_s": serve_s, "peak_gb": peak_gb, "profile": profile, "vae_profile": vae_profile}
 
 
 def small_train_step(device: str, dtype, sparse: bool, state_dict=None):

@@ -122,8 +122,11 @@ def library() -> ctypes.CDLL:
             lib.cosmos_flash_kv_cache.restype = i
             lib.cosmos_flash_kv_cache_window.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f, p]
             lib.cosmos_flash_kv_cache_window.restype = i
-            lib.cosmos_conv3d_causal.argtypes = [p, p, p, p, i, i, i, i, i, p]
+            # x, w_taps, bias, out; T_out, H, W, Cin, Cout, box_w, n, n_split; stream
+            lib.cosmos_conv3d_causal.argtypes = [p] * 4 + [i] * 8 + [p]
             lib.cosmos_conv3d_causal.restype = i
+            lib.cosmos_conv3d_causal_smem_bytes.argtypes = [i]
+            lib.cosmos_conv3d_causal_smem_bytes.restype = i
             # B, heads, S_pad, bt, table or walk width, T, H, W, 3 x window, 3 x stride; scale, stream
             geometry = [i] * 14 + [f, p]
             lib.cosmos_na_fwd.argtypes = [p] * 8 + geometry

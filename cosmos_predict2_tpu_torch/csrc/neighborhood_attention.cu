@@ -7,9 +7,9 @@
 // (B, heads, S_pad, 128) made by permute_in (tokens in (tile_h, tile_w, t,
 // ih, iw) order, 4 x 16 spatial tiles, so a 64-row tile is one t-slice of one
 // spatial tile and the row r of a tile sits at h = h0 + (r >> 4),
-// w = w0 + (r & 15)); the host-built block tables (table / counts for the
-// forward and dQ, its exact transpose tableT / countsT for dK/dV, since
-// clamped NA is not symmetric); block coordinates `coords` (n_blocks, 3) =
+// w = w0 + (r & 15)); the walks built on the host from the plan's block
+// tables (table / counts for the forward and dQ, its exact transpose
+// tableT / countsT for dK/dV, since clamped NA is not symmetric); block coordinates `coords` (n_blocks, 3) =
 // (t0, h0, w0); the effective window and stride (dilation is a class-major
 // reorder done by permute_in, so it never reaches a kernel). A key is visible
 // to a query iff, on every axis, it lies in the query's clamped window
@@ -30,28 +30,30 @@
 // the windows (the 4 x 16 tiles and the 512-row blocks of the plan), so the
 // kernels compute more pairs than are visible.
 //
-// Design of K10 and K12 (warp-specialised, on the bodies of K1 and K8 in
+// Design (warp-specialised, on the bodies of K1, K7 and K8 in
 // flash_attention_fwd.cu and flash_attention_bwd.cu; helpers in
 // sm90_bf16.cuh). What the first versions (4 warps of mma.sync on 64 x 64
-// tiles, synchronous 16-byte staging with two __syncthreads per tile, K12 on
-// 32-row q sub-tiles) lacked, and what these do about it:
+// tiles, synchronous 16-byte staging with two __syncthreads per tile, the
+// table walked per (q tile, kv tile), K12 on 32-row q sub-tiles) lacked,
+// and what these do about it:
 // 1. Overlap and tensor cores. 384 threads: a producer warpgroup
 //    (setmaxnreg down to 24; one thread issues TMA) and two consumer
 //    warpgroups (up to 240) running wgmma; the streamed tiles go through a
-//    two-stage ring of "full" (TMA bytes) and "empty" (one arrival per
-//    consumer warp) mbarriers; no __syncthreads in the loop.
-// 2. 128-row tiles that never cross a block. A CTA owns 128 rows, two
-//    t-slices of one block (build_plan makes bt even), one per consumer
-//    warpgroup: every row of a warpgroup has the same t, and each thread's
-//    rows share h (h0 + warp) and sit at w0 + g and w0 + g + 8.
+//    ring (two stages; K11 three) of "full" (TMA bytes) and "empty" (one
+//    arrival per consumer warp) mbarriers; no __syncthreads in the loop.
+// 2. 128-row tiles that never cross a block. A CTA owns 128 rows (q for
+//    K10 and K11, kv for K12), two t-slices of one block (build_plan makes
+//    bt even), one per consumer warpgroup: every row of a warpgroup has the
+//    same t, and each thread's rows share h (h0 + warp) and sit at w0 + g
+//    and w0 + g + 8.
 // 3. The walk comes from the plan, built on the host
 //    (ops/neighborhood_attention.py: fwd_walk, dkv_walk; tested on the CPU
 //    against the dense mask). K10: for each 128-row q tile, the 128-row kv
 //    tiles of its table row's blocks that some row of the tile sees on the
 //    t axis, each with 4 bits (warpgroup, kv half): which 64-row half each
-//    warpgroup sees. K12: for each 128-row kv tile, the 64-row q t-slices of
-//    its transposed table row whose t-window holds one of its t-slices, with
-//    a bit per warpgroup. Producer and consumers read the same list, so
+//    warpgroup sees; K11 walks the same list. K12: for each 128-row kv
+//    tile, the 64-row q t-slices of its transposed table row whose t-window
+//    holds one of its t-slices, with a bit per warpgroup. Producer and consumers read the same list, so
 //    they walk the same tiles; a warpgroup waits for and releases a tile it
 //    does not see without computing. Pad frames are never listed.
 // 4. The mask on the accumulator. Entry i of a thread's accumulator (row
@@ -72,25 +74,22 @@
 //   dV += P^T dO and dK += dS^T Q from registers (m64n128k16, dO and Q
 //   MN-major). No splits (the grid is several waves at the main shapes)
 //   and no atomics: deterministic.
-// K11 is still the first version: K7's structure over the table on 4 warps
-// of mma.sync, one block of 4 warps per 64-row q tile, the t test per
-// (q tile, kv tile), the h/w mask from the fragment layout, Q and dO staged
-// once, S = Q K^T and dP = dO V^T per kv tile, dS in registers as the A
-// operand of dQ += dS K.
+// - K11: K7's body. Q, dO, lse and delta are loaded once; each kv tile of
+//   K10's walk streams as two 64-row halves (K and V), each with the
+//   warpgroups its bits name beside it, and a half no warpgroup sees is
+//   never loaded. S = Q K^T and dP = dO V^T (m64n64k16) with the mask built
+//   while they run, dS = P (dP - delta) rounded to bf16 as the register A
+//   operand of dQ += dS K (m64n128k16, K MN-major). Pad rows see no key and
+//   get dQ = 0. No atomics: deterministic.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
 #include "sm90_bf16.cuh"
 
 namespace {
 
-using cosmos_kernels::ld_pair;
-using cosmos_kernels::mma_16816;
-using cosmos_kernels::pack_float_pair;
-using cosmos_kernels::pack_pair;
 using namespace cosmos_sm90;
 
 constexpr int kD = 128;
@@ -98,15 +97,10 @@ constexpr int kTile = 64;  // rows of one t-slice of a 4 x 16 spatial tile
 constexpr float kNegInf = -1e30f;
 constexpr float kMinSum = 1e-20f;
 
-// K11 (mma.sync)
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kLds = kD + 8;  // padded shared-memory row, in bf16 elements
-constexpr int kDqSmemBytes = 4 * kTile * kLds * 2;
-
-// K10 and K12 (warp-specialised)
-constexpr int kRows = 2 * kTile;  // a CTA's q (K10) or kv (K12) tile: two t-slices of one block
+// the warp-specialised kernels
+constexpr int kRows = 2 * kTile;  // a CTA's q (K10, K11) or kv (K12) tile: two t-slices of one block
 constexpr int kStages = 2;
+constexpr int kDqStages = 3;  // K11's ring: faster than two stages at every case of scripts/na_variants.py
 constexpr int kConsumerThreads = 256;
 constexpr int kWsThreads = kConsumerThreads + 128;  // plus the producer warpgroup
 constexpr int kConsumerWarps = kConsumerThreads / 32;
@@ -121,14 +115,6 @@ struct Geom {
   int str_t, str_h, str_w;  // effective stride
 };
 
-struct Tables {
-  const int* table;   // (n_blocks, max_cnt) block ids
-  const int* counts;  // (n_blocks,)
-  const int* coords;  // (n_blocks, 3): t0, h0, w0
-  int bt;             // t-slices (64-row tiles) per block
-  int max_cnt;
-};
-
 // [lo, hi] of the keys along one axis in the clamped window of coordinate c
 __device__ __forceinline__ int2 axis_range(int c, int L, int w, int st) {
   if (w < 0 || w >= L) return make_int2(0, L - 1);
@@ -141,178 +127,10 @@ __device__ __forceinline__ int2 axis_range(int c, int L, int w, int st) {
 
 __device__ __forceinline__ bool in_range(int x, int2 r) { return x >= r.x && x <= r.y; }
 
-// `rows` contiguous rows of 128 bf16 into a padded shared tile
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int rows, int tid) {
-  for (int i = tid; i < rows * (kD / 8); i += kThreads) {
-    const int r = i / (kD / 8);
-    const int c = (i % (kD / 8)) * 8;
-    *reinterpret_cast<uint4*>(dst + r * kLds + c) = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * kD + c);
-  }
-}
+// ------------------------------ K10-K12: shared -----------------------------
 
-// the A fragment (16 x 16, k-step kk over D) of the 16 rows starting at `row`
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int row, int kk, int g, int t) {
-  const __nv_bfloat16* p = tile + (row + g) * kLds + kk * 16 + 2 * t;
-  a[0] = ld_pair(p);
-  a[1] = ld_pair(p + 8 * kLds);
-  a[2] = ld_pair(p + 8);
-  a[3] = ld_pair(p + 8 * kLds + 8);
-}
-
-// The key ranges of this thread's two query rows (r = warp * 16 + g and
-// r + 8 of a 64-row q tile at (t_q, h0, w0)): both rows share h = h0 + warp;
-// w = w0 + g and w0 + g + 8. Pad queries get empty ranges.
-__device__ __forceinline__ void query_ranges(const Geom& geo, int t_q, int h0, int w0, int warp, int g, int2& hr,
-                                             int2 (&wr)[2]) {
-  const int2 empty = make_int2(1, 0);
-  const int hq = h0 + warp;
-  const bool ok = t_q < geo.T && hq < geo.H;
-  hr = ok ? axis_range(hq, geo.H, geo.win_h, geo.str_h) : empty;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int wq = w0 + g + 8 * r;
-    wr[r] = (ok && wq < geo.W) ? axis_range(wq, geo.W, geo.win_w, geo.str_w) : empty;
-  }
-}
-
-// visibility bits of a 16 x 64 S fragment (bit 4 * j + e for s[j][e]):
-// column c = 8 j + 2 t + (e & 1) of the kv tile at (h0k, w0k) sits at
-// h = h0k + (j >> 1), w = w0k + 8 (j & 1) + 2 t + (e & 1)
-__device__ __forceinline__ uint32_t fragment_mask(int2 hr, const int2 (&wr)[2], int h0k, int w0k, int t) {
-  uint32_t vis = 0;
-#pragma unroll
-  for (int j = 0; j < kTile / 8; ++j) {
-    const bool h_ok = in_range(h0k + (j >> 1), hr);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int wk = w0k + 8 * (j & 1) + 2 * t + (e & 1);
-      if (h_ok && in_range(wk, wr[e >> 1])) vis |= 1u << (4 * j + e);
-    }
-  }
-  return vis;
-}
-
-// ------------------------------------ K11 ------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-na_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
-                 Tables tab, Geom geo, int heads, int S_pad, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sdO = sQ + kTile * kLds;
-  __nv_bfloat16* sK = sdO + kTile * kLds;
-  __nv_bfloat16* sV = sK + kTile * kLds;
-
-  const int tile = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-
-  const size_t bh_row = (static_cast<size_t>(b) * heads + h) * S_pad;
-  const size_t q_row = bh_row + static_cast<size_t>(tile) * kTile;
-  const int qblk = tile / tab.bt;
-  const int t_q = tab.coords[3 * qblk] + tile % tab.bt;
-  int2 hr, wr[2];
-  query_ranges(geo, t_q, tab.coords[3 * qblk + 1], tab.coords[3 * qblk + 2], warp, g, hr, wr);
-  const int2 tr = axis_range(t_q, geo.T, geo.win_t, geo.str_t);
-  const int n = t_q < geo.T ? tab.counts[qblk] : 0;
-
-  stage_rows(sQ, q + q_row * kD, kTile, tid);
-  stage_rows(sdO, dout + q_row * kD, kTile, tid);
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const size_t row = q_row + warp * 16 + g + 8 * r;
-    lse_r[r] = lse[row];
-    delta_r[r] = delta[row];
-  }
-
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int nn = 0; nn < kD / 8; ++nn) acc[nn][0] = acc[nn][1] = acc[nn][2] = acc[nn][3] = 0.f;
-
-  for (int jb = 0; jb < n; ++jb) {
-    const int kblk = tab.table[qblk * tab.max_cnt + jb];
-    const int t0k = tab.coords[3 * kblk], h0k = tab.coords[3 * kblk + 1], w0k = tab.coords[3 * kblk + 2];
-    for (int u = 0; u < tab.bt; ++u) {
-      if (!in_range(t0k + u, tr) || t0k + u >= geo.T) continue;  // uniform over the block
-      const size_t kv_row = bh_row + static_cast<size_t>(kblk * tab.bt + u) * kTile;
-      __syncthreads();  // every warp is done with the previous K/V tile (and Q/dO are staged)
-      stage_rows(sK, k + kv_row * kD, kTile, tid);
-      stage_rows(sV, v + kv_row * kD, kTile, tid);
-      __syncthreads();
-
-      // ---- S = Q K^T and dP = dO V^T: 16 x 64 per warp ----
-      float s[kTile / 8][4], dp[kTile / 8][4];
-#pragma unroll
-      for (int j = 0; j < kTile / 8; ++j) {
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        uint32_t qa[4], da[4];
-        load_a(qa, sQ, warp * 16, kk, g, t);
-        load_a(da, sdO, warp * 16, kk, g, t);
-#pragma unroll
-        for (int j = 0; j < kTile / 8; ++j) {
-          const int off = (j * 8 + g) * kLds + kk * 16 + 2 * t;
-          mma_16816(s[j], qa, ld_pair(sK + off), ld_pair(sK + off + 8));
-          mma_16816(dp[j], da, ld_pair(sV + off), ld_pair(sV + off + 8));
-        }
-      }
-
-      // ---- P = exp(scale S - lse) in the window, 0 off it; dS = P (dP - delta), kept in s ----
-      const uint32_t vis = fragment_mask(hr, wr, h0k, w0k, t);
-#pragma unroll
-      for (int j = 0; j < kTile / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const float p = (vis >> (4 * j + e)) & 1u ? __expf(s[j][e] * scale - lse_r[r]) : 0.f;
-          s[j][e] = p * (dp[j][e] - delta_r[r]);
-        }
-      }
-
-      // ---- dQ += dS K: dS (bf16) from registers as the A operand ----
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        uint32_t a[4];
-        a[0] = pack_float_pair(s[2 * kk][0], s[2 * kk][1]);
-        a[1] = pack_float_pair(s[2 * kk][2], s[2 * kk][3]);
-        a[2] = pack_float_pair(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        a[3] = pack_float_pair(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-        const __nv_bfloat16* kp = sK + (kk * 16 + 2 * t) * kLds + g;
-#pragma unroll
-        for (int nn = 0; nn < kD / 8; ++nn) {
-          const __nv_bfloat16* p = kp + nn * 8;
-          mma_16816(acc[nn], a, pack_pair(p[0], p[kLds]), pack_pair(p[8 * kLds], p[9 * kLds]));
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    __nv_bfloat16* drow = dq + (q_row + warp * 16 + g + 8 * r) * kD;
-#pragma unroll
-    for (int nn = 0; nn < kD / 8; ++nn) {
-      *reinterpret_cast<uint32_t*>(drow + nn * 8 + 2 * t) =
-          pack_float_pair(acc[nn][2 * r] * scale, acc[nn][2 * r + 1] * scale);
-    }
-  }
-}
-
-// --------------------------- K10 and K12: shared ----------------------------
-
-// a host-built walk (ops/neighborhood_attention.py: fwd_walk for K10,
-// dkv_walk for K12): row x lists the tiles that CTA x loads, in order
+// a host-built walk (ops/neighborhood_attention.py: fwd_walk for K10 and
+// K11, dkv_walk for K12): row x lists the tiles that CTA x loads, in order
 struct Walk {
   const int* entries;  // (S_pad / 128, max_len)
   const int* counts;   // (S_pad / 128,)
@@ -347,6 +165,22 @@ __device__ __forceinline__ uint64_t spread_bits(uint32_t group_bits, uint32_t w_
   for (int a = 0; a < kGroups; ++a)
     if ((group_bits >> a) & 1u) vis |= static_cast<uint64_t>(w_bits) << (8 * a);
   return vis;
+}
+
+// The key ranges of this consumer thread's two query rows (16 warp + g and
+// + 8 of its warpgroup's t-slice of q tile `tile`: h = h0 + warp, w = w0 + g
+// and w0 + g + 8); pad rows get empty ones. Pad frames are never in the walk.
+__device__ __forceinline__ void query_ranges(const Walk& walk, const Geom& geo, int tile, int warp, int g, int2& hr,
+                                             int2 (&wr)[2]) {
+  const int qblk = tile / (walk.bt / 2);
+  const int2 empty = make_int2(1, 0);
+  const int hq = walk.coords[3 * qblk + 1] + warp;
+  hr = hq < geo.H ? axis_range(hq, geo.H, geo.win_h, geo.str_h) : empty;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int wq = walk.coords[3 * qblk + 2] + g + 8 * r;
+    wr[r] = hq < geo.H && wq < geo.W ? axis_range(wq, geo.W, geo.win_w, geo.str_w) : empty;
+  }
 }
 
 // ------------------------------------ K10 ------------------------------------
@@ -448,19 +282,8 @@ na_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
     const int g = lane / 4;
     const int t = lane % 4;
     const float scale_log2 = scale * kLog2e;
-    // key ranges of this thread's query rows (16 warp + g and + 8 of the
-    // warpgroup's t-slice: h = h0 + warp, w = w0 + g and w0 + g + 8); pad
-    // rows get empty ones. Pad frames are never in the walk.
-    const int qblk = tile / (walk.bt / 2);
-    const int2 empty = make_int2(1, 0);
-    const int hq = walk.coords[3 * qblk + 1] + warp;
-    const int2 hr = hq < geo.H ? axis_range(hq, geo.H, geo.win_h, geo.str_h) : empty;
-    int2 wr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int wq = walk.coords[3 * qblk + 2] + g + 8 * r;
-      wr[r] = hq < geo.H && wq < geo.W ? axis_range(wq, geo.W, geo.win_w, geo.str_w) : empty;
-    }
+    int2 hr, wr[2];
+    query_ranges(walk, geo, tile, warp, g, hr, wr);
 
     const unsigned char* q_rows = sm.q + 64 * wg * 128;  // this warpgroup's 64 rows in each q box
     float o[64];
@@ -562,6 +385,181 @@ na_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__
     if (t == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) lse[row0 + 16 * warp + g + 8 * r] = row_lse[r];
+    }
+  }
+}
+
+// ------------------------------------ K11 ------------------------------------
+
+struct DqSmem {
+  alignas(1024) unsigned char q[Tile<kRows>::kBytes];
+  alignas(1024) unsigned char dout[Tile<kRows>::kBytes];
+  alignas(1024) unsigned char k[kDqStages][Tile<kTile>::kBytes];
+  alignas(1024) unsigned char v[kDqStages][Tile<kTile>::kBytes];
+  int4 info[kDqStages];  // the warpgroups that see the stage's kv half (bit wg), its kv block's h0, w0
+  uint64_t q_full;
+  uint64_t full[kDqStages];
+  uint64_t empty[kDqStages];
+};
+
+// the warpgroups (bit wg) that walk entry `e`'s bits name for kv half `half`
+__device__ __forceinline__ int half_warpgroups(int e, int half) {
+  return ((e >> half) & 1) | (((e >> (2 + half)) & 1) << 1);
+}
+
+__global__ void __launch_bounds__(kWsThreads, 1)
+na_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+                 const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+                 const Walk walk, const Geom geo, int heads, int S_pad, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  DqSmem& sm = smem_storage<DqSmem>(smem_raw);
+  const int tile = blockIdx.x;  // 128-row q tile
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int n = walk.counts[tile];
+  const int* entries = walk.entries + static_cast<size_t>(tile) * walk.max_len;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------ producer ------------------------------
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 0 && lane == 0 && n > 0) {
+      mbar_arrive_expect_tx(&sm.q_full, 2 * Tile<kRows>::kBytes);
+      tma_tile_head_major<kRows>(sm.q, &map_q, &sm.q_full, tile * kRows, h, b);
+      tma_tile_head_major<kRows>(sm.dout, &map_do, &sm.q_full, tile * kRows, h, b);
+      int it = 0;
+      for (int i = 0; i < n; ++i) {
+        const int e = entries[i];
+        const int kv_tile = e >> 4;
+        const int kblk = kv_tile / (walk.bt / 2);
+        for (int half = 0; half < 2; ++half) {
+          const int wgs = half_warpgroups(e, half);
+          if (wgs == 0) continue;  // a t-slice no row of the q tile sees: never loaded
+          const int s = it % kDqStages;
+          mbar_wait(&sm.empty[s], ((it / kDqStages) & 1) ^ 1);
+          sm.info[s] = make_int4(wgs, walk.coords[3 * kblk + 1], walk.coords[3 * kblk + 2], 0);
+          mbar_arrive_expect_tx(&sm.full[s], 2 * Tile<kTile>::kBytes);
+          const int row = kv_tile * kRows + half * kTile;
+          tma_tile_head_major<kTile>(sm.k[s], &map_k, &sm.full[s], row, h, b);
+          tma_tile_head_major<kTile>(sm.v[s], &map_v, &sm.full[s], row, h, b);
+          ++it;
+        }
+      }
+    }
+  } else {
+    // ------------------------------ consumers -----------------------------
+    setmaxnreg_inc<kConsumerRegs>();
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const float scale_log2 = scale * kLog2e;
+    int2 hr, wr[2];
+    query_ranges(walk, geo, tile, warp, g, hr, wr);
+    // this thread's rows 16 warp + g and + 8 of the warpgroup's t-slice
+    const size_t row0 =
+        (static_cast<size_t>(b) * heads + h) * S_pad + static_cast<size_t>(tile) * kRows + 64 * wg + 16 * warp + g;
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lse2[r] = lse[row0 + 8 * r] * kLog2e;
+      dlt[r] = delta[row0 + 8 * r];
+    }
+    // the stages the producer fills: the walk's (kv tile, half) pairs that
+    // some warpgroup sees, in its order
+    int stages = 0;
+    for (int i = 0; i < n; ++i) {
+      const int e = entries[i];
+      stages += (half_warpgroups(e, 0) != 0) + (half_warpgroups(e, 1) != 0);
+    }
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    const int wg_off = 64 * wg * 128;  // this warpgroup's 64 rows in each Q / dO box
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[s]);
+    };
+
+    if (stages > 0) mbar_wait(&sm.q_full, 0);
+    for (int it = 0; it < stages; ++it) {
+      const int s = it % kDqStages;
+      mbar_wait(&sm.full[s], (it / kDqStages) & 1);
+      const int4 info = sm.info[s];
+      if (!((info.x >> wg) & 1)) {  // the half's t-slice is outside this warpgroup's t-window
+        release(s);
+        continue;
+      }
+
+      // S = Q K^T and dP = dO V^T (64 x 64 per warpgroup)
+      float sc[kTile / 2], dp[kTile / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const int box = kk / 4;
+        wgmma_ss<0>(sc, kmajor_desc(sm.q + box * Tile<kRows>::kBoxBytes + wg_off, kk % 4),
+                    kmajor_desc(sm.k[s] + box * Tile<kTile>::kBoxBytes, kk % 4), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const int box = kk / 4;
+        wgmma_ss<0>(dp, kmajor_desc(sm.dout + box * Tile<kRows>::kBoxBytes + wg_off, kk % 4),
+                    kmajor_desc(sm.v[s] + box * Tile<kTile>::kBoxBytes, kk % 4), kk > 0);
+      }
+      wgmma_commit();
+      // the mask while the products run: column group a = j >> 1 of the
+      // half sits at h = h0k + a
+      uint32_t groups = 0;
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        if (in_range(info.y + a, hr)) groups |= 1u << a;
+      const uint32_t vis = static_cast<uint32_t>(spread_bits<4>(groups, w_bits_fwd(info.z, t, wr)));
+      wgmma_wait<0>();
+      fence_operands(sc);
+      fence_operands(dp);
+
+      // dS = P (dP - delta), P = exp(scale S - lse) in the window, else 0
+#pragma unroll
+      for (int i = 0; i < kTile / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        const float p = (vis >> i) & 1u ? exp2f(sc[i] * scale_log2 - lse2[r]) : 0.f;
+        sc[i] = p * (dp[i] - dlt[r]);
+      }
+
+      // dQ += dS K: dS (bf16) from registers, K MN-major
+      uint32_t a[kTile / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) a_fragment(a[kk], sc, kk);
+      wgmma_fence();
+      fence_operands(acc);
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk)
+        wgmma_rs<1>(acc, a[kk], mnmajor_desc(sm.k[s], Tile<kTile>::kBoxBytes, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(acc);
+      release(s);
+    }
+
+    // dQ = scale dS K; pad rows, which see no key, get 0
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      __nv_bfloat16* drow = dq + (row0 + 8 * r) * kD;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<uint32_t*>(drow + 8 * j + 2 * t) =
+            pack_bf16(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
     }
   }
 }
@@ -768,9 +766,10 @@ Geom make_geom(int T, int H, int W, int win_t, int win_h, int win_w, int str_t, 
 
 }  // namespace
 
-// dynamic shared memory a CTA of K10 (kernel 0) or K12 (kernel 1) takes, in bytes
+// dynamic shared memory a CTA of K10 (kernel 0), K12 (kernel 1) or K11
+// (kernel 2) takes, in bytes
 extern "C" int cosmos_na_smem_bytes(int kernel) {
-  return static_cast<int>(kernel ? sizeof(DkvSmem) : sizeof(FwdSmem)) + 1024;
+  return static_cast<int>(kernel == 1 ? sizeof(DkvSmem) : kernel == 2 ? sizeof(DqSmem) : sizeof(FwdSmem)) + 1024;
 }
 
 // q, k, v, out: (B, heads, S_pad, 128) bf16, contiguous, 16-byte aligned, in
@@ -801,20 +800,30 @@ extern "C" int cosmos_na_fwd(const void* q, const void* k, const void* v, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// as above, with dout, dq (B, heads, S_pad, 128) bf16 and delta (B, heads, S_pad) fp32.
+// as above, with dout, dq (B, heads, S_pad, 128) bf16 and delta (B, heads,
+// S_pad) fp32; K11 walks K10's walk (fwd_walk).
 extern "C" int cosmos_na_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                                const void* delta, void* dq, const void* table, const void* counts, const void* coords,
-                                int B, int heads, int S_pad, int bt, int max_cnt, int T, int H, int W, int win_t,
-                                int win_h, int win_w, int str_t, int str_h, int str_w, float scale, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(na_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Tables tab{static_cast<const int*>(table), static_cast<const int*>(counts), static_cast<const int*>(coords), bt,
-                   max_cnt};
-  const dim3 grid(S_pad / kTile, heads, B);
-  na_bwd_dq_kernel<<<grid, kThreads, kDqSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), tab, make_geom(T, H, W, win_t, win_h, win_w, str_t, str_h, str_w), heads, S_pad,
+                                const void* delta, void* dq, const void* walk, const void* walk_counts,
+                                const void* coords, int B, int heads, int S_pad, int bt, int max_len, int T, int H,
+                                int W, int win_t, int win_h, int win_w, int str_t, int str_h, int str_w, float scale,
+                                void* stream) {
+  if (bt < 2 || bt % 2 || S_pad % (kTile * bt)) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv, mdo;
+  int err = make_head_major_map(&mq, q, B, heads, S_pad, S_pad, kRows);
+  if (!err) err = make_head_major_map(&mdo, dout, B, heads, S_pad, S_pad, kRows);
+  if (!err) err = make_head_major_map(&mk, k, B, heads, S_pad, S_pad, kTile);
+  if (!err) err = make_head_major_map(&mv, v, B, heads, S_pad, S_pad, kTile);
+  if (err) return err;
+  static bool configured[kMaxDevices] = {};
+  const int smem = cosmos_na_smem_bytes(2);
+  const cudaError_t cerr = set_smem_once(reinterpret_cast<const void*>(na_bwd_dq_kernel), smem, configured);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const Walk w{static_cast<const int*>(walk), static_cast<const int*>(walk_counts), static_cast<const int*>(coords), bt,
+               max_len};
+  const dim3 grid(S_pad / kRows, heads, B);
+  na_bwd_dq_kernel<<<grid, kWsThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dq), w, make_geom(T, H, W, win_t, win_h, win_w, str_t, str_h, str_w), heads, S_pad,
       scale);
   return static_cast<int>(cudaGetLastError());
 }

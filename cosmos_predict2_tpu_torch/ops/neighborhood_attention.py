@@ -16,9 +16,9 @@ intra_w), so a 64-row tile is one t-slice of one spatial tile and its
 coordinates are bit math on the row index; ``build_plan`` lists, for each
 ``block``-row q block, the kv blocks that can hold a key of its window
 (``table``, ``counts``) and the exact transpose of that list for the dK/dV
-pass (``tableT``, ``countsT``). From those the port builds the walks K10
-and K12 follow (``fwd_walk``, ``dkv_walk``: the 128-row tiles each CTA
-loads after the t test). Dilation is a class-major reorder of the axis
+pass (``tableT``, ``countsT``). From those the port builds the walks the
+kernels follow (``fwd_walk`` for K10 and K11, ``dkv_walk`` for K12: the
+128-row tiles each CTA loads after the t test). Dilation is a class-major reorder of the axis
 that turns dilated attention into blocked attention (window == stride ==
 sub-grid length), so the kernels take window and stride only.
 
@@ -196,7 +196,7 @@ class NAPlan(NamedTuple):
     walk_counts: np.ndarray  # (S_pad / 128,)
     walkT: np.ndarray  # (S_pad / 128, max_lenT) K12's schedule (dkv_walk)
     walkT_counts: np.ndarray  # (S_pad / 128,)
-    device_tables: dict  # str(device) -> the tables above as int32 tensors there (plan_tensors)
+    device_tables: dict  # str(device) -> coords and the walks as int32 tensors there (plan_tensors)
 
 
 def _axis_overlap(w: int, length: int, q_lo: int, q_hi: int, k_lo: int, k_hi: int, stride: int = 1) -> bool:
@@ -353,26 +353,28 @@ def _pack_walk(walks: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
 
 
 def walk_computed_pairs(plan: NAPlan) -> dict[str, int]:
-    """(query, key) pairs per (batch, head) that K10 and K12 compute on
-    their walks: K10 64 x 128 per (consumer warpgroup, kv tile) it sees, K12
-    64 x 64 per (warpgroup, q t-slice)."""
-    fwd = sum(int(((plan.walk[x, :n] & 3) != 0).sum() + ((plan.walk[x, :n] & 12) != 0).sum())
-              for x, n in enumerate(plan.walk_counts))
+    """(query, key) pairs per (batch, head) that K10, K11 and K12 compute
+    on their walks: K10 64 x 128 per (consumer warpgroup, kv tile) it sees,
+    K11 64 x 64 per (warpgroup, kv half) it sees, K12 64 x 64 per
+    (warpgroup, q t-slice)."""
+    fwd = [plan.walk[x, :n] for x, n in enumerate(plan.walk_counts)]
+    tiles = sum(int(((e & 3) != 0).sum() + ((e & 12) != 0).sum()) for e in fwd)
+    halves = sum(int(sum(((e >> bit) & 1).sum() for bit in range(4))) for e in fwd)
     dkv = sum(int((plan.walkT[x, :n] & 1).sum() + ((plan.walkT[x, :n] >> 1) & 1).sum())
               for x, n in enumerate(plan.walkT_counts))
-    return {"na_fwd": fwd * 64 * TILE_ROWS, "na_bwd_dkv": dkv * 64 * 64}
+    return {"na_fwd": tiles * 64 * TILE_ROWS, "na_bwd_dq": halves * 64 * 64, "na_bwd_dkv": dkv * 64 * 64}
 
 
 def plan_tensors(plan: NAPlan, device: torch.device) -> dict[str, torch.Tensor]:
-    """The plan's int32 tables on ``device``, uploaded once per (plan,
-    device), since plans are cached by geometry: a per-call host-to-device
-    copy would run at every sparse block."""
+    """What the kernels read of the plan (the block coordinates and the
+    walks) as int32 tensors on ``device``, uploaded once per (plan, device),
+    since plans are cached by geometry: a per-call host-to-device copy would
+    run at every sparse block."""
     key = str(device)
     if key not in plan.device_tables:
         plan.device_tables[key] = {
             name: torch.from_numpy(np.ascontiguousarray(getattr(plan, name))).to(device)
-            for name in ("table", "counts", "coords", "tableT", "countsT", "walk", "walk_counts", "walkT",
-                         "walkT_counts")
+            for name in ("coords", "walk", "walk_counts", "walkT", "walkT_counts")
         }
     return plan.device_tables[key]
 
@@ -599,8 +601,9 @@ na_fwd.launches = 0
 def na_bwd_dq(qt, kt, vt, do_t, lse, delta, plan: NAPlan, window, stride) -> torch.Tensor:
     """dq (B, heads, S_pad, 128) from the output gradient ``do_t``, the
     forward's ``lse`` and ``delta`` = rowsum(dO * O), both (B, heads, S_pad)
-    fp32. CPU tensors take the plain version; CUDA tensors launch K11 and
-    raise on what it does not take."""
+    fp32. CPU tensors take the plain version; CUDA tensors launch K11 on
+    K10's walk (:func:`fwd_walk`, each kv tile by 64-row halves) and raise
+    on what it does not take."""
     if not qt.is_cuda:
         return _bwd_plain(qt, kt, vt, do_t, lse, delta, plan, window, stride, True, False)[0]
     _check("na_bwd_dq", plan, window, stride, {"q": qt, "k": kt, "v": vt, "do": do_t}, {"lse": lse, "delta": delta})
@@ -614,8 +617,8 @@ def na_bwd_dq(qt, kt, vt, do_t, lse, delta, plan: NAPlan, window, stride) -> tor
         stream = torch.cuda.current_stream(qt.device).cuda_stream
         err = lib.cosmos_na_bwd_dq(
             qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), do_t.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), tabs["table"].data_ptr(), tabs["counts"].data_ptr(), tabs["coords"].data_ptr(),
-            B, Hh, S_pad, plan.bt, plan.table.shape[1], *_geometry(plan, window, stride), 1.0 / D**0.5, stream,
+            dq.data_ptr(), tabs["walk"].data_ptr(), tabs["walk_counts"].data_ptr(), tabs["coords"].data_ptr(),
+            B, Hh, S_pad, plan.bt, plan.walk.shape[1], *_geometry(plan, window, stride), 1.0 / D**0.5, stream,
         )
     _build.check(err, "na_bwd_dq")
     na_bwd_dq.launches += 1

@@ -1,6 +1,6 @@
-"""Time neighborhood attention's forward (K10) and dK/dV (K12) against
-variants of their source and, optionally, another checkout's K10 and K12,
-on the card.
+"""Time neighborhood attention's forward (K10), dQ (K11) and dK/dV (K12)
+against variants of their source and, optionally, another checkout's
+kernels, on the card.
 
     python -m cosmos_predict2_tpu_torch.scripts.na_variants [--baseline DIR] [--out FILE]
 
@@ -8,12 +8,13 @@ Cases: chip_smoke.py's four neighborhood-attention cases, 16 heads: the 2B
 sparse config's window adapted to the smoke geometry (24 x 12 x 20 tokens;
 K10 at batch 2 as in batched CFG), at 720p (24 x 44 x 80) and at 480p
 (24 x 30 x 52, H and W padded to the tiles), and layer 0 of the 14B
-comb02 list (dilated) at 720p; K12 and the other K10 cases at batch 1.
+comb02 list (dilated) at 720p; K11, K12 and the other K10 cases at batch 1.
 A variant is ``csrc/neighborhood_attention.cu`` with constants changed
-(VARIANTS: a three-stage ring), compiled with the package's nvcc flags into
-a library of its own and called through the same C entry points as the
-built kernels; its outputs are compared with the built kernels' (bits).
-``--baseline DIR`` times the K10 and K12 of the checkout in DIR (for
+(VARIANTS: the depth of K10's and K12's ring, and of K11's), compiled with
+the package's nvcc flags into a library of its own and called through the
+same C entry points as the built kernels; its outputs are compared with
+the built kernels' (bits).
+``--baseline DIR`` times the K10-K12 of the checkout in DIR (for
 example the parent commit unpacked with ``git archive``) through that
 checkout's own wrappers, in a subprocess, before and after this tree's
 runs, on the same seeded inputs. Prints one line per case (with the rate
@@ -35,7 +36,8 @@ from cosmos_predict2_tpu_torch import _build
 from cosmos_predict2_tpu_torch.ops import neighborhood_attention as na
 from cosmos_predict2_tpu_torch.scripts._kernel_variants import build_variant, cuda_ms, finish, time_baseline
 
-VARIANTS = {"stages3": [("constexpr int kStages = 2;", "constexpr int kStages = 3;")]}
+VARIANTS = {"stages3": [("constexpr int kStages = 2;", "constexpr int kStages = 3;")],  # K10, K12
+            "dq_stages2": [("constexpr int kDqStages = 3;", "constexpr int kDqStages = 2;")]}  # K11
 NA_BASE = (-1, 44, 80)  # the geometry the sparse config's window is tuned at (natten_base_size)
 # (label, (T, H, W), window, stride, dilation, K10's batch, timed calls)
 CASES = [
@@ -64,11 +66,12 @@ def case_inputs(grid, window, stride, dilation, batch):
 
 
 def time_tree() -> dict:
-    """This checkout's K10 and K12 at the cases, through its wrappers: {label: ms}."""
+    """This checkout's K10-K12 at the cases, through its wrappers: {label: ms}."""
     times = {}
     for label, grid, window, stride, dilation, batch, iters in CASES:
         plan, ew, es, fwd_in, bwd_in = case_inputs(grid, window, stride, dilation, batch)
         times[f"K10 {label}"] = cuda_ms(lambda: na.na_fwd(*fwd_in, plan, ew, es), iters)
+        times[f"K11 {label}"] = cuda_ms(lambda: na.na_bwd_dq(*bwd_in, plan, ew, es), iters)
         times[f"K12 {label}"] = cuda_ms(lambda: na.na_bwd_dkv(*bwd_in, plan, ew, es), iters)
         del fwd_in, bwd_in
         torch.cuda.empty_cache()
@@ -76,7 +79,7 @@ def time_tree() -> dict:
 
 
 class Library:
-    """K10 and K12 through a kernel library's C entry points: the built
+    """K10-K12 through a kernel library's C entry points: the built
     library, or one compiled from a patched copy of the source."""
 
     def __init__(self, name: str, patches: list[tuple[str, str]] | None = None):
@@ -84,10 +87,11 @@ class Library:
         if patches is None:
             self.lib = _build.library()
             return
-        self.lib = build_variant("neighborhood_attention.cu", name, patches, ("na_fwd_kernel", "na_bwd_dkv_kernel"),
-                                 launch_regs=168)
+        self.lib = build_variant("neighborhood_attention.cu", name, patches,
+                                 ("na_fwd_kernel", "na_bwd_dq_kernel", "na_bwd_dkv_kernel"), launch_regs=168)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         self.lib.cosmos_na_fwd.argtypes = [p] * 8 + [i] * 14 + [f, p]
+        self.lib.cosmos_na_bwd_dq.argtypes = [p] * 10 + [i] * 14 + [f, p]
         self.lib.cosmos_na_bwd_dkv.argtypes = [p] * 11 + [i] * 14 + [f, p]
 
     def k10(self, q, k, v, plan, ew, es):
@@ -99,6 +103,17 @@ class Library:
                                      128**-0.5, torch.cuda.current_stream().cuda_stream)
         _build.check(err, f"{self.name} K10")
         return out, lse
+
+    def k11(self, q, k, v, do, lse, delta, plan, ew, es):
+        dq = torch.empty_like(q)
+        tabs = na.plan_tensors(plan, q.device)
+        err = self.lib.cosmos_na_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                                        delta.data_ptr(), dq.data_ptr(), tabs["walk"].data_ptr(),
+                                        tabs["walk_counts"].data_ptr(), tabs["coords"].data_ptr(), 1, HEADS, plan.s_pad,
+                                        plan.bt, plan.walk.shape[1], *plan.size, *ew, *es, 128**-0.5,
+                                        torch.cuda.current_stream().cuda_stream)
+        _build.check(err, f"{self.name} K11")
+        return (dq,)
 
     def k12(self, q, k, v, do, lse, delta, plan, ew, es):
         dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -114,7 +129,7 @@ class Library:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--baseline", default=None, help="another checkout whose K10 and K12 to time alongside")
+    ap.add_argument("--baseline", default=None, help="another checkout whose K10-K12 to time alongside")
     ap.add_argument("--out", default=None, help="also write the JSON summary here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -128,15 +143,17 @@ def main(argv=None) -> int:
     for label, grid, window, stride, dilation, batch, iters in CASES:
         plan, ew, es, fwd_in, bwd_in = case_inputs(grid, window, stride, dilation, batch)
         pairs = na.walk_computed_pairs(plan)
-        ref = built.k10(*fwd_in, plan, ew, es), built.k12(*bwd_in, plan, ew, es)
+        ref = {"K10": built.k10(*fwd_in, plan, ew, es), "K11": built.k11(*bwd_in, plan, ew, es),
+               "K12": built.k12(*bwd_in, plan, ew, es)}
         line = []
         for kernel, call, flops in (("K10", lambda lib: lib.k10(*fwd_in, plan, ew, es), 4 * batch * pairs["na_fwd"]),
+                                    ("K11", lambda lib: lib.k11(*bwd_in, plan, ew, es), 6 * pairs["na_bwd_dq"]),
                                     ("K12", lambda lib: lib.k12(*bwd_in, plan, ew, es), 8 * pairs["na_bwd_dkv"])):
             ms = cuda_ms(lambda: call(built), iters)
             rate = flops * HEADS * 128 / ms / 1e9
             summary["tflops_on_computed"][f"{kernel} {label}"] = rate
             line.append(f"{kernel} {label}: built {ms:.3f} ms ({rate:.1f} TFLOP/s on the computed pairs)")
-            want = ref[0] if kernel == "K10" else ref[1]
+            want = ref[kernel]
             for var in variants + variants[::-1]:  # each variant twice, in turns
                 got = call(var)
                 ms = cuda_ms(lambda: call(var), iters)

@@ -24,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from cosmos_predict2_tpu_torch.ops.conv3d import conv3d_causal
+from cosmos_predict2_tpu_torch.ops.conv3d import conv3d_causal, conv_weight_taps
 from cosmos_predict2_tpu_torch.ops.normalization import channel_l2_norm
 from cosmos_predict2_tpu_torch.tokenizers.wan_vae import (
     WAN_LATENT_MEAN,
@@ -78,12 +78,26 @@ def _norm(norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return channel_l2_norm(x, norm.gamma.reshape(-1))
 
 
+def kernel_weight(conv: nn.Conv3d, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """The conv's weight as conv3d_causal takes it: a DHWIO view and the
+    kernel's (27, Cout, Cin) layout. The layout is made once and kept on the
+    module; an in-place change of the weight (its ``_version``), a new
+    tensor or another dtype makes it anew."""
+    w = conv.weight.detach().to(dtype).permute(2, 3, 4, 1, 0)  # OIDHW -> DHWIO view
+    key = (conv.weight.data_ptr(), conv.weight._version, conv.weight.device, dtype)
+    cached = conv.__dict__.get("_kernel_weight")
+    if cached is None or cached[0] != key:
+        cached = (key, conv_weight_taps(w))
+        conv.__dict__["_kernel_weight"] = cached
+    return w, cached[1]
+
+
 def _stream_conv(conv: nn.Conv3d, x: torch.Tensor, cache: torch.Tensor, dtype: torch.dtype):
     """Causal k_t = 3 conv with a 2-frame input cache (zeros at stream start)."""
     xin = torch.cat([cache.to(x.dtype), x], dim=1)
     if _use_kernel_conv(xin, conv):
-        w = conv.weight.to(dtype).permute(2, 3, 4, 1, 0).contiguous()  # OIDHW -> DHWIO
-        out = conv3d_causal(xin.to(dtype).contiguous(), w, conv.bias, out_dtype=dtype)
+        w, w_taps = kernel_weight(conv, dtype)
+        out = conv3d_causal(xin.to(dtype).contiguous(), w, conv.bias, out_dtype=dtype, w_taps=w_taps)
     else:
         out = _conv3d(conv, xin, dtype=dtype)
     return out, xin[:, -CACHE_T:]

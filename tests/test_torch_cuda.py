@@ -14,7 +14,7 @@ bf16 output (one rounding), fp32 sums in another order.
 import pytest
 import torch
 
-from cosmos_predict2_tpu_torch.ops.conv3d import conv3d_causal, conv3d_causal_plain
+from cosmos_predict2_tpu_torch.ops.conv3d import conv3d_causal, conv3d_causal_plain, conv_weight_taps
 from cosmos_predict2_tpu_torch.ops.flash_attention import (
     FlashAttention,
     attention_delta,
@@ -87,19 +87,43 @@ def test_flash_kernel_is_deterministic_on_cuda(cuda, sq, skv, frame_group):
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
-@pytest.mark.parametrize("shape", [(2, 24, 40, 384, 384), (3, 17, 29, 96, 192), (1, 8, 8, 64, 80)])
-def test_conv_kernel_matches_plain_on_cuda(cuda, shape):
-    T, H, W, cin, cout = shape
-    gen = torch.Generator(device=cuda).manual_seed(0)
+# K2 cases (T, H, W, Cin, Cout): N split 2 x 192 (Cout 384) on a small M
+# (24 x 40: W not a multiple of the 16-wide box); H and W that no box
+# divides (17 x 29) with Cin 96 in three 32-channel chunks; N = 80 on one
+# tile smaller than the box; Cin 96 -> Cout 384 on 5 x 20 (two
+# partial boxes); Cin 48 (a half-zero last chunk) -> Cout 48 (N = 64); the
+# VAE decoder's 96 -> 96 on the 16 x 8 box (H 48, W 40)
+CONV_CASES = [(2, 24, 40, 384, 384), (3, 17, 29, 96, 192), (1, 8, 8, 64, 80), (1, 5, 20, 96, 384),
+              (2, 9, 12, 48, 48), (2, 48, 40, 96, 96)]
+
+
+def _conv_inputs(cuda, T, H, W, cin, cout, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randn((1, T + 2, H, W, cin), generator=gen, device=cuda).bfloat16()
     w = (torch.randn((3, 3, 3, cin, cout), generator=gen, device=cuda) / (27 * cin) ** 0.5).bfloat16()
     b = torch.randn((cout,), generator=gen, device=cuda)
+    return x, w, b
+
+
+@pytest.mark.parametrize("shape", CONV_CASES)
+def test_conv_kernel_matches_plain_on_cuda(cuda, shape):
+    x, w, b = _conv_inputs(cuda, *shape)
     before = conv3d_causal.launches
     out = conv3d_causal(x, w, b)
     torch.cuda.synchronize()
     assert conv3d_causal.launches == before + 1
     ref = conv3d_causal_plain(x, w, b, out_dtype=torch.float32)
     assert float((out.float() - ref).norm() / ref.norm()) < 1e-2
+
+
+@pytest.mark.parametrize("shape", [(2, 17, 29, 96, 192), (1, 5, 20, 96, 384)])
+def test_conv_kernel_is_deterministic_on_cuda(cuda, shape):
+    """No atomics: two calls give the same bits, and the prepared tap-major
+    weights give what the kernel's own preparation gives."""
+    x, w, b = _conv_inputs(cuda, *shape, seed=1)
+    first, second = conv3d_causal(x, w, b), conv3d_causal(x, w, b, w_taps=conv_weight_taps(w))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 # K7 / K8 cases: ragged tails against the 64- and 128-row tiles (5800, 1000,
@@ -197,6 +221,21 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
     x = torch.zeros((1, 4, 8, 8, 24), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
         conv3d_causal(x, torch.zeros((3, 3, 3, 24, 32), dtype=torch.bfloat16, device=cuda), torch.zeros(32, device=cuda))
+    x, w, b = _conv_inputs(cuda, 2, 8, 8, 32, 48)
+    with pytest.raises(ValueError):
+        conv3d_causal(x, w[..., :40].contiguous(), b[:40])  # Cout 40
+    with pytest.raises(ValueError):
+        conv3d_causal(torch.cat([x, x]), w, b)  # batch 2
+    with pytest.raises(ValueError):
+        conv3d_causal(x[:, :2].contiguous(), w, b)  # T_in 2 < 3
+    with pytest.raises(TypeError):
+        conv3d_causal(x.float(), w, b)  # fp32 x
+    with pytest.raises(TypeError):
+        conv3d_causal(x, w, b, out_dtype=torch.float32)  # fp32 output
+    with pytest.raises(ValueError):
+        conv3d_causal(x[..., ::2, :], w, b)  # strided x
+    with pytest.raises(ValueError):
+        conv3d_causal(x, w, b, w_taps=conv_weight_taps(w).transpose(1, 2).contiguous())  # taps (27, Cin, Cout)
     q = torch.zeros((1, 64, 2, 128), dtype=torch.bfloat16, device=cuda)
     lse = torch.zeros((1, 2, 64), device=cuda)
     with pytest.raises(TypeError):
@@ -244,6 +283,18 @@ def test_na_kernels_match_plain_on_cuda(cuda, size, window, stride, dilation):
     for name, got, want in zip("qkv", (dq, dk, dv), na.na_bwd_plain(q, k, v, out, lse, do, plan, w, st)):
         assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all(), name
         assert _rel(got, want) < 1e-2, name  # P and dS rounded to bf16 on both sides
+
+
+@pytest.mark.parametrize("size,window,stride,dilation", [NA_CASES[0], NA_CASES[3]])
+def test_na_bwd_dq_kernel_is_deterministic_on_cuda(cuda, size, window, stride, dilation):
+    """K11 has no atomics: two calls give the same bits."""
+    plan, w, st, (q, k, v, do) = _na_inputs(cuda, size, window, stride, dilation, seed=6)
+    out, lse = na.na_fwd(q, k, v, plan, w, st)
+    delta = na.na_delta(out, do)
+    first = na.na_bwd_dq(q, k, v, do, lse, delta, plan, w, st)
+    second = na.na_bwd_dq(q, k, v, do, lse, delta, plan, w, st)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_neighborhood_attention_function_grads_on_cuda(cuda):

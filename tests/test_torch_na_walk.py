@@ -1,4 +1,4 @@
-"""The walks K10 and K12 follow on the card (ops/neighborhood_attention.py:
+"""The walks K10, K11 and K12 follow on the card (ops/neighborhood_attention.py:
 fwd_walk, dkv_walk), held on the CPU.
 
 - Coverage, brute force: every (query, key) pair that the JAX package's
@@ -8,9 +8,10 @@ fwd_walk, dkv_walk), held on the CPU.
   each other on the t axis (the JAX package's ``_axis_window_ok``).
 - The kernels' order, in plain PyTorch: an online softmax per 64-row
   warpgroup over the walk's 128-column kv tiles, with the t-slice a bit
-  leaves out masked whole (K10), and dK / dV summed over the walk's 64-row
-  q t-slices (K12), both held against the port's plain versions
-  (``na_fwd_plain``, ``na_bwd_plain``) and against JAX's
+  leaves out masked whole (K10), dQ summed over the same walk by 64-row kv
+  halves, a half whose bit is clear skipped (K11), and dK / dV summed over
+  the walk's 64-row q t-slices (K12), all held against the port's plain
+  versions (``na_fwd_plain``, ``na_bwd_plain``) and against JAX's
   ``neighborhood_attention`` and its VJP under
   ``pltpu.force_tpu_interpret_mode()``. Tolerances are
   tests/test_torch_neighborhood_attention.py's: fp32 on both sides, sums in
@@ -153,10 +154,11 @@ def test_every_listed_bit_has_a_visible_frame_pair(label, size, window, stride, 
 
 def test_walk_computed_pairs_at_the_smoke_geometry():
     """At the sparse config's smoke geometry (bt 8, the t window the whole
-    axis, T = t_pad) the 128-row walks compute the pairs the 64-row tiles
-    did: 66,060,288 per (batch, head) against 2,488,320 visible."""
+    axis, T = t_pad) the 128-row walks (K11's by 64-row kv halves) compute
+    the pairs the 64-row tiles did: 66,060,288 per (batch, head) against
+    2,488,320 visible."""
     plan = _plan(*PLANS[0][1:])
-    assert tna.walk_computed_pairs(plan) == {"na_fwd": 66_060_288, "na_bwd_dkv": 66_060_288}
+    assert tna.walk_computed_pairs(plan) == {"na_fwd": 66_060_288, "na_bwd_dq": 66_060_288, "na_bwd_dkv": 66_060_288}
     assert tna.visible_pairs((24, 12, 20), (24, 3, 6)) == 2_488_320
 
 
@@ -232,6 +234,34 @@ def dkv_by_walk(qt, kt, vt, do_t, lse, delta, plan, window, stride):
     return dk, dv
 
 
+def dq_by_walk(qt, kt, vt, do_t, lse, delta, plan, window, stride):
+    """K11's function in its own order: per 128-row q tile and consumer
+    warpgroup (64 rows), dQ summed over K10's walk taken by 64-row kv
+    halves, a half whose bit does not name the warpgroup skipped: P from
+    lse (0 off the dense reference's window), dS = P (dP - delta) rounded to
+    q's dtype, dQ = scale dS K."""
+    B, Hh, S_pad, D = qt.shape
+    scale = 1.0 / D**0.5
+    dq = torch.zeros_like(qt)
+    for x in range(S_pad // ROWS):
+        for wg in range(2):
+            rows = np.arange(x * ROWS + wg * SLICE, x * ROWS + (wg + 1) * SLICE)
+            q, do = qt[:, :, rows].float(), do_t[:, :, rows].float()
+            acc = torch.zeros((B, Hh, SLICE, D))
+            for e in plan.walk[x, : plan.walk_counts[x]]:
+                for half in range(2):
+                    if not int(e) >> (2 * wg + half) & 1:
+                        continue
+                    cols = np.arange((int(e) >> 4) * ROWS + half * SLICE, (int(e) >> 4) * ROWS + (half + 1) * SLICE)
+                    mask = torch.from_numpy(_visible(plan, window, stride, rows, cols))
+                    k, v = kt[:, :, cols].float(), vt[:, :, cols].float()
+                    p = torch.exp(q @ k.transpose(-1, -2) * scale - lse[:, :, rows, None]).masked_fill(~mask, 0.0)
+                    ds = (p * (do @ v.transpose(-1, -2) - delta[:, :, rows, None])).to(qt.dtype).float()
+                    acc += ds @ k * scale
+            dq[:, :, rows] = acc.to(qt.dtype)
+    return dq
+
+
 # (label, (T, H, W), window, stride, dilation): the JAX kernel test's
 # geometries, a t window with a t stride, and the padded single frame
 WALK_CASES = [
@@ -281,3 +311,12 @@ def test_dkv_in_the_kernels_order_matches_plain_and_jax(walk_case):
         torch.testing.assert_close(got, ref, atol=GRAD_ATOL, rtol=GRAD_RTOL, msg=name)
         np.testing.assert_allclose(tna.permute_out(got, plan).numpy(), want, atol=GRAD_ATOL, rtol=GRAD_RTOL,
                                    err_msg=name)
+
+
+def test_dq_in_the_kernels_order_matches_plain_and_jax(walk_case):
+    plan, ew, es, (qt, kt, vt, do_t), (_, want_dq, _, _) = walk_case
+    out, lse = tna.na_fwd_plain(qt, kt, vt, plan, ew, es)
+    dq = dq_by_walk(qt, kt, vt, do_t, lse, tna.na_delta(out, do_t), plan, ew, es)
+    ref_dq = tna.na_bwd_plain(qt, kt, vt, out, lse, do_t, plan, ew, es)[0]
+    torch.testing.assert_close(dq, ref_dq, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+    np.testing.assert_allclose(tna.permute_out(dq, plan).numpy(), want_dq, atol=GRAD_ATOL, rtol=GRAD_RTOL)

@@ -55,7 +55,7 @@ def test_plan_tables_upload_once_per_device():
     first = tna.plan_tensors(plan, torch.device("cpu"))
     again = tna.plan_tensors(plan, torch.device("cpu"))
     assert all(first[k] is again[k] for k in first)
-    np.testing.assert_array_equal(first["tableT"].numpy(), plan.tableT)
+    np.testing.assert_array_equal(first["walkT"].numpy(), plan.walkT)
 
 
 @pytest.mark.parametrize("label,size,window,stride,dilation", [PLANS[i] for i in (0, 2, 3, 5, 7)],
