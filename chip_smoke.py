@@ -10,13 +10,13 @@ Phases, each printed with its wall time:
 2. build: compiles the hand-written kernels (cosmos_predict2_tpu_torch/csrc)
    with nvcc for sm_90a; prints the registers, shared memory and spills of
    the warp-specialised kernels (K2 at each of its wgmma widths, K1, K5,
-   K7, K8, K10, K11, K12 and the second passes of K5 and K8)
+   K6, K7, K8, K9, K10, K11, K12 and the second passes of K5/K6 and K8)
    from ptxas's report and fails on a spill or on a launch register count
    other than the one their setmaxnreg budget balances at (168);
 3. kernels: each kernel against its plain PyTorch version (fp32, TF32 off)
    on bf16 inputs at the main paths' shapes, with max-abs and relative-L2
-   error, a second call that must give the same bits (K1, K2, K5, K7, K8,
-   K10-K12), CUDA-event times, the card's bound for the same work (for
+   error, a second call that must give the same bits (K1, K2, K5-K12),
+   CUDA-event times, the card's bound for the same work (for
    K10-K12 also the pairs their walk computes, the time those take at the
    bf16 peak and the kernel's rate on them; for K2 its plan, rate and share
    of the bf16 peak at each stage of the smoke geometry's VAE and the 720p
@@ -248,18 +248,20 @@ def kernel_resources() -> dict:
     from cosmos_predict2_tpu_torch.ops.conv3d import WIDTHS
 
     report, lib = _build.ptxas_report(), _build.library()
-    fwd_smem = lib.cosmos_flash_attention_fwd_smem_bytes()
+    fwd_smem = lib.cosmos_flash_attention_fwd_smem_bytes(0)
     # K2: one instantiation per wgmma width
     conv = [(f"K2 n{n}", f"conv3d_causal_kernelILi{n}E", lib.cosmos_conv3d_causal_smem_bytes(n), True) for n in WIDTHS]
     out = {}
     for label, key, dynamic, setmaxnreg in (
         *conv,
-        ("K1", "attention_fwd_kernelILb0E", fwd_smem, True),
-        ("K5", "attention_fwd_kernelILb1E", fwd_smem, True),
-        ("K5 combine of split partials", "kv_cache_combine_kernel", 0, False),
+        ("K1", "flash_attention_fwd_kernel", fwd_smem, True),
+        ("K5", "flash_kv_cache_kernel", fwd_smem, True),
+        ("K6", "flash_kv_cache_window_kernel", lib.cosmos_flash_attention_fwd_smem_bytes(1), True),
+        ("K5/K6 combine of split partials", "kv_cache_combine_kernel", 0, False),
         ("K7", "flash_attention_bwd_dq_kernel", lib.cosmos_flash_attention_bwd_smem_bytes(0), True),
         ("K8", "flash_attention_bwd_dkv_kernel", lib.cosmos_flash_attention_bwd_smem_bytes(1), True),
         ("K8 sum of split partials", "flash_attention_bwd_dkv_reduce_kernel", 0, False),
+        ("K9", "flash_attention_jvp_kernel", lib.cosmos_flash_attention_jvp_smem_bytes(), True),
         ("K10", "na_fwd_kernel", lib.cosmos_na_smem_bytes(0), True),
         ("K11", "na_bwd_dq_kernel", lib.cosmos_na_smem_bytes(2), True),
         ("K12", "na_bwd_dkv_kernel", lib.cosmos_na_smem_bytes(1), True),
@@ -646,20 +648,6 @@ def check_na_kernels(gen, record, failures) -> None:
         torch.cuda.empty_cache()
 
 
-def window_computed_pairs(sq: int, gh: int, gw: int, wh: int, filled: int) -> int:
-    """(query, key) pairs K6 computes per (batch, head): for each 64-row q
-    tile, 64 x 64 per kv tile over its window union's rows in every filled
-    frame (the kernel's own walk)."""
-    F, wh = gh * gw, min(wh, gh)
-    start = lambda y: min(max(y - (wh - 1) // 2, 0), gh - wh)
-    tiles = 0
-    for q0 in range(0, sq, 64):
-        first, last = q0, min(q0 + 64, sq) - 1
-        y_min, y_max = ((first % F) // gw, (last % F) // gw) if first // F == last // F else (0, gh - 1)
-        tiles += -(-(start(y_max) + wh - start(y_min)) * gw // 64)
-    return tiles * filled * 64 * 64
-
-
 def check_cache_kernels(gen, record, failures) -> None:
     """K5 and K6 against their plain versions at the interactive path's
     shapes: batch 1, 16 heads, q one block of whole frames, head-major
@@ -675,7 +663,9 @@ def check_cache_kernels(gen, record, failures) -> None:
         kv_cache_plain,
         kv_cache_split_plan,
         kv_cache_window_plain,
+        kv_window_split_plan,
         window_rows_bounds,
+        window_walk_pairs,
     )
 
     dev = torch.device("cuda")
@@ -725,7 +715,11 @@ def check_cache_kernels(gen, record, failures) -> None:
 
         label_w = f"{label} rows {min(wh, gh)}/{gh}"
         out = flash_attention_kv_cache_window(q, kb, vb, fill, (gh, gw), wh)
+        repeat = flash_attention_kv_cache_window(q, kb, vb, fill, (gh, gw), wh)  # the split route's combine in order
         torch.cuda.synchronize()
+        if not torch.equal(out, repeat):
+            failures.append(f"flash_attention_kv_cache_window {label_w}: two calls differ")
+        del repeat
         max_abs, rel = errors(out, kv_cache_window_plain(q, kb, vb, fill, (gh, gw), wh))
         if not bool(torch.isfinite(out.float()).all()):
             failures.append(f"flash_attention_kv_cache_window {label_w}: non-finite output")
@@ -735,11 +729,12 @@ def check_cache_kernels(gen, record, failures) -> None:
         yk = (torch.arange(fill, device=dev) % Fr) // gw
         mask = (yk[None, :] >= lo[:, None]) & (yk[None, :] < hi[:, None])
         library_ms = yardstick_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask), 2, 10)
-        pairs = Sq * min(wh, gh) * gw * filled
+        pairs = window_walk_pairs(Sq, fill, (gh, gw), wh)  # per head: visible, loaded and computed by K6's walk
         record("flash_attention_kv_cache_window", label_w, max_abs, rel, ms, plain_ms, library_ms,
-               bound(4 * H * pairs * 128, nbytes), visible_pairs=pairs,
-               computed_pairs=window_computed_pairs(Sq, gh, gw, wh, filled), k5_ms=round(ms_k5, 4),
-               k5_computed_pairs=-(-Sq // 64) * 64 * -(-fill // 64) * 64)
+               bound(4 * H * pairs["visible"] * 128, nbytes), visible_pairs=pairs["visible"],
+               loaded_pairs=pairs["loaded"], computed_pairs=pairs["computed"],
+               splits=kv_window_split_plan(Sq, fill, (gh, gw), wh, H, 1, sms), k5_ms=round(ms_k5, 4),
+               k5_computed_pairs=-(-Sq // 128) * 128 * -(-fill // 128) * 128)
         del q, kb, vb, qh, kh, vh, out, lo, hi, yk, mask
         torch.cuda.empty_cache()
 
@@ -965,9 +960,11 @@ def small_train_reference(sparse: bool) -> None:
 
 def kernel_family(name: str) -> str:
     for key, family in (("flash_kv_cache_window_kernel", "K6 cache decode, window"),
-                        ("attention_fwd_kernel<true>", "K5 cache decode"), ("kv_cache_combine_kernel", "K5 cache decode"),
+                        ("flash_kv_cache_kernel", "K5 cache decode"),
+                        ("kv_cache_combine_kernel", "K5/K6 split combine"),
                         ("na_fwd_kernel", "K10 NA forward"), ("na_bwd_dq_kernel", "K11 NA dQ"),
-                        ("na_bwd_dkv_kernel", "K12 NA dK/dV"), ("attention_fwd_kernel<false>", "K1 flash attention forward"),
+                        ("na_bwd_dkv_kernel", "K12 NA dK/dV"), ("flash_attention_fwd_kernel", "K1 flash attention forward"),
+                        ("flash_attention_jvp_kernel", "K9 forward mode"),
                         ("flash_attention_bwd_dq", "K7 flash attention dQ"),
                         ("flash_attention_bwd_dkv", "K8 flash attention dK/dV"),
                         ("conv3d_causal", "K2 causal conv"), ("nvjet", "GEMM (cuBLAS)"), ("gemm", "GEMM (cuBLAS)"),
@@ -1354,7 +1351,12 @@ def check_jvp_kernel(gen, record, failures) -> None:
         dq, dk, dv = (torch.randn((B, S, H, 128), generator=gen, device=dev).to(torch.bfloat16) if name in tangents
                       else torch.zeros_like(x) for name, x in zip("qkv", (q, k, v)))
         o, do = flash_attention_jvp(q, k, v, dq, dk, dv, fg)
+        # no atomics: a second call gives the same bits
+        repeat = flash_attention_jvp(q, k, v, dq, dk, dv, fg)
         torch.cuda.synchronize()
+        if not (torch.equal(o, repeat[0]) and torch.equal(do, repeat[1])):
+            failures.append(f"flash_attention_jvp {label}: two calls differ")
+        del repeat
         ref_o, ref_do = jvp_plain_by_heads(q, k, v, dq, dk, dv, fg)
         (o_abs, o_rel), (do_abs, do_rel) = errors(o, ref_o), errors(do, ref_do)
         del ref_o, ref_do
@@ -1850,7 +1852,7 @@ def main(argv=None) -> int:
                        "cosmos_predict2_tpu/ops/neighborhood_attention.py:461"),
         "flash_attention_kv_cache": ("cosmos_predict2_tpu_torch/csrc/flash_attention_fwd.cu",
                                      "cosmos_predict2_tpu/ops/flash_attention.py:211"),
-        "flash_attention_kv_cache_window": ("cosmos_predict2_tpu_torch/csrc/flash_attention_kv_cache.cu",
+        "flash_attention_kv_cache_window": ("cosmos_predict2_tpu_torch/csrc/flash_attention_fwd.cu",
                                             "cosmos_predict2_tpu/ops/flash_attention.py:375"),
         "flash_attention_jvp": ("cosmos_predict2_tpu_torch/csrc/flash_attention_jvp.cu",
                                 "cosmos_predict2_tpu/ops/flash_attention_jvp.py:45"),

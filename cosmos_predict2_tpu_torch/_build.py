@@ -26,10 +26,10 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
-    "flash_attention_fwd.cu", "flash_attention_bwd.cu", "flash_attention_kv_cache.cu", "conv3d_causal.cu",
-    "neighborhood_attention.cu", "flash_attention_jvp.cu",
+    "flash_attention_fwd.cu", "flash_attention_bwd.cu", "conv3d_causal.cu", "neighborhood_attention.cu",
+    "flash_attention_jvp.cu",
 )
-HEADERS = ("mma_bf16.cuh", "sm90_bf16.cuh")
+HEADERS = ("sm90_bf16.cuh",)
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cosmos_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -116,11 +116,13 @@ def library() -> ctypes.CDLL:
             lib.cosmos_flash_attention_bwd_smem_bytes.restype = i
             lib.cosmos_flash_attention_jvp.argtypes = [p] * 8 + [i, i, i, i, i, f, p]
             lib.cosmos_flash_attention_jvp.restype = i
-            lib.cosmos_flash_attention_fwd_smem_bytes.argtypes = []
+            lib.cosmos_flash_attention_jvp_smem_bytes.argtypes = []
+            lib.cosmos_flash_attention_jvp_smem_bytes.restype = i
+            lib.cosmos_flash_attention_fwd_smem_bytes.argtypes = [i]
             lib.cosmos_flash_attention_fwd_smem_bytes.restype = i
             lib.cosmos_flash_kv_cache.argtypes = [p] * 6 + [i] * 6 + [f, p]
             lib.cosmos_flash_kv_cache.restype = i
-            lib.cosmos_flash_kv_cache_window.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f, p]
+            lib.cosmos_flash_kv_cache_window.argtypes = [p] * 6 + [i] * 9 + [f, p]
             lib.cosmos_flash_kv_cache_window.restype = i
             # x, w_taps, bias, out; T_out, H, W, Cin, Cout, box_w, n, n_split; stream
             lib.cosmos_conv3d_causal.argtypes = [p] * 4 + [i] * 8 + [p]

@@ -1,8 +1,8 @@
 """Flash attention, forward and backward, and the KV-cache decode: the
-Hopper kernels (csrc/flash_attention_fwd.cu: K1 and K5 cache decode;
-csrc/flash_attention_bwd.cu: K7 dQ and K8 dK/dV;
-csrc/flash_attention_kv_cache.cu: K6 row-windowed cache decode), their
-plain PyTorch versions and the autograd Function over K1, K7 and K8.
+Hopper kernels (csrc/flash_attention_fwd.cu: K1, K5 cache decode and K6
+row-windowed cache decode; csrc/flash_attention_bwd.cu: K7 dQ and K8
+dK/dV), their plain PyTorch versions and the autograd Function over K1, K7
+and K8.
 
 Counterpart of cosmos_predict2_tpu/ops/flash_attention.py::flash_attention
 (``_fwd`` / ``_fwd_kernel``, ``_bwd`` / ``_dq_kernel`` / ``_dkv_kernel``,
@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import heapq
 
 import torch
 
@@ -49,6 +50,13 @@ KV_BLOCK_KV = 128
 KV_SPLIT_CTA_STEPS = 1.0
 KV_SPLIT_BYTES_PER_STEP = 5.7e6
 KV_MAX_SPLITS = 8
+# K6's tiles: q rows per CTA (two consumer warpgroups of WINDOW_WG_ROWS),
+# kv rows per step (kBlockQ, kWindowBlockKV in csrc/flash_attention_fwd.cu);
+# its split plan's range (scripts/kv_window_variants.py sweeps 1-4)
+WINDOW_BLOCK_Q = 128
+WINDOW_BLOCK_KV = 128
+WINDOW_WG_ROWS = 64
+WINDOW_MAX_SPLITS = 4
 
 
 def attention_logits(q: torch.Tensor, k: torch.Tensor, frame_group: int = 0) -> torch.Tensor:
@@ -445,6 +453,106 @@ def window_rows_bounds(rows: torch.Tensor, grid_hw: tuple[int, int], window_rows
     return start, start + wh
 
 
+def window_union(first: int, rows: int, sq: int, grid_hw: tuple[int, int], window_rows: int) -> tuple[int, int]:
+    """The tokens [lo, hi), from a frame's start, that the query rows
+    [first, min(first + rows, sq)) see in each cached frame: the union of
+    their row windows, contiguous because the window's start is monotone in
+    the row; every row of the frame for a run of rows that crosses a frame;
+    (0, 0) for no rows. K6 computes the same (window_union in
+    csrc/flash_attention_fwd.cu)."""
+    gh, gw = grid_hw
+    wh, F = min(window_rows, gh), gh * gw
+    last = min(first + rows, sq) - 1
+    if last < first:
+        return 0, 0
+    y_min, y_max = ((first % F) // gw, (last % F) // gw) if first // F == last // F else (0, gh - 1)
+    start = lambda y: min(max(y - (wh - 1) // 2, 0), gh - wh)  # noqa: E731
+    return start(y_min) * gw, (start(y_max) + wh) * gw
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowTile:
+    """One kv tile of K6's walk: its first cache row, that row's position
+    from the start of its frame, and a bit per consumer warpgroup (64 q
+    rows) that computes it."""
+
+    row: int
+    local: int
+    wg_bits: int
+
+
+def kv_window_walk(sq: int, kv_valid: int, grid_hw: tuple[int, int], window_rows: int,
+                   block_q: int = WINDOW_BLOCK_Q, block_kv: int = WINDOW_BLOCK_KV) -> list[list[WindowTile]]:
+    """K6's walk, as the kernel computes it in closed form (window_walk in
+    csrc/flash_attention_fwd.cu), for each ``block_q``-row q tile: in each of
+    the kv_valid // (gh gw) filled frames in turn, the CTA's window union
+    cut into ``block_kv``-row tiles from its start (the last one may run
+    past the union, into other rows or the next frame, which the mask
+    removes). Its producer loads every tile; a consumer warpgroup computes
+    a tile that meets its own rows' union and releases the others."""
+    gh, gw = grid_hw
+    F = gh * gw
+    walk = []
+    for q0 in range(0, sq, block_q):
+        lo, hi = window_union(q0, block_q, sq, grid_hw, window_rows)
+        wg_unions = [window_union(q0 + w * WINDOW_WG_ROWS, WINDOW_WG_ROWS, sq, grid_hw, window_rows)
+                     for w in range(block_q // WINDOW_WG_ROWS)]
+        tiles = []
+        for f in range(kv_valid // F):
+            for local in range(lo, hi, block_kv):
+                bits = sum(1 << w for w, (a, b) in enumerate(wg_unions) if local < b and local + block_kv > a)
+                tiles.append(WindowTile(f * F + local, local, bits))
+        walk.append(tiles)
+    return walk
+
+
+def window_walk_pairs(sq: int, kv_valid: int, grid_hw: tuple[int, int], window_rows: int,
+                      block_q: int = WINDOW_BLOCK_Q, block_kv: int = WINDOW_BLOCK_KV) -> dict[str, int]:
+    """Per (batch, head): the (query, key) pairs the window makes visible,
+    those K6's walk loads (block_q x block_kv per tile) and those its
+    consumer warpgroups compute (64 x block_kv per warpgroup and tile)."""
+    gh, gw = grid_hw
+    walk = kv_window_walk(sq, kv_valid, grid_hw, window_rows, block_q, block_kv)
+    return {
+        "visible": sq * min(window_rows, gh) * gw * (kv_valid // (gh * gw)),
+        "loaded": sum(len(tiles) for tiles in walk) * block_q * block_kv,
+        "computed": sum(bin(t.wg_bits).count("1") for tiles in walk for t in tiles) * WINDOW_WG_ROWS * block_kv,
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def kv_window_split_plan(sq: int, kv_valid: int, grid_hw: tuple[int, int], window_rows: int, heads: int,
+                         batch: int, sms: int) -> int:
+    """K6's split count: its frame walk cut into that many runs of whole
+    frames (run s covers frames [s F // splits, (s + 1) F // splits) of the
+    F filled), one CTA per (q tile, head, batch, run), their fp32 partials
+    combined by K5's second pass. A CTA's cost, in kv steps, is its run's
+    frames times its q tile's tiles per frame (:func:`kv_window_walk`; q
+    tiles that cross a frame walk whole frames) plus K5's
+    KV_SPLIT_CTA_STEPS; the CTAs go in launch order to whichever SM frees
+    first (one 384-thread CTA per SM). The plan takes the splits (at most
+    WINDOW_MAX_SPLITS and F) of least makespan plus the partials' traffic
+    (as K5's plan counts it), ties to fewer: one at the interactive steady
+    state (112 CTAs, one wave), more where the grid's last wave leaves SMs
+    idle (two-frame blocks, 720p)."""
+    gh, gw = grid_hw
+    frames = kv_valid // (gh * gw)
+    per_frame = [len(tiles) // frames for tiles in kv_window_walk(sq, kv_valid, grid_hw, window_rows)]
+    partial_bytes = batch * sq * heads * (HEAD_DIM + 1) * 4 * 2  # each split's partials, written and read back
+
+    def cost(splits: int) -> float:
+        free = [0.0] * sms  # when each SM is next free
+        for _ in range(batch):
+            for s in range(splits):
+                run = (s + 1) * frames // splits - s * frames // splits
+                for _ in range(heads):
+                    for n in per_frame:
+                        heapq.heapreplace(free, free[0] + run * n + KV_SPLIT_CTA_STEPS)
+        return max(free) + (splits * partial_bytes / KV_SPLIT_BYTES_PER_STEP if splits > 1 else 0.0)
+
+    return min(range(1, min(frames, WINDOW_MAX_SPLITS) + 1), key=lambda s: (cost(s), s))
+
+
 def _check_window(name, q, k_buf, kv_valid, grid_hw, window_rows):
     """The frame-granular contract of the cache window, on every device:
     Sq, S_max and kv_valid whole frames of gh * gw tokens (the TPU kernel
@@ -543,7 +651,10 @@ def flash_attention_kv_cache_window(
     kv_valid that is not a whole number of frames.
 
     CPU tensors take :func:`kv_cache_window_plain`. CUDA tensors launch K6,
-    which takes contiguous bf16 tensors and raises on anything else.
+    which takes contiguous bf16 tensors and raises on anything else. When
+    :func:`kv_window_split_plan` splits the frames, K6 writes fp32 partials
+    into one scratch tensor allocated here and K5's second kernel combines
+    them; that is one launch.
     """
     if not q.is_cuda:
         return kv_cache_window_plain(q, k_buf, v_buf, kv_valid, grid_hw, window_rows)
@@ -555,12 +666,19 @@ def flash_attention_kv_cache_window(
     out = torch.empty_like(q)
     if Sq == 0 or B == 0:
         return out
+    splits = kv_window_split_plan(Sq, kv_valid, (gh, gw), window_rows, H, B, _sm_count(q.device))
+    partial_o = partial_lse = None
+    if splits > 1:
+        rows = splits * B * Sq * H
+        scratch = torch.empty(rows * (D + 1), dtype=torch.float32, device=q.device)
+        partial_o, partial_lse = scratch[: rows * D], scratch[rows * D:]
     lib = _build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.cosmos_flash_kv_cache_window(
             q.data_ptr(), k_buf.data_ptr(), v_buf.data_ptr(), out.data_ptr(),
-            B, Sq, k_buf.shape[2], H, kv_valid, gh, gw, min(window_rows, gh), 1.0 / D**0.5, stream,
+            None if partial_o is None else partial_o.data_ptr(), None if partial_lse is None else partial_lse.data_ptr(),
+            B, Sq, k_buf.shape[2], H, kv_valid, gh, gw, min(window_rows, gh), splits, 1.0 / D**0.5, stream,
         )
     _build.check(err, "flash_attention_kv_cache_window")
     flash_attention_kv_cache_window.launches += 1

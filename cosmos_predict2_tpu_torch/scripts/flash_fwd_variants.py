@@ -73,7 +73,8 @@ class Library:
         if patches is None:
             self.lib = _build.library()
             return
-        self.lib = build_variant("flash_attention_fwd.cu", name, patches, "attention_fwd_kernel", launch_regs=168)
+        self.lib = build_variant("flash_attention_fwd.cu", name, patches,
+                                 ("flash_attention_fwd_kernel", "flash_kv_cache_kernel"), launch_regs=168)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         self.lib.cosmos_flash_attention_fwd.argtypes = [p] * 5 + [i] * 5 + [f, p]
         self.lib.cosmos_flash_kv_cache.argtypes = [p] * 6 + [i] * 6 + [f, p]

@@ -428,6 +428,22 @@ def test_kv_cache_window_kernel_matches_plain_on_cuda(cuda, gh, gw, wh, nb, fill
     assert _rel(out, kv_cache_window_plain(q, kb, vb, filled * F, (gh, gw), wh)) < 1e-2
 
 
+@pytest.mark.parametrize("gh,gw,wh,nb,filled,frames", [WINDOW_CASES[0], WINDOW_CASES[2]])
+def test_kv_cache_window_kernel_keeps_nan_past_the_fill_out_on_cuda(cuda, gh, gw, wh, nb, filled, frames):
+    """K6 over buffers that hold NaN past the fill: its tiles start at any
+    row of a frame and run past the fill, where TMA reads zeros; finite,
+    matching, and two calls give the same bits."""
+    F = gh * gw
+    q, kb, vb = _cache_inputs(cuda, nb * F, frames * F, filled * F)
+    kb[:, :, filled * F:] = float("nan")
+    vb[:, :, filled * F:] = float("nan")
+    out, repeat = (flash_attention_kv_cache_window(q, kb, vb, filled * F, (gh, gw), wh) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out, repeat)
+    assert _rel(out, kv_cache_window_plain(q, kb, vb, filled * F, (gh, gw), wh)) < 1e-2
+
+
 def test_kv_cache_kernels_raise_on_what_they_do_not_take(cuda):
     q, kb, vb = _cache_inputs(cuda, 48, 192, 96)
     with pytest.raises(TypeError):
@@ -488,6 +504,16 @@ def test_jvp_kernel_matches_plain_on_cuda(cuda, sq, skv, frame_group, tangents):
     ref_o, ref_do = flash_attention_jvp_plain(q, k, v, dq, dk, dv, frame_group)
     assert torch.isfinite(do.float()).all()
     assert _rel(o, ref_o) < 1e-2 and _rel(do, ref_do) < 1e-2
+
+
+def test_jvp_kernel_is_deterministic_on_cuda(cuda):
+    """No atomics: two calls of K9 give the same bits (a kv tail and a frame
+    group that splits the 64-row kv tiles)."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    args = [torch.randn((1, 1000, 4, 128), generator=gen, device=cuda).bfloat16() for _ in range(6)]
+    first, second = (flash_attention_jvp(*args, frame_group=100) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 def test_fwdmode_launches_k1_and_k9_once_under_jvp_on_cuda(cuda):

@@ -157,8 +157,9 @@ def test_build_is_lazy_and_keyed_by_sources():
     assert set(_build.launch_counts()) == {
         "flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "flash_attention_kv_cache",
         "flash_attention_kv_cache_window", "flash_attention_jvp", "conv3d_causal", "na_fwd", "na_bwd_dq", "na_bwd_dkv"}
-    assert {"flash_attention_bwd.cu", "flash_attention_kv_cache.cu", "neighborhood_attention.cu",
-            "flash_attention_jvp.cu"} <= set(_build.SOURCES)
+    assert {"flash_attention_fwd.cu", "flash_attention_bwd.cu", "conv3d_causal.cu", "neighborhood_attention.cu",
+            "flash_attention_jvp.cu"} == set(_build.SOURCES)
+    assert _build.HEADERS == ("sm90_bf16.cuh",)
 
 
 def test_port_never_imports_jax():
