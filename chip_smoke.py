@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Video2World serving and training paths (dense, sparse, DMD2), its streaming and forward-mode paths, once on one NVIDIA GPU.
+"""Drive the PyTorch port's Video2World serving and training paths (dense, sparse, DMD2, 14B), its streaming, forward-mode, released-weights, autoregressive, Text2Image and one-shot-VAE paths, once on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
@@ -86,7 +86,33 @@ Phases, each printed with its wall time:
    checks the outputs, the cache length after every block, the exact
    launches (28 + 2,800 K5 or K6 and as many K1) and that the peak memory
    holds one copy of the cache; profiles one steady-state block step; runs
-   the script's ``measure`` once for its result line.
+   the script's ``measure`` once for its result line;
+10. released weights: a synthetic checkpoint at the true 2B shapes
+   (patterned bf16 tensors under ``net_ema.``, utils/checkpoint_export.py)
+   and the seeded random VAE, written under outputs/chip_smoke/, registered
+   in the checkpoint DB under the Index-26 resume2 experiment and loaded by
+   its DB name through utils/model_loader.py (every weight bit-equal to the
+   file's; load time and peak memory); then the port's verifier writes a
+   golden and meets it at >= 35 dB (2 steps, 5 frames at 64x64, one-shot
+   VAE decode): exactly 224 K1 and K2; the files are deleted;
+11. autoregressive: one Image2World request through Inference with
+   enable_autoregressive, 181 frames at 192x320 in chunks of 93 sharing 2
+   latent frames: two chunks of 35 UniPC steps with CFG 7, 181 uint8
+   frames, chunk 2 opening on chunk 1's last 5 written-back frames, exactly
+   3,920 K1 and K2;
+12. text2image: one mode="image" request at the 720 bucket, 16:9
+   (1280x720, one latent frame), 35 steps with CFG 7: a 720x1280x3 png,
+   exactly 1,960 K1 and K2;
+13. one-shot VAE: a 93-frame 192x320 clip encoded and decoded whole
+   (streaming_vae=False) against the streaming route on the same weights
+   (relative L2 limits 3x the bf16 gap measured on the CPU), with K2
+   launches, times and peak memory of both; then one Text2World request at
+   35 steps on the one-shot route;
+14. 14B: predict2_video2world_14b_rectified_flow (5120 channels, 36
+   blocks, 40 heads) on seeded random bf16 matmul weights built by
+   load_model_from_checkpoint, one Text2World request (93 frames at
+   192x320, 35 steps, CFG 7): exactly 2,520 K1 (72 per forward) and K2,
+   time per step and peak memory.
 
 Then it prints the kernels' JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero without that line.
@@ -149,6 +175,19 @@ INTERACTIVE_CACHE_FRAMES = 16
 INTERACTIVE_STEPS = 4
 INTERACTIVE_BLOCKS = 20
 INTERACTIVE_WINDOW = 7
+# the autoregressive request: 181 frames in chunks of 93 sharing 2 latent
+# frames (5 pixel frames): two chunks
+AR_CHUNK = 93
+AR_OVERLAP = 2
+AR_FRAMES = 181
+FOURTEEN_B_EXPERIMENT = "predict2_video2world_14b_rectified_flow"
+# The one-shot VAE against the streaming route on the card (bf16, 93 frames
+# at 192x320). On the CPU the full-width VAE in bf16, one-shot against
+# streaming on the same weights (17 frames at 64x64,
+# tests/test_torch_serving_modes.py::test_oneshot_vae_bf16_gap_on_cpu) gives
+# 6.7e-3 relative L2 on the latents and 1.46e-2 on the frames; 3x those.
+ONESHOT_LATENT_REL_L2 = 2e-2
+ONESHOT_FRAME_REL_L2 = 4.5e-2
 # published dense peaks of one H100 SXM at 700 W, for the bounds
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -334,6 +373,9 @@ def check_kernels(results: dict) -> None:
         ("self  B1 S5760 H16 frame_group=240", 1, 5760, 5760, 16, 240, None),
         ("self  B2 S84480 H16 (720p, 1024 rows)", 2, 84480, 84480, 16, 0, 1024),
         ("cross B2 Sq84480 Skv512 H16 (720p, 1024 rows)", 2, 84480, 512, 16, 0, 1024),
+        ("self  B2 S3600 H16 (text2image 720p, T=1)", 2, 3600, 3600, 16, 0, None),
+        ("cross B2 Sq3600 Skv512 H16 (text2image)", 2, 3600, 512, 16, 0, None),
+        ("self  B2 S5760 H40 (14B, smoke geometry)", 2, 5760, 5760, 40, 0, None),
     ]
     for label, B, Sq, Skv, H, fg, rows in attn_cases:
         q = torch.randn((B, Sq, H, 128), generator=gen, device=dev).to(torch.bfloat16)
@@ -462,9 +504,13 @@ def check_kernels(results: dict) -> None:
         ("dec T2 176x320 384->384 (720p)", 2, 176, 320, 384, 384),
         ("dec T4 352x640 192->192 (720p)", 4, 352, 640, 192, 192),
         ("dec T4 704x1280 96->96 (720p)", 4, 704, 1280, 96, 96),
+        ("enc T93 192x320 96->96 (one-shot, zero cache)", 93, 192, 320, 96, 96),
+        ("dec T1 720x1280 96->96 (text2image, zero cache)", 1, 720, 1280, 96, 96),
     ]
     for label, T, H, W, cin, cout in conv_cases:
         x = torch.randn((1, T + 2, H, W, cin), generator=gen, device=dev).to(torch.bfloat16)
+        if "zero cache" in label:  # the one-shot route: two zero frames before frame 0
+            x[:, :2] = 0
         w = (torch.randn((3, 3, 3, cin, cout), generator=gen, device=dev) / (27 * cin) ** 0.5).to(torch.bfloat16)
         b = torch.randn((cout,), generator=gen, device=dev)
         w_taps = conv_weight_taps(w)  # made once per conv, as the streaming VAE keeps it
@@ -1741,6 +1787,356 @@ def distill_slice() -> dict:
             "by_phase": by_phase, "profile": probe.profile}
 
 
+# ------------------------- the base family's serving surface -------------------------
+
+
+def fresh_memory() -> None:
+    """Free what earlier phases left and start a new peak."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def check_launches(name: str, counts: dict, k1: int | None) -> None:
+    """K1 exactly ``k1`` times (any number when None) and K2 at least once;
+    no other kernel."""
+    other = {k: v for k, v in counts.items() if k not in ("flash_attention_fwd", "conv3d_causal") and v}
+    if (k1 is not None and counts["flash_attention_fwd"] != k1) or counts["conv3d_causal"] == 0 or other:
+        raise AssertionError(f"the {name} path launched {counts}; want K1 {k1 if k1 is not None else '> 0'} times, "
+                             f"K2 and nothing else")
+
+
+def released_slice() -> dict:
+    """A synthetic released checkpoint at the true 2B shapes, by name: write
+    it (patterned bf16 tensors under ``net_ema.``, and the seeded random VAE),
+    register it in the checkpoint DB under the Index-26 resume2 experiment,
+    load it with load_model_from_checkpoint by its DB name (every weight
+    bit-equal to the file's), then the port's verifier writes a golden and
+    meets it."""
+    import contextlib
+    import io
+
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.configs.released_experiments import INDEX_26_RESUME2
+    from cosmos_predict2_tpu_torch.networks.dit import MiniTrainDIT
+    from cosmos_predict2_tpu_torch.scripts import verify_released_weights as vrw
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae import build_vae
+    from cosmos_predict2_tpu_torch.utils import checkpoint_db as db
+    from cosmos_predict2_tpu_torch.utils.checkpoint_export import (
+        export_dit_state_dict, export_vae_state_dict, patterned_like, save_torch_state_dict,
+    )
+    from cosmos_predict2_tpu_torch.utils.model_loader import load_model_from_checkpoint
+
+    cfg = make_config(INDEX_26_RESUME2)
+    net_cfg = cfg.model.net
+    if (net_cfg.model_channels, net_cfg.num_blocks, net_cfg.num_heads, net_cfg.head_dim) != (2048, NUM_BLOCKS, 16, 128):
+        raise AssertionError("the released slice must write the full-width 2B DiT")
+    out_dir = OUT_DIR / "released"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    dit_path, vae_path, golden = out_dir / "synthetic_ema_bf16.pt", out_dir / "synthetic_vae.pth", out_dir / "golden.npz"
+    fresh_memory()
+    with torch.device("meta"):
+        template = export_dit_state_dict(MiniTrainDIT(net_cfg), prefix="net_ema.")
+    t = time.perf_counter()
+    written = patterned_like(template, salt=26, dtype=torch.bfloat16, device="cuda")
+    save_torch_state_dict(written, str(dit_path))
+    save_torch_state_dict(export_vae_state_dict(build_vae(cfg.tokenizer, "cuda", seed=1)), str(vae_path))
+    write_s = time.perf_counter() - t
+    n = sum(v.numel() for v in written.values())
+    log(f"  wrote {n / 1e9:.3f} B bf16 DiT weights under net_ema. ({dit_path.stat().st_size / 2**30:.2f} GiB) "
+        f"and the VAE in {write_s:.1f} s")
+    name = "chip_smoke/Cosmos-Predict2.5-2B/base/synthetic"
+    db.register_checkpoint(db.CheckpointEntry(uuid="00000000-chip-smoke-2b-synthetic", name=name,
+                                              experiment=INDEX_26_RESUME2, uri=str(dit_path)))
+    if db.get_checkpoint_path(name) != str(dit_path) or db.find_by_experiment(INDEX_26_RESUME2).name != name:
+        raise AssertionError("the checkpoint DB does not resolve the synthetic checkpoint")
+
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    pipe, _ = load_model_from_checkpoint(INDEX_26_RESUME2, name, str(vae_path), size_override=SIZE, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    load_peak_gb = (torch.cuda.max_memory_allocated() - base) / 2**30
+    bad = [k for k, v in pipe.net.state_dict().items() if not torch.equal(v, written["net_ema." + k].to(v.dtype))
+           or not torch.equal(v.to(torch.bfloat16), written["net_ema." + k])]
+    if bad or len(pipe.net.state_dict()) != len(written):
+        raise AssertionError(f"{len(bad)} loaded weights differ from the file's, e.g. {bad[:3]}")
+    log(f"  load_model_from_checkpoint({INDEX_26_RESUME2[:40]}..., '{name}'): {load_s:.2f} s, peak device memory "
+        f"{load_peak_gb:.2f} GiB over the start; all {len(written)} weights bit-equal to the file's")
+    del pipe, written
+    fresh_memory()
+
+    runs = []
+    t_all = time.perf_counter()
+    for extra in (["--write-golden"], []):
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = vrw.main(["--checkpoint", name, "--vae", str(vae_path), "--golden", str(golden), *extra])
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        runs.append({"rc": rc, **line, "s": time.perf_counter() - t})
+        log(f"  verifier {' '.join(extra) or '(verify)'}: rc {rc} in {runs[-1]['s']:.1f} s: {line}")
+    verify_s = time.perf_counter() - t_all
+    counts = _build.launch_counts()
+    written_ok, verified = runs
+    if not (written_ok["rc"] == 0 and written_ok.get("golden_written")):
+        raise AssertionError(f"the verifier did not write its golden: {written_ok}")
+    if not (verified["rc"] == 0 and verified["ok"] and verified["psnr_db"] >= 35 and verified["decoded"]):
+        raise AssertionError(f"the verifier did not meet its golden at 35 dB: {verified}")
+    # two runs of 2 steps, one batched-CFG forward each, 2 x 28 attention calls per forward
+    check_launches("released", counts, 2 * 2 * 2 * NUM_BLOCKS)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    for path in (dit_path, vae_path, golden):
+        path.unlink()
+    return {"counts": counts, "write_s": write_s, "load_s": load_s, "load_peak_gb": load_peak_gb,
+            "verify_s": verify_s, "psnr_db": verified["psnr_db"], "peak_gb": peak_gb}
+
+
+def _serving_pipe(experiment: str = DENSE_EXPERIMENT, **setup):
+    """The full-width pipeline of ``experiment`` on seeded random weights,
+    built by load_model_from_checkpoint at the smoke geometry."""
+    import torch
+
+    from cosmos_predict2_tpu_torch.utils.model_loader import load_model_from_checkpoint
+
+    t = time.perf_counter()
+    pipe, cfg = load_model_from_checkpoint(experiment, None, size_override=SIZE, device="cuda")
+    pipe.setup = dataclasses.replace(pipe.setup, **setup)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in pipe.net.parameters())
+    log(f"  {experiment}: {n / 1e9:.3f} B DiT params ({cfg.model.net.model_channels} channels, "
+        f"{cfg.model.net.num_blocks} blocks, {cfg.model.net.num_heads} heads), VAE dim {cfg.tokenizer.dim}: "
+        f"built in {time.perf_counter() - t:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    return pipe, cfg
+
+
+def _request_files(out_dir: Path, cfg, seed: int) -> tuple[str, str]:
+    """An input image at the smoke geometry and a 512-token text embedding."""
+    from PIL import Image
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    Image.fromarray(rng.integers(0, 256, SIZE + (3,), dtype=np.uint8)).save(out_dir / "input.png")
+    np.save(out_dir / "prompt.npy", rng.standard_normal((1, 512, cfg.model.net.crossattn_proj_in_channels)).astype(np.float32))
+    return str(out_dir / "input.png"), str(out_dir / "prompt.npy")
+
+
+def _timed_api(pipe, out_dir: Path):
+    """An Inference over ``pipe`` whose media export is timed apart."""
+    from cosmos_predict2_tpu_torch.inference.api import Inference
+
+    api = Inference(pipe, output_dir=str(out_dir), keep_going=False)
+    export_s, finish = [], api._finish
+
+    def timed_finish(*a):
+        t = time.perf_counter()
+        path = finish(*a)
+        export_s.append(time.perf_counter() - t)
+        return path
+
+    api._finish = timed_finish
+    return api, export_s
+
+
+def autoregressive_slice(pipe, cfg) -> dict:
+    """One Image2World request through Inference with enable_autoregressive:
+    181 frames at 192x320 in chunks of 93 sharing 2 latent frames (5 pixel
+    frames), so two chunks of 35 UniPC steps with CFG 7."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.inference.api import InferenceArguments
+
+    out_dir = OUT_DIR / "autoregressive"
+    image, prompt = _request_files(out_dir, cfg, seed=5)
+    chunks, generate, returned = [], pipe.generate_vid2world, []
+    pipe.generate_vid2world = lambda window, *a, **kw: chunks.append((np.array(window), kw)) or returned.append(
+        generate(window, *a, **kw)) or returned[-1]
+    autoregressive = pipe.generate_autoregressive
+    long_video = []
+    pipe.generate_autoregressive = lambda *a, **kw: long_video.append(autoregressive(*a, **kw)) or long_video[-1]
+    api, export_s = _timed_api(pipe, out_dir)
+    request = InferenceArguments(name="autoregressive", prompt="p", input_path=image, text_embedding_path=prompt,
+                                 num_steps=NUM_STEPS, guidance=GUIDANCE, seed=1, enable_autoregressive=True,
+                                 chunk_size=AR_CHUNK, chunk_overlap=AR_OVERLAP, num_output_frames=AR_FRAMES)
+    fresh_memory()
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    (path,) = api.generate([request])
+    request_s = time.perf_counter() - t
+    counts = _build.launch_counts()
+    del pipe.generate_vid2world, pipe.generate_autoregressive
+    (video,) = long_video
+    overlap_px = (AR_OVERLAP - 1) * 4 + 1
+    H, W = SIZE
+    if video.shape != (AR_FRAMES, H, W, 3) or video.dtype != np.uint8 or video.std() == 0:
+        raise AssertionError(f"autoregressive output {video.shape} {video.dtype} std {video.std()}")
+    if [kw["num_conditional_frames"] for _, kw in chunks] != [1, AR_OVERLAP] or [kw["seed"] for _, kw in chunks] != [1, 2]:
+        raise AssertionError(f"chunks conditioned on {[kw['num_conditional_frames'] for _, kw in chunks]} latent frames "
+                             f"with seeds {[kw['seed'] for _, kw in chunks]}, want [1, {AR_OVERLAP}] and [1, 2]")
+    conditioning = chunks[1][0][0, :, :overlap_px].transpose(1, 2, 3, 0)
+    if not np.array_equal(conditioning, returned[0][-overlap_px:]):
+        raise AssertionError("chunk 2's first conditioning frames are not chunk 1's last written-back frames")
+    if not np.array_equal(video[:AR_CHUNK], returned[0]) or not np.array_equal(video[AR_CHUNK:], returned[1][overlap_px:]):
+        raise AssertionError("the long video is not chunk 1 followed by chunk 2 past its overlap")
+    check_launches("autoregressive", counts, 2 * NUM_STEPS * 2 * NUM_BLOCKS)
+    tm = pipe.last_timings
+    log(f"  {AR_FRAMES} frames in 2 chunks of {AR_CHUNK} (overlap {overlap_px} frames): {request_s:.2f} s through "
+        f"Inference, of which export {export_s[0]:.2f} s ({path}); last chunk: vae_encode {tm['vae_encode_s']:.2f} s, "
+        f"denoise {tm['denoise_s']:.2f} s ({tm['denoise_step_s'] * 1e3:.1f} ms/step), vae_decode {tm['vae_decode_s']:.2f} s;"
+        f" chunk 2 opens on chunk 1's last {overlap_px} written-back frames; launches {counts}")
+    return {"counts": counts, "request_s": request_s, "export_s": export_s[0], **tm,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def text2image_slice(pipe, cfg) -> dict:
+    """One Text2Image request through Inference (mode="image") at the 720
+    image bucket, 16:9 (1280x720): one latent frame of 45 x 80 tokens, 35
+    UniPC steps with CFG 7, a png."""
+    import torch
+    from PIL import Image
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.inference.api import InferenceArguments
+    from cosmos_predict2_tpu_torch.inference.pipeline import Video2WorldInference
+
+    out_dir = OUT_DIR / "text2image"
+    _, prompt = _request_files(out_dir, cfg, seed=6)
+    pipe720 = Video2WorldInference(dataclasses.replace(pipe.setup, size_override=None, resolution="720"), pipe.net,
+                                   pipe.vae)
+    api, _ = _timed_api(pipe720, out_dir)
+    fresh_memory()
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    (path,) = api.generate([InferenceArguments(name="text2image", prompt="p", text_embedding_path=prompt, mode="image",
+                                               num_steps=NUM_STEPS, guidance=GUIDANCE, seed=1)])
+    request_s = time.perf_counter() - t
+    counts = _build.launch_counts()
+    image = np.asarray(Image.open(path))
+    if not path.endswith(".png") or image.shape != (720, 1280, 3) or image.std() == 0:
+        raise AssertionError(f"text2image wrote {path} {image.shape} std {image.std()}, want a 720x1280x3 png")
+    check_launches("text2image", counts, NUM_STEPS * 2 * NUM_BLOCKS)
+    tm = api._t2i._v2w.last_timings
+    log(f"  a 720x1280 png in {request_s:.2f} s through Inference: vae_encode {tm['vae_encode_s']:.2f} s, denoise "
+        f"{tm['denoise_s']:.2f} s ({tm['denoise_step_s'] * 1e3:.1f} ms/step at 3,600 tokens), vae_decode "
+        f"{tm['vae_decode_s']:.2f} s; launches {counts}")
+    return {"counts": counts, "request_s": request_s, **tm, "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def oneshot_slice(pipe, cfg) -> dict:
+    """The one-shot VAE route (streaming_vae=False): a 93-frame 192x320 clip
+    through encode and decode whole against the streaming route on the same
+    weights, then one Text2World request at 35 steps on the one-shot route."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.inference.pipeline import Video2WorldInference, video_to_input
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import (
+        decode_oneshot, decode_streaming, encode_oneshot, encode_streaming,
+    )
+
+    H, W = SIZE
+    rng = np.random.default_rng(7)
+    clip = torch.from_numpy(video_to_input(rng.integers(0, 256, (9, H, W, 3), dtype=np.uint8), NUM_FRAMES, 2)).cuda()
+    clip = clip.permute(0, 2, 3, 4, 1).contiguous()
+    vae = pipe.vae
+    routes = {}
+    for route, enc, dec in (("streaming", encode_streaming, lambda z: decode_streaming(vae, z, 2, "uint8")),
+                            ("one-shot", encode_oneshot, lambda z: decode_oneshot(vae, z, "uint8"))):
+        fresh_memory()
+        base = torch.cuda.memory_allocated()
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        z = enc(vae, clip, pixel_format="uint8")
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t
+        px = dec(z)
+        torch.cuda.synchronize()
+        routes[route] = {"latents": z, "frames": px, "encode_s": t_enc, "decode_s": time.perf_counter() - t - t_enc,
+                         "k2": _build.launch_counts()["conv3d_causal"],
+                         "peak_gb": (torch.cuda.max_memory_allocated() - base) / 2**30}
+    s, o = routes["streaming"], routes["one-shot"]
+    _, lat_rel = errors(o["latents"], s["latents"])
+    _, px_rel = errors(o["frames"], s["frames"])
+    for route, r in routes.items():
+        log(f"  {route:9s} VAE of {NUM_FRAMES} frames at {H}x{W}: encode {r['encode_s']:.2f} s, decode "
+            f"{r['decode_s']:.2f} s, {r['k2']} K2 launches, peak {r['peak_gb']:.2f} GiB over the weights")
+    log(f"  one-shot against streaming: latents rel_l2 {lat_rel:.3e} (limit {ONESHOT_LATENT_REL_L2}), uint8 frames "
+        f"rel_l2 {px_rel:.3e} (limit {ONESHOT_FRAME_REL_L2})")
+    if o["latents"].shape != s["latents"].shape or o["frames"].shape != (1, NUM_FRAMES, H, W, 3):
+        raise AssertionError(f"one-shot shapes {tuple(o['latents'].shape)} {tuple(o['frames'].shape)}")
+    if not (lat_rel <= ONESHOT_LATENT_REL_L2 and px_rel <= ONESHOT_FRAME_REL_L2) or o["k2"] == 0:
+        raise AssertionError(f"the one-shot VAE disagrees with the streaming route or never ran K2: {lat_rel:.3e}, "
+                             f"{px_rel:.3e}, {o['k2']} launches")
+    del routes, s, o, clip
+
+    oneshot = Video2WorldInference(dataclasses.replace(pipe.setup, streaming_vae=False), pipe.net, vae)
+    emb = rng.standard_normal((1, 512, cfg.model.net.crossattn_proj_in_channels)).astype(np.float32)
+    fresh_memory()
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    frames = oneshot.generate_vid2world(np.zeros((1, 3, NUM_FRAMES, H, W), np.uint8), emb, guidance=GUIDANCE,
+                                        num_steps=NUM_STEPS, num_conditional_frames=0, seed=1, pixel_format="uint8")
+    request_s = time.perf_counter() - t
+    counts = _build.launch_counts()
+    if frames.shape != (NUM_FRAMES, H, W, 3) or frames.dtype != np.uint8 or frames.std() == 0:
+        raise AssertionError(f"one-shot text2world output {frames.shape} {frames.dtype}")
+    check_launches("oneshot", counts, NUM_STEPS * 2 * NUM_BLOCKS)
+    tm = oneshot.last_timings
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  text2world on the one-shot route: {request_s:.2f} s: vae_encode {tm['vae_encode_s']:.2f} s, denoise "
+        f"{tm['denoise_s']:.2f} s ({tm['denoise_step_s'] * 1e3:.1f} ms/step), vae_decode {tm['vae_decode_s']:.2f} s; "
+        f"peak {peak_gb:.2f} GiB; launches {counts}")
+    return {"counts": counts, "request_s": request_s, **tm, "peak_gb": peak_gb, "latent_rel_l2": lat_rel,
+            "frame_rel_l2": px_rel}
+
+
+def fourteen_b_slice() -> dict:
+    """One Text2World request on the 14B base (5120 channels, 36 blocks, 40
+    heads of 128) on seeded random bf16 matmul weights, built by
+    load_model_from_checkpoint: 93 frames at 192x320, 35 steps, CFG 7."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+
+    fresh_memory()
+    pipe, cfg = _serving_pipe(FOURTEEN_B_EXPERIMENT)
+    net = cfg.model.net
+    if (net.model_channels, net.num_blocks, net.num_heads, net.head_dim) != (5120, 36, 40, 128):
+        raise AssertionError("the 14B slice must run the full-width 14B DiT")
+    weights_gb = torch.cuda.memory_allocated() / 2**30
+    H, W = SIZE
+    emb = np.random.default_rng(8).standard_normal((1, 512, net.crossattn_proj_in_channels)).astype(np.float32)
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    frames = pipe.generate_vid2world(np.zeros((1, 3, NUM_FRAMES, H, W), np.uint8), emb, guidance=GUIDANCE,
+                                     num_steps=NUM_STEPS, num_conditional_frames=0, seed=1, pixel_format="uint8")
+    request_s = time.perf_counter() - t
+    counts = _build.launch_counts()
+    if frames.shape != (NUM_FRAMES, H, W, 3) or frames.dtype != np.uint8 or frames.std() == 0:
+        raise AssertionError(f"14B text2world output {frames.shape} {frames.dtype}")
+    check_launches("14b", counts, NUM_STEPS * 2 * net.num_blocks)
+    tm = pipe.last_timings
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  14B text2world: {request_s:.2f} s: vae_encode {tm['vae_encode_s']:.2f} s, denoise {tm['denoise_s']:.2f} s "
+        f"({tm['denoise_step_s'] * 1e3:.1f} ms/step, one batched-CFG forward of 5,760 tokens), vae_decode "
+        f"{tm['vae_decode_s']:.2f} s; weights {weights_gb:.2f} GiB, peak {peak_gb:.2f} GiB; launches {counts}")
+    del pipe
+    return {"counts": counts, "request_s": request_s, **tm, "weights_gb": weights_gb, "peak_gb": peak_gb}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)  # --help; no options
     t_start = time.perf_counter()
@@ -1795,8 +2191,24 @@ def main(argv=None) -> int:
         it = interactive_slice(-1, run_measure=True)
     with Phase(f"interactive slice: causal 2B DiT streaming at 352x640, {INTERACTIVE_WINDOW}-row window (K6)"):
         itw = interactive_slice(INTERACTIVE_WINDOW, run_measure=False)
+    with Phase("released weights: a synthetic 2B checkpoint by DB name, the loader and the verifier"):
+        rel = released_slice()
+    log(f"  write {rel['write_s']:.1f} s, load {rel['load_s']:.2f} s (peak {rel['load_peak_gb']:.2f} GiB), verifier "
+        f"twice {rel['verify_s']:.1f} s, PSNR {rel['psnr_db']} dB")
+    fresh_memory()
+    pipe, cfg = _serving_pipe()
+    with Phase(f"autoregressive: {AR_FRAMES} frames in chunks of {AR_CHUNK} through Inference"):
+        ar = autoregressive_slice(pipe, cfg)
+    with Phase("text2image: one 1280x720 image through Inference"):
+        t2i = text2image_slice(pipe, cfg)
+    with Phase("one-shot VAE: against the streaming route, then text2world on the one-shot route"):
+        osl = oneshot_slice(pipe, cfg)
+    del pipe
+    with Phase("14B: text2world on predict2_video2world_14b_rectified_flow"):
+        big = fourteen_b_slice()
     paths = {"serve": sl, "train": tr, "sparse_serve": ssl, "sparse_train": stl, "interactive": it,
-             "interactive_window": itw, "fwdmode": fm, "fa_jvp": fj, "dmd2_serve": dsl, "distill": dtl}
+             "interactive_window": itw, "fwdmode": fm, "fa_jvp": fj, "dmd2_serve": dsl, "distill": dtl,
+             "released": rel, "autoregressive": ar, "text2image": t2i, "oneshot": osl, "14b": big}
     path_kernels = {
         "serve": ("flash_attention_fwd", "conv3d_causal"),
         "train": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal"),
@@ -1809,6 +2221,8 @@ def main(argv=None) -> int:
         "fa_jvp": ("flash_attention_fwd", "flash_attention_jvp"),
         "dmd2_serve": ("flash_attention_fwd", "conv3d_causal"),
         "distill": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal"),
+        **{path: ("flash_attention_fwd", "conv3d_causal")
+           for path in ("released", "autoregressive", "text2image", "oneshot", "14b")},
     }
     for path, names in path_kernels.items():
         idle = [n for n in names if paths[path]["counts"][n] == 0]

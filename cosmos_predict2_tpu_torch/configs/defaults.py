@@ -1,30 +1,41 @@
-"""Configs of the port, mirroring cosmos_predict2_tpu/configs/defaults.py.
+"""Config groups and experiments of the port, mirroring cosmos_predict2_tpu/configs/defaults.py.
 
 The reference's config module imports ``jax.numpy`` for dtypes, so the port
-defines its own: the flagship ``predict2_video2world_2b_rectified_flow``
-experiment (2B DiT, Wan2.1 VAE, the fused-AdamW recipe), its sparse-attention
-variant ``predict2_video2world_2b_sparse`` (the reference's sparse_2B.py
-tuning: 7 dense blocks, the other 21 neighborhood attention with window
-(-1, 12, 24) and stride (1, 4, 8) tuned at a 44 x 80 token grid), the
-interactive ``predict2_interactive_2b_causal`` (the 2B DiT made temporally
-block-causal, one latent frame per block, for KV-cache streaming; the
-reference's interactive/networks/dit_causal.py), the DMD2 students
-``dmd2_trigflow_distill_cosmos_predict2_2B_bidirectional`` and its
-``_w_discriminator`` variant (4 sampling steps over the 2B base) and
+defines its own groups (the 2B, 14B and mini nets, the rectified-flow model,
+the fused-AdamW optimizer, the Wan2.1 and mock tokenizers, mock data) and
+the experiments whose nets it runs: the flagship
+``predict2_video2world_2b_rectified_flow`` (2B DiT, Wan2.1 VAE), the 14B
+base ``predict2_video2world_14b_rectified_flow`` (the same DiT at 5120
+channels, 40 heads, 36 blocks), the sparse-attention
+``predict2_video2world_2b_sparse`` (the reference's sparse_2B.py tuning: 7
+dense blocks, the other 21 neighborhood attention with window (-1, 12, 24)
+and stride (1, 4, 8) tuned at a 44 x 80 token grid), the interactive
+``predict2_interactive_2b_causal`` (the 2B DiT made temporally
+block-causal, one latent frame per block, for KV-cache streaming) and
 ``error-free_mock_data_smoke`` (the reference's plumbing config:
 1024-channel 2-block DiT, dim-16 VAE, 3 iterations on 13-frame 64x64 mock
-clips). ``make_config`` takes the reference's ``key=value`` dotlist. A CPU
-test pins every field against the reference's ``make_config``.
+clips). The released experiment names (configs/released_experiments.py)
+register last, over these. ``make_config`` takes the reference's
+``key=value`` dotlist and its ``group=name`` tokens. A CPU test pins every
+field against the reference's ``make_config``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from cosmos_predict2_tpu_torch.configs.registry import compose
+from cosmos_predict2_tpu_torch.configs.registry import (
+    Experiment,
+    compose,
+    get_node,
+    register,
+    register_experiment,
+    resolve_experiment,
+)
 from cosmos_predict2_tpu_torch.data.mock import MockDataConfig
 from cosmos_predict2_tpu_torch.models.video2world import RFModelConfig
 from cosmos_predict2_tpu_torch.networks.dit import DiTConfig
+from cosmos_predict2_tpu_torch.training.optim import OptimizerConfig
 from cosmos_predict2_tpu_torch.tokenizers.wan_vae import WanVAEConfig
 from cosmos_predict2_tpu_torch.training.trainer import TrainerConfig
 
@@ -37,6 +48,8 @@ class Config:
     data_train: MockDataConfig = MockDataConfig()
 
 
+# ------------------------------- groups -------------------------------
+
 NET_2B = DiTConfig(
     model_channels=2048,
     num_heads=16,
@@ -44,59 +57,125 @@ NET_2B = DiTConfig(
     use_adaln_lora=True,
     adaln_lora_dim=256,
 )
+NET_14B = dataclasses.replace(NET_2B, model_channels=5120, num_heads=40, num_blocks=36)
 NET_MINI = dataclasses.replace(NET_2B, model_channels=1024, num_heads=8, num_blocks=2)
 
-_VIDEO2WORLD_2B = Config(
-    model=RFModelConfig(
-        net=dataclasses.replace(
-            NET_2B,
-            rope_h_extrapolation_ratio=3.0,
-            rope_w_extrapolation_ratio=3.0,
-            rope_t_extrapolation_ratio=1.0,
-            rope_enable_fps_modulation=False,
-            use_crossattn_projection=True,
-            crossattn_proj_in_channels=100352,
-            crossattn_emb_channels=1024,
-        ),
-        state_t=24,
-        resolution="720",
-    ),
-    tokenizer=WanVAEConfig(),
+register("net", "cosmos_v1_2B", NET_2B)
+register("net", "cosmos_v1_14B", NET_14B)
+register("net", "mini_net", NET_MINI)
+# RFModelConfig's defaults are the reference group's recipe (shift 5
+# logit-normal training times, loss scale 10, 0-2 conditional frames drawn
+# with probabilities 0.5 / 0.25 / 0.25)
+register("model", "fsdp_rectified_flow", RFModelConfig(net=NET_2B, state_t=24, resolution="720"))
+register("optimizer", "fusedadamw", OptimizerConfig(lr=2 ** (-14.5), weight_decay=0.001))
+register("tokenizer", "wan2pt1_tokenizer", WanVAEConfig())
+register("tokenizer", "mock_tokenizer", WanVAEConfig(dim=16))
+register("data_train", "mock", MockDataConfig())
+
+# ----------------------------- experiments -----------------------------
+
+register_experiment(
+    Experiment(
+        name="predict2_video2world_2b_rectified_flow",
+        groups={"net": "cosmos_v1_2B", "model": "fsdp_rectified_flow", "optimizer": "fusedadamw"},
+        overrides={
+            "model.net.rope_h_extrapolation_ratio": 3.0,
+            "model.net.rope_w_extrapolation_ratio": 3.0,
+            "model.net.rope_t_extrapolation_ratio": 1.0,
+            "model.net.rope_enable_fps_modulation": False,
+            "model.net.use_crossattn_projection": True,
+            "model.net.crossattn_proj_in_channels": 100352,
+            "model.net.crossattn_emb_channels": 1024,
+            "trainer.optimizer.lr": 2 ** (-14.5),
+            "trainer.optimizer.f_max": (0.5,),
+            "trainer.optimizer.f_min": (0.2,),
+            "trainer.optimizer.warm_up_steps": (2000,),
+            "trainer.optimizer.cycle_lengths": (100000,),
+        },
+    )
 )
 
-EXPERIMENTS: dict[str, Config] = {
-    "predict2_video2world_2b_rectified_flow": _VIDEO2WORLD_2B,
-    "predict2_video2world_2b_sparse": compose(_VIDEO2WORLD_2B, {
-        "model.net.n_dense_blocks": 7,
-        "model.net.natten_window": (-1, 12, 24),
-        "model.net.natten_stride": (1, 4, 8),
-        "model.net.natten_base_size": (-1, 44, 80),
-    }),
-    "predict2_interactive_2b_causal": compose(_VIDEO2WORLD_2B, {
-        "model.net.temporal_causal": True,
-        "model.net.num_frame_per_block": 1,
-    }),
-    # DMD2 TrigFlow distillation (the reference's experiments_dmd2_trigflow.py):
-    # the 4-step student over the 2B base; the _w_discriminator variant names
-    # the run with the GAN head on DiT features (its recipe is the same here)
-    "dmd2_trigflow_distill_cosmos_predict2_2B_bidirectional": compose(_VIDEO2WORLD_2B, {
-        "model.sampling_num_steps": 4,
-    }),
-    "error-free_mock_data_smoke": Config(
-        trainer=TrainerConfig(max_iter=3, logging_iter=1),
-        model=RFModelConfig(net=NET_MINI, state_t=4, resolution="720"),
-        tokenizer=WanVAEConfig(dim=16),
-        data_train=MockDataConfig(num_frames=13, height=64, width=64),
-    ),
-}
+register_experiment(
+    Experiment(
+        name="predict2_video2world_14b_rectified_flow",
+        base="predict2_video2world_2b_rectified_flow",
+        groups={"net": "cosmos_v1_14B"},
+    )
+)
+
+register_experiment(
+    Experiment(
+        name="predict2_video2world_2b_sparse",
+        base="predict2_video2world_2b_rectified_flow",
+        overrides={
+            "model.net.n_dense_blocks": 7,
+            "model.net.natten_window": (-1, 12, 24),
+            "model.net.natten_stride": (1, 4, 8),
+            "model.net.natten_base_size": (-1, 44, 80),
+        },
+    )
+)
+
+register_experiment(
+    Experiment(
+        name="predict2_interactive_2b_causal",
+        base="predict2_video2world_2b_rectified_flow",
+        overrides={
+            "model.net.temporal_causal": True,
+            "model.net.num_frame_per_block": 1,
+        },
+    )
+)
+
+register_experiment(
+    Experiment(
+        name="error-free_mock_data_smoke",
+        groups={
+            "net": "mini_net",
+            "model": "fsdp_rectified_flow",
+            "optimizer": "fusedadamw",
+            "tokenizer": "mock_tokenizer",
+        },
+        overrides={
+            "model.state_t": 4,
+            "trainer.max_iter": 3,
+            "trainer.logging_iter": 1,
+            "data_train.num_frames": 13,
+            "data_train.height": 64,
+            "data_train.width": 64,
+        },
+    )
+)
+
+# the released experiment names, over the experiments above
+import cosmos_predict2_tpu_torch.configs.released_experiments  # noqa: E402,F401
+
+_GROUPS = ("net", "model", "optimizer", "tokenizer", "data_train")
 
 
-EXPERIMENTS["dmd2_trigflow_distill_cosmos_predict2_2B_bidirectional_w_discriminator"] = EXPERIMENTS[
-    "dmd2_trigflow_distill_cosmos_predict2_2B_bidirectional"]
+def _select(cfg: Config, group: str, name: str) -> Config:
+    node = get_node(group, name)
+    if group == "net":
+        return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, net=node))
+    if group == "optimizer":
+        return dataclasses.replace(cfg, trainer=dataclasses.replace(cfg.trainer, optimizer=node))
+    return dataclasses.replace(cfg, **{group: node})
 
 
 def make_config(experiment: str = "predict2_video2world_2b_rectified_flow", overrides: list[str] | None = None) -> Config:
-    """The experiment's config with ``a.b.c=value`` overrides applied."""
-    if experiment not in EXPERIMENTS:
-        raise KeyError(f"unknown experiment {experiment!r}; the port has {sorted(EXPERIMENTS)}")
-    return compose(EXPERIMENTS[experiment], overrides)
+    """Defaults -> the experiment's group selections (the model group
+    before the net it holds) and overrides -> the dotlist, where a dot-free
+    ``group=name`` token selects a registry node."""
+    cfg = Config()
+    exp = resolve_experiment(experiment)
+    for group in sorted(exp.groups, key=lambda g: g != "model"):
+        cfg = _select(cfg, group, exp.groups[group])
+    cfg = compose(cfg, exp.overrides)
+    fields = []
+    for o in overrides or []:
+        key, _, value = o.partition("=")
+        if key in _GROUPS:
+            cfg = _select(cfg, key, value)
+        else:
+            fields.append(o)
+    return compose(cfg, fields)

@@ -1,9 +1,17 @@
-"""Dotlist overrides on the config tree.
+"""Config registry: named groups, experiments and dotlist overrides.
 
 The port's copy (stdlib only) of cosmos_predict2_tpu/configs/registry.py's
-``_parse_value``, ``apply_override`` and ``compose``: ``a.b.c=value``
-replaces one field of a nested frozen dataclass, a string value from the
-command line taking the field's type by ``ast.literal_eval``.
+group and experiment layer and its ``compose``:
+
+* ``register(group, name, node)`` stores a named config node per group
+  (net / model / optimizer / tokenizer / data_train);
+* an :class:`Experiment` is a dict of {group: name} selections and a dict
+  of ``a.b.c`` overrides, registered under its own name, optionally over a
+  ``base`` experiment whose selections and overrides it inherits and
+  extends (chains of any depth);
+* ``compose`` applies ``a.b.c=value`` overrides to a nested frozen
+  dataclass, a string value from the command line taking the field's type
+  by ``ast.literal_eval``.
 """
 
 from __future__ import annotations
@@ -11,6 +19,52 @@ from __future__ import annotations
 import ast
 import dataclasses
 from typing import Any
+
+_REGISTRY: dict[str, dict[str, Any]] = {}
+_EXPERIMENTS: dict[str, "Experiment"] = {}
+
+
+@dataclasses.dataclass
+class Experiment:
+    """A named recipe: group selections + dotlist overrides."""
+
+    name: str
+    groups: dict[str, str] = dataclasses.field(default_factory=dict)
+    overrides: dict[str, Any] = dataclasses.field(default_factory=dict)
+    base: str | None = None  # inherit another experiment
+
+
+def register(group: str, name: str, node: Any) -> None:
+    _REGISTRY.setdefault(group, {})[name] = node
+
+
+def get_node(group: str, name: str) -> Any:
+    try:
+        return _REGISTRY[group][name]
+    except KeyError:
+        known = sorted(_REGISTRY.get(group, {}))
+        raise KeyError(f"no '{name}' in group '{group}'; known: {known}") from None
+
+
+def register_experiment(exp: Experiment) -> None:
+    _EXPERIMENTS[exp.name] = exp
+
+
+def list_experiments() -> list[str]:
+    return sorted(_EXPERIMENTS)
+
+
+def resolve_experiment(name: str) -> Experiment:
+    """The experiment with its base chain folded in: the base's selections
+    and overrides, then its own on top."""
+    if name not in _EXPERIMENTS:
+        raise KeyError(f"unknown experiment '{name}'; known: {list_experiments()}")
+    exp = _EXPERIMENTS[name]
+    if exp.base is None:
+        return exp
+    parent = resolve_experiment(exp.base)
+    return Experiment(name=exp.name, groups={**parent.groups, **exp.groups},
+                      overrides={**parent.overrides, **exp.overrides})
 
 
 def _parse_value(text: str) -> Any:

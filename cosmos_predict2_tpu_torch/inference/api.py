@@ -1,11 +1,13 @@
 """Public Inference API, counterpart of cosmos_predict2_tpu/inference/api.py.
 
 Typed per-sample arguments, batch loading from json/jsonl and media
-export, over the port's streaming Video2World pipeline, with the UniPC
-sampler or the distilled DMD2 sampler (``sampler="dmd2"``: served one
-request at a time, as the batched pass is the UniPC CFG program). Image
-mode and autoregressive mode wait for later ports and are refused; the
-guardrail hooks wait too.
+export, over the port's Video2World pipeline, with the UniPC sampler or the
+distilled DMD2 sampler (``sampler="dmd2"``: served one request at a time,
+as the batched pass is the UniPC CFG program). ``mode="image"`` runs
+Text2Image and writes ``<name>.png``; ``enable_autoregressive`` generates
+``num_output_frames`` in chunks of ``chunk_size`` frames overlapping by
+``chunk_overlap`` latent frames. Both are served one request at a time.
+The guardrail hooks wait for a later port.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from cosmos_predict2_tpu_torch.inference.pipeline import (
     _IMAGE_EXTS,
     _VIDEO_EXTS,
+    Text2ImageInference,
     Video2WorldInference,
     read_and_process_image,
     read_and_process_video,
@@ -45,9 +48,16 @@ class InferenceArguments:
     guidance: float = 7.0
     seed: int = 1
     num_conditional_frames: int = 1
+    # autoregressive long video: pixel frames out, per chunk, and the
+    # latent frames consecutive chunks share (the JAX package's defaults:
+    # a 77-frame chunk is 20 latent frames, under the 2B's state_t of 24)
     enable_autoregressive: bool = False
+    num_output_frames: int = 77
+    chunk_size: int = 77
+    chunk_overlap: int = 1
     # precomputed text embedding path (.npy) when no online encoder
     text_embedding_path: Optional[str] = None
+    # "video" or "image" (Text2Image, one frame, written as a png)
     mode: str = "video"
     sampler: str = "unipc"
 
@@ -64,12 +74,12 @@ class InferenceArguments:
         return [InferenceArguments(**{k: v for k, v in item.items() if k in known}) for item in items]
 
 
-def _check_supported(args: InferenceArguments) -> None:
-    if args.mode != "video" or args.enable_autoregressive:
-        raise NotImplementedError(
-            f"sample {args.name}: the PyTorch port serves video mode only "
-            f"(mode={args.mode!r}, autoregressive={args.enable_autoregressive})"
-        )
+MODES = ("video", "image")
+
+
+def _check_mode(args: InferenceArguments) -> None:
+    if args.mode not in MODES:
+        raise ValueError(f"sample {args.name}: unknown mode {args.mode!r}; the modes are {MODES}")
 
 
 class Inference:
@@ -80,6 +90,7 @@ class Inference:
         self.pipe = pipe
         self.output_dir = output_dir
         self.keep_going = keep_going
+        self._t2i: Optional[Text2ImageInference] = None
         os.makedirs(output_dir, exist_ok=True)
 
     def _text_embedding(self, args: InferenceArguments, prompt: str) -> torch.Tensor:
@@ -128,9 +139,11 @@ class Inference:
     def generate_batch(self, samples: list[InferenceArguments]) -> dict[str, str]:
         """Serve N same-geometry video requests in one sampling pass; falls
         back to the sequential loop when the batch is not batchable (mixed
-        keys, or the dmd2 sampler: the batched pass is the UniPC CFG
-        program)."""
-        if len(samples) <= 1 or len({self.batch_key(a) for a in samples}) != 1 or samples[0].sampler != "unipc":
+        keys, image mode, autoregressive, or the dmd2 sampler: the batched
+        pass is the UniPC CFG program)."""
+        first = samples[0] if samples else None
+        if (len(samples) <= 1 or len({self.batch_key(a) for a in samples}) != 1 or first.sampler != "unipc"
+                or first.mode != "video" or first.enable_autoregressive):
             outputs: dict[str, str] = {}
             for a in samples:
                 try:
@@ -143,7 +156,7 @@ class Inference:
         ok, videos = [], []
         for args in samples:
             try:
-                _check_supported(args)
+                _check_mode(args)
                 videos.append(self._prepare_video(args)[0])
                 ok.append(args)
             except Exception:
@@ -169,13 +182,34 @@ class Inference:
                 log.error(f"sample {args.name} failed post-processing; continuing (keep_going)")
         return outputs
 
+    def _text2image(self) -> Text2ImageInference:
+        """The Text2Image pipeline over this pipeline's weights, built on first use."""
+        if self._t2i is None:
+            self._t2i = Text2ImageInference(self.pipe.setup, self.pipe.net, self.pipe.vae,
+                                            text_encoder=self.pipe.text_encoder)
+        return self._t2i
+
     def _generate_sample(self, args: InferenceArguments) -> str:
-        _check_supported(args)
-        video, k = self._prepare_video(args)
+        _check_mode(args)
         emb = self._text_embedding(args, args.prompt)
         neg = self._text_embedding(args, args.negative_prompt) if args.negative_prompt else None
-        frames = self.pipe.generate_vid2world(
-            video, emb, neg_text_emb=neg, guidance=args.guidance, num_steps=args.num_steps,
-            num_conditional_frames=k, seed=args.seed, pixel_format="uint8", sampler=args.sampler,
-        )
+        if args.mode == "image":
+            t2i = self._text2image()
+            img = t2i.generate_image(emb, neg_text_emb=neg, guidance=args.guidance, num_steps=args.num_steps,
+                                     seed=args.seed)
+            path = t2i.save_image(img, os.path.join(self.output_dir, args.name + ".png"))
+            log.info(f"saved {path}")
+            return path
+        video, k = self._prepare_video(args)
+        if args.enable_autoregressive:
+            frames = self.pipe.generate_autoregressive(
+                video, emb, num_output_frames=args.num_output_frames, chunk_size=args.chunk_size,
+                chunk_overlap=args.chunk_overlap, num_conditional_frames=k, guidance=args.guidance,
+                num_steps=args.num_steps, seed=args.seed, neg_text_emb=neg, pixel_format="uint8",
+            )
+        else:
+            frames = self.pipe.generate_vid2world(
+                video, emb, neg_text_emb=neg, guidance=args.guidance, num_steps=args.num_steps,
+                num_conditional_frames=k, seed=args.seed, pixel_format="uint8", sampler=args.sampler,
+            )
         return self._finish(args, frames)

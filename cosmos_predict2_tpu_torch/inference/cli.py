@@ -3,13 +3,18 @@
     python -m cosmos_predict2_tpu_torch.inference.cli \
         --experiment=predict2_video2world_2b_rectified_flow \
         --checkpoint=model.pt --vae=Wan2.1_VAE.pth \
-        --text-embedding-path=prompt.npy --input=input.jpg [--batch samples.json] [--sampler dmd2] [--device cpu]
+        --text-embedding-path=prompt.npy --input=input.jpg [--batch samples.json] [--sampler dmd2] \
+        [--mode text2image] [--autoregressive --num-output-frames 181 --chunk-size 93 --chunk-overlap 2] \
+        [--no-vae-streaming] [--device cpu]
 
-Weights: a reference torch state dict (``.pt``/``.pth``/``.safetensors``),
-read as the JAX CLI reads it: every key the model has must be there with its
-shape, and other entries are ignored and logged
-(utils/checkpoint_convert.py::load_reference_state_dict); or seeded random
-weights when none is given.
+``--experiment`` takes any registered name (configs/defaults.py,
+configs/released_experiments.py); ``--checkpoint`` and ``--vae`` take a
+file, a checkpoint-DB name or a uuid (utils/checkpoint_db.py; nothing is
+downloaded). Weights load through utils/model_loader.py: every key the
+model has must be there with its shape, other entries are ignored and
+logged; with no checkpoint, seeded random weights. The VAE streams by
+default; ``--no-vae-streaming`` takes the one-shot route, the JAX CLI's
+default.
 COSMOS_SMOKE=1 uses random weights, 1 step, the 192x320 geometry and zero
 text embeddings for plumbing checks.
 """
@@ -17,6 +22,7 @@ text embeddings for plumbing checks.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import sys
 
@@ -39,63 +45,42 @@ def parse_args(argv=None):
     p.add_argument("--text-embedding-path", default=None, help=".npy precomputed embedding")
     p.add_argument("--sampler", choices=["unipc", "dmd2"], default="unipc",
                    help="dmd2 = few-step distilled path (no CFG; needs distilled weights)")
+    p.add_argument("--mode", choices=["video", "text2image"], default="video",
+                   help="text2image: one generated image, written as <output-dir>/sample.png")
+    p.add_argument("--autoregressive", action="store_true",
+                   help="long video: chunks of --chunk-size frames sharing --chunk-overlap latent frames")
+    p.add_argument("--num-output-frames", type=int, default=77)
+    p.add_argument("--chunk-size", type=int, default=77)
+    p.add_argument("--chunk-overlap", type=int, default=1)
+    p.add_argument("--no-vae-streaming", action="store_true",
+                   help="the one-shot VAE route: the whole clip through the encoder and decoder at once")
     p.add_argument("--device", default="cuda", help="torch device; the CPU only when asked for (cpu)")
     return p.parse_args(argv)
 
 
-def _load_state_dict(path: str, prefixes: tuple[str, ...] = ()) -> dict:
-    """The file's entries as NumPy arrays, under the first of ``prefixes``
-    that any key carries, with that prefix stripped (as the JAX
-    ``convert_model_checkpoint`` picks ``net_ema.`` before ``net.``)."""
-    from cosmos_predict2_tpu_torch.utils.checkpoint_convert import load_torch_state_dict, strip_prefix
-
-    sd = load_torch_state_dict(path)
-    for prefix in prefixes:
-        if any(k.startswith(prefix) for k in sd):
-            return strip_prefix(sd, prefix)
-    return sd
-
-
 def build_pipeline(args):
-    """Video2WorldInference from the experiment config, with checkpoint
-    weights (every model key present with its shape, other entries ignored)
-    or seeded random weights."""
+    """utils/model_loader.py's pipeline for the arguments; under
+    COSMOS_SMOKE with random weights, the 192x320 geometry and zero text
+    embeddings."""
     import torch
 
-    from cosmos_predict2_tpu_torch.configs.defaults import make_config
-    from cosmos_predict2_tpu_torch.inference.pipeline import InferenceSetup, Video2WorldInference
-    from cosmos_predict2_tpu_torch.networks.dit import build_dit
-    from cosmos_predict2_tpu_torch.tokenizers.wan_vae import build_vae
-    from cosmos_predict2_tpu_torch.utils.checkpoint_convert import load_reference_state_dict
     from cosmos_predict2_tpu_torch.utils.flags import SMOKE
+    from cosmos_predict2_tpu_torch.utils.model_loader import load_model_from_checkpoint
 
-    log = logging.getLogger("cosmos_predict2_tpu_torch")
-    device = torch.device(args.device)
-    config = make_config(args.experiment)
-    model_cfg = config.model
-    setup = InferenceSetup(
-        model_config=model_cfg,
-        vae_config=config.tokenizer,
+    pipe, config = load_model_from_checkpoint(
+        args.experiment,
+        checkpoint_path=None if SMOKE else args.checkpoint,
+        vae_path=None if SMOKE else args.vae,
         resolution=args.resolution,
         size_override=(192, 320) if SMOKE else None,
+        device=args.device,
     )
-    net = build_dit(model_cfg.net, device, seed=0)
-    if args.checkpoint and not SMOKE:
-        load_reference_state_dict(net, _load_state_dict(args.checkpoint, ("net_ema.", "net.")), "DiT checkpoint")
-    else:
-        log.warning("no checkpoint given (or SMOKE): using random DiT weights")
-    vae = build_vae(config.tokenizer, device, seed=1)
-    if args.vae and not SMOKE:
-        load_reference_state_dict(vae, _load_state_dict(args.vae), "VAE checkpoint")
-    else:
-        log.warning("no VAE checkpoint given (or SMOKE): using random VAE weights")
-
-    text_encoder = None
+    pipe.setup = dataclasses.replace(pipe.setup, streaming_vae=not args.no_vae_streaming)
     if SMOKE:
-        net_cfg = model_cfg.net
+        net_cfg = config.model.net
         ctx_dim = net_cfg.crossattn_proj_in_channels if net_cfg.use_crossattn_projection else net_cfg.crossattn_emb_channels
-        text_encoder = lambda prompts: torch.zeros((len(prompts), 512, ctx_dim))
-    return Video2WorldInference(setup, net, vae, text_encoder=text_encoder)
+        pipe.text_encoder = lambda prompts: torch.zeros((len(prompts), 512, ctx_dim))
+    return pipe
 
 
 def main(argv=None) -> int:
@@ -118,7 +103,12 @@ def main(argv=None) -> int:
                 guidance=args.guidance,
                 seed=args.seed,
                 num_conditional_frames=args.num_conditional_frames,
+                enable_autoregressive=args.autoregressive,
+                num_output_frames=args.num_output_frames,
+                chunk_size=args.chunk_size,
+                chunk_overlap=args.chunk_overlap,
                 text_embedding_path=args.text_embedding_path,
+                mode="image" if args.mode == "text2image" else "video",
                 sampler=args.sampler,
             )
         ]

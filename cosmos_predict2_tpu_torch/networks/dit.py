@@ -510,7 +510,12 @@ def init_dit_weights(net: MiniTrainDIT, generator: torch.Generator) -> MiniTrain
     for module in net.modules():
         if isinstance(module, nn.Linear):
             std = 1.0 / math.sqrt(module.in_features)
-            nn.init.trunc_normal_(module.weight, 0.0, std, -3 * std, 3 * std, generator=generator)
+            # drawn in fp32 and rounded once, so a weight stored in bf16
+            # holds the fp32 draw's rounding (cast_matmul_weights' values)
+            w = module.weight if module.weight.dtype == torch.float32 else torch.empty_like(module.weight, dtype=torch.float32)
+            nn.init.trunc_normal_(w, 0.0, std, -3 * std, 3 * std, generator=generator)
+            if w is not module.weight:
+                module.weight.copy_(w)
             if module.bias is not None:
                 module.bias.zero_()
         elif isinstance(module, RMSNorm):
@@ -526,3 +531,18 @@ def build_dit(cfg: DiTConfig, device: torch.device | str, seed: int, trainable: 
     net = net.to_empty(device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     return init_dit_weights(net, gen).train(trainable).requires_grad_(trainable)
+
+
+def build_serving_dit(cfg: DiTConfig, device: torch.device | str, seed: Optional[int] = 0) -> MiniTrainDIT:
+    """A frozen MiniTrainDIT for serving, its matmul weights stored in
+    ``cfg.dtype`` (:func:`cast_matmul_weights`) from the start, so the
+    fp32 copy of the whole net never exists on ``device`` (the 14B net is
+    about 28 GB so, 57 GB in fp32). ``seed`` gives the seeded random
+    weights of :func:`build_dit` rounded as ``cast_matmul_weights`` rounds
+    them; ``None`` leaves them unset, for a checkpoint to fill."""
+    with torch.device("meta"):
+        net = cast_matmul_weights(MiniTrainDIT(cfg))
+    net = net.to_empty(device=device)
+    if seed is not None:
+        init_dit_weights(net, torch.Generator(device=device).manual_seed(seed))
+    return net.eval().requires_grad_(False)

@@ -5,11 +5,11 @@ hold the parameters, named and shaped as the reference torch checkpoint
 (``encoder.downsamples.{i}.residual.2.weight`` is a Conv3d OIDHW weight,
 ``...residual.0.gamma`` an RMS_norm gamma of shape (C, 1, 1, 1)), so
 utils/checkpoint_convert.py::convert_vae_state_dict maps ``state_dict()``
-straight onto the JAX parameter tree. The forward passes are the streaming
-functions of tokenizers/wan_vae_streaming.py (which also apply the causal
-time padding, through the stream's frame cache); they run channels-last
-(B, T, H, W, C) like the reference; the one-shot full-clip forward waits for
-a later port.
+straight onto the JAX parameter tree. The forward passes are the functions
+of tokenizers/wan_vae_streaming.py (which also apply the causal time
+padding, through the stream's frame cache), streaming or, through
+``WanVAE.encode`` / ``WanVAE.decode``, one-shot over the whole clip; they run
+channels-last (B, T, H, W, C) like the reference.
 
 8x spatial / 4x temporal compression, 16 latent channels, per-channel
 latent normalization, latent frames = 1 + (pixel_frames - 1) // 4.
@@ -154,8 +154,10 @@ class Decoder3d(nn.Module):
 
 
 class WanVAE(nn.Module):
-    """Encoder, decoder and the outer 1x1x1 convs; run it with
-    wan_vae_streaming.encode_streaming / decode_streaming."""
+    """Encoder, decoder and the outer 1x1x1 convs. ``encode`` / ``decode``
+    run the whole clip at once (JAX's ``WanVAE.encode`` / ``decode``);
+    wan_vae_streaming.encode_streaming / decode_streaming run it in chunks
+    with O(chunk) memory and give the same values."""
 
     def __init__(self, config: WanVAEConfig = WanVAEConfig()):
         super().__init__()
@@ -164,6 +166,20 @@ class WanVAE(nn.Module):
         self.decoder = Decoder3d(config)
         self.conv1 = nn.Conv3d(2 * config.z_dim, 2 * config.z_dim, 1)
         self.conv2 = nn.Conv3d(config.z_dim, config.z_dim, 1)
+
+    def encode(self, x: torch.Tensor, pixel_format: str = "float") -> torch.Tensor:
+        """(B, 1 + 4k, H, W, 3) pixels -> (B, 1 + k, H/8, W/8, 16) normalized
+        latents, the whole clip at once: wan_vae_streaming.encode_oneshot."""
+        from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import encode_oneshot
+
+        return encode_oneshot(self, x, pixel_format)
+
+    def decode(self, z: torch.Tensor, pixel_format: str = "float") -> torch.Tensor:
+        """(B, t, h, w, 16) normalized latents -> (B, 1 + 4(t-1), 8h, 8w, 3)
+        pixels, the whole clip at once: wan_vae_streaming.decode_oneshot."""
+        from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import decode_oneshot
+
+        return decode_oneshot(self, z, pixel_format)
 
 
 @torch.no_grad()

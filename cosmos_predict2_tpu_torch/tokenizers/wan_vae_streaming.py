@@ -175,7 +175,9 @@ def init_encoder_state(cfg: WanVAEConfig, batch: int, height: int, width: int, d
 
 
 def encoder_chunk(vae: WanVAE, x_chunk: torch.Tensor, state: StreamState):
-    """One encode chunk: x (B, 1 or 4k, H, W, 3) -> latents (B, k', h, w, 16)."""
+    """One encode chunk: x (B, T, H, W, 3) -> latents (B, t, h, w, 16): the
+    stream's first chunk 1 + 4k frames (t = 1 + k; the whole clip is the
+    one-shot encode), each later one 4k frames (t = k)."""
     cfg = vae.config
     enc = vae.encoder
     dt = cfg.dtype
@@ -190,8 +192,12 @@ def encoder_chunk(vae: WanVAE, x_chunk: torch.Tensor, state: StreamState):
         x = _conv2d(layer.resample[1], x, stride=(2, 2), padding=((0, 1), (0, 1)), dtype=dt)
         if layer.mode == "downsample3d":
             if first:
-                # frame-0 bypass: cache the single frame, no downsample
+                # frame 0 bypasses the stride-2 temporal conv; output j >= 1
+                # of a longer first chunk sees frames (2j-2, 2j-1, 2j)
                 caches[f"down_{li}.t"] = x[:, -1:]
+                if x.shape[1] > 1:
+                    z = _conv3d(layer.time_conv, x, stride=(2, 1, 1), spatial_pad=0, dtype=dt)
+                    x = torch.cat([x[:, :1], z], dim=1)
             else:
                 xin = torch.cat([caches[f"down_{li}.t"].to(x.dtype), x], dim=1)
                 caches[f"down_{li}.t"] = xin[:, -1:]
@@ -270,8 +276,9 @@ def init_decoder_state(cfg: WanVAEConfig, batch: int, latent_h: int, latent_w: i
 
 
 def decoder_chunk(vae: WanVAE, z_chunk: torch.Tensor, state: StreamState):
-    """One decode chunk: z (B, k, h, w, 16) -> pixels in [-1, 1] (unclipped).
-    The stream's first chunk must be a single latent frame."""
+    """One decode chunk: z (B, k, h, w, 16) -> pixels in [-1, 1] (unclipped),
+    1 + 4(k - 1) frames for the stream's first chunk (the whole clip is the
+    one-shot decode), 4k for each later one."""
     cfg = vae.config
     dec = vae.decoder
     dt = cfg.dtype
@@ -292,17 +299,16 @@ def decoder_chunk(vae: WanVAE, z_chunk: torch.Tensor, state: StreamState):
             x = _stream_resblock(layer, x, caches, f"up_{li}", dt)
             continue
         if layer.mode == "upsample3d":
-            B, T, Hh, Ww, C = x.shape
-            if first:
-                # "Rep": frame 0 bypasses the doubling conv; its history stays zero
-                if T != 1:
-                    raise ValueError("the first decode chunk must be one latent frame")
-            else:
-                xin = torch.cat([caches[f"up_{li}.t"].to(x.dtype), x], dim=1)
+            # "Rep": the stream's frame 0 bypasses the doubling conv and
+            # leaves zero history; every later frame doubles
+            head, rest = (x[:, :1], x[:, 1:]) if first else (x[:, :0], x)
+            if rest.shape[1]:
+                B, T, Hh, Ww, C = rest.shape
+                xin = torch.cat([caches[f"up_{li}.t"].to(x.dtype), rest], dim=1)
                 caches[f"up_{li}.t"] = xin[:, -CACHE_T:]
                 zt = _conv3d(layer.time_conv, xin, spatial_pad=0, dtype=dt).reshape(B, T, Hh, Ww, 2, C)
                 # channels [0, C) -> even output frame, [C, 2C) -> odd frame
-                x = zt.permute(0, 1, 4, 2, 3, 5).reshape(B, 2 * T, Hh, Ww, C)
+                x = torch.cat([head, zt.permute(0, 1, 4, 2, 3, 5).reshape(B, 2 * T, Hh, Ww, C)], dim=1)
         conv = layer.resample[1]
         x = upsample2x_conv3x3(conv.weight, conv.bias, x, dt)
 
@@ -336,3 +342,68 @@ def decode_streaming(
         px, state = decoder_chunk(vae, z[:, pos : pos + chunk_latent_frames], state)
         outs.append(post(px))
     return torch.cat(outs, dim=1)
+
+
+# ------------------------------- one-shot -------------------------------
+
+
+def _per_sample(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn over x's samples one at a time: the kernel takes batch 1."""
+    return torch.cat([fn(x[b : b + 1]) for b in range(x.shape[0])], dim=0)
+
+
+def _check_kernel_convs(vae: WanVAE, x: torch.Tensor) -> None:
+    """On a CUDA tensor every 3x3x3 conv at least 64 channels wide must go
+    through the kernel: the one-shot route raises rather than run them
+    through cuDNN or the plain version."""
+    if not x.is_cuda:
+        return
+    for name, conv in vae.named_modules():
+        if not (isinstance(conv, nn.Conv3d) and tuple(conv.weight.shape[2:]) == (3, 3, 3)):
+            continue
+        cout, cin = conv.weight.shape[:2]
+        if min(cin, cout) >= _KERNEL_MIN_CH and not _use_kernel_conv(x[:1], conv):
+            raise ValueError(f"one-shot VAE: conv {name} ({cin} -> {cout}) cannot take the conv3d_causal kernel")
+
+
+@torch.no_grad()
+def encode_oneshot(vae: WanVAE, x: torch.Tensor, pixel_format: str = "float") -> torch.Tensor:
+    """The whole clip (B, 1 + 4k, H, W, 3) through the encoder at once: the
+    stream's first chunk with every cache at zero, so each causal 3x3x3
+    conv sees two zero frames before frame 0 (JAX's ``WanVAE.encode``
+    front padding). -> (B, 1 + k, H/8, W/8, 16) normalized latents in the
+    VAE dtype. ``pixel_format`` as :func:`encode_streaming`."""
+    cfg = vae.config
+    if pixel_format == "uint8":
+        if x.dtype != torch.uint8:
+            raise TypeError(f"pixel_format='uint8' expects uint8 pixels, got {x.dtype}")
+        x = x.to(cfg.dtype) / 127.5 - 1.0
+    elif pixel_format != "float":
+        raise ValueError(f"unknown pixel_format {pixel_format!r}")
+    if (x.shape[1] - 1) % 4:
+        raise ValueError(f"one-shot encode takes 1 + 4k frames, got {x.shape[1]}")
+    _check_kernel_convs(vae, x)
+
+    def one(xb):
+        _, _, H, W, _ = xb.shape
+        return encoder_chunk(vae, xb, init_encoder_state(cfg, 1, H, W, cfg.dtype, xb.device))[0]
+
+    return _per_sample(one, x)
+
+
+@torch.no_grad()
+def decode_oneshot(vae: WanVAE, z: torch.Tensor, pixel_format: str = "float") -> torch.Tensor:
+    """The whole latent clip (B, t, h, w, 16) through the decoder at once
+    (JAX's ``WanVAE.decode``) -> (B, 1 + 4(t-1), 8h, 8w, 3) pixels as
+    :func:`decode_streaming` gives them."""
+    if pixel_format not in ("float", "uint8"):
+        raise ValueError(f"unknown pixel_format {pixel_format!r}")
+    cfg = vae.config
+    _check_kernel_convs(vae, z)
+
+    def one(zb):
+        _, _, h, w, _ = zb.shape
+        px = decoder_chunk(vae, zb, init_decoder_state(cfg, 1, h, w, cfg.dtype, zb.device))[0]
+        return quantize_u8(px) if pixel_format == "uint8" else px
+
+    return _per_sample(one, z)

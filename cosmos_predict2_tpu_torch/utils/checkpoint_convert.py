@@ -5,7 +5,8 @@ The port's modules carry the reference state-dict names and layouts, so a
 checkpoint loads as it is: only the file reading, the ``net.`` /
 ``net_ema.`` prefix stripping and :func:`load_reference_state_dict` are
 needed. Like the JAX package's converters, the last reads exactly the keys
-the model has and ignores every other entry of the file.
+the model has and ignores every other entry of the file, and takes a VAE
+RMS_norm gamma flat, (C,), as well as (C, 1, 1[, 1]).
 """
 
 from __future__ import annotations
@@ -18,23 +19,39 @@ import numpy as np
 log = logging.getLogger("cosmos_predict2_tpu_torch")
 
 
-def strip_prefix(sd: Mapping[str, np.ndarray], prefix: str) -> dict[str, np.ndarray]:
+def strip_prefix(sd: Mapping[str, Any], prefix: str) -> dict[str, Any]:
     """The entries under ``prefix``, with the prefix removed from their keys."""
     return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
 
 
-def load_torch_state_dict(path: str) -> dict[str, np.ndarray]:
-    """Load a .pt/.pth/.safetensors state dict into fp32 NumPy arrays."""
-    if path.endswith(".safetensors"):
-        from safetensors.numpy import load_file
-
-        return dict(load_file(path))
+def read_state_dict(path: str) -> dict[str, Any]:
+    """A .pt/.pth/.safetensors state dict as CPU tensors in the file's
+    dtypes, memory-mapped where the format allows (a .pt written by
+    ``torch.save``), so a multi-GB checkpoint is read into the module it
+    loads into without a second host copy."""
     import torch
 
-    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+
+        return dict(load_file(path, device="cpu"))
+    try:
+        sd = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    except RuntimeError:  # a legacy (non-zip) file cannot be mapped
+        sd = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and "model" in sd and isinstance(sd["model"], dict):
         sd = sd["model"]
-    return {k: v.float().numpy() if hasattr(v, "numpy") else np.asarray(v) for k, v in sd.items()}
+    return sd
+
+
+def pick_prefix(sd: Mapping[str, Any], prefixes: tuple[str, ...]) -> dict[str, Any]:
+    """The entries under the first of ``prefixes`` that any key carries, with
+    that prefix stripped (as the JAX ``convert_model_checkpoint`` picks
+    ``net_ema.`` before ``net.``); a file under none of them as it is."""
+    for prefix in prefixes:
+        if any(k.startswith(prefix) for k in sd):
+            return strip_prefix(sd, prefix)
+    return dict(sd)
 
 
 def load_reference_state_dict(module: Any, sd: Mapping[str, Any], what: str) -> None:
@@ -54,5 +71,10 @@ def load_reference_state_dict(module: Any, sd: Mapping[str, Any], what: str) -> 
     extra = [k for k in sd if k not in own]
     if extra:
         log.warning(f"{what}: ignoring {len(extra)} checkpoint entries the model does not have: {extra[:8]}")
-    module.load_state_dict({k: sd[k] if isinstance(sd[k], torch.Tensor) else torch.from_numpy(np.asarray(sd[k]))
-                            for k in own}, strict=True)
+    def value(k):
+        v = sd[k] if isinstance(sd[k], torch.Tensor) else torch.from_numpy(np.asarray(sd[k]))
+        if k.endswith(".gamma") and v.ndim == 1 and own[k].ndim > 1 and v.numel() == own[k].numel():
+            v = v.reshape(own[k].shape)  # the JAX package's export writes RMS_norm gammas flat
+        return v
+
+    module.load_state_dict({k: value(k) for k in own}, strict=True)

@@ -1,7 +1,8 @@
 """Media IO for the port: image and video read, resolution buckets, export.
 
 The port's own copy of what it uses of cosmos_predict2_tpu/utils/io.py
-(``read_image``, ``read_video``, ``get_resolution``, ``save_img_or_video``),
+(``read_image``, ``read_video``, ``get_resolution``, ``get_image_resolution``,
+``save_img_or_video``, which writes a png for one frame),
 NumPy, PIL and imageio only. Host-side: device code never touches files.
 """
 
@@ -103,3 +104,18 @@ VIDEO_RES_SIZE_INFO: dict[str, dict[str, tuple[int, int]]] = {
 def get_resolution(resolution: str, aspect: str = "16,9") -> tuple[int, int]:
     """Returns (width, height) for a resolution bucket."""
     return VIDEO_RES_SIZE_INFO[resolution][aspect]
+
+
+# Image-mode buckets (reference predict2/datasets/utils.py:19-42); the
+# sizes stay multiples of 16 for the VAE and patch grid.
+IMAGE_RES_SIZE_INFO: dict[str, dict[str, tuple[int, int]]] = {
+    "1080": {"1,1": (1024, 1024), "4,3": (1440, 1056), "3,4": (1056, 1440), "16,9": (1920, 1056), "9,16": (1056, 1920)},
+    "1024": {"1,1": (1024, 1024), "4,3": (1280, 1024), "3,4": (1024, 1280), "16,9": (1280, 768), "9,16": (768, 1280)},
+    "720": {"1,1": (720, 720), "4,3": (960, 720), "3,4": (720, 960), "16,9": (1280, 720), "9,16": (720, 1280)},
+    "480": {"1,1": (480, 480), "4,3": (640, 480), "3,4": (480, 640), "16,9": (832, 480), "9,16": (480, 832)},
+}
+
+
+def get_image_resolution(resolution: str, aspect: str = "16,9") -> tuple[int, int]:
+    """Returns (width, height) for an image-mode resolution bucket."""
+    return IMAGE_RES_SIZE_INFO[resolution][aspect]

@@ -25,11 +25,10 @@ from cosmos_predict2_tpu.networks.dit import MiniTrainDIT as JDiT
 from cosmos_predict2_tpu.tokenizers.wan_vae import WanVAE as JVAE
 from cosmos_predict2_tpu.tokenizers.wan_vae import WanVAEConfig as JVAEConfig
 from cosmos_predict2_tpu_torch.configs.defaults import make_config
-from cosmos_predict2_tpu_torch.inference.cli import _load_state_dict
 from cosmos_predict2_tpu_torch.networks import dit as tdit
 from cosmos_predict2_tpu_torch.tokenizers.wan_vae import WanVAE
 from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import encode_streaming
-from cosmos_predict2_tpu_torch.utils.checkpoint_convert import load_reference_state_dict
+from cosmos_predict2_tpu_torch.utils.checkpoint_convert import load_reference_state_dict, pick_prefix, read_state_dict
 from cosmos_predict2_tpu_torch.utils.convert import jax_dit_params_to_torch, jax_vae_params_to_torch
 
 EXTRA = {"dit": ["blocks.0.self_attn._extra_state", "pos_embedder.seq"],
@@ -119,10 +118,10 @@ def test_cli_prefers_net_ema_over_net(tmp_path):
     path = tmp_path / "model.pt"
     torch.save({**{f"net.{k}": v for k, v in stale.items()}, **{f"net_ema.{k}": v for k, v in sd.items()}}, path)
     net = make()
-    load_reference_state_dict(net, _load_state_dict(str(path), ("net_ema.", "net.")), "DiT checkpoint")
+    load_reference_state_dict(net, pick_prefix(read_state_dict(str(path)), ("net_ema.", "net.")), "DiT checkpoint")
     for k, v in net.state_dict().items():
         assert torch.equal(v, sd[k]), k
     torch.save({f"net.{k}": v for k, v in sd.items()}, path)
-    assert sorted(_load_state_dict(str(path), ("net_ema.", "net."))) == sorted(sd)
+    assert sorted(pick_prefix(read_state_dict(str(path)), ("net_ema.", "net."))) == sorted(sd)
     torch.save(sd, path)
-    assert sorted(_load_state_dict(str(path), ("net_ema.", "net."))) == sorted(sd)
+    assert sorted(pick_prefix(read_state_dict(str(path)), ("net_ema.", "net."))) == sorted(sd)

@@ -126,6 +126,54 @@ def test_conv_kernel_is_deterministic_on_cuda(cuda, shape):
     assert torch.equal(first, second)
 
 
+# K2 on the one-shot VAE route's shapes: a whole 93-frame clip at 192x320
+# and one 720x1280 frame (Text2Image's decode), each after the two zero
+# frames the route gives every causal conv in place of a cache
+@pytest.mark.parametrize("shape", [(93, 192, 320, 96, 96), (1, 720, 1280, 96, 96)])
+def test_conv_kernel_at_the_oneshot_shapes_on_cuda(cuda, shape):
+    x, w, b = _conv_inputs(cuda, *shape, seed=4)
+    x[:, :2] = 0
+    out = conv3d_causal(x, w, b)
+    torch.cuda.synchronize()
+    ref = conv3d_causal_plain(x, w, b, out_dtype=torch.float32)
+    assert float((out.float() - ref).norm() / ref.norm()) < 1e-2
+    assert torch.equal(out, conv3d_causal(x, w, b, w_taps=conv_weight_taps(w)))
+
+
+def test_oneshot_vae_launches_the_conv_kernel_on_cuda(cuda):
+    """The one-shot encode and decode run every wide causal conv through K2
+    (a batch of 2 one sample at a time) and match the streaming route."""
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae import WanVAEConfig, build_vae
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import decode_streaming, encode_streaming
+
+    vae = build_vae(WanVAEConfig(dim=64), cuda, seed=1)
+    x = torch.randint(0, 256, (2, 9, 64, 96, 3), dtype=torch.uint8, device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(5))
+    before = conv3d_causal.launches
+    z = vae.encode(x, pixel_format="uint8")
+    px = vae.decode(z)
+    torch.cuda.synchronize()
+    assert conv3d_causal.launches > before
+    for b in range(2):
+        zs = encode_streaming(vae, x[b:b + 1], pixel_format="uint8")
+        assert _rel(z[b:b + 1], zs) < 2e-2
+        assert _rel(px[b:b + 1], decode_streaming(vae, zs)) < 4.5e-2
+    assert px.shape == (2, 9, 64, 96, 3) and bool(torch.isfinite(px.float()).all())
+
+
+def test_flash_kernel_at_text2image_shapes_on_cuda(cuda):
+    """Text2Image at 1280x720: one latent frame of 45 x 80 tokens, 16 heads,
+    self-attention and cross-attention to 512 text tokens, batch 2 (CFG)."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    for skv in (3600, 512):
+        q = torch.randn((2, 3600, 16, 128), generator=gen, device=cuda).bfloat16()
+        k, v = (torch.randn((2, skv, 16, 128), generator=gen, device=cuda).bfloat16() for _ in range(2))
+        out, lse = flash_attention_fwd(q, k, v)
+        ref, ref_lse = flash_attention_plain(q, k, v, 0)
+        assert _rel(out, ref) < 1e-2 and float((lse - ref_lse).abs().max()) < 1e-2
+        assert torch.equal(out, flash_attention_fwd(q, k, v)[0])
+
+
 # K7 / K8 cases: ragged tails against the 64- and 128-row tiles (5800, 1000,
 # 333, 200, 77), K8's split route (Skv 512 with Sq 2000: 32 CTAs at B2 H4),
 # frame groups that do not divide the tiles (100, 240)

@@ -236,8 +236,8 @@ def test_inference_api_writes_samples(pipes, tmp_path):
     finally:
         pipe.generate_vid2world_batch = batched
     assert sorted(pair) == ["d1", "d2"] and all(os.path.exists(p) for p in pair.values())
-    with pytest.raises(NotImplementedError):
-        api.generate([dataclasses.replace(args[0], enable_autoregressive=True)])
+    with pytest.raises(ValueError, match="unknown mode"):
+        api.generate([dataclasses.replace(args[0], mode="panorama")])
 
 
 def _cli_smoke(out_dir, *extra):
