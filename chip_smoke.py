@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Video2World serving and training paths (dense, sparse, DMD2, 14B), its streaming, forward-mode, released-weights, autoregressive, Text2Image and one-shot-VAE paths, once on one NVIDIA GPU.
+"""Drive the PyTorch port's Video2World serving and training paths (dense, sparse, DMD2, 14B), its streaming, forward-mode, released-weights, autoregressive, Text2Image, one-shot-VAE and post-training (LoRA, local clips, remat, bf16 moments) paths, once on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
@@ -24,8 +24,10 @@ Phases, each printed with its wall time:
    never calls, one PyTorch call computing the same
    function (scaled_dot_product_attention forward / backward, conv3d;
    K7 + K8 against SDPA's backward, which computes dq, dk and dv in one
-   call, at self- and cross-attention, a frame group, 720p and ragged tails
-   on K8's split route, each called twice to show the bits repeat;
+   call, at self- and cross-attention, a frame group, 720p (self held on
+   1024 query rows and 1024 key columns, cross to 512 keys whole: the LoRA
+   path's shapes) and ragged tails on K8's split route, each called twice
+   to show the bits repeat;
    for neighborhood attention SDPA with the boolean window mask, or
    flex_attention with a block mask from the same predicate at 720p);
    K10, K11 and K12 at the sparse config's window at the smoke geometry, at
@@ -112,7 +114,27 @@ Phases, each printed with its wall time:
    blocks, 40 heads) on seeded random bf16 matmul weights built by
    load_model_from_checkpoint, one Text2World request (93 frames at
    192x320, 35 steps, CFG 7): exactly 2,520 K1 (72 per forward) and K2,
-   time per step and peak memory.
+   time per step and peak memory;
+15. post-training: a local folder of three npz clips (two of 100 frames at
+   720x1280, one of 60 that pads; captions; (512, 100352) fp16 embeddings
+   for two, none for the third) under outputs/chip_smoke/, deleted at the
+   end; the released LoRA recipe
+   (predict2_lora_training_2b_cosmos_nemo_assets: the full-width 2B DiT
+   frozen under rank-32 adapters, 93 frames at 704x1280, 84,480 tokens,
+   batch 1) through training/train.py's main for 2 iterations saved at 2,
+   then 1 resumed from the checkpoint: finite losses, K1 112, K7 56 and K8
+   56 per step and K2 in the data phase, the native media ops taken (not
+   their NumPy fallback), the base bit-equal, adapters (every B) and their
+   EMA moved, an adapter-only checkpoint and a resume equal to it; the
+   trainable count, the split of step 2, tokens/s, peak memory and step 3
+   under torch.profiler (device time by kernel); then the full fine-tune recipe
+   on the same folder at 192x320, one warm-up and 2 timed steps under
+   (block, fp32 moments), (block, bf16), (selective, bf16) and (mixed:14,
+   bf16): K1 112, 112, 56 and 84 per step, K7 and K8 56, step time and peak
+   memory beside phase 7's; then a narrow LoRA step and a narrow
+   bf16-moment step (2 blocks) in bf16 on the card against the same
+   weights, adapters, draws and rounding noise in fp32 on the CPU, at phase
+   6's limits.
 
 Then it prints the kernels' JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero without that line.
@@ -188,6 +210,19 @@ FOURTEEN_B_EXPERIMENT = "predict2_video2world_14b_rectified_flow"
 # 6.7e-3 relative L2 on the latents and 1.46e-2 on the frames; 3x those.
 ONESHOT_LATENT_REL_L2 = 2e-2
 ONESHOT_FRAME_REL_L2 = 4.5e-2
+# post-training (phase 15): the released LoRA recipe and the full fine-tune
+# recipe on a local folder of three clips, two of 100 frames at 720x1280 and
+# one of 60 (padded to 93); the full fine-tune at 192x320 under each (remat,
+# moments) row with its K1 launches per step
+LORA_EXPERIMENT = "predict2_lora_training_2b_cosmos_nemo_assets"
+FULL_FT_EXPERIMENT = "predict2_video2world_training_2b_cosmos_nemo_assets"
+POSTTRAIN_LONG = 100
+POSTTRAIN_SHORT = 60
+POSTTRAIN_CLIP_HW = (720, 1280)
+POSTTRAIN_GEOMETRY = (93, 704, 1280)  # the recipe's frames, height and width
+FULL_FT_TIMED = 2  # after one warm-up step
+FULL_FT_ROWS = (("block", "float32", 4 * NUM_BLOCKS), ("block", "bfloat16", 4 * NUM_BLOCKS),
+                ("selective", "bfloat16", 2 * NUM_BLOCKS), ("mixed:14", "bfloat16", 4 * NUM_BLOCKS - 2 * 14))
 # published dense peaks of one H100 SXM at 700 W, for the bounds
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -418,12 +453,13 @@ def check_kernels(results: dict) -> None:
         torch.cuda.empty_cache()
 
     # ---- K7 (dQ) and K8 (dK, dV): flash attention backward, batch 1 as in training ----
-    # (label, Sq, Skv, frame_group, query rows held against the plain version)
+    # (label, Sq, Skv, frame_group, query rows and key columns held against the plain version)
     bwd_cases = [
         ("self  B1 S5760 H16 (smoke geometry)", 5760, 5760, 0, None),
         ("cross B1 Sq5760 Skv512 H16", 5760, 512, 0, None),
         ("self  B1 S5760 H16 frame_group=240", 5760, 5760, 240, None),
-        ("self  B1 S84480 H16 (720p, dQ on 1024 rows)", 84480, 84480, 0, 1024),
+        ("self  B1 S84480 H16 (720p, 1024 rows / cols)", 84480, 84480, 0, 1024),
+        ("cross B1 Sq84480 Skv512 H16 (720p, LoRA path)", 84480, 512, 0, None),
         ("tail  B1 Sq5800 Skv333 H16 (ragged tiles, K8 split)", 5800, 333, 0, None),
     ]
     B, H = 1, 16
@@ -446,14 +482,22 @@ def check_kernels(results: dict) -> None:
             plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, out, lse, do, fg), 0, 1)
             del ref
         else:
-            # dQ of a row needs only that row's q, dO, out and lse: hold
-            # rows spread over the sequence; dK/dV are timed only
+            # the plain version whole would need logits of 0.46 TB. dQ of a
+            # row needs only that row's q, dO, out and lse; dK and dV of a
+            # key column only that column's k and v with all of q, dO, out
+            # and lse: hold rows and columns spread over the sequence (the
+            # ragged last tiles included)
             idx = torch.linspace(0, Sq - 1, rows, device=dev).round().long()
-            sub = lambda t: t[:, idx].contiguous()
-            ref_dq = flash_attention_bwd_plain(sub(q), k, v, sub(out), lse[:, :, idx].contiguous(), sub(do), 0)[0]
+            cols = torch.linspace(0, Skv - 1, rows, device=dev).round().long()
+            sub = lambda t, i: t[:, i].contiguous()
+            ref_dq = flash_attention_bwd_plain(sub(q, idx), k, v, sub(out, idx), lse[:, :, idx].contiguous(),
+                                               sub(do, idx), 0)[0]
             errs = [errors(dq[:, idx], ref_dq)]
-            plain_ms = "not measurable whole (logits of 0.46 TB)"
             del ref_dq
+            _, ref_dk, ref_dv = flash_attention_bwd_plain(q, sub(k, cols), sub(v, cols), out, lse, do, 0)
+            errs += [errors(dk[:, cols], ref_dk), errors(dv[:, cols], ref_dv)]
+            plain_ms = "not measurable whole (logits of 0.46 TB)"
+            del ref_dk, ref_dv
         finite = all(bool(torch.isfinite(t.float()).all()) for t in (dq, dk, dv))
         if not finite:
             failures.append(f"flash attention backward {label}: non-finite gradients")
@@ -474,15 +518,8 @@ def check_kernels(results: dict) -> None:
         ratio = (ms_dq + ms_dkv) / library_ms
         splits = dkv_split_plan(Sq, Skv, H, B, fg, torch.cuda.get_device_properties(dev).multi_processor_count).splits
         record("flash_attention_bwd_dq", label, *errs[0], ms_dq, plain_ms, library_ms, bnd_dq, pair_over_library=ratio)
-        if rows is None:
-            dk_err = max(errs[1][0], errs[2][0]), max(errs[1][1], errs[2][1])
-            record("flash_attention_bwd_dkv", label, *dk_err, ms_dkv, plain_ms, library_ms, bnd_dkv, splits=splits)
-        else:
-            log(f"  {'flash_attention_bwd_dkv':24s} {label:44s} timed only: kernel {ms_dkv:9.3f} ms "
-                f"library (dq+dk+dv) {library_ms:9.3f} ms bound {bnd_dkv[0]:.3f} ms ({bnd_dkv[1]})")
-            results["flash_attention_bwd_dkv"]["cases"].append(
-                {"case": label, "ms": ms_dkv, "library_ms": library_ms, "bound_ms": bnd_dkv[0], "bound_by": bnd_dkv[1],
-                 "splits": splits})
+        dk_err = max(errs[1][0], errs[2][0]), max(errs[1][1], errs[2][1])
+        record("flash_attention_bwd_dkv", label, *dk_err, ms_dkv, plain_ms, library_ms, bnd_dkv, splits=splits)
         log(f"  {'K7 + K8':24s} {label:44s} {ms_dq + ms_dkv:9.3f} ms against SDPA's backward {library_ms:9.3f} ms: "
             f"{ratio:.2f}x (K8 splits {splits})")
         del q, k, v, do, out, lse, delta, dq, dk, dv
@@ -1714,7 +1751,7 @@ def distill_slice() -> dict:
     from cosmos_predict2_tpu_torch.networks.dit import build_dit
     from cosmos_predict2_tpu_torch.tokenizers.wan_vae import build_vae
     from cosmos_predict2_tpu_torch.training.distill_trainer import DistillationTrainer, DistillTrainerConfig
-    from cosmos_predict2_tpu_torch.training.train import mock_latent_batches
+    from cosmos_predict2_tpu_torch.training.train import latent_batches, make_loader
 
     H, W = SIZE
     cfg = make_config(DMD2_EXPERIMENT, [
@@ -1742,7 +1779,7 @@ def distill_slice() -> dict:
     log(f"  three 2B DiTs (fp32) and the VAE built in {time.perf_counter() - t0:.1f} s: {nets_gb:.2f} GiB")
 
     def batches():
-        for x0, cond in mock_latent_batches(cfg.data_train, vae, torch.device("cuda")):
+        for x0, cond in latent_batches(make_loader(cfg.data_train), vae, torch.device("cuda")):
             yield x0, cond.set_video_condition(x0, 1)
 
     _build.reset_launch_counts()
@@ -2137,6 +2174,389 @@ def fourteen_b_slice() -> dict:
     return {"counts": counts, "request_s": request_s, **tm, "weights_gb": weights_gb, "peak_gb": peak_gb}
 
 
+def write_posttrain_folder(root: Path) -> None:
+    """A local dataset of three clips (data/local_dataset.py's layout): two
+    of 100 frames at 720x1280 (resized and cropped to 704x1280, a window
+    drawn) and one of 60 (padded), as npz; captions for all three;
+    (512, 100352) fp16 embeddings for the first two, none for the third.
+    The frames are a colour ramp moving 4 levels per frame plus one of four
+    noise frames, made in bulk."""
+    rng = np.random.default_rng(15)
+    for d in ("videos", "metas", "t5_xxl"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    h, w = POSTTRAIN_CLIP_HW
+    ramp = (np.arange(h, dtype=np.uint16)[:, None] * 255 // (h - 1)
+            + np.arange(w, dtype=np.uint16)[None, :] * 255 // (w - 1)).astype(np.uint8)  # wraps mod 256
+    noise = rng.integers(0, 16, (4, h, w, 3), dtype=np.uint8)
+    emb = rng.standard_normal((512, 100352), dtype=np.float32).astype(np.float16)
+    for i, (name, frames) in enumerate((("clip_a", POSTTRAIN_LONG), ("clip_b", POSTTRAIN_LONG),
+                                        ("clip_c", POSTTRAIN_SHORT))):
+        t = (4 * np.arange(frames) + 64 * i).astype(np.uint8)
+        video = ramp[None, :, :, None] + t[:, None, None, None] + np.array([0, 85, 170], np.uint8)
+        video += noise[np.arange(frames) % 4]
+        np.savez(root / "videos" / f"{name}.npz", video=video, fps=16.0)
+        (root / "metas" / f"{name}.txt").write_text(f"{name}: a robot arm moves a block")
+        if name != "clip_c":
+            np.save(root / "t5_xxl" / f"{name}.npy", emb if i == 0 else -emb)
+
+
+class StepProbe:
+    """Per step: loss, gradient norm, launches and the trainer's timings.
+    At the start and the end of the run it keeps, on the host, the watched
+    trainable parameters and their EMA (all of them, with the optimizer
+    state, when ``watch`` is None) and whether each moved; with
+    ``keep_base``, whether the model's frozen base weights stayed bit-equal;
+    with ``grads_of``, per step the learning rate and the largest |gradient|
+    of each trainable tensor whose name ends so; and the dtypes of the
+    optimizer's moments."""
+
+    def __init__(self, watch: tuple | None = None, keep_base: bool = False, profile_step: int | None = None,
+                 grads_of: str | None = None):
+        self.steps, self.watch, self.keep_base, self.profile_step, self.profile = [], watch, keep_base, profile_step, None
+        self.grads_of = grads_of
+
+    def _host_state(self, state) -> dict:
+        import torch
+
+        names = self.watch if self.watch is not None else tuple(state.params)
+        host = lambda t: t.detach().to("cpu", copy=True)
+        out = {"params": {n: host(state.params[n]) for n in names},
+               "ema_params": {n: host(state.ema_params[n]) for n in names}}
+        if self.watch is None:
+            out["optimizer"] = {i: {k: host(v) if torch.is_tensor(v) else v for k, v in st.items()}
+                                for i, st in state.optimizer.state_dict()["state"].items()}
+        return out
+
+    def on_train_start(self, trainer, state):
+        self.start, self.start_step = self._host_state(state), state.step
+        self.base = ({k: v.detach().to("cpu", copy=True) for k, v in trainer.model.net.state_dict().items()}
+                     if self.keep_base else None)
+
+    def on_training_step_start(self, trainer, state, batch, iteration):
+        import torch
+
+        from cosmos_predict2_tpu_torch import _build
+
+        self.counts0 = _build.launch_counts()
+        self.lr = float(state.optimizer.param_groups[0]["lr"])  # the rate this step's update takes
+        if iteration + 1 == self.profile_step:
+            self._prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                            torch.profiler.ProfilerActivity.CUDA])
+            self._prof.__enter__()
+
+    def on_training_step_end(self, trainer, state, metrics, iteration):
+        import torch
+
+        from cosmos_predict2_tpu_torch import _build
+
+        counts = {k: v - self.counts0[k] for k, v in _build.launch_counts().items()}
+        if iteration == self.profile_step:
+            self._prof.__exit__(None, None, None)
+            self.profile = device_time_table(self._prof, trainer.last_timings["step_s"])
+            del self._prof
+        self.steps.append({"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                           "counts": counts, **trainer.last_timings})
+        st = self.steps[-1]
+        if self.grads_of:
+            names = [n for n in state.params if n.endswith(self.grads_of)]
+            amax = torch.stack([state.params[n].grad.abs().amax() for n in names]).float().cpu()
+            st["grads"] = {"lr": self.lr, "tensors": len(names), "zero": int((amax == 0).sum()),
+                           "smallest_max": float(amax.min()), "largest": float(amax.max())}
+            g = st["grads"]
+            log(f"  step {iteration}: learning rate {g['lr']:.3e}; *{self.grads_of} gradients: {g['zero']} of "
+                f"{g['tensors']} tensors all zero, largest |grad| {g['largest']:.3e}, smallest tensor max "
+                f"{g['smallest_max']:.3e}")
+        log(f"  step {iteration}: loss {st['loss']:.4f} grad_norm {st['grad_norm']:.3e} data+vae {st['data_s']:.3f} s, "
+            f"fwd+bwd {st['forward_backward_s']:.3f} s, optimizer+ema {st['optimizer_s']:.3f} s; launches "
+            f"K1 {counts['flash_attention_fwd']} K7 {counts['flash_attention_bwd_dq']} "
+            f"K8 {counts['flash_attention_bwd_dkv']} K2 {counts['conv3d_causal']}")
+
+    def on_save_checkpoint(self, trainer, state, iteration): ...
+
+    def on_train_end(self, trainer, state):
+        import torch
+
+        self.end = self._host_state(state)
+        self.moved = {group: all(not torch.equal(self.end[group][n], t) for n, t in self.start[group].items())
+                      for group in ("params", "ema_params")}
+        self.moment_dtypes = {str(st[k].dtype) for st in state.optimizer.state.values()
+                              for k in ("exp_avg", "exp_avg_sq")}
+        if self.keep_base:
+            self.base_same = all(torch.equal(v.detach().cpu(), self.base[k])
+                                 for k, v in trainer.model.net.state_dict().items())
+            self.base = None
+
+
+def check_step_launches(name: str, steps: list, k1: int) -> None:
+    """K1 ``k1`` times and K7 and K8 56 times (one per attention call) in every step."""
+    want = {"flash_attention_fwd": k1, "flash_attention_bwd_dq": 2 * NUM_BLOCKS,
+            "flash_attention_bwd_dkv": 2 * NUM_BLOCKS}
+    for i, s in enumerate(steps):
+        got = {k: s["counts"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"{name}: step {i + 1} launched {got}, want {want}")
+
+
+def _equal_states(a, b) -> bool:
+    """Nested dicts / lists of tensors and numbers, equal bit for bit."""
+    import torch
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_equal_states(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_equal_states(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
+def lora_posttrain_slice(root: Path) -> dict:
+    """The LoRA recipe through training/train.py's main at its geometry (93
+    frames at 704x1280, 84,480 tokens, batch 1, rank 32) on the local folder:
+    2 iterations saved at 2, then 1 resumed from the checkpoint."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.training.checkpointing import Checkpointer
+    from cosmos_predict2_tpu_torch.training.lora import count_lora_params
+    from cosmos_predict2_tpu_torch.training.train import main
+    from cosmos_predict2_tpu_torch.utils import native
+
+    ckpt_dir = root / "ckpt"
+    overrides = ["data_train=local_video", f"data_train.root={root}", "data_train.text_dim=100352",
+                 "trainer.save_iter=2", "trainer.logging_iter=1"]
+    cfg = make_config(LORA_EXPERIMENT, overrides)
+    m, d = cfg.model, cfg.data_train
+    if (m.net.num_blocks, m.net.model_channels, m.net.crossattn_proj_in_channels, m.net.remat, m.use_lora,
+            m.lora_rank, d.num_frames, d.height, d.width) != (NUM_BLOCKS, 2048, 100352, "block", True, 32,
+                                                              *POSTTRAIN_GEOMETRY):
+        raise AssertionError("the post-training slice must run the released LoRA recipe at its geometry")
+    tokens = (1 + (d.num_frames - 1) // 4) * (d.height // 16) * (d.width // 16)
+    args = [f"--experiment={LORA_EXPERIMENT}", "--ckpt_dir", str(ckpt_dir), *overrides]  # the card: main's default
+
+    fresh_memory()
+    native.route_counts.update(native=0, numpy=0)
+    _build.reset_launch_counts()
+    first, second = StepProbe(keep_base=True, grads_of=".lora_A"), StepProbe(keep_base=True, profile_step=3)
+    t0 = time.perf_counter()
+    if main(args + ["trainer.max_iter=2"], callbacks=[first]) != 0:
+        raise AssertionError("the LoRA run exited non-zero")
+    first_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    saved = Checkpointer(str(ckpt_dir)).read()
+    fresh_memory()
+    t0 = time.perf_counter()
+    if main(args + ["trainer.max_iter=3"], callbacks=[second]) != 0:
+        raise AssertionError("the resumed LoRA run exited non-zero")
+    resumed_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    routes = dict(native.route_counts)
+    log(f"  launches over both runs: {counts}; media ops by route: {routes}")
+
+    steps = first.steps + second.steps
+    if len(steps) != 3 or not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps):
+        raise AssertionError(f"losses {[s['loss'] for s in steps]}: want 3 finite")
+    check_step_launches("the LoRA run", steps, 4 * NUM_BLOCKS)
+    if counts["conv3d_causal"] == 0:
+        raise AssertionError("K2 never ran in the LoRA run's VAE encode")
+    if native.get_lib() is None or routes["native"] == 0 or routes["numpy"]:
+        raise AssertionError(f"the media ops took the NumPy fallback on the card's host: {routes}")
+    # B starts at zero, so every A's gradient is exactly zero at step 1 and B alone moves, by about the
+    # warm-up's first rate; at step 2 every A has a gradient, through that small B, and Adam's update
+    # of it (|g| against eps) can stay under an fp32 step of A: the gradients and rates are printed
+    g1, g2 = (s["grads"] for s in first.steps)
+    if g1["zero"] != g1["tensors"] or g2["zero"]:
+        raise AssertionError(f"lora_A gradients: want all zero at step 1 (B = 0) and none zero at step 2, "
+                             f"got {g1['zero']} and {g2['zero']} of {g1['tensors']} tensors all zero")
+    moved = {g: [n for n, t in first.start[g].items() if not torch.equal(first.end[g][n], t)]
+             for g in ("params", "ema_params")}
+    b_names = [n for n in first.start["params"] if n.endswith(".lora_B")]
+    a_moved_by_3 = sum(not torch.equal(second.end["params"][n], t) for n, t in first.start["params"].items()
+                       if n.endswith(".lora_A"))
+    log(f"  after 2 iterations: {len(moved['params'])} of {len(first.start['params'])} adapter tensors moved "
+        f"(every lora_B: {set(b_names) <= set(moved['params'])}), {len(moved['ema_params'])} of their EMA; "
+        f"after 3: {a_moved_by_3} of {len(b_names)} lora_A")
+    if not (set(b_names) <= set(moved["params"]) and set(b_names) <= set(moved["ema_params"])):
+        raise AssertionError("an adapter's B or its EMA did not move")
+    if not (first.base_same and second.base_same):
+        raise AssertionError("the frozen base weights changed")
+    if saved["step"] != 2 or not all(k.endswith((".lora_A", ".lora_B")) for k in saved["params"]):
+        raise AssertionError("the checkpoint is not the adapters' at iteration 2")
+    if not _equal_states({"params": saved["params"], "ema_params": saved["ema_params"],
+                          "optimizer": saved["optimizer"]["state"]}, first.end):
+        raise AssertionError("the checkpoint does not hold the first run's adapters, EMA and optimizer state")
+    if second.start_step != 2 or not _equal_states(second.start, first.end):
+        raise AssertionError("the resumed state is not the saved one")
+    trainable = count_lora_params(first.end["params"])
+    timed = steps[1]  # step 1 warms up; step 3 runs under torch.profiler
+    out = {"counts": counts, "routes": routes, "trainable": trainable, "tokens": tokens, "peak_gb": peak_gb,
+           "first_run_s": first_s, "resumed_run_s": resumed_s, "profile": second.profile,
+           **{k: timed[k] for k in ("data_s", "forward_backward_s", "optimizer_s", "step_s")}}
+    log(f"  {LORA_EXPERIMENT}: {trainable:,} trainable parameters (rank-32 adapters); step 2: data+vae "
+        f"{out['data_s']:.3f} s, fwd+bwd {out['forward_backward_s']:.3f} s, optimizer+ema {out['optimizer_s']:.3f} s; "
+        f"{tokens} tokens/step: {tokens / out['step_s']:.0f} tokens/s over the train step, "
+        f"{tokens / (out['step_s'] + out['data_s']):.0f} over the iteration; peak device memory {peak_gb:.2f} GiB "
+        f"(first run); runs {first_s:.1f} s + {resumed_s:.1f} s (resumed); base weights bit-equal, adapters and "
+        f"EMA moved, the resume equal to the checkpoint")
+    return out
+
+
+def full_ft_rows(root: Path) -> dict:
+    """The full fine-tune recipe on the same folder at 192x320 (5,760 tokens),
+    one warm-up and FULL_FT_TIMED timed steps under each (remat, moments)
+    row: the K1 launches per step follow the remat, K7 and K8 stay 56."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.training.train import launch
+
+    H, W = SIZE
+    rows, counts = [], dict.fromkeys(_build.launch_counts(), 0)
+    for remat, moments, k1 in FULL_FT_ROWS:
+        cfg = make_config(FULL_FT_EXPERIMENT, [
+            "data_train=local_video", f"data_train.root={root}", "data_train.text_dim=100352",
+            f"data_train.height={H}", f"data_train.width={W}", f"trainer.max_iter={1 + FULL_FT_TIMED}",
+            "trainer.save_iter=0", "trainer.logging_iter=1", f"model.net.remat={remat}",
+            f"trainer.optimizer.moments_dtype={moments}",
+        ])
+        probe = StepProbe(watch=("x_embedder.proj.1.weight", "blocks.0.self_attn.q_proj.weight",
+                                 f"blocks.{NUM_BLOCKS - 1}.mlp.layer2.weight", "final_layer.linear.weight"))
+        fresh_memory()
+        _build.reset_launch_counts()
+        launch(cfg, device="cuda", callbacks=[probe])
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        counts = {k: counts[k] + v for k, v in _build.launch_counts().items()}
+        if len(probe.steps) != 1 + FULL_FT_TIMED or not all(np.isfinite(s["loss"]) for s in probe.steps):
+            raise AssertionError(f"{remat}/{moments}: losses {[s['loss'] for s in probe.steps]}")
+        check_step_launches(f"full fine-tune {remat}/{moments}", probe.steps, k1)
+        if not (probe.moved["params"] and probe.moved["ema_params"]):
+            raise AssertionError(f"{remat}/{moments}: parameters and EMA moved: {probe.moved}")
+        if probe.moment_dtypes != {f"torch.{moments}"}:
+            raise AssertionError(f"{remat}/{moments}: the optimizer kept {probe.moment_dtypes} moments")
+        timed = probe.steps[1:]
+        row = {"remat": remat, "moments": moments, "k1_per_step": k1, "peak_gb": peak_gb,
+               **{k: sum(s[k] for s in timed) / len(timed) for k in ("step_s", "data_s", "forward_backward_s",
+                                                                     "optimizer_s")}}
+        rows.append(row)
+        log(f"  remat {remat:9s} moments {moments:8s}: step {row['step_s']:.3f} s (fwd+bwd "
+            f"{row['forward_backward_s']:.3f} + optimizer+ema {row['optimizer_s']:.3f}), data+vae {row['data_s']:.3f} s, "
+            f"peak {peak_gb:.2f} GiB, K1 {k1} per step")
+    return {"counts": counts, "rows": rows}
+
+
+def small_posttrain_step(device: str, dtype, lora: bool, state=None):
+    """One step of a narrow DiT (the 2B experiment, 2 blocks of 256 channels)
+    with fixed weights, inputs and draws: with ``lora`` the rank-8 adapters
+    (B drawn nonzero) over the frozen net, their loss and gradients; else the
+    full net, its loss and gradients and the bf16 moments after one AdamWBF16
+    step whose rounding noise comes from a CPU generator. Returns (loss,
+    {name: fp32 CPU tensor}, the weights and adapters it started from, to
+    hand to the other device)."""
+    import torch
+
+    from cosmos_predict2_tpu_torch.conditioning.conditioner import apply_train_dropout, make_condition
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.models.video2world import Video2WorldModel
+    from cosmos_predict2_tpu_torch.networks.dit import build_dit
+    from cosmos_predict2_tpu_torch.training.lora import LoRAModelWrapper
+    from cosmos_predict2_tpu_torch.training.optim import AdamWBF16, clip_by_global_norm_, global_norm
+
+    cfg = make_config(DENSE_EXPERIMENT)
+    net_cfg = dataclasses.replace(cfg.model.net, model_channels=256, num_heads=2, num_blocks=2, adaln_lora_dim=32,
+                                  crossattn_proj_in_channels=64, crossattn_emb_channels=128, dtype=dtype)
+    net = build_dit(net_cfg, device, seed=10, trainable=not lora)
+    if state is not None:
+        net.load_state_dict(state["net"])
+    model = Video2WorldModel(dataclasses.replace(cfg.model, net=net_cfg, state_t=4), net)
+    if lora:
+        model = LoRAModelWrapper(model, rank=8, alpha=16.0)
+        adapters = model.init_lora(torch.Generator(device).manual_seed(3))
+        with torch.no_grad():
+            for n, p in adapters.items():
+                if state is not None:
+                    p.copy_(state["adapters"][n])
+                elif n.endswith("lora_B"):
+                    p.copy_(0.02 * torch.randn(p.shape, generator=torch.Generator().manual_seed(len(n))))
+    params = model.trainable_parameters()
+    start = {"net": {k: v.detach().to("cpu", copy=True) for k, v in net.state_dict().items()},
+             "adapters": {n: p.detach().to("cpu", copy=True) for n, p in params.items()} if lora else None}
+    rng = np.random.default_rng(0)
+    x0 = torch.from_numpy(rng.standard_normal((1, 16, 4, 16, 24)).astype(np.float32)).to(device)
+    emb = torch.from_numpy(rng.standard_normal((1, 32, 64)).astype(np.float32)).to(device)
+    draws = model.sample_train_draws(torch.Generator().manual_seed(0), tuple(x0.shape)).to(device)
+    cond = apply_train_dropout(make_condition(emb).replace(gt_frames=x0), draws.text_keep, draws.use_video)
+    loss, _ = model.training_step(x0, cond, draws)
+    loss.backward()
+    host = lambda t: t.detach().to("cpu", dtype=torch.float32, copy=True)  # a copy on either device
+    out = {f"grad {n}": host(p.grad) for n, p in params.items()}
+    if not lora:
+        grads = [p.grad for p in params.values()]
+        clip_by_global_norm_(grads, global_norm(grads), 10.0)
+        opt = AdamWBF16(params.values(), lr=1e-4, betas=(0.9, 0.99), eps=1e-8, weight_decay=0.001,
+                        generator=torch.Generator().manual_seed(7))
+        opt.step()
+        for n, p in params.items():
+            out[f"exp_avg {n}"] = host(opt.state[p]["exp_avg"])
+            out[f"exp_avg_sq {n}"] = host(opt.state[p]["exp_avg_sq"])
+    return float(loss.detach()), out, start
+
+
+def small_posttrain_reference() -> None:
+    """The narrow LoRA step and the narrow bf16-moment step in bf16 on the
+    card (K1, K7, K8) against the same weights, adapters, draws and rounding
+    noise in fp32 on the CPU: phase 6's limits on the loss, on all gradients
+    (and moments) together and on each tensor."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+
+    for lora in (True, False):
+        _build.reset_launch_counts()
+        loss, got, state = small_posttrain_step("cuda", torch.bfloat16, lora)
+        counts = _build.launch_counts()
+        ref_loss, want, _ = small_posttrain_step("cpu", torch.float32, lora, state)
+        for kind in ("grad", "exp_avg", "exp_avg_sq") if not lora else ("grad",):
+            names = [n for n in want if n.startswith(kind + " ")]
+            num = sum(float((got[n] - want[n]).norm()) ** 2 for n in names) ** 0.5
+            den = sum(float(want[n].norm()) ** 2 for n in names) ** 0.5
+            worst = max((float((got[n] - want[n]).norm() / want[n].norm().clamp_min(1e-30)), n) for n in names)
+            log(f"  {'LoRA' if lora else 'bf16-moment'} step, {kind}: rel_l2 {num / den:.3e} (limit "
+                f"{TRAIN_GRAD_REL_L2}), worst tensor {worst[0]:.3e} {worst[1]} (limit {TRAIN_GRAD_TENSOR_REL_L2})")
+            if not (all(torch.isfinite(got[n]).all() for n in names) and num / den <= TRAIN_GRAD_REL_L2
+                    and worst[0] <= TRAIN_GRAD_TENSOR_REL_L2):
+                raise AssertionError(f"the small {'LoRA' if lora else 'bf16-moment'} step's {kind} on the card "
+                                     "disagrees with its fp32 CPU reference")
+        loss_rel = abs(loss / ref_loss - 1)
+        log(f"  {'LoRA' if lora else 'bf16-moment'} step: card bf16 loss {loss:.6f} vs cpu fp32 {ref_loss:.6f}: rel "
+            f"{loss_rel:.3e} (limit {TRAIN_LOSS_REL}); launches {counts}")
+        want_counts = {"flash_attention_fwd": 8, "flash_attention_bwd_dq": 4, "flash_attention_bwd_dkv": 4}
+        if loss_rel > TRAIN_LOSS_REL or {k: counts[k] for k in want_counts} != want_counts:
+            raise AssertionError("the small post-training step on the card disagrees with its CPU reference")
+
+
+def posttrain_slice() -> dict:
+    """Phase 15: the local folder, the LoRA recipe at 704x1280 and its resume,
+    the full fine-tune rows at 192x320 and the small references; the folder
+    is deleted at the end."""
+    import shutil
+
+    root = OUT_DIR / "posttrain"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_posttrain_folder(root)
+    log(f"  wrote the local dataset (3 clips, 2 embeddings) in {time.perf_counter() - t0:.1f} s")
+    try:
+        lora = lora_posttrain_slice(root)
+        rows = full_ft_rows(root)
+        small_posttrain_reference()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"lora": lora, "rows": rows, "counts": {k: lora["counts"][k] + rows["counts"][k] for k in lora["counts"]}}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)  # --help; no options
     t_start = time.perf_counter()
@@ -2206,9 +2626,14 @@ def main(argv=None) -> int:
     del pipe
     with Phase("14B: text2world on predict2_video2world_14b_rectified_flow"):
         big = fourteen_b_slice()
+    with Phase("post-training: LoRA at 704x1280 and its resume, full fine-tune rows at 192x320, small references"):
+        post = posttrain_slice()
+    log(f"  beside phase 7 (block remat, fp32 moments, mock data): step {tr['step_s']:.3f} s, peak "
+        f"{tr['peak_gb']:.2f} GiB")
     paths = {"serve": sl, "train": tr, "sparse_serve": ssl, "sparse_train": stl, "interactive": it,
              "interactive_window": itw, "fwdmode": fm, "fa_jvp": fj, "dmd2_serve": dsl, "distill": dtl,
-             "released": rel, "autoregressive": ar, "text2image": t2i, "oneshot": osl, "14b": big}
+             "released": rel, "autoregressive": ar, "text2image": t2i, "oneshot": osl, "14b": big,
+             "posttrain_lora": post["lora"], "posttrain_full": post["rows"]}
     path_kernels = {
         "serve": ("flash_attention_fwd", "conv3d_causal"),
         "train": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal"),
@@ -2223,6 +2648,8 @@ def main(argv=None) -> int:
         "distill": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal"),
         **{path: ("flash_attention_fwd", "conv3d_causal")
            for path in ("released", "autoregressive", "text2image", "oneshot", "14b")},
+        **{path: ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal")
+           for path in ("posttrain_lora", "posttrain_full")},
     }
     for path, names in path_kernels.items():
         idle = [n for n in names if paths[path]["counts"][n] == 0]

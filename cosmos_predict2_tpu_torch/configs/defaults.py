@@ -2,7 +2,8 @@
 
 The reference's config module imports ``jax.numpy`` for dtypes, so the port
 defines its own groups (the 2B, 14B and mini nets, the rectified-flow model,
-the fused-AdamW optimizer, the Wan2.1 and mock tokenizers, mock data) and
+the fused-AdamW optimizer, the Wan2.1 and mock tokenizers, mock data and
+the local folder of clips) and
 the experiments whose nets it runs: the flagship
 ``predict2_video2world_2b_rectified_flow`` (2B DiT, Wan2.1 VAE), the 14B
 base ``predict2_video2world_14b_rectified_flow`` (the same DiT at 5120
@@ -32,6 +33,7 @@ from cosmos_predict2_tpu_torch.configs.registry import (
     register_experiment,
     resolve_experiment,
 )
+from cosmos_predict2_tpu_torch.data.local_dataset import LocalVideoDatasetConfig
 from cosmos_predict2_tpu_torch.data.mock import MockDataConfig
 from cosmos_predict2_tpu_torch.models.video2world import RFModelConfig
 from cosmos_predict2_tpu_torch.networks.dit import DiTConfig
@@ -45,7 +47,7 @@ class Config:
     trainer: TrainerConfig = TrainerConfig()
     model: RFModelConfig = RFModelConfig()
     tokenizer: WanVAEConfig = WanVAEConfig()
-    data_train: MockDataConfig = MockDataConfig()
+    data_train: MockDataConfig | LocalVideoDatasetConfig = MockDataConfig()
 
 
 # ------------------------------- groups -------------------------------
@@ -71,6 +73,8 @@ register("optimizer", "fusedadamw", OptimizerConfig(lr=2 ** (-14.5), weight_deca
 register("tokenizer", "wan2pt1_tokenizer", WanVAEConfig())
 register("tokenizer", "mock_tokenizer", WanVAEConfig(dim=16))
 register("data_train", "mock", MockDataConfig())
+# post-training on a local folder of clips (videos/ metas/ t5_xxl/)
+register("data_train", "local_video", LocalVideoDatasetConfig())
 
 # ----------------------------- experiments -----------------------------
 

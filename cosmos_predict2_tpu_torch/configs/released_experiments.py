@@ -8,7 +8,7 @@ configs/defaults.py: the Index-26 2B base and its resume2, RF sampling of
 an EDM-trained checkpoint, the Index-43 14B base, the sparse-resume family
 (Index 200/201/202), the four Transfer2.5 control branches over the 2B
 base, the two DMD2 TrigFlow distillation runs and the OSS post-training
-recipes (cosmos-nemo-assets and groot GR1 480p).
+recipes (cosmos-nemo-assets in full and with LoRA, and groot GR1 480p).
 
 The reference's other names need modules the port does not have yet; they
 are listed in :data:`WAITING` with the roadmap item that brings them.
@@ -115,7 +115,8 @@ register_experiment(
 
 # ---------------------------------------------------------------------------
 # OSS post-training recipes over the released 2B base: 93 frames at
-# 704x1280, batch 1, 1000 iterations saved every 200
+# 704x1280, batch 1, 1000 iterations saved every 200; the full fine-tune and
+# its LoRA variant
 # ---------------------------------------------------------------------------
 
 _POSTTRAIN = {
@@ -131,6 +132,15 @@ register_experiment(
     Experiment(name="predict2_video2world_training_2b_cosmos_nemo_assets", base=INDEX_26_RESUME2,
                overrides=dict(_POSTTRAIN))
 )
+# LoRA post-training (the reference's cosmos_nemo_assets_lora.py: rank 32,
+# alpha 32, q/k/v/output_proj and both MLP layers)
+register_experiment(
+    Experiment(
+        name="predict2_lora_training_2b_cosmos_nemo_assets",
+        base="predict2_video2world_training_2b_cosmos_nemo_assets",
+        overrides={"model.use_lora": True, "model.lora_rank": 32, "model.lora_alpha": 32.0},
+    )
+)
 register_experiment(
     Experiment(
         name="predict2_video2world_training_2b_groot_gr1_480",
@@ -145,8 +155,6 @@ register_experiment(
 # ---------------------------------------------------------------------------
 
 WAITING: tuple[tuple[str, str], ...] = (
-    # LoRA post-training
-    ("predict2_lora_training_2b_cosmos_nemo_assets", "A10.1"),
     # action-conditioned interactive gr00t runs (causal DiT + action embedder)
     ("cosmos_predict2p5_2B_action_conditioned_gr00t_gr1_customized_13frame_sf_warmup", "A12.2"),
     ("cosmos_predict2p5_2B_action_gr00t_gr1_warmup", "A12.2"),

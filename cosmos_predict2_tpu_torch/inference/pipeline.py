@@ -20,7 +20,6 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from cosmos_predict2_tpu_torch.conditioning.conditioner import DataType, make_condition
 from cosmos_predict2_tpu_torch.models.distillation import DistillationConfig, DistillationModel
@@ -33,7 +32,14 @@ from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import (
     encode_oneshot,
     encode_streaming,
 )
-from cosmos_predict2_tpu_torch.utils.io import get_image_resolution, get_resolution, read_image, read_video, save_img_or_video
+from cosmos_predict2_tpu_torch.utils.io import (
+    get_image_resolution,
+    get_resolution,
+    read_image,
+    read_video,
+    resize_frames,
+    save_img_or_video,
+)
 from cosmos_predict2_tpu_torch.utils.misc import arch_invariant_rand
 
 log = logging.getLogger("cosmos_predict2_tpu_torch")
@@ -43,13 +49,12 @@ _VIDEO_EXTS = (".mp4", ".webm", ".mkv", ".mov")
 
 
 def resize_input(frames_thwc: np.ndarray, height: int, width: int) -> np.ndarray:
-    """Aspect-preserving bilinear resize + center crop of uint8 (T, H, W, 3)."""
+    """Aspect-preserving bilinear resize + center crop of uint8 (T, H, W, 3),
+    the resize by the native media ops, as in the JAX package."""
     t, h, w, _ = frames_thwc.shape
     scale = max(width / w, height / h)
     rh, rw = int(math.ceil(scale * h)), int(math.ceil(scale * w))
-    x = torch.tensor(frames_thwc).permute(0, 3, 1, 2).float()
-    resized = F.interpolate(x, size=(rh, rw), mode="bilinear", align_corners=False)
-    resized = resized.round().clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).numpy()
+    resized = resize_frames(frames_thwc, rh, rw)
     top, left = (rh - height) // 2, (rw - width) // 2
     return resized[:, top : top + height, left : left + width]
 

@@ -64,6 +64,11 @@ class RFModelConfig:
     high_sigma_ratio: float = 0.05
     high_sigma_timesteps_min: int = 980
     high_sigma_timesteps_max: int = 1000
+    # LoRA post-training (training/lora.py; the recipe's rank 32, alpha 32)
+    use_lora: bool = False
+    lora_rank: int = 32
+    lora_alpha: float = 32.0
+    lora_targets: tuple[str, ...] = ("q_proj", "k_proj", "v_proj", "output_proj", "mlp/layer1", "mlp/layer2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +108,10 @@ class Video2WorldModel:
         self.config = config
         self.net = net
         self.rectified_flow = RectifiedFlow(config.rectified_flow)
+
+    def trainable_parameters(self) -> dict[str, torch.nn.Parameter]:
+        """The parameters a trainer updates, by name: the net's that require grad."""
+        return {n: p for n, p in self.net.named_parameters() if p.requires_grad}
 
     def denoise(
         self,

@@ -35,7 +35,15 @@ copy of the cache per forward.
 Training: with ``remat="block"`` (the default, as the reference) each block
 runs under ``torch.utils.checkpoint`` while gradients are recorded: only its
 input is kept and the block is computed again in the backward, the
-counterpart of ``nn.remat(Block)``.
+counterpart of ``nn.remat(Block)``. ``"selective"`` also keeps each
+attention call's result (out and lse, ops/flash_attention.py::SavedAttention),
+so the recompute runs the rest of the block and no attention forward;
+``"mixed:K"`` is selective on blocks < K and block remat after (``"mixed"``:
+K = num_blocks // 2); ``"none"`` keeps every activation.
+
+LoRA: a Linear that carries an ``adapter`` attribute (a module of
+training/lora.py, not registered in this net) adds ``adapter(x)`` to its
+output in :func:`linear`, unmerged: the frozen weight gets no gradient.
 """
 
 from __future__ import annotations
@@ -48,10 +56,14 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from cosmos_predict2_tpu_torch.ops.attention import dot_product_attention
-from cosmos_predict2_tpu_torch.ops.flash_attention import flash_attention_kv_cache, flash_attention_kv_cache_window
+from cosmos_predict2_tpu_torch.ops.flash_attention import (
+    SavedAttention,
+    flash_attention_kv_cache,
+    flash_attention_kv_cache_window,
+)
 from cosmos_predict2_tpu_torch.ops.neighborhood_attention import VideoSize, adaptive_na_parameters, neighborhood_attention
 from cosmos_predict2_tpu_torch.ops.normalization import layer_norm, rms_norm
 from cosmos_predict2_tpu_torch.ops.rope import RopeSpec, apply_rope, rope_angles_3d
@@ -100,13 +112,25 @@ class DiTConfig:
     # compute dtype for matmuls; norms and modulation stay fp32
     dtype: torch.dtype = torch.bfloat16
     # activation checkpointing of the blocks while training: "block" keeps
-    # each block's input and recomputes the block in the backward, "none"
-    # keeps every activation ("selective" and "mixed:K" wait for the port)
+    # each block's input and recomputes the block in the backward,
+    # "selective" also keeps the attention results, "mixed:K" is selective
+    # on blocks < K and "block" after, "none" keeps every activation
     remat: str = "block"
 
     def __post_init__(self):
-        if self.remat not in ("block", "none"):
-            raise NotImplementedError(f"remat={self.remat!r}: the port has 'block' and 'none'")
+        self.selective_blocks  # validates remat
+
+    @property
+    def selective_blocks(self) -> int:
+        """How many leading blocks run selective remat."""
+        if self.remat in ("block", "none"):
+            return 0
+        if self.remat == "selective":
+            return self.num_blocks
+        kind, _, k = self.remat.partition(":")
+        if kind != "mixed" or not (k == "" or k.isdigit()):
+            raise ValueError(f"remat={self.remat!r}: want 'none', 'block', 'selective', 'mixed' or 'mixed:K'")
+        return int(k) if k else self.num_blocks // 2
 
     @property
     def head_dim(self) -> int:
@@ -125,9 +149,13 @@ class DiTConfig:
 
 def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """y = x W^T (+ b) computed and returned in ``dtype`` (the reference's
-    ``Dense``: inputs and parameters cast to the compute dtype)."""
+    ``Dense``: inputs and parameters cast to the compute dtype), plus
+    ``layer.adapter(x)`` when the layer carries a LoRA adapter."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    x = x.to(dtype)
+    y = F.linear(x, layer.weight.to(dtype), bias)
+    adapter = layer.__dict__.get("adapter")
+    return y if adapter is None else y + adapter(x)
 
 
 class RMSNorm(nn.Module):
@@ -456,7 +484,7 @@ class MiniTrainDIT(nn.Module):
         if cfg.use_crossattn_projection:
             crossattn_emb = F.gelu(linear(self.crossattn_proj[0], crossattn_emb, cfg.dtype))
 
-        remat = cfg.remat == "block" and torch.is_grad_enabled() and kv_caches is None
+        remat = cfg.remat != "none" and torch.is_grad_enabled() and kv_caches is None
         new_caches = None if kv_caches is None else []
         intermediates = []
         for i, block in enumerate(self.blocks):
@@ -464,7 +492,9 @@ class MiniTrainDIT(nn.Module):
                 x, cache = block(x, emb, crossattn_emb, rope_angles, adaln_lora, kv_cache=kv_caches[i])
                 new_caches.append(cache)
             elif remat:
-                x = checkpoint(block, x, emb, crossattn_emb, rope_angles, adaln_lora, use_reentrant=False)
+                context_fn = (lambda: SavedAttention().contexts()) if i < cfg.selective_blocks else noop_context_fn
+                x = checkpoint(block, x, emb, crossattn_emb, rope_angles, adaln_lora, use_reentrant=False,
+                               context_fn=context_fn)
             else:
                 x = block(x, emb, crossattn_emb, rope_angles, adaln_lora)
             if intermediate_feature_ids and i in intermediate_feature_ids:

@@ -19,13 +19,25 @@ HEAD-MAJOR (B, H, S_max, 128) ring buffers filled to ``kv_valid`` (a host
 int), as in the JAX package, and returns only the output. It has no
 backward here: the JAX package's VJP recomputes through the plain
 reference, and only self-forcing training (not ported) needs it.
+
+:class:`SavedAttention` carries the DiT's "selective" activation
+checkpointing: within one block's checkpointed run it keeps each attention
+forward's (out, lse) and hands them back, in order, when the backward
+recomputes the block, so that the recompute launches no attention forward
+(K1, or K10 in a sparse block). It is the counterpart of the JAX package's
+policy ``save_only_these_names("attn_out")``; PyTorch's own selective
+checkpoint policies see only dispatcher ops, not a kernel launched through
+ctypes inside an autograd Function.
 """
 
 from __future__ import annotations
 
+import collections
+import contextvars
 import dataclasses
 import functools
 import heapq
+from typing import Callable
 
 import torch
 
@@ -320,6 +332,71 @@ def flash_attention_bwd_dkv(
 flash_attention_bwd_dkv.launches = 0
 
 
+# (store, replaying) of the checkpointed block being run in this thread, if any
+_SAVED_ATTENTION: contextvars.ContextVar = contextvars.ContextVar("saved_attention", default=None)
+
+
+class SavedAttention:
+    """The attention results of one checkpointed block: ``contexts()`` gives
+    the (forward, recompute) pair that ``torch.utils.checkpoint``'s
+    ``context_fn`` takes. Under the first, :func:`saved_or_computed` computes
+    and keeps each result; under the second it hands them back in the same
+    order, computing nothing, and lets go of each. A second recompute of the
+    block (a second backward through it) finds nothing kept and raises, as
+    PyTorch's own selective checkpointing does."""
+
+    def __init__(self):
+        self.results: collections.deque = collections.deque()
+        self.kept = 0
+
+    def contexts(self):
+        return _SavedAttentionContext(self, False), _SavedAttentionContext(self, True)
+
+
+class _SavedAttentionContext:
+    """Makes a :class:`SavedAttention` the active one; may be entered again
+    (the checkpoint enters its recompute context at every recompute)."""
+
+    def __init__(self, store: SavedAttention, replaying: bool):
+        self.active, self.tokens = (store, replaying), []
+
+    def __enter__(self):
+        self.tokens.append(_SAVED_ATTENTION.set(self.active))
+
+    def __exit__(self, *exc):
+        _SAVED_ATTENTION.reset(self.tokens.pop())
+
+
+def saved_or_computed(compute: Callable[[], tuple], like: torch.Tensor) -> tuple:
+    """``compute()``, kept by the active :class:`SavedAttention` in a
+    block's forward and taken back from it in the block's recompute; plain
+    ``compute()`` outside a selective block. The result's first tensor has
+    the shape, dtype and device of ``like``; a replayed one that does not,
+    or a replay past what the forward kept, raises."""
+    active = _SAVED_ATTENTION.get()
+    if active is None:
+        return compute()
+    store, replaying = active
+    if not replaying:
+        result = compute()
+        store.results.append(tuple(t.detach() for t in result))
+        store.kept += 1
+        return result
+    if not store.results:
+        raise RuntimeError(
+            f"selective remat: a recompute of the block asked for more attention results than the {store.kept} its "
+            "forward kept; a block under selective remat is backpropagated through once (a second backward with "
+            "retain_graph=True is refused, as PyTorch's own selective checkpointing refuses it)")
+    result = store.results.popleft()
+    out = result[0]
+    if (out.shape, out.dtype, out.device) != (like.shape, like.dtype, like.device):
+        raise RuntimeError(
+            f"selective remat: the recompute's attention call {store.kept - len(store.results)} of the block wants a "
+            f"result like {tuple(like.shape)} {like.dtype} on {like.device}, the forward kept {tuple(out.shape)} "
+            f"{out.dtype} on {out.device}: the recompute does not call attention in the forward's order")
+    return result
+
+
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention: forward by :func:`flash_attention_fwd`
     (K1), backward by :func:`flash_attention_bwd_dq` (K7) and
@@ -328,7 +405,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, frame_group: int = 0):
-        out, lse = flash_attention_fwd(q, k, v, frame_group=frame_group)
+        out, lse = saved_or_computed(lambda: flash_attention_fwd(q, k, v, frame_group=frame_group), like=q)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.frame_group = frame_group
         return out

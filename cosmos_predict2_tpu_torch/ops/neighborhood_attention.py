@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from cosmos_predict2_tpu_torch import _build
+from cosmos_predict2_tpu_torch.ops.flash_attention import saved_or_computed
 
 HEAD_DIM = 128
 NEG_INF = -1e30
@@ -670,7 +671,7 @@ class NeighborhoodAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, plan: NAPlan, window, stride):
         with torch.profiler.record_function(LAYOUT_RANGE):
             qt, kt, vt = (permute_in(t, plan) for t in (q, k, v))
-        out_t, lse = na_fwd(qt, kt, vt, plan, window, stride)
+        out_t, lse = saved_or_computed(lambda: na_fwd(qt, kt, vt, plan, window, stride), like=qt)
         ctx.save_for_backward(qt, kt, vt, out_t, lse)
         ctx.na = (plan, window, stride)
         with torch.profiler.record_function(LAYOUT_RANGE):

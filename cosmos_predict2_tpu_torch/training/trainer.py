@@ -178,7 +178,8 @@ def _sync(device: torch.device) -> None:
 
 
 class Trainer:
-    """Trains ``model.net`` in place.
+    """Trains ``model.trainable_parameters()`` in place: the whole net, or
+    the adapters of a training/lora.py::LoRAModelWrapper.
 
     ``last_timings`` holds the split of the latest step, in seconds on the
     host clock, each phase ending in a device synchronize: ``data_s`` (the
@@ -212,9 +213,9 @@ class Trainer:
 
     def init_state(self) -> TrainState:
         cfg = self.config
-        params = {n: p for n, p in self.model.net.named_parameters() if p.requires_grad}
+        params = self.model.trainable_parameters()
         if not params:
-            raise ValueError("the net has no trainable parameters: build it with build_dit(..., trainable=True)")
+            raise ValueError("the model has no trainable parameters: build its net with build_dit(..., trainable=True)")
         ema = {n: p.detach().clone().float() for n, p in params.items()} if cfg.ema_enabled else None
         optimizer, scheduler = make_optimizer(cfg.optimizer, params.values())
         acc = {n: torch.zeros_like(p) for n, p in params.items()} if cfg.grad_accum_iter > 1 else None

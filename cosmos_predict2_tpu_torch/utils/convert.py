@@ -7,7 +7,8 @@ the JAX package (as NumPy arrays) becomes a ``state_dict`` that loads with
 ``strict=True``. Flax kernels (in, out) become Linear weights (out, in);
 DHWIO conv weights become OIDHW, HWIO become OIHW; RMS_norm gammas regain
 their (C, 1, 1, 1) shape, (C, 1, 1) in the attention blocks. The DMD2
-discriminator head's ``Dense`` layers keep their names.
+discriminator head's ``Dense`` layers keep their names. A LoRA adapter tree
+becomes the adapters of training/lora.py by layer name.
 """
 
 from __future__ import annotations
@@ -63,6 +64,26 @@ def jax_dit_params_to_torch(params_np: Mapping[str, Any], cfg) -> dict[str, torc
     if n_blocks != cfg.num_blocks:
         raise ValueError(f"parameter tree has {n_blocks} blocks, config expects {cfg.num_blocks}")
     return sd
+
+
+def jax_lora_params_to_torch(lora_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX's adapter tree (training/lora.py::init_lora_params: {"a": (in,
+    r), "b": (r, out)} in place of each adapted Flax kernel, None elsewhere)
+    -> the port's adapter parameters by name, ``{layer}.lora_A`` (r, in)
+    and ``{layer}.lora_B`` (out, r), the layer named as its Linear."""
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(tree: Mapping[str, Any], prefix: tuple[str, ...]) -> None:
+        for k, v in tree.items():
+            if isinstance(v, Mapping) and set(v) == {"a", "b"}:
+                layer = _dit_key(prefix + (k,)).removesuffix(".weight")
+                out[f"{layer}.lora_A"] = _tensor(np.asarray(v["a"]).T)
+                out[f"{layer}.lora_B"] = _tensor(np.asarray(v["b"]).T)
+            elif isinstance(v, Mapping):
+                walk(v, prefix + (k,))
+
+    walk(_params(lora_np), ())
+    return out
 
 
 def jax_discriminator_params_to_torch(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:

@@ -1,9 +1,10 @@
 """Media IO for the port: image and video read, resolution buckets, export.
 
 The port's own copy of what it uses of cosmos_predict2_tpu/utils/io.py
-(``read_image``, ``read_video``, ``get_resolution``, ``get_image_resolution``,
-``save_img_or_video``, which writes a png for one frame),
-NumPy, PIL and imageio only. Host-side: device code never touches files.
+(``read_image``, ``read_video``, ``resize_frames``, ``get_resolution``,
+``get_image_resolution``, ``save_img_or_video``, which writes a png for one
+frame), NumPy, PIL, imageio and the native media ops (utils/native.py)
+only. Host-side: device code never touches files.
 """
 
 from __future__ import annotations
@@ -56,6 +57,14 @@ def read_video(path: str) -> tuple[np.ndarray, float]:
     if frames.ndim == 3:
         frames = frames[None]
     return frames.astype(np.uint8), fps
+
+
+def resize_frames(frames: np.ndarray, height: int, width: int) -> np.ndarray:
+    """Bilinear resize uint8 (T, H, W, 3) -> (T, height, width, 3), by the
+    native media ops (the NumPy fallback where they cannot be built)."""
+    from cosmos_predict2_tpu_torch.utils import native
+
+    return native.resize_bilinear(frames, height, width)
 
 
 def save_img_or_video(frames_f32: np.ndarray, path: str, fps: int = 16) -> str:

@@ -78,7 +78,7 @@ def test_registered_names_and_waiting_list_are_the_jax_registry():
     assert not set(waiting) & set(PORT_NAMES)
     jax_names = {n for n in jax_list_experiments() if not n.startswith("_")}
     assert set(PORT_NAMES) | set(waiting) == jax_names
-    assert {item for _, item in WAITING} == {"A10.1", "A12.2", "A13"}
+    assert {item for _, item in WAITING} == {"A12.2", "A13"}
 
 
 def test_base_chains_fold_and_overrides_stay_typed():
@@ -98,6 +98,28 @@ def test_base_chains_fold_and_overrides_stay_typed():
                                    overrides={"model.net.no_such_field": 1}))
     with pytest.raises(AttributeError, match="no_such_field"):
         make_config("_released_test_override")
+
+
+def test_lora_recipe_and_local_folder_are_registered():
+    """The released LoRA recipe: the cosmos-nemo-assets post-training recipe
+    (93 frames at 704x1280, batch 1, 1000 iterations saved every 200) with
+    rank-32, alpha-32 adapters on JAX's targets; ``data_train=local_video``
+    selects the local folder of clips with JAX's defaults."""
+    from cosmos_predict2_tpu.data.local_dataset import LocalVideoDatasetConfig as JLocal
+    from cosmos_predict2_tpu_torch.data.local_dataset import LocalVideoDatasetConfig
+    from cosmos_predict2_tpu_torch.training.lora import DEFAULT_TARGETS
+
+    name = "predict2_lora_training_2b_cosmos_nemo_assets"
+    nemo = resolve_experiment("predict2_video2world_training_2b_cosmos_nemo_assets")
+    assert resolve_experiment(name).overrides.items() >= nemo.overrides.items()
+    cfg = make_config(name, ["data_train=local_video", "data_train.root=/clips"])
+    m = cfg.model
+    assert (m.use_lora, m.lora_rank, m.lora_alpha, m.lora_targets) == (True, 32, 32.0, DEFAULT_TARGETS)
+    assert (cfg.trainer.max_iter, cfg.trainer.save_iter, m.use_high_sigma_strategy) == (1000, 200, True)
+    assert isinstance(cfg.data_train, LocalVideoDatasetConfig) and cfg.data_train.root == "/clips"
+    j = jax_make_config(name, ["data_train=local_video", "data_train.root=/clips"])
+    assert dataclasses.asdict(cfg.data_train) == dataclasses.asdict(j.data_train) and isinstance(j.data_train, JLocal)
+    _same(cfg.model, j.model, "model.")
 
 
 # ------------------------------- checkpoint DB -------------------------------
