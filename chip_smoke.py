@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Video2World serving and training paths (dense, sparse, DMD2, 14B), its streaming, forward-mode, released-weights, autoregressive, Text2Image, one-shot-VAE and post-training (LoRA, local clips, remat, bf16 moments) paths, once on one NVIDIA GPU.
+"""Drive the PyTorch port's Video2World serving and training paths (dense, sparse, DMD2, 14B), its streaming, forward-mode, released-weights, autoregressive, Text2Image, one-shot-VAE and post-training (LoRA, local clips, remat, bf16 moments) paths and the post-trained variants (multiview, camera, action), once on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
@@ -134,7 +134,32 @@ Phases, each printed with its wall time:
    memory beside phase 7's; then a narrow LoRA step and a narrow
    bf16-moment step (2 blocks) in bf16 on the card against the same
    weights, adapters, draws and rounding noise in fp32 on the CPU, at phase
-   6's limits.
+   6's limits;
+16. post-trained variants, full-width 2B nets on seeded random weights:
+   the 7-view driving model (predict2_multiview_2b_7views) through
+   MultiviewInference, 7 views of 29 frames at 704x1280 (197,120 DiT
+   tokens), video2world from 2 latent frames of every view, guidance 7,
+   2 of its 35 steps, the VAE view by view: each step's time and share of
+   the bf16 peak (FLOPs from the shapes), the last step under
+   torch.profiler (device time by kernel family), the encode and decode per
+   view, peak memory inside the DiT forwards, before the first (the VAE
+   encode) and after the last (the decode), exactly 112 K1 and K2; a
+   narrow 7-view net (2 blocks)
+   with cross-view attention over a ring at the same 44 x 80 token grid,
+   card bf16 against CPU fp32 (phase 4's limit), K1 18 times; the
+   camera-conditioned model on a 29-frame 704x1280 clip packed [0 | clip
+   | 0] into 24 latent frames (84,480 tokens) with Plücker rays of a
+   seeded camera track, 2 steps at guidance 1.5, the two generated chunks
+   decoded, the last step under torch.profiler and the same split of the
+   peak, exactly 112 K1 and K2; the action-conditioned model (12
+   actions of 7 from a seeded robot-state track) through
+   ActionConditionedInference on 13 frames at 256x320, 35 steps, exactly
+   1,960 K1 and K2. Phase 3 holds K1 at the variants' shapes: self at
+   197,120 tokens (1,024 rows against all keys, one head at a time),
+   per-view cross-attention at B14 Sq28,160 Skv512 whole, cross-view
+   at B16 Sq3,520 Skv7,040 and the action model's self-attention at B2
+   S1,280 and cross-attention to 512 keys whole; and K2 at each stage of
+   the streaming VAE at the action model's 256x320.
 
 Then it prints the kernels' JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero without that line.
@@ -223,6 +248,26 @@ POSTTRAIN_GEOMETRY = (93, 704, 1280)  # the recipe's frames, height and width
 FULL_FT_TIMED = 2  # after one warm-up step
 FULL_FT_ROWS = (("block", "float32", 4 * NUM_BLOCKS), ("block", "bfloat16", 4 * NUM_BLOCKS),
                 ("selective", "bfloat16", 2 * NUM_BLOCKS), ("mixed:14", "bfloat16", 4 * NUM_BLOCKS - 2 * 14))
+# post-trained variants (phase 16): the 7-view driving model at 29 frames of
+# 704x1280 per view (8 latent frames of 44 x 80 tokens per view: 197,120
+# DiT tokens), video2world from 2 latent frames, 2 of its 35 UniPC steps;
+# the camera-conditioned model on a 29-frame 704x1280 clip packed [0 | clip
+# | 0] into 24 latent frames (84,480 tokens), 2 steps at guidance 1.5; the
+# action-conditioned model on 13 frames at 256x320 (1,280 tokens), all 35
+# steps, 12 actions of 7 from a seeded robot-state track; a narrow 7-view
+# net (2 blocks) with cross-view attention over a ring, card bf16 against
+# CPU fp32
+MULTIVIEW_EXPERIMENT = "predict2_multiview_2b_7views"
+CAMERA_EXPERIMENT = "predict2_video2world_2b_camera_conditioned"
+ACTION_EXPERIMENT = "predict2_video2world_2b_action_conditioned"
+VARIANT_HW = (704, 1280)
+VARIANT_FRAMES = 29
+MULTIVIEW_STEPS = 2
+CAMERA_STEPS = 2
+CAMERA_GUIDANCE = 1.5
+ACTION_HW = (256, 320)
+ACTION_FRAMES = 13
+ACTION_GUIDANCE = 3.0
 # published dense peaks of one H100 SXM at 700 W, for the bounds
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -401,7 +446,9 @@ def check_kernels(results: dict) -> None:
         return (torch.arange(Skv, device=dev)[None, :] // fg) <= (torch.arange(Sq, device=dev)[:, None] // fg)
 
     # ---- K1: flash attention forward ----
-    # (label, B, Sq, Skv, H, frame_group, query rows held against the plain version)
+    # (label, B, Sq, Skv, H, frame_group, query rows held against the plain
+    # version[, "heads" / "batch": the plain version one head / one batch
+    # element at a time, where its fp32 logits would not fit whole])
     attn_cases = [
         ("self  B2 S5760 H16 (smoke geometry)", 2, 5760, 5760, 16, 0, None),
         ("cross B2 Sq5760 Skv512 H16", 2, 5760, 512, 16, 0, None),
@@ -411,8 +458,17 @@ def check_kernels(results: dict) -> None:
         ("self  B2 S3600 H16 (text2image 720p, T=1)", 2, 3600, 3600, 16, 0, None),
         ("cross B2 Sq3600 Skv512 H16 (text2image)", 2, 3600, 512, 16, 0, None),
         ("self  B2 S5760 H40 (14B, smoke geometry)", 2, 5760, 5760, 40, 0, None),
+        # the post-trained variants: 7 views of 8 x 44 x 80 tokens, each
+        # view's cross-attention to its 512 caption tokens at batch V B, and
+        # cross-view attention per frame to 2 neighbour views (B Tv = 2 x 8)
+        ("self  B2 S197120 H16 (multiview 7 views, 1024 rows)", 2, 197120, 197120, 16, 0, 1024, "heads"),
+        ("cross B14 Sq28160 Skv512 H16 (multiview per view)", 14, 28160, 512, 16, 0, None, "batch"),
+        ("cross-view B16 Sq3520 Skv7040 H16 (2 neighbours)", 16, 3520, 7040, 16, 0, None, "batch"),
+        # the action model at 256x320: 4 x 16 x 20 tokens and its 512 caption tokens
+        ("self  B2 S1280 H16 (action 256x320)", 2, 1280, 1280, 16, 0, None),
+        ("cross B2 Sq1280 Skv512 H16 (action)", 2, 1280, 512, 16, 0, None),
     ]
-    for label, B, Sq, Skv, H, fg, rows in attn_cases:
+    for label, B, Sq, Skv, H, fg, rows, *split in attn_cases:
         q = torch.randn((B, Sq, H, 128), generator=gen, device=dev).to(torch.bfloat16)
         k = torch.randn((B, Skv, H, 128), generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn((B, Skv, H, 128), generator=gen, device=dev).to(torch.bfloat16)
@@ -425,10 +481,29 @@ def check_kernels(results: dict) -> None:
         del repeat
         if not bool(torch.isfinite(out.float()).all()):
             failures.append(f"flash_attention_fwd {label}: non-finite output")
-        if rows is None:
+        if split == ["batch"]:
+            # every row held, one batch element at a time: the whole logits would take 13-25 GB fp32
+            parts = [flash_attention_plain(q[b : b + 1], k[b : b + 1], v[b : b + 1], fg) for b in range(B)]
+            ref, ref_lse = torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+            del parts
+            got, got_lse = out, lse
+            plain_ms = f"{cuda_ms(lambda: flash_attention_plain(q[:1], k[:1], v[:1], fg), 0, 1) * B:.3f} ms by batch element"
+        elif rows is None:
             ref, ref_lse = flash_attention_plain(q, k, v, fg)
             got, got_lse = out, lse
             plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, fg))
+        elif split == ["heads"]:
+            # rows spread over the sequence (all seven views), against all
+            # keys, one head at a time: the rows' logits over every head would take 26 GB fp32
+            idx = torch.linspace(0, Sq - 1, rows, device=dev).round().long()
+            one = lambda t, h: t[:, :, h : h + 1].contiguous()  # noqa: E731
+            qs = q[:, idx]
+            parts = [flash_attention_plain(one(qs, h), one(k, h), one(v, h), 0) for h in range(H)]
+            ref, ref_lse = torch.cat([p[0] for p in parts], dim=2), torch.cat([p[1] for p in parts], dim=1)
+            del parts
+            got, got_lse = out[:, idx], lse[:, :, idx]
+            plain_ms = (f"{cuda_ms(lambda: flash_attention_plain(one(qs, 0), one(k, 0), one(v, 0), 0), 0, 1) * H:.3f} "
+                        f"ms for {rows} rows by head")
         else:
             # the plain version would need B*H*Sq*Skv fp32 logits (~0.9 TB);
             # hold rows spread over the sequence (incl. the ragged last tile)
@@ -528,7 +603,8 @@ def check_kernels(results: dict) -> None:
     # ---- K2: causal 3x3x3 conv ----
     # (label, T_out, H, W, Cin, Cout): one case per stage of the smoke
     # geometry's streaming encode (4-frame chunks) and decode (2-latent-frame
-    # chunks), then the 720p decoder shapes
+    # chunks), the same stages at the action model's 256x320, then the 720p
+    # decoder shapes
     conv_cases = [
         ("enc T4 192x320 96->96 (smoke)", 4, 192, 320, 96, 96),
         ("enc T4 96x160 96->192 (smoke)", 4, 96, 160, 96, 192),
@@ -538,6 +614,14 @@ def check_kernels(results: dict) -> None:
         ("dec T4 48x80 192->384 (smoke)", 4, 48, 80, 192, 384),
         ("dec T8 96x160 192->192 (smoke)", 8, 96, 160, 192, 192),
         ("dec T8 192x320 96->96 (smoke)", 8, 192, 320, 96, 96),
+        ("enc T4 256x320 96->96 (action)", 4, 256, 320, 96, 96),
+        ("enc T4 128x160 96->192 (action)", 4, 128, 160, 96, 192),
+        ("enc T2 64x80 192->384 (action)", 2, 64, 80, 192, 384),
+        ("enc T1 32x40 384->384 (action)", 1, 32, 40, 384, 384),
+        ("dec T2 32x40 384->384 (action)", 2, 32, 40, 384, 384),
+        ("dec T4 64x80 192->384 (action)", 4, 64, 80, 192, 384),
+        ("dec T8 128x160 192->192 (action)", 8, 128, 160, 192, 192),
+        ("dec T8 256x320 96->96 (action)", 8, 256, 320, 96, 96),
         ("dec T2 176x320 384->384 (720p)", 2, 176, 320, 384, 384),
         ("dec T4 352x640 192->192 (720p)", 4, 352, 640, 192, 192),
         ("dec T4 704x1280 96->96 (720p)", 4, 704, 1280, 96, 96),
@@ -2557,6 +2641,324 @@ def posttrain_slice() -> dict:
     return {"lora": lora, "rows": rows, "counts": {k: lora["counts"][k] + rows["counts"][k] for k in lora["counts"]}}
 
 
+def dit_forward_flops(net, batch: int, tokens: int, ctx_tokens: int) -> float:
+    """The multiply-adds (x2) of one DiT forward over ``tokens`` tokens per
+    sample: per block the q/k/v/o and MLP products (28 S D^2 with the
+    cross-attention's q and o), self-attention 4 S^2 D, cross-attention's
+    k and v of the caption and 4 S M D against each view's M = ctx_tokens /
+    n_views caption tokens; and the caption projection."""
+    D, S, M = net.model_channels, tokens, ctx_tokens
+    per_block = 28 * S * D * D + 4 * S * S * D + 4 * M * net.crossattn_emb_channels * D + 4 * S * (M // net.n_views) * D
+    proj = 2 * M * net.crossattn_proj_in_channels * net.crossattn_emb_channels if net.use_crossattn_projection else 0
+    return batch * (net.num_blocks * per_block + proj)
+
+
+class ForwardTimer:
+    """Times each forward of ``net`` on the host clock between device
+    synchronizes (one forward is one batched-CFG denoise step), runs the
+    forward numbered ``profile_index`` under torch.profiler (``profile``:
+    device time by kernel family) and splits the peak device memory since
+    the caller's last ``reset_peak_memory_stats``: ``forward_peak_gb``
+    inside the forwards, ``before_gb`` before the first (the VAE encode),
+    ``after_gb`` after the last (the decode; read by :meth:`remove`) and
+    ``outside_peak_gb`` anywhere outside them."""
+
+    def __init__(self, net, profile_index: int | None = None):
+        import torch
+
+        self.seconds: list[float] = []
+        self.forward_peak_gb = self.outside_peak_gb = self.before_gb = self.after_gb = 0.0
+        self.profile, self.profile_index = None, profile_index
+        self._t, self._prof, self._prof_s = 0.0, None, None
+
+        def start(*_):
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            if not self.seconds:
+                self.before_gb = peak
+            self.outside_peak_gb = max(self.outside_peak_gb, peak)
+            torch.cuda.reset_peak_memory_stats()
+            if len(self.seconds) == profile_index:
+                acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+                self._prof = torch.profiler.profile(activities=acts)
+                self._prof.__enter__()
+                torch.cuda.synchronize()
+            self._t = time.perf_counter()  # inside the profiler: its start and teardown are not the forward's
+
+        def stop(*_):
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - self._t)
+            self.forward_peak_gb = max(self.forward_peak_gb, torch.cuda.max_memory_allocated() / 2**30)
+            if self._prof is not None and self._prof_s is None:
+                self._prof.__exit__(None, None, None)
+                self._prof_s = self.seconds[-1]
+            torch.cuda.reset_peak_memory_stats()
+
+        self.handles = [net.register_forward_pre_hook(start), net.register_forward_hook(stop)]
+
+    def remove(self) -> float:
+        """Detach the hooks; returns the request's peak (GiB)."""
+        import torch
+
+        for h in self.handles:
+            h.remove()
+        self.after_gb = torch.cuda.max_memory_allocated() / 2**30
+        self.outside_peak_gb = max(self.outside_peak_gb, self.after_gb)
+        if self._prof is not None:
+            log(f"  forward {self.profile_index} of the request (one batched-CFG denoise step) under torch.profiler:")
+            self.profile = device_time_table(self._prof, self._prof_s)
+        return max(self.outside_peak_gb, self.forward_peak_gb)
+
+
+def _variant_net(experiment: str, net_cfg=None):
+    """The full-width 2B DiT of ``experiment`` on seeded random bf16 matmul
+    weights and its VAE."""
+    import torch
+
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.networks.dit import build_serving_dit
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae import build_vae
+
+    cfg = make_config(experiment)
+    net_cfg = net_cfg or cfg.model.net
+    if (net_cfg.model_channels, net_cfg.num_blocks, net_cfg.num_heads, net_cfg.head_dim) != (2048, NUM_BLOCKS, 16, 128):
+        raise AssertionError(f"{experiment}: the slice must run the full-width 2B DiT")
+    fresh_memory()
+    t = time.perf_counter()
+    net = build_serving_dit(net_cfg, "cuda", seed=0)
+    vae = build_vae(cfg.tokenizer, "cuda", seed=1)
+    torch.cuda.synchronize()
+    log(f"  {experiment}: {sum(p.numel() for p in net.parameters()) / 1e9:.3f} B DiT params, VAE dim "
+        f"{cfg.tokenizer.dim}: built in {time.perf_counter() - t:.1f} s")
+    return cfg, net, vae
+
+
+def multiview_slice() -> dict:
+    """One video2world request of the 7-view model through MultiviewInference:
+    7 views of 29 frames at 704x1280 (197,120 DiT tokens), conditioned on 2
+    latent frames of every view, guidance 7, MULTIVIEW_STEPS steps."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.inference.multiview import MultiviewInference, MultiviewInferenceArguments
+    from cosmos_predict2_tpu_torch.models.multiview import MultiviewVid2VidModel
+
+    cfg, net, vae = _variant_net(MULTIVIEW_EXPERIMENT)
+    V = cfg.model.net.n_views
+    H, W = VARIANT_HW
+    model = MultiviewVid2VidModel(cfg.model, net)
+    emb = torch.randn((1, 512, cfg.model.net.crossattn_proj_in_channels), generator=torch.Generator().manual_seed(13))
+    pipe = MultiviewInference(model, vae, text_encoder=lambda prompts: emb, height=H, width=W)
+    if pipe.frames_per_view != VARIANT_FRAMES or V != 7:
+        raise AssertionError(f"multiview geometry: {V} views of {pipe.frames_per_view} frames")
+    videos = np.random.default_rng(14).integers(0, 256, (V, 9, H, W, 3), dtype=np.uint8)
+    args = MultiviewInferenceArguments(prompt="a drive", inference_type="video2world", n_views=V,
+                                       num_steps=MULTIVIEW_STEPS, guidance=GUIDANCE)
+    timer = ForwardTimer(net, profile_index=MULTIVIEW_STEPS - 1)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    frames, grid = pipe.generate(args, videos)
+    request_s = time.perf_counter() - t
+    counts = _build.launch_counts()
+    peak_gb = timer.remove()
+    if frames.shape != (V, VARIANT_FRAMES, H, W, 3) or frames.dtype != np.uint8 or frames[:, -1].std() == 0:
+        raise AssertionError(f"multiview output {frames.shape} {frames.dtype}")
+    if grid.shape != (VARIANT_FRAMES, 2 * H, 4 * W, 3):
+        raise AssertionError(f"multiview grid {grid.shape}")
+    check_launches("multiview", counts, MULTIVIEW_STEPS * 2 * NUM_BLOCKS)
+    tokens = cfg.model.state_t * (H // 16) * (W // 16)
+    flops = dit_forward_flops(cfg.model.net, 2, tokens, V * 512)
+    tm = pipe.last_timings
+    steps = timer.seconds
+    log(f"  multiview video2world: {V} views x {VARIANT_FRAMES} frames at {H}x{W}, {tokens:,} tokens, "
+        f"{MULTIVIEW_STEPS} steps: request {request_s:.2f} s, denoise {tm['denoise_s']:.2f} s")
+    for i, sec in enumerate(steps):
+        log(f"    step {i}: {sec:.3f} s, {flops / 1e15:.2f} PFLOP: {flops / sec / 1e12:.1f} TFLOP/s, "
+            f"{flops / sec / PEAK_BF16_FLOPS:.1%} of the bf16 peak")
+    log(f"    VAE encode per view {[round(x, 2) for x in tm['vae_encode_s']]} s, decode per view "
+        f"{[round(x, 2) for x in tm['vae_decode_s']]} s; peak {peak_gb:.2f} GiB ({timer.forward_peak_gb:.2f} in the "
+        f"DiT forwards, {timer.before_gb:.2f} before the first (text and VAE encode of {V} views), "
+        f"{timer.after_gb:.2f} after the last (VAE decode of {V} views)); launches {counts}")
+    del pipe, model, net, vae, frames, grid
+    return {"counts": counts, "request_s": request_s, "step_s": steps, "step_flops": flops, "profile": timer.profile,
+            "encode_peak_gb": timer.before_gb, "decode_peak_gb": timer.after_gb,
+            "step_share_of_peak": [flops / x / PEAK_BF16_FLOPS for x in steps], "vae_encode_s": tm["vae_encode_s"],
+            "vae_decode_s": tm["vae_decode_s"], "denoise_s": tm["denoise_s"], "peak_gb": peak_gb,
+            "forward_peak_gb": timer.forward_peak_gb, "outside_peak_gb": timer.outside_peak_gb, "tokens": tokens}
+
+
+def small_cross_view_reference() -> dict:
+    """A narrow 7-view net (2 blocks) with cross-view attention over a ring
+    (each view attends its two neighbours) at the 44 x 80 token grid, one
+    latent frame per view: one forward in bf16 on the card against the same
+    weights in fp32 on the CPU; K1 2 x (2 + 7) times."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.networks.dit import build_dit
+
+    V = 7
+    ring = tuple(((v - 1) % V, (v + 1) % V) for v in range(V))
+    net_cfg = dataclasses.replace(
+        make_config(MULTIVIEW_EXPERIMENT).model.net, model_channels=256, num_heads=2, num_blocks=2, adaln_lora_dim=32,
+        crossattn_proj_in_channels=64, crossattn_emb_channels=128, tokens_per_view=16, enable_cross_view_attn=True,
+        cross_view_attn_map=ring,
+    )
+    net = build_dit(net_cfg, "cuda", seed=15)
+    net32 = build_dit(dataclasses.replace(net_cfg, dtype=torch.float32), "cpu", seed=0)
+    net32.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    rng = np.random.default_rng(16)
+    h, w = 2 * INTERACTIVE_HW[0], 2 * INTERACTIVE_HW[1]
+    x = torch.from_numpy(rng.standard_normal((1, 16, V, h, w)).astype(np.float32))
+    ctx = torch.from_numpy(rng.standard_normal((1, V * 16, 64)).astype(np.float32))
+    t = torch.tensor([600.0])
+    with torch.no_grad():
+        _build.reset_launch_counts()
+        got = net(x.cuda(), t.cuda(), ctx.cuda()).float().cpu()
+        counts = _build.launch_counts()
+        ref = net32(x, t, ctx)
+    max_abs, rel = errors(got, ref)
+    want = net_cfg.num_blocks * (2 + V)
+    log(f"  narrow 7-view net with cross-view attention ({V * h * w // 4:,} tokens; cross-view B1 Sq{h * w // 4} "
+        f"Skv{2 * h * w // 4}): card bf16 vs cpu fp32 max_abs {max_abs:.3e} rel_l2 {rel:.3e} (limit "
+        f"{PIPELINE_REL_L2}); launches {counts}")
+    if counts["flash_attention_fwd"] != want or not torch.isfinite(got).all() or rel > PIPELINE_REL_L2:
+        raise AssertionError(f"the cross-view net: K1 {counts['flash_attention_fwd']} (want {want}), rel_l2 {rel:.3e}")
+    return {"counts": counts, "rel_l2": rel, "max_abs": max_abs}
+
+
+def camera_slice() -> dict:
+    """The camera-conditioned model: a 29-frame 704x1280 clip encoded and
+    packed [0 | clip | 0] into 24 latent frames (84,480 tokens), Plücker
+    rays of a seeded camera track at the 44 x 80 token grid reordered to the
+    model's chunk order, CAMERA_STEPS steps at guidance 1.5, each generated
+    chunk decoded as its own 29-frame clip."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.conditioning.conditioner import make_condition
+    from cosmos_predict2_tpu_torch.models.camera import CameraVideo2WorldModel, reorder_camera_chunks
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import decode_streaming, encode_streaming, truncate_u8
+    from cosmos_predict2_tpu_torch.utils import camera_math as cm
+    from cosmos_predict2_tpu_torch.utils.misc import arch_invariant_rand
+
+    cfg, net, vae = _variant_net(CAMERA_EXPERIMENT)
+    model = CameraVideo2WorldModel(cfg.model, net)
+    H, W = VARIANT_HW
+    gh, gw = H // 16, W // 16
+    tc = 1 + (VARIANT_FRAMES - 1) // 4  # latent frames per chunk
+    rng = np.random.default_rng(17)
+    clip = torch.from_numpy(rng.integers(0, 256, (1, VARIANT_FRAMES, H, W, 3), dtype=np.uint8)).cuda()
+    # a camera track: 3 chunks of tc poses (the input chunk first), a slow yaw and a sideways drift
+    n = 3 * tc
+    yaw = torch.linspace(0.0, 0.6, n)
+    q = torch.stack([torch.zeros(n), torch.sin(yaw / 2), torch.zeros(n), torch.cos(yaw / 2)], dim=-1)
+    params = torch.cat([q, torch.stack([torch.linspace(-1.0, 1.0, n), torch.zeros(n), torch.zeros(n)], dim=-1)], dim=-1)
+    poses = cm.extrinsic_params_to_matrices(params)
+    intr = cm.intrinsic_params_to_matrices(torch.tensor([[gw * 0.9, gw * 0.9, gw / 2, gh / 2]]).expand(n, 4))
+    rays = cm.get_plucker_rays(poses, intr, (gh, gw)).reshape(1, n, gh, gw, 6)
+    camera = reorder_camera_chunks(rays, 3).cuda()
+    emb = torch.randn((1, 512, cfg.model.net.crossattn_proj_in_channels), generator=torch.Generator().manual_seed(18))
+    timer = ForwardTimer(net, profile_index=CAMERA_STEPS - 1)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        latents = encode_streaming(vae, clip, pixel_format="uint8").permute(0, 4, 1, 2, 3).float()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        gt = model.pack_inference_latents(latents)
+        condition = make_condition(emb.cuda()).replace(gt_frames=gt, camera=camera)
+        noise = arch_invariant_rand(tuple(gt.shape), seed=1, device=gt.device)
+        samples = model.generate(noise, condition, guidance=CAMERA_GUIDANCE, num_steps=CAMERA_STEPS,
+                                 num_conditional_frames=tc)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        outs = [truncate_u8(decode_streaming(vae, samples[:, :, i * tc : (i + 1) * tc].to(torch.bfloat16)
+                                             .permute(0, 2, 3, 4, 1))[0]).cpu().numpy() for i in (0, 2)]
+        torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    counts = _build.launch_counts()
+    peak_gb = timer.remove()
+    tokens = 3 * tc * gh * gw
+    if gt.shape[2] != 3 * tc or not torch.isfinite(samples).all():
+        raise AssertionError(f"camera latents {tuple(gt.shape)}, {tokens} tokens")
+    for out in outs:
+        if out.shape != (VARIANT_FRAMES, H, W, 3) or out.std() == 0:
+            raise AssertionError(f"camera output chunk {out.shape}")
+    check_launches("camera", counts, CAMERA_STEPS * 2 * NUM_BLOCKS)
+    flops = dit_forward_flops(cfg.model.net, 2, tokens, 512)
+    log(f"  camera: {tokens:,} tokens, {CAMERA_STEPS} steps at guidance {CAMERA_GUIDANCE}: encode {t1 - t0:.2f} s, "
+        f"denoise {t2 - t1:.2f} s (steps {[round(x, 3) for x in timer.seconds]} s, "
+        f"{flops / min(timer.seconds) / PEAK_BF16_FLOPS:.1%} of the bf16 peak at best), two chunks decoded "
+        f"{t3 - t2:.2f} s; peak {peak_gb:.2f} GiB ({timer.forward_peak_gb:.2f} in the DiT forwards, "
+        f"{timer.before_gb:.2f} before the first (VAE encode), {timer.after_gb:.2f} after the last (two chunks "
+        f"decoded)); launches {counts}")
+    del model, net, vae, samples, latents, gt, condition
+    return {"counts": counts, "step_s": timer.seconds, "step_flops": flops, "profile": timer.profile,
+            "encode_peak_gb": timer.before_gb, "decode_peak_gb": timer.after_gb, "encode_s": t1 - t0, "denoise_s": t2 - t1,
+            "decode_s": t3 - t2, "peak_gb": peak_gb, "forward_peak_gb": timer.forward_peak_gb,
+            "outside_peak_gb": timer.outside_peak_gb, "tokens": tokens}
+
+
+def action_slice() -> dict:
+    """The action-conditioned model at 2B width with 12 actions of 7 per
+    chunk (what get_action_sequence_from_states gives for a 13-frame clip;
+    the registry's 84 x 12 cannot take it) through ActionConditionedInference:
+    13 frames at 256x320 (1,280 tokens), all 35 steps, guidance 3."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.models.action_conditioned import (
+        ActionConditionedInference,
+        action_conditioned_model_config,
+        get_action_sequence_from_states,
+    )
+    from cosmos_predict2_tpu_torch.models.video2world import Video2WorldModel
+
+    base = make_config(ACTION_EXPERIMENT).model
+    mc = action_conditioned_model_config(base.net, action_dim=7, num_action_per_chunk=12, state_t=base.state_t)
+    cfg, net, vae = _variant_net(ACTION_EXPERIMENT, mc.net)
+    pipe = ActionConditionedInference(Video2WorldModel(mc, net), vae)
+    H, W = ACTION_HW
+    rng = np.random.default_rng(19)
+    arm = np.cumsum(rng.standard_normal((ACTION_FRAMES, 6)) * 0.01, axis=0)
+    actions = get_action_sequence_from_states(arm, rng.uniform(0, 1, ACTION_FRAMES))
+    video = np.zeros((1, ACTION_FRAMES, H, W, 3), np.uint8)
+    video[:, 0] = rng.integers(0, 256, (H, W, 3))
+    emb = rng.standard_normal((1, 512, net.cfg.crossattn_proj_in_channels)).astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    frames = pipe.generate(video, actions, emb, guidance=ACTION_GUIDANCE, num_steps=NUM_STEPS)
+    request_s = time.perf_counter() - t
+    counts = _build.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if actions.shape != (12, 7) or frames.shape != (ACTION_FRAMES, H, W, 3) or frames.std() == 0:
+        raise AssertionError(f"action request: actions {actions.shape}, output {frames.shape}")
+    check_launches("action", counts, NUM_STEPS * 2 * NUM_BLOCKS)
+    tm = pipe.last_timings
+    log(f"  action: {mc.state_t * (H // 16) * (W // 16):,} tokens, {NUM_STEPS} steps: request {request_s:.2f} s "
+        f"(encode {tm['vae_encode_s']:.2f} s, denoise {tm['denoise_s']:.2f} s = "
+        f"{tm['denoise_s'] / NUM_STEPS * 1e3:.1f} ms/step, decode {tm['vae_decode_s']:.2f} s); peak {peak_gb:.2f} GiB; "
+        f"launches {counts}")
+    del pipe, net, vae
+    return {"counts": counts, "request_s": request_s, **tm, "peak_gb": peak_gb}
+
+
+def variants_slice() -> dict:
+    """Phase 16: the post-trained 2B variants."""
+    mv = multiview_slice()
+    cross_view = small_cross_view_reference()
+    cam = camera_slice()
+    act = action_slice()
+    fresh_memory()
+    return {"multiview": mv, "cross_view": cross_view, "camera": cam, "action": act}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)  # --help; no options
     t_start = time.perf_counter()
@@ -2630,10 +3032,13 @@ def main(argv=None) -> int:
         post = posttrain_slice()
     log(f"  beside phase 7 (block remat, fp32 moments, mock data): step {tr['step_s']:.3f} s, peak "
         f"{tr['peak_gb']:.2f} GiB")
+    with Phase("post-trained variants: 7-view multiview at 704x1280, camera-conditioned, action-conditioned"):
+        var = variants_slice()
     paths = {"serve": sl, "train": tr, "sparse_serve": ssl, "sparse_train": stl, "interactive": it,
              "interactive_window": itw, "fwdmode": fm, "fa_jvp": fj, "dmd2_serve": dsl, "distill": dtl,
              "released": rel, "autoregressive": ar, "text2image": t2i, "oneshot": osl, "14b": big,
-             "posttrain_lora": post["lora"], "posttrain_full": post["rows"]}
+             "posttrain_lora": post["lora"], "posttrain_full": post["rows"], "multiview": var["multiview"],
+             "camera": var["camera"], "action": var["action"]}
     path_kernels = {
         "serve": ("flash_attention_fwd", "conv3d_causal"),
         "train": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal"),
@@ -2647,7 +3052,7 @@ def main(argv=None) -> int:
         "dmd2_serve": ("flash_attention_fwd", "conv3d_causal"),
         "distill": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal"),
         **{path: ("flash_attention_fwd", "conv3d_causal")
-           for path in ("released", "autoregressive", "text2image", "oneshot", "14b")},
+           for path in ("released", "autoregressive", "text2image", "oneshot", "14b", "multiview", "camera", "action")},
         **{path: ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal")
            for path in ("posttrain_lora", "posttrain_full")},
     }

@@ -11,6 +11,9 @@ dataclass of tensors:
   ``use_video_condition=True`` (no CFG on conditional frames);
 * ``apply_train_dropout``: the training-time text and video-condition
   dropout, from draws the caller makes.
+
+The post-trained variants' ``action`` and ``camera`` ride in the condition
+and pass unchanged through the uncondition and negative-prompt pairs.
 """
 
 from __future__ import annotations
@@ -36,6 +39,11 @@ class Video2WorldCondition:
     condition_video_mask: Optional[torch.Tensor] = None  # (B, 1, T, 1, 1)
     # a Python bool (one flag for the batch) or a (B,) bool tensor
     use_video_condition: Union[bool, torch.Tensor, None] = None
+    # the action-conditioned variant's actions, (B, T_act, action_dim)
+    action: Optional[torch.Tensor] = None
+    # the camera-conditioned variant's per-token camera embedding in the
+    # patchified token grid, (B, Tt, Hp, Wp, camera_dim)
+    camera: Optional[torch.Tensor] = None
 
     @property
     def is_video(self) -> bool:

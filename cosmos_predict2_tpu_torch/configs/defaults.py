@@ -12,7 +12,10 @@ channels, 40 heads, 36 blocks), the sparse-attention
 dense blocks, the other 21 neighborhood attention with window (-1, 12, 24)
 and stride (1, 4, 8) tuned at a 44 x 80 token grid), the interactive
 ``predict2_interactive_2b_causal`` (the 2B DiT made temporally
-block-causal, one latent frame per block, for KV-cache streaming) and
+block-causal, one latent frame per block, for KV-cache streaming), the
+post-trained variants' bases ``predict2_video2world_2b_action_conditioned``,
+``predict2_video2world_2b_camera_conditioned`` and
+``predict2_multiview_2b_7views``, and
 ``error-free_mock_data_smoke`` (the reference's plumbing config:
 1024-channel 2-block DiT, dim-16 VAE, 3 iterations on 13-frame 64x64 mock
 clips). The released experiment names (configs/released_experiments.py)
@@ -127,6 +130,41 @@ register_experiment(
         overrides={
             "model.net.temporal_causal": True,
             "model.net.num_frame_per_block": 1,
+        },
+    )
+)
+
+# the post-trained 2B variants' base experiments: the action-conditioned
+# robot model (13 frames, so 4 latent frames; the registry's action input is
+# 7 x 12 values per step, as the JAX package's), the camera-conditioned one
+# (Plücker rays, 6 values per token) and the 7-view driving model (8 latent
+# frames per view)
+register_experiment(
+    Experiment(
+        name="predict2_video2world_2b_action_conditioned",
+        base="predict2_video2world_2b_rectified_flow",
+        overrides={"model.net.action_dim": 7 * 12, "model.net.concat_condition_mask": True, "model.state_t": 4},
+    )
+)
+
+register_experiment(
+    Experiment(
+        name="predict2_video2world_2b_camera_conditioned",
+        base="predict2_video2world_2b_rectified_flow",
+        overrides={"model.net.camera_dim": 6},
+    )
+)
+
+register_experiment(
+    Experiment(
+        name="predict2_multiview_2b_7views",
+        base="predict2_video2world_2b_rectified_flow",
+        overrides={
+            "model.net.n_views": 7,
+            "model.net.concat_view_embedding": True,
+            "model.net.view_condition_dim": 6,
+            "model.net.concat_condition_mask": True,
+            "model.state_t": 56,
         },
     )
 )

@@ -8,7 +8,10 @@ configs/defaults.py: the Index-26 2B base and its resume2, RF sampling of
 an EDM-trained checkpoint, the Index-43 14B base, the sparse-resume family
 (Index 200/201/202), the four Transfer2.5 control branches over the 2B
 base, the two DMD2 TrigFlow distillation runs and the OSS post-training
-recipes (cosmos-nemo-assets in full and with LoRA, and groot GR1 480p).
+recipes (cosmos-nemo-assets in full and with LoRA, and groot GR1 480p),
+and the post-trained 2B variants' serving names (the four auto-multiview
+"buttercup" runs, the two robot-multicamera runs and the bridge
+action-conditioned run).
 
 The reference's other names need modules the port does not have yet; they
 are listed in :data:`WAITING` with the roadmap item that brings them.
@@ -150,6 +153,55 @@ register_experiment(
 )
 
 # ---------------------------------------------------------------------------
+# The post-trained 2B variants. Auto multiview: 7 views of 29 frames (8
+# latent frames each) at 720p, RoPE without fps modulation; the two
+# Transfer2.5 multiview names take the same geometry. Robot multicamera:
+# camera-conditioned Video2World at 720p. Action-conditioned: the bridge
+# robot clips, 13 frames at 256x320 (4 latent frames).
+# ---------------------------------------------------------------------------
+
+_BUTTERCUP = {"model.net.rope_enable_fps_modulation": False, "model.state_t": 56}
+
+register_experiment(
+    Experiment(
+        name=("buttercup_predict2p5_2b_7views_res720p_fps30_t8_from48kfps30mv_condprobs0442"
+              "_joint_alpamayo1capnoviewprefix_allcapsviewprefix_29frames_nofps"),
+        base="predict2_multiview_2b_7views",
+        overrides=dict(_BUTTERCUP),
+    )
+)
+# uniform training times, conditional frames down to 0
+register_experiment(
+    Experiment(
+        name=("buttercup_predict2p5_2b_7views_res720p_fps30_t8_joint_alpamayo1capviewprefix"
+              "_allcapsviewprefix_29frames_nofps_uniform_dropoutt0"),
+        base="predict2_multiview_2b_7views",
+        overrides={**_BUTTERCUP, "model.rectified_flow.train_time_distribution": "uniform",
+                   "model.min_num_conditional_frames": 0},
+    )
+)
+for _name in (
+    "buttercup_transfer2p5_2b_mv_7views_res720p_fps10_t8_fromfinetuned12knofpsuniform"
+    "_mads720pmulticaps29frames_world_scenario_nofps_uniform",
+    "buttercup_transfer2p5_2b_mv_7views_res720p_fps10_t8_frombase5knofps"
+    "_mads720pmulticaps29frames_world_scenario_resumefrom21k",
+):
+    register_experiment(Experiment(name=_name, base="predict2_multiview_2b_7views", overrides=dict(_BUTTERCUP)))
+
+for _name in (
+    "multicamera_video2video_rectified_flow_2b_res_720_fps16_s3_multicam_syncam",
+    "multicamera_video2video_rectified_flow_2b_res_720_fps16_s3_agibot",
+):
+    register_experiment(Experiment(name=_name, base="predict2_video2world_2b_camera_conditioned"))
+
+register_experiment(
+    Experiment(
+        name="cosmos_predict2p5_2B_reason_embeddings_action_conditioned_rectified_flow_bridge_13frame_256x320",
+        base="predict2_video2world_2b_action_conditioned",
+    )
+)
+
+# ---------------------------------------------------------------------------
 # The reference's names that wait for modules the port lacks:
 # (name, roadmap item that brings it)
 # ---------------------------------------------------------------------------
@@ -158,25 +210,9 @@ WAITING: tuple[tuple[str, str], ...] = (
     # action-conditioned interactive gr00t runs (causal DiT + action embedder)
     ("cosmos_predict2p5_2B_action_conditioned_gr00t_gr1_customized_13frame_sf_warmup", "A12.2"),
     ("cosmos_predict2p5_2B_action_gr00t_gr1_warmup", "A12.2"),
-    # action-conditioned robot video2world
-    ("predict2_video2world_2b_action_conditioned", "A13"),
-    ("cosmos_predict2p5_2B_reason_embeddings_action_conditioned_rectified_flow_bridge_13frame_256x320", "A13"),
-    ("ac_reason_embeddings_rectified_flow_2b_256_320", "A13"),
-    # camera-conditioned robot multicamera
-    ("predict2_video2world_2b_camera_conditioned", "A13"),
-    ("multicamera_video2video_rectified_flow_2b_res_720_fps16_s3_multicam_syncam", "A13"),
-    ("multicamera_video2video_rectified_flow_2b_res_720_fps16_s3_agibot", "A13"),
-    # multiview (7 views, cross-view attention) and its post-train
-    ("predict2_multiview_2b_7views", "A13"),
-    ("buttercup_predict2p5_2b_7views_res720p_fps30_t8_from48kfps30mv_condprobs0442"
-     "_joint_alpamayo1capnoviewprefix_allcapsviewprefix_29frames_nofps", "A13"),
-    ("buttercup_predict2p5_2b_7views_res720p_fps30_t8_joint_alpamayo1capviewprefix"
-     "_allcapsviewprefix_29frames_nofps_uniform_dropoutt0", "A13"),
-    ("buttercup_transfer2p5_2b_mv_7views_res720p_fps10_t8_fromfinetuned12knofpsuniform"
-     "_mads720pmulticaps29frames_world_scenario_nofps_uniform", "A13"),
-    ("buttercup_transfer2p5_2b_mv_7views_res720p_fps10_t8_frombase5knofps"
-     "_mads720pmulticaps29frames_world_scenario_resumefrom21k", "A13"),
-    ("predict2_multiview_post_train_waymo", "A13"),
+    # the post-trained variants' training recipes and their data
+    ("ac_reason_embeddings_rectified_flow_2b_256_320", "A13.t"),
+    ("predict2_multiview_post_train_waymo", "A13.t"),
     # the 14B sparse configs: neighborhood-attention parameters per layer
     ("predict2_video2world_14b_sparse", "A13"),
     ("predict2_video2world_14b_sparse_comb02", "A13"),

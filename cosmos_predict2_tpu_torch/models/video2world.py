@@ -138,8 +138,17 @@ class Video2WorldModel:
                 timesteps_B_T = timesteps_B_T.expand(t_mask.shape)
                 timesteps_B_T = cfg.conditional_frame_timestep * t_mask + timesteps_B_T * (1.0 - t_mask)
 
+        net_kwargs = {}
+        if cfg.net.concat_condition_mask and mask is not None:  # else the net takes zeros
+            B, _, T, H, W = xt_B_C_T_H_W.shape
+            net_kwargs["condition_mask"] = mask.expand(B, 1, T, H, W)
+        if cfg.net.action_dim is not None:
+            net_kwargs["action"] = condition.action
+        if cfg.net.camera_dim is not None:
+            net_kwargs["camera"] = condition.camera
         v_pred = self.net(
-            xt_B_C_T_H_W, timesteps_B_T, condition.crossattn_emb, fps=condition.fps, padding_mask=condition.padding_mask
+            xt_B_C_T_H_W, timesteps_B_T, condition.crossattn_emb, fps=condition.fps, padding_mask=condition.padding_mask,
+            **net_kwargs,
         ).float()
 
         if mask is not None and cfg.denoise_replace_gt_frames:
@@ -223,6 +232,8 @@ class Video2WorldModel:
             padding_mask=stack(condition.padding_mask, uncondition.padding_mask),
             gt_frames=stack(condition.gt_frames, uncondition.gt_frames),
             condition_video_mask=stack(condition.condition_video_mask, uncondition.condition_video_mask),
+            action=stack(condition.action, uncondition.action),
+            camera=stack(condition.camera, uncondition.camera),
             use_video_condition=torch.cat([
                 _per_sample_flag(condition.use_video_condition, B, noise.device),
                 _per_sample_flag(uncondition.use_video_condition, B, noise.device),
@@ -252,16 +263,34 @@ class Video2WorldModel:
         negative_text_embeddings: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """UniPC sampling from ``noise`` (B, C, T, H, W) -> fp32 latents."""
-        cfg = self.config
-        num_steps = num_steps or cfg.sampling_num_steps
-        shift = shift if shift is not None else cfg.sampling_shift
-        coeffs = unipc.set_timesteps(num_steps, shift=shift, use_karras_sigma=cfg.use_karras_sigma_at_inference)
-        if negative_text_embeddings is not None:
-            condition, uncondition = get_condition_with_negative_prompt(condition, negative_text_embeddings)
-        else:
-            condition, uncondition = get_condition_uncondition(condition)
+        condition, uncondition = self.cfg_pair(condition, negative_text_embeddings)
         if condition.is_video and condition.gt_frames is not None:
             condition = condition.edit_for_inference(True, num_conditional_frames)
             uncondition = uncondition.edit_for_inference(False, num_conditional_frames)
+        return self.sample(noise, condition, uncondition, guidance, num_steps, shift)
+
+    def cfg_pair(self, condition: Video2WorldCondition, negative_text_embeddings: Optional[torch.Tensor] = None):
+        """(condition, uncondition): the text zeroed, or the negative prompt's."""
+        if negative_text_embeddings is not None:
+            return get_condition_with_negative_prompt(condition, negative_text_embeddings)
+        return get_condition_uncondition(condition)
+
+    @torch.no_grad()
+    def sample(
+        self,
+        noise: torch.Tensor,
+        condition: Video2WorldCondition,
+        uncondition: Video2WorldCondition,
+        guidance: float,
+        num_steps: Optional[int] = None,
+        shift: Optional[float] = None,
+    ) -> torch.Tensor:
+        """UniPC from ``noise`` with batched CFG over conditions the caller set up."""
+        cfg = self.config
+        coeffs = unipc.set_timesteps(
+            num_steps or cfg.sampling_num_steps,
+            shift=shift if shift is not None else cfg.sampling_shift,
+            use_karras_sigma=cfg.use_karras_sigma_at_inference,
+        )
         velocity_fn = self.velocity_fn_from_condition(condition, uncondition, guidance, noise.float())
         return unipc.sample(velocity_fn, noise.float(), coeffs)

@@ -41,6 +41,17 @@ so the recompute runs the rest of the block and no attention forward;
 ``"mixed:K"`` is selective on blocks < K and block remat after (``"mixed"``:
 K = num_blocks // 2); ``"none"`` keeps every activation.
 
+The post-trained variants: ``concat_condition_mask`` adds the condition
+mask as an input channel; ``action_dim`` adds two action MLPs to the
+timestep embedding and the AdaLN-LoRA term; ``camera_dim`` gives each
+block a ``cam_encoder`` whose projection of the per-token camera input is
+added to the self-attention's normed input; ``n_views`` > 1 packs views
+view-major on T, tiles one view's RoPE table over them, sends each view's
+tokens to its own caption slice in the cross-attention (views folded into
+the batch) and, with ``concat_view_embedding``, appends learned view
+channels; ``enable_cross_view_attn`` adds :class:`CrossViewAttention`
+between self- and cross-attention.
+
 LoRA: a Linear that carries an ``adapter`` attribute (a module of
 training/lora.py, not registered in this net) adds ``adapter(x)`` to its
 output in :func:`linear`, unmerged: the frozen weight gets no gradient.
@@ -108,6 +119,36 @@ class DiTConfig:
     temporal_causal: bool = False
     num_frame_per_block: int = 1
     cache_na_window_rows: int = -1
+    # camera conditioning: a per-block bias-free cam_encoder (camera_dim ->
+    # model_channels) adds the per-token camera embedding (Plücker rays,
+    # (B, Tt, Hp, Wp, camera_dim)) to the self-attention's normed input
+    camera_dim: Optional[int] = None
+    # multiview: the latent T axis packs n_views views view-major (V Tv);
+    # RoPE repeats per view and each view cross-attends its own
+    # tokens_per_view tokens of the caption (B, V tokens_per_view, D);
+    # concat_view_embedding adds a learned (n_cameras_emb,
+    # view_condition_dim) table as input channels, after the mask channels
+    n_views: int = 1
+    concat_view_embedding: bool = False
+    n_cameras_emb: int = 7
+    view_condition_dim: int = 0
+    tokens_per_view: int = 512
+    # cross-view attention between self- and cross-attention: each view's
+    # tokens attend the same frame's tokens of the views in
+    # cross_view_attn_map[view]
+    enable_cross_view_attn: bool = False
+    cross_view_attn_map: Optional[tuple[tuple[int, ...], ...]] = None
+    # action conditioning: the (B, 1, T, H, W) condition mask as an extra
+    # input channel, and two GELU-tanh MLPs embedding the actions into the
+    # timestep embedding (B_D) and the AdaLN-LoRA term (B_3D): one embedding
+    # of the whole chunk (action_dim * num_action_per_chunk inputs), or with
+    # action_per_latent_frame one per latent frame (action_dim *
+    # num_action_per_latent_frame inputs), frame 0 zero-padded
+    concat_condition_mask: bool = False
+    action_dim: Optional[int] = None
+    num_action_per_chunk: int = 12
+    action_per_latent_frame: bool = False
+    num_action_per_latent_frame: int = 4
     timestep_scale: float = 1.0
     # compute dtype for matmuls; norms and modulation stay fp32
     dtype: torch.dtype = torch.bfloat16
@@ -237,6 +278,48 @@ def cached_attention(q, k, v, kv_cache: dict, cache_window: Optional[tuple]):
     return out, {"k": kb, "v": vb, "len": end}
 
 
+class CrossViewAttention(nn.Module):
+    """Per-frame attention from each view to its neighbour views: shared
+    bias-free q/k/v/o projections, per-head q/k RMSNorm, no RoPE. The map is
+    static, so each view runs one dense attention (K1 on the card) over its
+    neighbours' same-frame tokens, with no padding or mask; a view without
+    neighbours gets zeros. The JAX package zero-initialises ``output_proj``
+    (the path starts as an identity residual)."""
+
+    def __init__(self, dim: int, n_heads: int, head_dim: int, attn_map: tuple[tuple[int, ...], ...],
+                 dtype: torch.dtype):
+        super().__init__()
+        inner = n_heads * head_dim
+        self.n_heads, self.head_dim, self.attn_map, self.dtype = n_heads, head_dim, attn_map, dtype
+        self.q_proj = nn.Linear(dim, inner, bias=False)
+        self.k_proj = nn.Linear(dim, inner, bias=False)
+        self.v_proj = nn.Linear(dim, inner, bias=False)
+        self.q_norm = RMSNorm(head_dim)
+        self.k_norm = RMSNorm(head_dim)
+        self.output_proj = nn.Linear(inner, dim, bias=False)
+
+    def forward(self, x_B_V_T_H_W_D: torch.Tensor) -> torch.Tensor:
+        B, V, Tv, H, W, D = x_B_V_T_H_W_D.shape
+        L, h, d = H * W, self.n_heads, self.head_dim
+        x = x_B_V_T_H_W_D.reshape(B, V, Tv, L, D)
+        heads = lambda t: t.reshape(t.shape[:-1] + (h, d))
+        q = self.q_norm(heads(linear(self.q_proj, x, self.dtype)))
+        k = self.k_norm(heads(linear(self.k_proj, x, self.dtype)))
+        v = heads(linear(self.v_proj, x, self.dtype))
+        outs = []
+        for view in range(V):
+            neighbors = [n for n in self.attn_map[view] if 0 <= n < V]
+            if not neighbors:
+                outs.append(torch.zeros((B, Tv, L, h * d), dtype=q.dtype, device=q.device))
+                continue
+            q_v = q[:, view].reshape(B * Tv, L, h, d).contiguous()
+            k_v = torch.cat([k[:, n] for n in neighbors], dim=2).reshape(B * Tv, len(neighbors) * L, h, d)
+            v_v = torch.cat([v[:, n] for n in neighbors], dim=2).reshape(B * Tv, len(neighbors) * L, h, d)
+            outs.append(dot_product_attention(q_v, k_v.contiguous(), v_v.contiguous()).reshape(B, Tv, L, h * d))
+        out = linear(self.output_proj, torch.stack(outs, dim=1), self.dtype)
+        return out.reshape(B, V, Tv, H, W, D)
+
+
 class GPT2FeedForward(nn.Module):
     """Linear -> GELU (exact) -> Linear, both bias-free."""
 
@@ -276,6 +359,14 @@ class Block(nn.Module):
         self.mlp = GPT2FeedForward(d, int(d * cfg.mlp_ratio), cfg.dtype)
         for name in ("self_attn", "cross_attn", "mlp"):
             self.add_module(f"adaln_modulation_{name}", adaln_modulation(d, 3, cfg.use_adaln_lora, cfg.adaln_lora_dim))
+        if cfg.camera_dim is not None:
+            self.cam_encoder = nn.Linear(cfg.camera_dim, d, bias=False)
+        if cfg.enable_cross_view_attn and cfg.n_views > 1:
+            if cfg.cross_view_attn_map is None:
+                raise ValueError("enable_cross_view_attn needs cross_view_attn_map")
+            self.ln_cross_view_scale = nn.Parameter(torch.ones(d))
+            self.ln_cross_view_bias = nn.Parameter(torch.zeros(d))
+            self.cross_view_attn = CrossViewAttention(d, cfg.num_heads, cfg.head_dim, cfg.cross_view_attn_map, cfg.dtype)
 
     def _mod(self, name: str, emb: torch.Tensor, adaln_lora: Optional[torch.Tensor]):
         out = getattr(self, f"adaln_modulation_{name}")(emb.float())
@@ -283,11 +374,13 @@ class Block(nn.Module):
             out = out + adaln_lora
         return [c[:, :, None, None, :] for c in out.chunk(3, dim=-1)]  # (B, T, 1, 1, D)
 
-    def forward(self, x, emb, crossattn_emb, rope_angles, adaln_lora, kv_cache=None):
-        """Returns x, or (x, cache) with ``kv_cache``."""
+    def forward(self, x, emb, crossattn_emb, rope_angles, adaln_lora, kv_cache=None, camera=None):
+        """Returns x, or (x, cache) with ``kv_cache``. ``camera`` (B, T, H, W,
+        camera_dim) goes through ``cam_encoder`` when the block has one."""
         B, T, H, W, D = x.shape
         cfg = self.cfg
         dt = cfg.dtype
+        V = cfg.n_views
 
         def modulated(shift, scale):
             return (layer_norm(x) * (1.0 + scale) + shift).to(dt)
@@ -300,7 +393,10 @@ class Block(nn.Module):
             na = (VideoSize(T, H, W), tuple(window), tuple(stride), tuple(dilation))
 
         shift, scale, gate = self._mod("self_attn", emb, adaln_lora)
-        attn_in = modulated(shift, scale).reshape(B, T * H * W, D)
+        normed = modulated(shift, scale)
+        if camera is not None and cfg.camera_dim is not None:
+            normed = normed + linear(self.cam_encoder, camera, dt)
+        attn_in = normed.reshape(B, T * H * W, D)
         if kv_cache is not None:
             window = ((H, W), cfg.cache_na_window_rows) if cfg.cache_na_window_rows > 0 else None
             out, kv_cache = self.self_attn(attn_in, rope_angles=rope_angles, kv_cache=kv_cache, cache_window=window)
@@ -309,8 +405,21 @@ class Block(nn.Module):
             out = self.self_attn(attn_in, rope_angles=rope_angles, na=na, frame_group=frame_group)
         x = x + gate.to(x.dtype) * out.reshape(B, T, H, W, D).to(x.dtype)
 
+        if hasattr(self, "cross_view_attn"):
+            # affine LayerNorm -> cross-view attention -> ungated residual
+            xv = x.reshape(B, V, T // V, H, W, D)
+            normed = (layer_norm(xv) * self.ln_cross_view_scale + self.ln_cross_view_bias).to(dt)
+            x = x + self.cross_view_attn(normed).reshape(B, T, H, W, D).to(x.dtype)
+
         shift, scale, gate = self._mod("cross_attn", emb, adaln_lora)
-        out = self.cross_attn(modulated(shift, scale).reshape(B, T * H * W, D), context=crossattn_emb.to(dt))
+        attn_in, ctx = modulated(shift, scale).reshape(B, T * H * W, D), crossattn_emb.to(dt)
+        if V > 1:  # each view attends its own caption: views move into the batch, (V B)
+            L, M = (T // V) * H * W, cfg.tokens_per_view
+            attn_in = attn_in.reshape(B, V, L, D).transpose(0, 1).reshape(V * B, L, D)
+            ctx = ctx.reshape(B, V, M, -1).transpose(0, 1).reshape(V * B, M, -1)
+        out = self.cross_attn(attn_in, context=ctx)
+        if V > 1:
+            out = out.reshape(V, B, L, D).transpose(0, 1)
         x = x + gate.to(x.dtype) * out.reshape(B, T, H, W, D).to(x.dtype)
 
         shift, scale, gate = self._mod("mlp", emb, adaln_lora)
@@ -376,6 +485,18 @@ class TimestepEmbedding(nn.Module):
         return emb, None
 
 
+class ActionMlp(nn.Module):
+    """Linear -> GELU (tanh) -> Linear, with biases, in fp32."""
+
+    def __init__(self, in_features: int, hidden: int, out: int):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, hidden)
+        self.fc2 = nn.Linear(hidden, out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x.float()), approximate="tanh"))
+
+
 class PatchEmbed(nn.Module):
     """b c (t r) (h m) (w n) -> b t h w (c r m n), then a bias-free Linear.
     ``proj`` keeps the reference's (Rearrange, Linear) indices."""
@@ -422,10 +543,17 @@ class MiniTrainDIT(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = cfg.model_channels
-        in_ch = cfg.in_channels + (1 if cfg.concat_padding_mask else 0)
+        in_ch = cfg.in_channels + int(cfg.concat_condition_mask) + int(cfg.concat_padding_mask)
+        if self.view_embedding_channels:
+            self.view_embeddings = nn.Embedding(cfg.n_cameras_emb, cfg.view_condition_dim)
+            in_ch += cfg.view_condition_dim
         self.x_embedder = PatchEmbed(cfg, in_ch)
         self.t_embedder = nn.Sequential(Timesteps(d), TimestepEmbedding(d, d, cfg.use_adaln_lora))
         self.t_embedding_norm = RMSNorm(d)
+        if cfg.action_dim is not None:
+            per = cfg.num_action_per_latent_frame if cfg.action_per_latent_frame else cfg.num_action_per_chunk
+            self.action_embedder_B_D = ActionMlp(cfg.action_dim * per, 4 * d, d)
+            self.action_embedder_B_3D = ActionMlp(cfg.action_dim * per, 4 * d, 3 * d)
         if cfg.use_crossattn_projection:
             self.crossattn_proj = nn.Sequential(
                 nn.Linear(cfg.crossattn_proj_in_channels, cfg.crossattn_emb_channels, bias=True), nn.GELU()
@@ -437,6 +565,10 @@ class MiniTrainDIT(nn.Module):
         self.blocks = nn.ModuleList(Block(cfg, na_params) for na_params in layout)
         self.final_layer = FinalLayer(cfg)
 
+    @property
+    def view_embedding_channels(self) -> bool:
+        return self.cfg.concat_view_embedding and self.cfg.n_views > 1
+
     def forward(
         self,
         x_B_C_T_H_W: torch.Tensor,
@@ -447,16 +579,30 @@ class MiniTrainDIT(nn.Module):
         kv_caches: Optional[list] = None,
         t_start: int = 0,
         intermediate_feature_ids: Optional[tuple[int, ...]] = None,
+        condition_mask: Optional[torch.Tensor] = None,
+        action: Optional[torch.Tensor] = None,
+        camera: Optional[torch.Tensor] = None,
     ):
         """Returns the output (B, C, T, H, W); with ``kv_caches`` (one per
         block) it runs x as the new frame block at absolute latent frame
         ``t_start`` against the caches and returns (output, caches). With
         ``intermediate_feature_ids`` (the GAN head's taps) it returns
         (output, [the output of each listed block, in block order, as (B,
-        L, model_channels)])."""
+        L, model_channels)]).
+
+        The post-trained variants' inputs: ``condition_mask`` (B, 1, T, H,
+        W) for ``concat_condition_mask`` (zeros when None), ``action`` (B,
+        T_act, action_dim) for ``action_dim`` and ``camera`` (B, Tt, Hp, Wp,
+        camera_dim) for ``camera_dim`` (no camera term when None). With
+        ``n_views`` > 1 the caption holds ``tokens_per_view`` tokens per
+        view, view-major, and view v takes view embedding v."""
         cfg = self.cfg
         B, C, T, H, W = x_B_C_T_H_W.shape
         ps, pt = cfg.patch_spatial, cfg.patch_temporal
+        if cfg.concat_condition_mask:
+            if condition_mask is None:
+                condition_mask = torch.zeros((B, 1, T, H, W), dtype=x_B_C_T_H_W.dtype, device=x_B_C_T_H_W.device)
+            x_B_C_T_H_W = torch.cat([x_B_C_T_H_W, condition_mask.to(x_B_C_T_H_W.dtype)], dim=1)
         if cfg.timestep_scale != 1.0:
             timesteps_B_T = timesteps_B_T * cfg.timestep_scale
 
@@ -467,14 +613,28 @@ class MiniTrainDIT(nn.Module):
                 padding_mask = F.interpolate(padding_mask.float(), size=(H, W), mode="nearest-exact")
             mask = padding_mask[:, :1, None, :, :].expand(B, 1, T, H, W).to(x_B_C_T_H_W.dtype)
             x_B_C_T_H_W = torch.cat([x_B_C_T_H_W, mask], dim=1)
+        V = cfg.n_views
+        if V > 1 and crossattn_emb.shape[1] != V * cfg.tokens_per_view:
+            raise ValueError(f"a {V}-view caption holds {V} x tokens_per_view = {V * cfg.tokens_per_view} tokens, "
+                             f"got {crossattn_emb.shape[1]}")
+        if self.view_embedding_channels:  # channels [x | cond | pad | view]
+            idx = torch.arange(V, device=x_B_C_T_H_W.device).clamp(0, cfg.n_cameras_emb - 1)
+            ve = self.view_embeddings.weight[idx][None, :, None].expand(B, V, T // V, -1)
+            ve = ve.reshape(B, T, -1).permute(0, 2, 1)[..., None, None].expand(B, -1, T, H, W)
+            x_B_C_T_H_W = torch.cat([x_B_C_T_H_W, ve.to(x_B_C_T_H_W.dtype)], dim=1)
 
         x = self.x_embedder(x_B_C_T_H_W)  # (B, T', H', W', D) in cfg.dtype
         Tt, Hp, Wp = T // pt, H // ps, W // ps
-        rope_angles = rope_angles_3d(cfg.rope_spec, Tt, Hp, Wp, fps=fps, device=x.device, t_start=t_start)
+        if V > 1:  # one view's table, tiled over the views
+            rope_angles = rope_angles_3d(cfg.rope_spec, Tt // V, Hp, Wp, fps=fps, device=x.device).repeat(V, 1)
+        else:
+            rope_angles = rope_angles_3d(cfg.rope_spec, Tt, Hp, Wp, fps=fps, device=x.device, t_start=t_start)
 
         if timesteps_B_T.ndim == 1:
             timesteps_B_T = timesteps_B_T[:, None]
         emb, adaln_lora = self.t_embedder[1](self.t_embedder[0](timesteps_B_T))
+        if cfg.action_dim is not None:
+            emb, adaln_lora = self._add_action(emb, adaln_lora, action)
         emb = self.t_embedding_norm(emb.float())
         if emb.shape[1] == 1 and Tt > 1:
             emb = emb.expand(B, Tt, cfg.model_channels)
@@ -494,9 +654,9 @@ class MiniTrainDIT(nn.Module):
             elif remat:
                 context_fn = (lambda: SavedAttention().contexts()) if i < cfg.selective_blocks else noop_context_fn
                 x = checkpoint(block, x, emb, crossattn_emb, rope_angles, adaln_lora, use_reentrant=False,
-                               context_fn=context_fn)
+                               context_fn=context_fn, camera=camera)
             else:
-                x = block(x, emb, crossattn_emb, rope_angles, adaln_lora)
+                x = block(x, emb, crossattn_emb, rope_angles, adaln_lora, camera=camera)
             if intermediate_feature_ids and i in intermediate_feature_ids:
                 intermediates.append(x.reshape(B, -1, cfg.model_channels))
 
@@ -512,6 +672,34 @@ class MiniTrainDIT(nn.Module):
         return x
 
 
+    def _add_action(self, emb: torch.Tensor, adaln_lora: Optional[torch.Tensor], action: Optional[torch.Tensor]):
+        """The action embeddings added to the timestep embedding (B, T, D)
+        and the AdaLN-LoRA term: one for the chunk, (B, T_act, d) -> (B, 1,
+        T_act d), or per latent frame, groups of num_action_per_latent_frame
+        with frame 0 zero-padded when the groups cover all but frame 0."""
+        cfg = self.cfg
+        if action is None:
+            raise ValueError("config.action_dim set but no action passed")
+        B = action.shape[0]
+        if cfg.action_per_latent_frame:
+            t_act = action.shape[1] // cfg.num_action_per_latent_frame
+            act = action.reshape(B, t_act, -1)
+        else:
+            act = action.reshape(B, 1, -1)
+        act_emb, act_emb_3d = self.action_embedder_B_D(act), self.action_embedder_B_3D(act)
+        if cfg.action_per_latent_frame:
+            t_emb = emb.shape[1]
+            if t_act + 1 == t_emb:
+                act_emb, act_emb_3d = (F.pad(a, (0, 0, 1, 0)) for a in (act_emb, act_emb_3d))
+            elif t_act != t_emb:
+                raise ValueError(f"per-frame actions ({t_act} groups of {cfg.num_action_per_latent_frame}) must "
+                                 f"cover the {t_emb} timestep frames exactly or all but frame 0")
+        emb = emb + act_emb
+        if adaln_lora is not None:
+            adaln_lora = adaln_lora + act_emb_3d
+        return emb, adaln_lora
+
+
 @torch.no_grad()
 def cast_matmul_weights(net: MiniTrainDIT) -> MiniTrainDIT:
     """Store the weights that the DiT multiplies in ``cfg.dtype`` (patch
@@ -524,9 +712,12 @@ def cast_matmul_weights(net: MiniTrainDIT) -> MiniTrainDIT:
     if net.cfg.use_crossattn_projection:
         layers.append(net.crossattn_proj[0])
     for block in net.blocks:
-        for attn in (block.self_attn, block.cross_attn):
-            layers += [attn.q_proj, attn.k_proj, attn.v_proj, attn.output_proj]
+        for attn in (block.self_attn, block.cross_attn, getattr(block, "cross_view_attn", None)):
+            if attn is not None:
+                layers += [attn.q_proj, attn.k_proj, attn.v_proj, attn.output_proj]
         layers += [block.mlp.layer1, block.mlp.layer2]
+        if net.cfg.camera_dim is not None:
+            layers.append(block.cam_encoder)
     for layer in layers:
         layer.weight.data = layer.weight.data.to(dtype)
     return net
@@ -535,8 +726,16 @@ def cast_matmul_weights(net: MiniTrainDIT) -> MiniTrainDIT:
 @torch.no_grad()
 def init_dit_weights(net: MiniTrainDIT, generator: torch.Generator) -> MiniTrainDIT:
     """Seeded random weights: every Linear weight ~ truncated normal with
-    std 1/sqrt(fan_in) (cut at 3 std), biases 0, norm weights 1. The
-    generator must live on the parameters' device."""
+    std 1/sqrt(fan_in) (cut at 3 std), biases 0, norm weights 1, the view
+    embeddings ~ normal(0, 1), the cross-view LayerNorm's scale 1 and bias
+    0. The generator must live on the parameters' device."""
+    for name, p in net.named_parameters():
+        if name.endswith("ln_cross_view_scale"):
+            p.fill_(1.0)
+        elif name.endswith("ln_cross_view_bias"):
+            p.zero_()
+    if net.view_embedding_channels:
+        net.view_embeddings.weight.normal_(generator=generator)
     for module in net.modules():
         if isinstance(module, nn.Linear):
             std = 1.0 / math.sqrt(module.in_features)

@@ -322,6 +322,13 @@ def quantize_u8(px: torch.Tensor) -> torch.Tensor:
     return torch.round((px.float().clamp(-1.0, 1.0) + 1.0) * 127.5).to(torch.uint8)
 
 
+def truncate_u8(px: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] pixels -> uint8 as the JAX package's post-trained variants'
+    requests convert them: (x + 1) * 127.5 clipped to [0, 255], then
+    truncated (not rounded)."""
+    return ((px.float() + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
+
+
 @torch.no_grad()
 def decode_streaming(
     vae: WanVAE, z: torch.Tensor, chunk_latent_frames: int = 2, pixel_format: str = "float"

@@ -6,7 +6,12 @@ checkpoint loads as it is: only the file reading, the ``net.`` /
 ``net_ema.`` prefix stripping and :func:`load_reference_state_dict` are
 needed. Like the JAX package's converters, the last reads exactly the keys
 the model has and ignores every other entry of the file, and takes a VAE
-RMS_norm gamma flat, (C,), as well as (C, 1, 1[, 1]).
+RMS_norm gamma flat, (C,), as well as (C, 1, 1[, 1]). The post-trained
+variants' keys (``action_embedder_B_{D,3D}.fc{1,2}``, ``view_embeddings.weight``,
+``blocks.{i}.cam_encoder.weight``) are the reference's, as JAX's converter
+reads them; its converter maps no reference key for the cross-view
+attention, so a checkpoint without ``blocks.{i}.cross_view_attn.*`` raises
+KeyError naming them, as for any key it lacks.
 """
 
 from __future__ import annotations

@@ -4,7 +4,10 @@ The port's counterpart of cosmos_predict2_tpu/utils/checkpoint_export.py.
 The port's modules carry the reference checkpoint's names and layouts, so
 an export is the module's ``state_dict()``: the DiT under a ``net.`` or
 ``net_ema.`` prefix (the consolidated training checkpoint's namespaces),
-the Wan2.1 VAE as it is. :func:`patterned_like` fills a shape template
+the Wan2.1 VAE as it is; the post-trained variants' parameters come out
+under the reference's keys (``action_embedder_B_{D,3D}.fc{1,2}``,
+``view_embeddings.weight``, ``blocks.{i}.cam_encoder.weight``) and the
+cross-view attention's under JAX's module names. :func:`patterned_like` fills a shape template
 (a state dict, on the ``meta`` device or not) with cheap deterministic
 values that differ per tensor and along every axis, for synthetic
 checkpoints at the true released shapes: the loader and the released-

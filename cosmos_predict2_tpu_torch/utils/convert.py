@@ -8,7 +8,12 @@ the JAX package (as NumPy arrays) becomes a ``state_dict`` that loads with
 DHWIO conv weights become OIDHW, HWIO become OIHW; RMS_norm gammas regain
 their (C, 1, 1, 1) shape, (C, 1, 1) in the attention blocks. The DMD2
 discriminator head's ``Dense`` layers keep their names. A LoRA adapter tree
-becomes the adapters of training/lora.py by layer name.
+becomes the adapters of training/lora.py by layer name. The post-trained
+variants' parameters map as JAX's converter maps them
+(``action_embedder_B_{D,3D}.fc{1,2}``, ``blocks.{i}.cam_encoder``, the
+``view_embeddings`` table as ``view_embeddings.weight``); the cross-view
+attention's keep JAX's module names (``blocks.{i}.cross_view_attn.*``,
+``blocks.{i}.ln_cross_view_{scale,bias}``).
 """
 
 from __future__ import annotations
@@ -52,6 +57,8 @@ def _dit_key(path: tuple[str, ...]) -> str:
         else:
             parts.append(seg)
     leaf = path[-1]
+    if path == ("view_embeddings",):  # a bare table in JAX, an nn.Embedding here
+        return "view_embeddings.weight"
     return ".".join(parts + ["weight" if leaf == "kernel" else leaf])
 
 

@@ -115,10 +115,20 @@ def test_dit_bf16_forward_is_close_to_fp32():
 # --------------------------------- configs ---------------------------------
 
 
+# the post-trained variants' base experiments: (their net fields beyond the 2B base, state_t)
+VARIANTS = {
+    "predict2_video2world_2b_action_conditioned": (dict(action_dim=84, concat_condition_mask=True), 4),
+    "predict2_video2world_2b_camera_conditioned": (dict(camera_dim=6), 24),
+    "predict2_multiview_2b_7views": (dict(n_views=7, concat_view_embedding=True, view_condition_dim=6,
+                                          concat_condition_mask=True), 56),
+}
+
+
 @pytest.mark.parametrize("experiment", ["predict2_video2world_2b_rectified_flow", "error-free_mock_data_smoke",
                                         "predict2_video2world_2b_sparse", "predict2_interactive_2b_causal",
                                         "dmd2_trigflow_distill_cosmos_predict2_2B_bidirectional",
-                                        "dmd2_trigflow_distill_cosmos_predict2_2B_bidirectional_w_discriminator"])
+                                        "dmd2_trigflow_distill_cosmos_predict2_2B_bidirectional_w_discriminator",
+                                        *VARIANTS])
 def test_config_fields_match_jax(experiment):
     """Every field of the port's config equals the JAX package's, and the
     JAX fields the port lacks are at their dense, plain defaults."""
@@ -144,7 +154,12 @@ def test_config_fields_match_jax(experiment):
     jo = j.trainer.optimizer
     assert (jo.moments_dtype, jo.moments_offload, j.model.use_lora) == ("float32", False, False)
     jn = j.model.net
-    assert (jn.temporal_causal, jn.camera_dim, jn.action_dim, jn.n_views) == ("interactive" in experiment, None, None, 1)
+    variant, state_t = VARIANTS.get(experiment, ({}, 24))
+    plain = dict(camera_dim=None, action_dim=None, n_views=1, concat_view_embedding=False, view_condition_dim=0,
+                 concat_condition_mask=False)
+    assert {k: getattr(jn, k) for k in plain} == {**plain, **variant}
+    assert {k: getattr(t.model.net, k) for k in plain} == {**plain, **variant}
+    assert jn.temporal_causal == ("interactive" in experiment)
     if "interactive" in experiment:
         assert (t.model.net.num_frame_per_block, t.model.net.cache_na_window_rows) == (1, -1)
     if "sparse" in experiment:
@@ -152,12 +167,11 @@ def test_config_fields_match_jax(experiment):
         assert [i for i, s in enumerate(sparse) if not s] == [0, 4, 9, 13, 18, 22, 27]
     else:
         assert jn.n_dense_blocks == -1
-    assert not (jn.concat_condition_mask or jn.enable_cross_view_attn or jn.scan_blocks or jn.cp_axis
-                or jn.extra_per_block_abs_pos_emb)
+    assert not (jn.enable_cross_view_attn or jn.scan_blocks or jn.cp_axis or jn.extra_per_block_abs_pos_emb)
     if experiment.startswith("predict2"):
         net = t.model.net
         assert (net.model_channels, net.num_heads, net.head_dim, net.num_blocks) == (2048, 16, 128, 28)
-        assert (net.crossattn_proj_in_channels, net.crossattn_emb_channels, t.model.state_t) == (100352, 1024, 24)
+        assert (net.crossattn_proj_in_channels, net.crossattn_emb_channels, t.model.state_t) == (100352, 1024, state_t)
         assert t.tokenizer.dim == 96
 
 

@@ -78,7 +78,15 @@ def test_registered_names_and_waiting_list_are_the_jax_registry():
     assert not set(waiting) & set(PORT_NAMES)
     jax_names = {n for n in jax_list_experiments() if not n.startswith("_")}
     assert set(PORT_NAMES) | set(waiting) == jax_names
-    assert {item for _, item in WAITING} == {"A12.2", "A13"}
+    assert {item for _, item in WAITING} == {"A12.2", "A13", "A13.t"}
+    assert dict(WAITING) == {
+        "cosmos_predict2p5_2B_action_conditioned_gr00t_gr1_customized_13frame_sf_warmup": "A12.2",
+        "cosmos_predict2p5_2B_action_gr00t_gr1_warmup": "A12.2",
+        "ac_reason_embeddings_rectified_flow_2b_256_320": "A13.t",
+        "predict2_multiview_post_train_waymo": "A13.t",
+        "predict2_video2world_14b_sparse": "A13",
+        "predict2_video2world_14b_sparse_comb02": "A13",
+    }
 
 
 def test_base_chains_fold_and_overrides_stay_typed():
@@ -239,11 +247,15 @@ def test_loader_resolves_db_names_and_raises_with_the_path(exported, tmp_path, m
 # ------------------------------- true shapes -------------------------------
 
 
-@pytest.mark.parametrize("experiment", [INDEX_26_RESUME2, "predict2_video2world_14b_rectified_flow"])
+@pytest.mark.parametrize("experiment", [INDEX_26_RESUME2, "predict2_video2world_14b_rectified_flow",
+                                        "predict2_video2world_2b_action_conditioned",
+                                        "predict2_video2world_2b_camera_conditioned", "predict2_multiview_2b_7views"])
 def test_true_shape_state_dict_equals_the_jax_export(experiment, monkeypatch):
     """Keys and shapes at the released sizes, without making a tensor: the
     port's net on the meta device, JAX's export over ``jax.eval_shape``
-    with zero-stride stand-ins and shape-only transposes."""
+    with zero-stride stand-ins and shape-only transposes. JAX's camera net
+    is initialised with ``camera=`` so that its cam_encoders exist; its
+    multiview net on 7 latent frames and 7 caption tokens, one per view."""
     from cosmos_predict2_tpu.models.video2world import Video2WorldModel as JModel
     from cosmos_predict2_tpu.utils import checkpoint_export as ce
     from cosmos_predict2_tpu_torch.networks.dit import MiniTrainDIT
@@ -252,7 +264,15 @@ def test_true_shape_state_dict_equals_the_jax_export(experiment, monkeypatch):
     stand_in = lambda shape: np.broadcast_to(np.float32(0), tuple(shape))  # noqa: E731
     monkeypatch.setattr(ce, "_t", lambda w: stand_in(np.shape(w)[::-1]))
     model = JModel(jax_make_config(experiment).model)
-    template = jax.eval_shape(lambda r: model.init_params(r, (1, 16, 2, 8, 8), text_len=8), jax.random.PRNGKey(0))
+    V = model.config.net.n_views
+    if model.config.net.camera_dim is not None:
+        def init(r):
+            x, ctx = jnp.zeros((1, 16, 2, 8, 8)), jnp.zeros((1, 8, model.config.net.crossattn_proj_in_channels))
+            return model.net.init(r, x, jnp.zeros((1,)), ctx, camera=jnp.zeros((1, 2, 4, 4, 6)))
+    else:
+        def init(r):
+            return model.init_params(r, (1, 16, 2 if V == 1 else V, 8, 8), text_len=8 if V == 1 else V)
+    template = jax.eval_shape(init, jax.random.PRNGKey(0))
     want = {k: tuple(v.shape) for k, v in
             ce.export_dit_state_dict(jax.tree.map(lambda s: stand_in(s.shape), template), prefix="net_ema.").items()}
 
@@ -263,7 +283,7 @@ def test_true_shape_state_dict_equals_the_jax_export(experiment, monkeypatch):
     assert {k: tuple(v.shape) for k, v in got.items()} == want
     assert {v.device.type for v in got.values()} == {"meta"}
     n = sum(v.numel() for v in got.values())
-    assert (n > 1.9e9) if "2B" in experiment else (n > 1.4e10)
+    assert (n > 1.9e9) if cfg.model_channels == 2048 else (n > 1.4e10)
 
 
 # ------------------------------- verifier -------------------------------

@@ -1,0 +1,88 @@
+"""Shared helpers of the post-trained variants' tests (test_torch_action.py,
+test_torch_camera.py, test_torch_multiview.py): the same tiny DiT in both
+packages, seeded JAX parameters converted to the port, the VAE pair and
+the relative-L2 measure."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from cosmos_predict2_tpu.networks.dit import DiTConfig as JDiTConfig
+from cosmos_predict2_tpu.networks.dit import MiniTrainDIT as JDiT
+from cosmos_predict2_tpu.tokenizers.wan_vae import WanVAE as JVAE
+from cosmos_predict2_tpu.tokenizers.wan_vae import WanVAEConfig as JVAEConfig
+from cosmos_predict2_tpu_torch.networks import dit as tdit
+from cosmos_predict2_tpu_torch.tokenizers.wan_vae import WanVAE, WanVAEConfig
+from cosmos_predict2_tpu_torch.utils.convert import jax_dit_params_to_torch, jax_vae_params_to_torch
+
+# fp32 on both sides: a DiT forward agrees to 1e-6 - 7e-6 relative L2
+REL_L2 = 1e-5
+# latents sampled with batched CFG: v = (1 + g) cond - g uncond carries each
+# branch's rounding up to (1 + 2g) times (5 at the tests' g = 2), and two
+# UniPC steps add theirs: 1.6e-5 measured on the test preset (384 channels)
+REL_L2_SAMPLED = 5e-5
+
+
+def rel_l2(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+
+
+def port_config(jcfg: JDiTConfig) -> tdit.DiTConfig:
+    """The port's DiTConfig with every field of the JAX config, in fp32."""
+    names = {f.name for f in dataclasses.fields(tdit.DiTConfig)} - {"dtype"}
+    return tdit.DiTConfig(dtype=torch.float32, **{n: getattr(jcfg, n) for n in names})
+
+
+def tiny_jax_config(**over) -> JDiTConfig:
+    base = dict(model_channels=256, num_heads=2, num_blocks=2, adaln_lora_dim=32, crossattn_emb_channels=64)
+    base.update(over)
+    return JDiTConfig(dtype=jnp.float32, remat="none", **base)
+
+
+def noisy_params(params, seed: int = 0):
+    """JAX's init (which zero-initialises the AdaLN outputs and the
+    cross-view output projection) plus seeded noise on every leaf, so that
+    every path of the forward contributes."""
+    leaves, tdef = jax.tree.flatten(params)
+    rng = np.random.default_rng(seed)
+    return jax.tree.unflatten(
+        tdef, [np.asarray(l, np.float32) + 0.05 * rng.standard_normal(l.shape).astype(np.float32) for l in leaves])
+
+
+def seeded_jax_params(jcfg: JDiTConfig, x, t, ctx, seed: int = 0, **kw):
+    return noisy_params(JDiT(jcfg).init(jax.random.PRNGKey(seed), x, t, ctx, **kw), seed)
+
+
+def port_net(params, jcfg: JDiTConfig) -> tdit.MiniTrainDIT:
+    """The port's DiT holding JAX's parameters (strict load)."""
+    cfg = port_config(jcfg)
+    net = tdit.MiniTrainDIT(cfg)
+    net.load_state_dict(jax_dit_params_to_torch(jax.tree.map(np.asarray, params), cfg), strict=True)
+    return net.eval()
+
+
+def vae_pair(seed: int = 1):
+    """A dim-16 fp32 Wan VAE: JAX's config and seeded parameters, and the
+    port's module holding them. The parameters are drawn with NumPy on
+    JAX's parameter shapes (``jax.eval_shape`` of its init; the eager init
+    takes ~45 s on one core): norm gammas 1, biases 0.01 N(0, 1), weights
+    N(0, 1) / sqrt(fan-in)."""
+    jcfg = JVAEConfig(dim=16, dtype=jnp.float32)
+    shapes = jax.eval_shape(JVAE(jcfg).init, jax.random.PRNGKey(seed), jnp.zeros((1, 5, 16, 16, 3)))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name = getattr(path[-1], "key", "")
+        if name == "gamma":
+            return np.ones(leaf.shape, np.float32)
+        noise = rng.standard_normal(leaf.shape).astype(np.float32)
+        return noise * 0.01 if name == "bias" else noise / np.sqrt(max(np.prod(leaf.shape[:-1]), 1))
+
+    jparams = jax.tree_util.tree_map_with_path(draw, shapes)
+    vae = WanVAE(WanVAEConfig(dim=16, dtype=torch.float32))
+    vae.load_state_dict(jax_vae_params_to_torch(jax.tree.map(np.asarray, jparams)), strict=True)
+    return jcfg, jparams, vae
