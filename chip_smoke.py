@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Video2World serving and training paths (dense, sparse, DMD2, 14B), its streaming, forward-mode, released-weights, autoregressive, Text2Image, one-shot-VAE and post-training (LoRA, local clips, remat, bf16 moments) paths and the post-trained variants (multiview, camera, action), once on one NVIDIA GPU.
+"""Drive the PyTorch port's Video2World serving and training paths (dense, sparse, DMD2, 14B), its streaming, forward-mode, released-weights, autoregressive, Text2Image, one-shot-VAE and post-training (LoRA, local clips, remat, bf16 moments) paths, the post-trained variants (multiview, camera, action) and the gr00t action stream, Wan2.1 i2v, the Wan2.2 VAE, EDM and the 14B sparse pair, once on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
@@ -140,10 +140,10 @@ Phases, each printed with its wall time:
    MultiviewInference, 7 views of 29 frames at 704x1280 (197,120 DiT
    tokens), video2world from 2 latent frames of every view, guidance 7,
    2 of its 35 steps, the VAE view by view: each step's time and share of
-   the bf16 peak (FLOPs from the shapes), the last step under
-   torch.profiler (device time by kernel family), the encode and decode per
-   view, peak memory inside the DiT forwards, before the first (the VAE
-   encode) and after the last (the decode), exactly 112 K1 and K2; a
+   the bf16 peak (FLOPs from the shapes), the second step under
+   torch.profiler (device time by kernel family), the encode and decode
+   per view, peak memory inside the DiT forward, before it (the VAE
+   encode) and after it (the decode), exactly 112 K1 and K2; a
    narrow 7-view net (2 blocks)
    with cross-view attention over a ring at the same 44 x 80 token grid,
    card bf16 against CPU fp32 (phase 4's limit), K1 18 times; the
@@ -159,7 +159,33 @@ Phases, each printed with its wall time:
    per-view cross-attention at B14 Sq28,160 Skv512 whole, cross-view
    at B16 Sq3,520 Skv7,040 and the action model's self-attention at B2
    S1,280 and cross-attention to 512 keys whole; and K2 at each stage of
-   the streaming VAE at the action model's 256x320.
+   the streaming VAE at the action model's 256x320;
+17. the rest of A13 and A12.2, each on seeded random weights: the two
+   gr00t names (the causal 2B with action embedders of 84 x 12 inputs)
+   stream 6 one-frame blocks of 4 steps at 256x320 after one prefilled
+   frame through StreamingInference with one action chunk, exactly 28 x 31
+   K5 and as many K1, the same stream with the action zeroed moving the
+   output; Wan2.1 1.3B i2v (models/wan_video2world.image2world: the first
+   frame and zeros through the Wan2.1 VAE, 3 UniPC steps with batched CFG
+   at 32,760 tokens, the decode) at 81 x 480x832, exactly 270 K1 and K2,
+   step times and their share of the bf16 peak; a streaming Wan2.2 VAE
+   round trip of 121 frames at 704x1280 (31 x 44 x 80 x 48 latents), encode
+   and decode times and peaks, K2 only; one EDM request on the 2B (93
+   frames at 192x320, 35 2ab steps and the clean denoise with CFG 7, one
+   conditional frame pinned), exactly 2,016 K1 and K2; each 14B sparse
+   name (predict2_video2world_14b_sparse, ..._comb02) built in bf16 on the
+   meta device, one batched-CFG step at 720p (84,480 tokens), K10 once per
+   sparse block (once on each of comb02's dilated blocks, by a hook) and
+   K1 for the dense and cross-attentions; and each path's narrow version
+   (Wan i2v, Wan2.2 VAE, EDM, a comb02-kind sparse step, the action
+   stream) in bf16 on the card against fp32 on the CPU. Phase 3 holds K1
+   at Wan's self-attention (B2 S32,760 H12, 1,024 rows) and its text and
+   CLIP cross-attentions (512 and 257 keys, whole), K2 at the Wan2.2 VAE's
+   first encoder stage and widest decoder convs, K10-K12 at comb02's
+   dilated layers 0-10 and its layers 11-12 with the 14B's 40 heads, K10
+   at its two wide windows (layers 23-35), and K5 and K1 at the gr00t
+   stream's shapes (one 16 x 20 frame a block, fills of 1 and 5 frames;
+   cross-attention at B1 Sq320 Skv512).
 
 Then it prints the kernels' JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero without that line.
@@ -250,7 +276,8 @@ FULL_FT_ROWS = (("block", "float32", 4 * NUM_BLOCKS), ("block", "bfloat16", 4 * 
                 ("selective", "bfloat16", 2 * NUM_BLOCKS), ("mixed:14", "bfloat16", 4 * NUM_BLOCKS - 2 * 14))
 # post-trained variants (phase 16): the 7-view driving model at 29 frames of
 # 704x1280 per view (8 latent frames of 44 x 80 tokens per view: 197,120
-# DiT tokens), video2world from 2 latent frames, 2 of its 35 UniPC steps;
+# DiT tokens), video2world from 2 latent frames, 2 of its 35 UniPC steps
+# (the second under the profiler);
 # the camera-conditioned model on a 29-frame 704x1280 clip packed [0 | clip
 # | 0] into 24 latent frames (84,480 tokens), 2 steps at guidance 1.5; the
 # action-conditioned model on 13 frames at 256x320 (1,280 tokens), all 35
@@ -467,6 +494,14 @@ def check_kernels(results: dict) -> None:
         # the action model at 256x320: 4 x 16 x 20 tokens and its 512 caption tokens
         ("self  B2 S1280 H16 (action 256x320)", 2, 1280, 1280, 16, 0, None),
         ("cross B2 Sq1280 Skv512 H16 (action)", 2, 1280, 512, 16, 0, None),
+        # the gr00t stream's cached forward: one 16 x 20 frame a block, batch 1
+        ("cross B1 Sq320 Skv512 H16 (gr00t stream)", 1, 320, 512, 16, 0, None),
+        # Wan2.1 1.3B i2v at 81 x 480 x 832 (21 x 30 x 52 tokens), batched
+        # CFG: self-attention, the 512 text keys and the 257 CLIP image keys
+        # (a ragged kv tail)
+        ("self  B2 S32760 H12 (Wan 1.3B 480p, 1024 rows)", 2, 32760, 32760, 12, 0, 1024),
+        ("cross B2 Sq32760 Skv512 H12 (Wan text)", 2, 32760, 512, 12, 0, None),
+        ("cross B2 Sq32760 Skv257 H12 (Wan CLIP image)", 2, 32760, 257, 12, 0, None),
     ]
     for label, B, Sq, Skv, H, fg, rows, *split in attn_cases:
         q = torch.randn((B, Sq, H, 128), generator=gen, device=dev).to(torch.bfloat16)
@@ -627,6 +662,13 @@ def check_kernels(results: dict) -> None:
         ("dec T4 704x1280 96->96 (720p)", 4, 704, 1280, 96, 96),
         ("enc T93 192x320 96->96 (one-shot, zero cache)", 93, 192, 320, 96, 96),
         ("dec T1 720x1280 96->96 (text2image, zero cache)", 1, 720, 1280, 96, 96),
+        # the Wan2.2 VAE at 704x1280 (352x640 after the 2x2 patchify): the
+        # encoder's first stage, and the decoder's widest convs (4-frame
+        # chunks after its two temporal doublings)
+        ("enc T4 352x640 160->160 (Wan2.2)", 4, 352, 640, 160, 160),
+        ("dec T2 88x160 1024->1024 (Wan2.2)", 2, 88, 160, 1024, 1024),
+        ("dec T4 176x320 1024->512 (Wan2.2)", 4, 176, 320, 1024, 512),
+        ("dec T4 352x640 512->256 (Wan2.2)", 4, 352, 640, 512, 256),
     ]
     for label, T, H, W, cin, cout in conv_cases:
         x = torch.randn((1, T + 2, H, W, cin), generator=gen, device=dev).to(torch.bfloat16)
@@ -693,25 +735,34 @@ def flex_yardstick(q, k, v, do, size, window, stride, dilation):
 
 def check_na_kernels(gen, record, failures) -> None:
     """K10, K11 and K12 against their plain versions on the tiled layout, 16
-    heads, forward at the case's batch and backward at batch 1."""
+    heads (the 14B's cases 40), forward at the case's batch and backward at
+    batch 1."""
     import torch
     import torch.nn.functional as F
 
     from cosmos_predict2_tpu_torch.ops import neighborhood_attention as na
 
     dev = torch.device("cuda")
-    # (name, (T, H, W), window, stride, dilation, forward batch, library route):
-    # the 2B sparse config's window adapted to the smoke geometry (batch 2 as
-    # in batched CFG) and at 720p; the 480p grid (H and W padded to the
-    # tiles; strides 3 and 5); layer 0 of the 14B comb02 list (dilated) at 720p
+    # (name, (T, H, W), window, stride, dilation, forward batch, library
+    # route, heads, backward too): the 2B sparse config's window adapted to
+    # the smoke geometry (batch 2 as in batched CFG) and at 720p; the 480p
+    # grid (H and W padded to the tiles; strides 3 and 5); layer 0 of the
+    # 14B comb02 list (dilated) at 720p, at 16 heads and at the 14B's 40;
+    # comb02's other sparse kinds at 720p and 40 heads: layers 11-12
+    # (strided and dilated), and the forward only of the two wide windows
+    # (layers 23-35). flex_attention is timed on the layer-0 rows only: it
+    # compiles anew for each mask.
     cases = [
-        ("smoke", (24, 12, 20), (-1, 12, 24), (1, 4, 8), (1, 1, 1), 2, "sdpa"),
-        ("720p", (24, 44, 80), (-1, 12, 24), (1, 4, 8), (1, 1, 1), 1, "flex"),
-        ("480p padded", (24, 30, 52), (-1, 12, 24), (1, 4, 8), (1, 1, 1), 1, "sdpa"),
-        ("720p comb02 dilated", (24, 44, 80), (-1, 4, 16), (1, 1, 1), (1, 11, 5), 1, "flex"),
+        ("smoke", (24, 12, 20), (-1, 12, 24), (1, 4, 8), (1, 1, 1), 2, "sdpa", 16, True),
+        ("720p", (24, 44, 80), (-1, 12, 24), (1, 4, 8), (1, 1, 1), 1, "flex", 16, True),
+        ("480p padded", (24, 30, 52), (-1, 12, 24), (1, 4, 8), (1, 1, 1), 1, "sdpa", 16, True),
+        ("720p comb02 dilated", (24, 44, 80), (-1, 4, 16), (1, 1, 1), (1, 11, 5), 1, "flex", 16, True),
+        ("720p comb02 dilated H40 (14B)", (24, 44, 80), (-1, 4, 16), (1, 1, 1), (1, 11, 5), 1, "flex", 40, True),
+        ("720p comb02 layer 11 H40 (14B)", (24, 44, 80), (-1, 12, 16), (1, 4, 1), (1, 1, 5), 1, None, 40, True),
+        ("720p comb02 wide H40 (14B)", (24, 44, 80), (-1, 28, 56), (1, 4, 8), (1, 1, 1), 1, None, 40, False),
+        ("720p comb02 mid H40 (14B)", (24, 44, 80), (-1, 20, 40), (1, 4, 8), (1, 1, 1), 1, None, 40, False),
     ]
-    H = 16
-    for name, grid, window, stride, dilation, bf, route in cases:
+    for name, grid, window, stride, dilation, bf, route, H, backward in cases:
         size = na.VideoSize(*grid)
         w, s, d = na.adaptive_na_parameters(window, stride, grid, NA_BASE, dilation)
         ew, es = na.effective_params(size, w, s, d)
@@ -759,10 +810,12 @@ def check_na_kernels(gen, record, failures) -> None:
         qh, kh, vh = (x.transpose(1, 2) for x in bshd)
         if route == "sdpa":
             library_fwd = yardstick_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
-        else:  # batch 1: the backward's yardstick comes from the same call
+        elif route == "flex":  # batch 1: the backward's yardstick comes from the same call
             doh = torch.randn(qh.shape, generator=gen, device=dev).to(torch.bfloat16)
             library_fwd, library_bwd = flex_yardstick(qh, kh, vh, doh, size, w, s, d)
             del doh
+        else:
+            library_fwd = library_bwd = "not timed for this case (flex_attention's is on the layer-0 rows)"
         # the bound's bytes count the S real tokens: pad slots of the tiled
         # layout are neither keys nor queries, and their zero rows are the
         # layout's own (s_pad beside the bound shows that overhead)
@@ -771,6 +824,9 @@ def check_na_kernels(gen, record, failures) -> None:
                layout_ms=round(layout_ms, 3), **extra, **on_computed("na_fwd", 4, bf, ms))
         del bshd, q, k, v, out, lse, qh, kh, vh
         torch.cuda.empty_cache()
+        if not backward:
+            del mask
+            continue
 
         # ---- K11 dQ and K12 dK/dV, batch 1 ----
         bshd = [torch.randn((1, S, H, 128), generator=gen, device=dev).to(torch.bfloat16) for _ in range(4)]
@@ -838,7 +894,9 @@ def check_cache_kernels(gen, record, failures) -> None:
     dev = torch.device("cuda")
     H = 16
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    # (name, token grid gh x gw, frames per block, filled frames, buffer frames, window rows; None: K5 only)
+    # (name, token grid gh x gw, frames per block, filled frames, buffer
+    # frames, window rows; None: K5 only); the gr00t stream at 256x320: its
+    # first block and its steady state in a buffer of 4 + 1 frames
     cases = [
         ("352x640 steady", 22, 40, 1, 17, 17, INTERACTIVE_WINDOW),
         ("352x640 early", 22, 40, 1, 4, 17, INTERACTIVE_WINDOW),
@@ -846,17 +904,20 @@ def check_cache_kernels(gen, record, failures) -> None:
         ("720p", 44, 80, 1, 9, 9, 2 * INTERACTIVE_WINDOW),
         ("prime gh 23x40", 23, 40, 1, 17, 17, INTERACTIVE_WINDOW),
         ("352x640 NaN past a ragged fill", 22, 40, 1, 12, 17, None),
+        ("256x320 gr00t first block", 16, 20, 1, 1, 5, None),
+        ("256x320 gr00t steady", 16, 20, 1, 5, 5, None),
     ]
     for name, gh, gw, nb, filled, frames, wh in cases:
         Fr = gh * gw
         Sq, fill = nb * Fr, filled * Fr
-        if wh is None:
+        nan = "NaN" in name
+        if nan:
             fill -= 77  # the frontier inside a kv tile
         label = f"{name} Sq{Sq} fill {fill}"
         q = torch.randn((1, Sq, H, 128), generator=gen, device=dev).to(torch.bfloat16)
         kb, vb = (torch.randn((1, H, frames * Fr, 128), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
-        kb[:, :, fill:] = 1e3 if wh is not None else float("nan")
-        vb[:, :, fill:] = -1e3 if wh is not None else float("nan")
+        kb[:, :, fill:] = float("nan") if nan else 1e3
+        vb[:, :, fill:] = float("nan") if nan else -1e3
         # each input read once (q and the filled cache), the output written once
         nbytes = 2 * 2 * q.numel() + 2 * 2 * H * fill * 128
         qh, kh, vh = q.transpose(1, 2), kb[:, :, :fill], vb[:, :, :fill]
@@ -2959,6 +3020,579 @@ def variants_slice() -> dict:
     return {"multiview": mv, "cross_view": cross_view, "camera": cam, "action": act}
 
 
+# ------------------- the rest of A13 and A12.2 (phase 17) -------------------
+
+GR00T_EXPERIMENTS = ("cosmos_predict2p5_2B_action_conditioned_gr00t_gr1_customized_13frame_sf_warmup",
+                     "cosmos_predict2p5_2B_action_gr00t_gr1_warmup")
+GR00T_BLOCKS = 6
+GR00T_STEPS = 4
+WAN_HW = (480, 832)
+WAN_FRAMES = 81
+WAN_STEPS = 3
+WAN_GUIDANCE = 5.0
+WAN22_HW = (704, 1280)
+WAN22_FRAMES = 121
+SPARSE_14B_EXPERIMENTS = ("predict2_video2world_14b_sparse", "predict2_video2world_14b_sparse_comb02")
+SPARSE_14B_LATENT = (24, 88, 160)  # 93 frames at 704x1280: 24 x 44 x 80 = 84,480 tokens
+# The narrow versions of phase 17's paths in bf16 on the card against fp32
+# on the CPU. On the CPU, bf16 against fp32 (same weights, inputs and noise;
+# relative L2) gives: the small Wan i2v request (2 layers, dim 256, VAE dim
+# 64, 2 steps at guidance 5) 1.07e-2 on the latents and 1.66e-2 on the
+# pixels; the small Wan2.2 VAE round trip (dim 64) 1.18e-2 and 1.79e-2; the
+# small EDM request (4 steps at guidance 2 from sigma 80, VAE dim 64)
+# 1.81e-2 and 2.24e-2; the small sparse step (a comb02-kind per-layer list,
+# one UniPC step at guidance 7) 2.75e-2; the small action stream (the gr00t
+# action width on the narrow causal net) 3.53e-3; about 3x margin on each.
+WAN_SMALL_REL_L2 = 5e-2
+WAN22_SMALL_REL_L2 = 6e-2
+EDM_SMALL_REL_L2 = 7e-2
+SPARSE_SMALL_REL_L2 = 8e-2
+ACTION_STREAM_REL_L2 = 1e-2
+
+
+def _cpu_fp32(module_cls, cfg, state_dict):
+    """``module_cls(cfg)`` in fp32 on the CPU holding ``state_dict`` (the
+    card's weights, upcast)."""
+    import torch
+
+    m = module_cls(dataclasses.replace(cfg, dtype=torch.float32))
+    m.load_state_dict({k: v.float().cpu() for k, v in state_dict.items()})
+    return m.eval().requires_grad_(False)
+
+
+def small_action_stream(device: str, dtype, state_dict=None):
+    """small_stream's narrow causal net with the gr00t names' action
+    embedders (84 x 12 inputs) streaming 3 one-frame blocks of 4 steps after
+    one prefilled frame, cache 2 + 1 frames, one seeded action chunk.
+    Returns (latents fp32 on the CPU, launches, state_dict)."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.conditioning.conditioner import make_condition
+    from cosmos_predict2_tpu_torch.scripts.interactive_latency import NET_TINY, build_stream
+
+    stream = build_stream(dataclasses.replace(NET_TINY, dtype=dtype, action_dim=7 * 12), 1, 2, 4, -1, device, seed=30)
+    if state_dict is not None:
+        stream.model.net.load_state_dict(state_dict)
+    rng = np.random.default_rng(1)
+    emb = torch.from_numpy((rng.standard_normal((1, 8, 1024)) * 0.05).astype(np.float32)).to(device)
+    action = torch.from_numpy(rng.standard_normal((1, 12, 7 * 12)).astype(np.float32)).to(device)
+    init = torch.from_numpy(rng.standard_normal((1, 16, 1, 16, 24)).astype(np.float32)).to(device)
+    draw = lambda step, shape: torch.from_numpy(np.random.default_rng(200 + step).standard_normal(shape).astype(np.float32))
+    _build.reset_launch_counts()
+    out = stream.generate(make_condition(emb).replace(action=action), init, 4, (16, 24), draw=draw)
+    counts = _build.launch_counts()
+    return out.float().cpu(), counts, {k: v.cpu() for k, v in stream.model.net.state_dict().items()}
+
+
+def gr00t_slice() -> dict:
+    """The two gr00t names (one config: the causal 2B with action embedders
+    of 84 x 12 inputs, 4 latent frames) on seeded random bf16 matmul
+    weights: StreamingInference streams GR00T_BLOCKS one-frame blocks of
+    GR00T_STEPS steps at 256x320 after one prefilled frame, a cache of
+    state_t + 1 frames (the window slides), one seeded action chunk; each
+    name's stream, then the first with the action zeroed on the same noise.
+    Then the narrow stream card bf16 against CPU fp32."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.conditioning.conditioner import make_condition
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.models.interactive import CausalVideo2WorldModel, StreamingConfig, StreamingInference
+    from cosmos_predict2_tpu_torch.networks.dit import build_serving_dit
+
+    models = [make_config(n).model for n in GR00T_EXPERIMENTS]
+    mc = models[0]
+    net_cfg = mc.net
+    if models[1] != mc or (net_cfg.action_dim, net_cfg.num_action_per_chunk, mc.state_t) != (84, 12, 4) or \
+            not net_cfg.temporal_causal or (net_cfg.model_channels, net_cfg.num_blocks) != (2048, NUM_BLOCKS):
+        raise AssertionError("the gr00t names must give one causal 2B model with 84 x 12 action inputs")
+    fresh_memory()
+    t = time.perf_counter()
+    net = build_serving_dit(net_cfg, "cuda", seed=21)
+    stream = StreamingInference(StreamingConfig(num_frame_per_block=1, cache_frame_size=mc.state_t,
+                                                num_steps=GR00T_STEPS), CausalVideo2WorldModel(mc, net))
+    torch.cuda.synchronize()
+    log(f"  causal 2B with action embedders built in {time.perf_counter() - t:.1f} s")
+    h, w = ACTION_HW[0] // 8, ACTION_HW[1] // 8
+    rng = np.random.default_rng(22)
+    emb = torch.from_numpy(rng.standard_normal((1, 512, net_cfg.crossattn_proj_in_channels)).astype(np.float32)).cuda()
+    action = torch.from_numpy(rng.standard_normal((1, net_cfg.num_action_per_chunk, net_cfg.action_dim))
+                              .astype(np.float32)).cuda()
+    init = torch.from_numpy(rng.standard_normal((1, 16, 1, h, w)).astype(np.float32)).cuda()
+    draw = lambda step, shape: torch.randn(shape, generator=torch.Generator(device="cuda").manual_seed(300 + step),
+                                           device="cuda")
+    cond = make_condition(emb).replace(action=action)
+    out = {}
+    for name in GR00T_EXPERIMENTS:
+        laps, state = [], {}
+
+        def on_block(step, x, caches):
+            torch.cuda.synchronize()
+            laps.append(time.perf_counter() - state["t"])
+            state["t"] = time.perf_counter()
+
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        state["t"] = t = time.perf_counter()
+        latents = stream.generate(cond, init, 1 + GR00T_BLOCKS, (h, w), draw=draw, on_block=on_block)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t
+        counts = _build.launch_counts()
+        want = NUM_BLOCKS * (1 + GR00T_BLOCKS * (GR00T_STEPS + 1))
+        if (counts["flash_attention_kv_cache"], counts["flash_attention_fwd"]) != (want, want) or \
+                sum(counts.values()) != 2 * want:
+            raise AssertionError(f"{name}: launches {counts}, want K5 and K1 {want} times each")
+        if latents.shape != (1, 16, 1 + GR00T_BLOCKS, h, w) or not bool(torch.isfinite(latents).all()):
+            raise AssertionError(f"{name}: streamed latents {tuple(latents.shape)}")
+        out[name] = {"counts": counts, "latents": latents, "total_s": total_s, "laps": laps,
+                     "p50_s": float(np.median(laps[1:])), "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"  {name}: {GR00T_BLOCKS} blocks of {GR00T_STEPS} steps at {ACTION_HW[0]}x{ACTION_HW[1]} "
+            f"({h // 2 * w // 2} tokens a frame, cache {mc.state_t} + 1 frames): {total_s:.2f} s, first block with "
+            f"the prefill {laps[0] * 1e3:.1f} ms, p50 block {out[name]['p50_s'] * 1e3:.1f} ms; peak "
+            f"{out[name]['peak_gb']:.2f} GiB; launches {counts}")
+    first = out[GR00T_EXPERIMENTS[0]]
+    if not torch.equal(first["latents"], out[GR00T_EXPERIMENTS[1]]["latents"]):
+        raise AssertionError("the two gr00t names' streams differ on the same weights, actions and noise")
+    zero = stream.generate(cond.replace(action=torch.zeros_like(action)), init, 1 + GR00T_BLOCKS, (h, w), draw=draw)
+    moved = float((first["latents"][:, :, 1:] - zero[:, :, 1:]).abs().max())
+    log(f"  the action reaches the output: max |stream - stream with the action zeroed| {moved:.3e}")
+    if not moved > 1e-2:
+        raise AssertionError(f"zeroing the action moved the stream by {moved:.3e}")
+    del stream, net, zero
+    fresh_memory()
+
+    got, counts, sd = small_action_stream("cuda", torch.bfloat16)
+    ref, _, _ = small_action_stream("cpu", torch.float32, sd)
+    max_abs, rel = errors(got, ref)
+    want = 2 * (1 + 3 * 5)
+    log(f"  narrow action stream: card bf16 vs cpu fp32: max_abs {max_abs:.3e} rel_l2 {rel:.3e} (limit "
+        f"{ACTION_STREAM_REL_L2}); launches {counts}")
+    if (counts["flash_attention_kv_cache"], counts["flash_attention_fwd"]) != (want, want):
+        raise AssertionError(f"the narrow action stream launched {counts}, want K5 and K1 {want} times each")
+    if not (torch.isfinite(got).all() and rel <= ACTION_STREAM_REL_L2):
+        raise AssertionError(f"the narrow action stream disagrees with its fp32 CPU reference: rel_l2 {rel:.3e}")
+    return {name: {k: v for k, v in o.items() if k != "latents"} for name, o in out.items()} | {
+        "counts": first["counts"], "action_moved": moved, "narrow_rel_l2": rel}
+
+
+def wan_forward_flops(cfg, batch: int, tokens: int) -> float:
+    """Multiply-adds (x2) of one WanModel forward: per layer the self q/k/v/o
+    and FFN products, the cross q/o, self-attention 4 S^2 D and the two
+    cross-attentions 4 S (512 + 257) D (the context's k/v projections are
+    left out: 769 rows)."""
+    D, S = cfg.dim, tokens
+    per_layer = 2 * S * (6 * D * D + 2 * D * cfg.ffn_dim) + 4 * S * S * D + 4 * S * (512 + 257) * D
+    return batch * cfg.num_layers * per_layer
+
+
+def small_wan(device: str, dtype, state=None):
+    """A narrow Wan i2v (2 layers, dim 256: 2 heads of 128) through
+    models/wan_video2world.image2world with a dim-64 Wan2.1 VAE: 5 frames at
+    64x96, 2 UniPC steps at guidance 5, the noise from a CPU generator.
+    Returns (latents, pixels fp32 on the CPU, launches, (net, vae) state
+    dicts)."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.models.wan_video2world import WanModelConfig, WanVideo2WorldModel, image2world
+    from cosmos_predict2_tpu_torch.networks.wan_dit import WanConfig, WanModel, build_wan
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae import WanVAE, WanVAEConfig, build_vae
+
+    cfg = WanConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=2, text_dim=64, clip_dim=64, dtype=dtype)
+    vc = WanVAEConfig(dim=64, dtype=dtype)
+    if state is None:
+        net, vae = build_wan(cfg, device, seed=31), build_vae(vc, device, seed=32)
+    else:
+        net, vae = _cpu_fp32(WanModel, cfg, state[0]), _cpu_fp32(WanVAE, vc, state[1])
+    rng = np.random.default_rng(3)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa: E731
+    frame = t(rng.uniform(-1, 1, (1, 64, 96, 3)))
+    text, clip = t(rng.standard_normal((1, 512, 64))), t(rng.standard_normal((1, 257, 64)))
+    model = WanVideo2WorldModel(WanModelConfig(net=net.cfg, state_t=2), net)
+    _build.reset_launch_counts()
+    latents, px = image2world(model, vae, frame, text, clip, torch.Generator().manual_seed(4), num_frames=5,
+                              guidance=WAN_GUIDANCE, num_steps=2)
+    counts = _build.launch_counts()
+    return latents.float().cpu(), px.float().cpu(), counts, (net.state_dict(), vae.state_dict())
+
+
+def wan_slice() -> dict:
+    """Wan2.1 1.3B i2v (dim 1536, 12 heads of 128, 30 layers, in_dim 36) on
+    seeded random bf16 matmul weights with the full Wan2.1 VAE: one
+    image2world request, 81 frames at 480x832 (21 x 60 x 104 latents: the
+    DiT sees 32,760 tokens), WAN_STEPS UniPC steps with CFG against zero
+    text at batch 2, the VAE decode; the CLIP tokens (257 x 1280) seeded.
+    Then the narrow request card bf16 against CPU fp32."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.models.wan_video2world import WanModelConfig, WanVideo2WorldModel, image2world
+    from cosmos_predict2_tpu_torch.networks.wan_dit import WAN_PRESETS, build_wan
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae import WanVAEConfig, build_vae
+
+    cfg = WAN_PRESETS["1.3B"]
+    if (cfg.dim, cfg.num_heads, cfg.head_dim, cfg.num_layers, cfg.in_dim) != (1536, 12, 128, 30, 36):
+        raise AssertionError("the Wan slice must run the 1.3B preset")
+    fresh_memory()
+    t = time.perf_counter()
+    net = build_wan(cfg, "cuda", seed=23)
+    vae = build_vae(WanVAEConfig(), "cuda", seed=24)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in net.parameters())
+    log(f"  Wan 1.3B: {n / 1e9:.3f} B params built in {time.perf_counter() - t:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card with the VAE")
+    H, W = WAN_HW
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    frame = torch.rand((1, H, W, 3), generator=gen, device="cuda") * 2 - 1
+    text = torch.randn((1, 512, cfg.text_dim), generator=gen, device="cuda")
+    clip = torch.randn((1, 257, cfg.clip_dim), generator=gen, device="cuda")
+    model = WanVideo2WorldModel(WanModelConfig(net=cfg), net)
+    timer = ForwardTimer(net, profile_index=WAN_STEPS - 1)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    latents, px = image2world(model, vae, frame, text, clip, torch.Generator(device="cuda").manual_seed(26),
+                              num_frames=WAN_FRAMES, guidance=WAN_GUIDANCE, num_steps=WAN_STEPS)
+    torch.cuda.synchronize()
+    request_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    peak_gb = timer.remove()
+    tokens = latents.shape[2] * (latents.shape[3] // 2) * (latents.shape[4] // 2)
+    if latents.shape != (1, 16, 21, 60, 104) or tokens != 32760 or px.shape != (1, WAN_FRAMES, H, W, 3) or \
+            not bool(torch.isfinite(px).all()) or float(px.float().std()) == 0:
+        raise AssertionError(f"Wan request: latents {tuple(latents.shape)}, pixels {tuple(px.shape)}")
+    check_launches("wan", counts, WAN_STEPS * 3 * cfg.num_layers)
+    flops = wan_forward_flops(cfg, 2, tokens)
+    denoise_s = sum(timer.seconds)
+    log(f"  Wan i2v: {tokens:,} tokens, {WAN_STEPS} steps with batched CFG: request {request_s:.2f} s (encode "
+        f"{timer.before_gb:.2f} GiB peak, steps {[round(x, 3) for x in timer.seconds]} s = "
+        f"{flops / 1e12:.0f} TFLOP each, {flops / min(timer.seconds) / PEAK_BF16_FLOPS:.1%} of the bf16 peak at best; "
+        f"encode + decode {request_s - denoise_s:.2f} s); peak {peak_gb:.2f} GiB (forwards "
+        f"{timer.forward_peak_gb:.2f}, decode {timer.after_gb:.2f}); launches {counts}")
+    del net, vae, model, latents, px
+    fresh_memory()
+
+    got_z, got_px, small_counts, state = small_wan("cuda", torch.bfloat16)
+    ref_z, ref_px, _, _ = small_wan("cpu", torch.float32, state)
+    rel_z, rel_px = errors(got_z, ref_z)[1], errors(got_px, ref_px)[1]
+    log(f"  narrow Wan i2v: card bf16 vs cpu fp32: latents rel_l2 {rel_z:.3e}, pixels rel_l2 {rel_px:.3e} (limit "
+        f"{WAN_SMALL_REL_L2}); launches {small_counts}")
+    check_launches("narrow wan", small_counts, 2 * 3 * 2)
+    if not max(rel_z, rel_px) <= WAN_SMALL_REL_L2:
+        raise AssertionError(f"the narrow Wan request disagrees with its fp32 CPU reference: {rel_z:.3e} {rel_px:.3e}")
+    return {"counts": counts, "request_s": request_s, "step_s": timer.seconds, "step_flops": flops,
+            "tokens": tokens, "peak_gb": peak_gb, "forward_peak_gb": timer.forward_peak_gb,
+            "encode_peak_gb": timer.before_gb, "decode_peak_gb": timer.after_gb, "profile": timer.profile,
+            "narrow_rel_l2": max(rel_z, rel_px)}
+
+
+def small_wan22(device: str, dtype, state=None):
+    """A narrow Wan2.2 VAE (dim 64, dec_dim 64: every encoder conv and the
+    decoder's wide ones take K2 on the card) round trip of 9 frames at
+    64x64, streaming. Returns (latents, pixels fp32 on the CPU, launches,
+    state dict)."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.tokenizers.wan22_vae import Wan22VAE, Wan22VAEConfig, build_vae
+    from cosmos_predict2_tpu_torch.tokenizers.wan22_vae_streaming import decode_streaming, encode_streaming
+
+    vc = Wan22VAEConfig(dim=64, dec_dim=64, dtype=dtype)
+    vae = build_vae(vc, device, seed=33) if state is None else _cpu_fp32(Wan22VAE, vc, state)
+    x = torch.from_numpy(np.random.default_rng(5).uniform(-1, 1, (1, 9, 64, 64, 3)).astype(np.float32)).to(device)
+    _build.reset_launch_counts()
+    z = encode_streaming(vae, x.to(dtype))
+    px = decode_streaming(vae, z)
+    counts = _build.launch_counts()
+    return z.float().cpu(), px.float().cpu(), counts, vae.state_dict()
+
+
+def wan22_vae_slice() -> dict:
+    """The Wan2.2 VAE (dim 160, dec_dim 256, z_dim 48) on seeded random
+    weights: a streaming round trip of a seeded 121-frame 704x1280 clip (31
+    x 44 x 80 x 48 latents), the encode in chunks [1, 4, ...] and the
+    decode one latent frame at a time; times and peak memory of each. Then
+    the narrow round trip card bf16 against CPU fp32."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.tokenizers.wan22_vae import Wan22VAEConfig, build_vae
+    from cosmos_predict2_tpu_torch.tokenizers.wan22_vae_streaming import decode_streaming, encode_streaming
+
+    fresh_memory()
+    vae = build_vae(Wan22VAEConfig(), "cuda", seed=27)
+    H, W = WAN22_HW
+    x = (torch.rand((1, WAN22_FRAMES, H, W, 3), generator=torch.Generator(device="cuda").manual_seed(28),
+                    device="cuda") * 2 - 1).to(torch.bfloat16)
+    base = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z = encode_streaming(vae, x)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    enc_counts = _build.launch_counts()
+    enc_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    px = decode_streaming(vae, z)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = _build.launch_counts()
+    dec_peak = torch.cuda.max_memory_allocated() / 2**30
+    if z.shape != (1, 31, 44, 80, 48) or px.shape != (1, WAN22_FRAMES, H, W, 3) or \
+            not (bool(torch.isfinite(z).all()) and bool(torch.isfinite(px).all())) or float(px.float().std()) == 0:
+        raise AssertionError(f"Wan2.2 round trip: latents {tuple(z.shape)}, pixels {tuple(px.shape)}")
+    check_launches("wan2.2 vae", counts, 0)
+    log(f"  Wan2.2 VAE round trip of {WAN22_FRAMES} x {H}x{W}: encode {t1 - t0:.2f} s (peak {enc_peak:.2f} GiB, "
+        f"K2 {enc_counts['conv3d_causal']}), decode {t2 - t1:.2f} s (peak {dec_peak:.2f} GiB, K2 "
+        f"{counts['conv3d_causal'] - enc_counts['conv3d_causal']}); {base:.2f} GiB held before (weights and clip)")
+    del vae, x, z, px
+    fresh_memory()
+
+    got_z, got_px, small_counts, sd = small_wan22("cuda", torch.bfloat16)
+    ref_z, ref_px, _, _ = small_wan22("cpu", torch.float32, sd)
+    rel_z, rel_px = errors(got_z, ref_z)[1], errors(got_px, ref_px)[1]
+    log(f"  narrow Wan2.2 VAE: card bf16 vs cpu fp32: latents rel_l2 {rel_z:.3e}, pixels rel_l2 {rel_px:.3e} "
+        f"(limit {WAN22_SMALL_REL_L2}); launches {small_counts}")
+    check_launches("narrow wan2.2 vae", small_counts, 0)
+    if not max(rel_z, rel_px) <= WAN22_SMALL_REL_L2:
+        raise AssertionError(f"the narrow Wan2.2 VAE disagrees with its fp32 CPU reference: {rel_z:.3e} {rel_px:.3e}")
+    return {"counts": counts, "encode_s": t1 - t0, "decode_s": t2 - t1, "encode_peak_gb": enc_peak,
+            "decode_peak_gb": dec_peak, "narrow_rel_l2": max(rel_z, rel_px)}
+
+
+def _edm_request(model, vae, video_u8, emb, guidance: float, num_steps: int):
+    """Encode the clip, EDM-sample from seeded noise (CPU generator) with
+    one conditional frame, decode. Returns (latents fp32, pixels)."""
+    import torch
+
+    from cosmos_predict2_tpu_torch.conditioning.conditioner import make_condition
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import decode_streaming, encode_streaming
+
+    gt = encode_streaming(vae, video_u8, pixel_format="uint8").permute(0, 4, 1, 2, 3).float()
+    noise = torch.randn(gt.shape, generator=torch.Generator().manual_seed(6)).to(gt.device)
+    out = model.generate(noise, make_condition(emb).replace(gt_frames=gt), guidance=guidance, num_steps=num_steps,
+                         num_conditional_frames=1)
+    if float((out[:, :, 0] - gt[:, :, 0]).abs().max()) > 1e-3 * max(1.0, float(gt.abs().max())):
+        raise AssertionError("the EDM request's conditional frame is not the encoded one")
+    return out, decode_streaming(vae, out.permute(0, 2, 3, 4, 1).to(vae.config.dtype))
+
+
+def small_edm(device: str, dtype, state=None):
+    """small_reference's narrow net (2 blocks of 2 heads of 128) and dim-64
+    VAE as the EDM model: a 9-frame 64x64 clip, 4 steps at guidance 2.
+    Returns (latents, pixels fp32 on the CPU, launches, (net, vae) state
+    dicts)."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.models.edm import EDMModelConfig, EDMVideo2WorldModel
+    from cosmos_predict2_tpu_torch.networks.dit import MiniTrainDIT, build_dit
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae import WanVAE, build_vae
+
+    cfg = make_config(DENSE_EXPERIMENT)
+    net_cfg = dataclasses.replace(cfg.model.net, model_channels=256, num_heads=2, num_blocks=2, adaln_lora_dim=32,
+                                  crossattn_proj_in_channels=64, crossattn_emb_channels=128, dtype=dtype)
+    vc = dataclasses.replace(cfg.tokenizer, dim=64, dtype=dtype)
+    if state is None:
+        net, vae = build_dit(net_cfg, device, seed=34), build_vae(vc, device, seed=35)
+    else:
+        net, vae = _cpu_fp32(MiniTrainDIT, net_cfg, state[0]), _cpu_fp32(WanVAE, vc, state[1])
+    model = EDMVideo2WorldModel(EDMModelConfig(model=dataclasses.replace(cfg.model, net=net.cfg, state_t=3)), net)
+    rng = np.random.default_rng(7)
+    video = torch.from_numpy(rng.integers(0, 256, (1, 9, 64, 64, 3), dtype=np.uint8)).to(device)
+    emb = torch.from_numpy(rng.standard_normal((1, 16, 64)).astype(np.float32)).to(device)
+    _build.reset_launch_counts()
+    out, px = _edm_request(model, vae, video, emb, 2.0, 4)
+    counts = _build.launch_counts()
+    return out.float().cpu(), px.float().cpu(), counts, (net.state_dict(), vae.state_dict())
+
+
+def edm_slice() -> dict:
+    """The EDM model over the full-width 2B DiT and Wan2.1 VAE on seeded
+    random weights: one Video2World request at the dense serving geometry,
+    93 frames at 192x320 encoded, all 35 2ab steps from sigma 80 with CFG 7
+    at batch 2 and the clean denoise, one conditional frame, the decode.
+    Then the narrow request card bf16 against CPU fp32."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.models.edm import EDMModelConfig, EDMVideo2WorldModel
+
+    fresh_memory()
+    pipe, cfg = _serving_pipe(DENSE_EXPERIMENT)
+    model = EDMVideo2WorldModel(EDMModelConfig(model=cfg.model), pipe.net)
+    H, W = SIZE
+    rng = np.random.default_rng(29)
+    video = torch.from_numpy(rng.integers(0, 256, (1, NUM_FRAMES, H, W, 3), dtype=np.uint8)).cuda()
+    emb = torch.from_numpy(rng.standard_normal((1, 512, cfg.model.net.crossattn_proj_in_channels))
+                           .astype(np.float32)).cuda()
+    timer = ForwardTimer(pipe.net)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, px = _edm_request(model, pipe.vae, video, emb, GUIDANCE, NUM_STEPS)
+    torch.cuda.synchronize()
+    request_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    peak_gb = timer.remove()
+    if out.shape != (1, 16, 24, H // 8, W // 8) or px.shape != (1, NUM_FRAMES, H, W, 3) or \
+            not bool(torch.isfinite(px).all()) or float(px.float().std()) == 0:
+        raise AssertionError(f"EDM request: latents {tuple(out.shape)}, pixels {tuple(px.shape)}")
+    # 35 steps and the clean denoise, one batched-CFG forward each
+    check_launches("edm", counts, (NUM_STEPS + 1) * 2 * NUM_BLOCKS)
+    denoise_s = sum(timer.seconds)
+    log(f"  EDM video2world: {NUM_STEPS} 2ab steps + the clean denoise at batch 2: request {request_s:.2f} s "
+        f"(denoise {denoise_s:.2f} s = {denoise_s / len(timer.seconds) * 1e3:.1f} ms a forward, encode + decode "
+        f"{request_s - denoise_s:.2f} s); peak {peak_gb:.2f} GiB; launches {counts}")
+    del pipe, model, out, px
+    fresh_memory()
+
+    got_z, got_px, small_counts, state = small_edm("cuda", torch.bfloat16)
+    ref_z, ref_px, _, _ = small_edm("cpu", torch.float32, state)
+    rel_z, rel_px = errors(got_z, ref_z)[1], errors(got_px, ref_px)[1]
+    log(f"  narrow EDM request: card bf16 vs cpu fp32: latents rel_l2 {rel_z:.3e}, pixels rel_l2 {rel_px:.3e} "
+        f"(limit {EDM_SMALL_REL_L2}); launches {small_counts}")
+    check_launches("narrow edm", small_counts, 5 * 2 * 2)
+    if not max(rel_z, rel_px) <= EDM_SMALL_REL_L2:
+        raise AssertionError(f"the narrow EDM request disagrees with its fp32 CPU reference: {rel_z:.3e} {rel_px:.3e}")
+    return {"counts": counts, "request_s": request_s, "denoise_s": denoise_s, "forward_s": timer.seconds,
+            "peak_gb": peak_gb, "narrow_rel_l2": max(rel_z, rel_px)}
+
+
+# comb02's kinds of layer at a narrow grid where each passes unscaled: a
+# dilated full sub-grid window, stride and dilation mixed, a strided window
+SMALL_COMB02 = (((-1, 4, 8), (1, 1, 1), (1, 2, 2), (-1, 8, 16)), ((-1, 4, 8), (1, 2, 1), (1, 1, 2), (-1, 8, 16)),
+                ((-1, 3, 4), (1, 1, 2), (1, 1, 1), (-1, 8, 16)), None)
+
+
+def small_sparse_step(device: str, dtype, state=None):
+    """A narrow 4-block DiT (2 heads of 128) with SMALL_COMB02's per-layer
+    list at a 4 x 8 x 16 token grid: one batched-CFG UniPC step of Text2World
+    from seeded noise. Returns (latents fp32 on the CPU, launches, state
+    dict)."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.conditioning.conditioner import make_condition
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.models.video2world import Video2WorldModel
+    from cosmos_predict2_tpu_torch.networks.dit import MiniTrainDIT, build_dit
+
+    cfg = make_config(SPARSE_14B_EXPERIMENTS[1]).model
+    net_cfg = dataclasses.replace(cfg.net, model_channels=256, num_heads=2, num_blocks=4, adaln_lora_dim=32,
+                                  crossattn_proj_in_channels=64, crossattn_emb_channels=128,
+                                  natten_parameters=SMALL_COMB02, dtype=dtype)
+    net = build_dit(net_cfg, device, seed=36) if state is None else _cpu_fp32(MiniTrainDIT, net_cfg, state)
+    model = Video2WorldModel(dataclasses.replace(cfg, net=net.cfg, state_t=4), net)
+    rng = np.random.default_rng(8)
+    noise = torch.from_numpy(rng.standard_normal((1, 16, 4, 16, 32)).astype(np.float32)).to(device)
+    emb = torch.from_numpy(rng.standard_normal((1, 16, 64)).astype(np.float32)).to(device)
+    _build.reset_launch_counts()
+    out = model.generate(noise, make_condition(emb), guidance=GUIDANCE, num_steps=1)
+    counts = _build.launch_counts()
+    return out.float().cpu(), counts, net.state_dict()
+
+
+def sparse_14b_slice() -> dict:
+    """Each 14B sparse name (5120 channels, 36 blocks, 40 heads) built in
+    bf16 on the meta device with seeded random weights: one batched-CFG
+    UniPC step of Text2World at 720p (24 x 44 x 80 = 84,480 tokens), with
+    the K10 launch of each of comb02's dilated layers checked by a hook on
+    its block. Then the narrow comb02-kind step card bf16 against CPU fp32."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.conditioning.conditioner import make_condition
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.models.video2world import Video2WorldModel
+    from cosmos_predict2_tpu_torch.networks.dit import block_layout, build_serving_dit
+
+    result = {}
+    for name in SPARSE_14B_EXPERIMENTS:
+        cfg = make_config(name)
+        net_cfg = cfg.model.net
+        if (net_cfg.model_channels, net_cfg.num_blocks, net_cfg.num_heads) != (5120, 36, 40):
+            raise AssertionError(f"{name}: the slice must run the full-width 14B DiT")
+        layout = block_layout(net_cfg)
+        fresh_memory()
+        t = time.perf_counter()
+        net = build_serving_dit(net_cfg, "cuda", seed=37)
+        torch.cuda.synchronize()
+        weights_gb = torch.cuda.memory_allocated() / 2**30
+        log(f"  {name}: built in {time.perf_counter() - t:.1f} s, {weights_gb:.2f} GiB; "
+            f"{sum(p is None for p in layout)} dense blocks")
+        dilated = [i for i, p in enumerate(layout) if p is not None and p[2] != (1, 1, 1)]
+        per_block = {}
+
+        def hook(i):
+            def pre(*_):
+                per_block[i] = _build.launch_counts()["na_fwd"]
+
+            def post(*_):
+                per_block[i] = _build.launch_counts()["na_fwd"] - per_block[i]
+            return net.blocks[i].register_forward_pre_hook(pre), net.blocks[i].register_forward_hook(post)
+
+        handles = [h for i in dilated for h in hook(i)]
+        rng = np.random.default_rng(38)
+        emb = torch.from_numpy(rng.standard_normal((1, 512, net_cfg.crossattn_proj_in_channels))
+                               .astype(np.float32)).cuda()
+        noise = torch.randn((1, 16) + SPARSE_14B_LATENT, generator=torch.Generator(device="cuda").manual_seed(39),
+                            device="cuda")
+        model = Video2WorldModel(cfg.model, net)
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = model.generate(noise, make_condition(emb), guidance=GUIDANCE, num_steps=1)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t
+        counts = _build.launch_counts()
+        for h in handles:
+            h.remove()
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        n_sparse = sum(p is not None for p in layout)
+        want = {"na_fwd": n_sparse, "flash_attention_fwd": 36 + (36 - n_sparse)}
+        if {k: v for k, v in counts.items() if v} != want:
+            raise AssertionError(f"{name}: launches {counts}, want {want}")
+        if any(per_block.get(i) != 1 for i in dilated):
+            raise AssertionError(f"{name}: K10 launches of the dilated blocks {per_block}")
+        if out.shape != noise.shape or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name}: output {tuple(out.shape)}")
+        tokens = int(np.prod(SPARSE_14B_LATENT)) // 4
+        log(f"  {name}: one batched-CFG step at {tokens:,} tokens in {step_s:.2f} s; peak {peak_gb:.2f} GiB; "
+            f"launches {counts}; K10 once on each of the {len(dilated)} dilated blocks {dilated}")
+        result[name] = {"counts": counts, "step_s": step_s, "peak_gb": peak_gb, "weights_gb": weights_gb,
+                        "dilated_blocks": dilated}
+        del net, model, out, noise
+        fresh_memory()
+
+    got, small_counts, sd = small_sparse_step("cuda", torch.bfloat16)
+    ref, _, _ = small_sparse_step("cpu", torch.float32, sd)
+    max_abs, rel = errors(got, ref)
+    log(f"  narrow comb02-kind step: card bf16 vs cpu fp32: max_abs {max_abs:.3e} rel_l2 {rel:.3e} (limit "
+        f"{SPARSE_SMALL_REL_L2}); launches {small_counts}")
+    if (small_counts["na_fwd"], small_counts["flash_attention_fwd"]) != (3, 5):
+        raise AssertionError(f"the narrow sparse step launched {small_counts}, want K10 3 and K1 5 times")
+    if not (torch.isfinite(got).all() and rel <= SPARSE_SMALL_REL_L2):
+        raise AssertionError(f"the narrow sparse step disagrees with its fp32 CPU reference: rel_l2 {rel:.3e}")
+    result["narrow_rel_l2"] = rel
+    return result
+
+
+def a13_slice() -> dict:
+    """Phase 17: the gr00t action stream, Wan 1.3B i2v, the Wan2.2 VAE, EDM
+    and the 14B sparse pair."""
+    out = {"gr00t": gr00t_slice(), "wan": wan_slice(), "wan22_vae": wan22_vae_slice(), "edm": edm_slice()}
+    out["sparse_14b"] = sparse_14b_slice()
+    fresh_memory()
+    return out
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)  # --help; no options
     t_start = time.perf_counter()
@@ -3034,11 +3668,15 @@ def main(argv=None) -> int:
         f"{tr['peak_gb']:.2f} GiB")
     with Phase("post-trained variants: 7-view multiview at 704x1280, camera-conditioned, action-conditioned"):
         var = variants_slice()
+    with Phase("A13 and A12.2: the gr00t action stream, Wan 1.3B i2v, the Wan2.2 VAE, EDM, the 14B sparse pair"):
+        a13 = a13_slice()
     paths = {"serve": sl, "train": tr, "sparse_serve": ssl, "sparse_train": stl, "interactive": it,
              "interactive_window": itw, "fwdmode": fm, "fa_jvp": fj, "dmd2_serve": dsl, "distill": dtl,
              "released": rel, "autoregressive": ar, "text2image": t2i, "oneshot": osl, "14b": big,
              "posttrain_lora": post["lora"], "posttrain_full": post["rows"], "multiview": var["multiview"],
-             "camera": var["camera"], "action": var["action"]}
+             "camera": var["camera"], "action": var["action"], "gr00t": a13["gr00t"], "wan": a13["wan"],
+             "wan22_vae": a13["wan22_vae"], "edm": a13["edm"],
+             **{name: a13["sparse_14b"][name] for name in SPARSE_14B_EXPERIMENTS}}
     path_kernels = {
         "serve": ("flash_attention_fwd", "conv3d_causal"),
         "train": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal"),
@@ -3052,7 +3690,11 @@ def main(argv=None) -> int:
         "dmd2_serve": ("flash_attention_fwd", "conv3d_causal"),
         "distill": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal"),
         **{path: ("flash_attention_fwd", "conv3d_causal")
-           for path in ("released", "autoregressive", "text2image", "oneshot", "14b", "multiview", "camera", "action")},
+           for path in ("released", "autoregressive", "text2image", "oneshot", "14b", "multiview", "camera", "action",
+                        "wan", "edm")},
+        "gr00t": ("flash_attention_fwd", "flash_attention_kv_cache"),
+        "wan22_vae": ("conv3d_causal",),
+        **{name: ("flash_attention_fwd", "na_fwd") for name in SPARSE_14B_EXPERIMENTS},
         **{path: ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal")
            for path in ("posttrain_lora", "posttrain_full")},
     }

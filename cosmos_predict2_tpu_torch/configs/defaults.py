@@ -10,7 +10,10 @@ base ``predict2_video2world_14b_rectified_flow`` (the same DiT at 5120
 channels, 40 heads, 36 blocks), the sparse-attention
 ``predict2_video2world_2b_sparse`` (the reference's sparse_2B.py tuning: 7
 dense blocks, the other 21 neighborhood attention with window (-1, 12, 24)
-and stride (1, 4, 8) tuned at a 44 x 80 token grid), the interactive
+and stride (1, 4, 8) tuned at a 44 x 80 token grid), the 14B sparse pair
+``predict2_video2world_14b_sparse`` (9 dense blocks, the rest as the 2B's)
+and ``predict2_video2world_14b_sparse_comb02`` (per-layer windows, strides
+and dilations), the interactive
 ``predict2_interactive_2b_causal`` (the 2B DiT made temporally
 block-causal, one latent frame per block, for KV-cache streaming), the
 post-trained variants' bases ``predict2_video2world_2b_action_conditioned``,
@@ -120,6 +123,53 @@ register_experiment(
             "model.net.natten_stride": (1, 4, 8),
             "model.net.natten_base_size": (-1, 44, 80),
         },
+    )
+)
+
+# the 14B sparse pair: 9 dense blocks spread over the 36 (the reference's
+# sparse_14B.py), and comb02, one (window, stride, dilation, base_size)
+# entry per layer (None: dense): layers 0-10 dilated windows over the whole
+# sub-grid, 11-12 stride and dilation mixed, layer 27 dense, the rest
+# strided windows of three sizes
+register_experiment(
+    Experiment(
+        name="predict2_video2world_14b_sparse",
+        base="predict2_video2world_14b_rectified_flow",
+        overrides={
+            "model.net.n_dense_blocks": 9,
+            "model.net.natten_window": (-1, 12, 24),
+            "model.net.natten_stride": (1, 4, 8),
+            "model.net.natten_base_size": (-1, 44, 80),
+        },
+    )
+)
+
+_BASE_14B = (-1, 44, 80)
+_COMB02_BIG = {24, 26, 28, 31, 32, 34}  # window (-1, 28, 56)
+_COMB02_MID = {23, 25, 29, 30, 33, 35}  # window (-1, 20, 40)
+
+
+def _comb02_layer(i: int):
+    if i <= 10:
+        return ((-1, 4, 16), (1, 1, 1), (1, 11, 5), _BASE_14B)
+    if i <= 12:
+        return ((-1, 12, 16), (1, 4, 1), (1, 1, 5), _BASE_14B)
+    if i == 27:
+        return None
+    if i in _COMB02_BIG:
+        return ((-1, 28, 56), (1, 4, 8), (1, 1, 1), _BASE_14B)
+    if i in _COMB02_MID:
+        return ((-1, 20, 40), (1, 4, 8), (1, 1, 1), _BASE_14B)
+    return ((-1, 12, 24), (1, 4, 8), (1, 1, 1), _BASE_14B)
+
+
+COMB02_NATTEN_PARAMETERS = tuple(_comb02_layer(i) for i in range(36))
+
+register_experiment(
+    Experiment(
+        name="predict2_video2world_14b_sparse_comb02",
+        base="predict2_video2world_14b_rectified_flow",
+        overrides={"model.net.natten_parameters": COMB02_NATTEN_PARAMETERS},
     )
 )
 

@@ -11,7 +11,8 @@ base, the two DMD2 TrigFlow distillation runs and the OSS post-training
 recipes (cosmos-nemo-assets in full and with LoRA, and groot GR1 480p),
 and the post-trained 2B variants' serving names (the four auto-multiview
 "buttercup" runs, the two robot-multicamera runs and the bridge
-action-conditioned run).
+action-conditioned run), and the two interactive gr00t GR1 action names
+(the causal streaming net with the action embedders).
 
 The reference's other names need modules the port does not have yet; they
 are listed in :data:`WAITING` with the roadmap item that brings them.
@@ -201,19 +202,25 @@ register_experiment(
     )
 )
 
+# the interactive gr00t GR1 runs: the causal 2B streaming net with the
+# action embedders, 13-frame blocks at 256x320 (4 latent frames), 7 x 12
+# action values per step (the JAX registry's contract)
+for _name in (
+    "cosmos_predict2p5_2B_action_conditioned_gr00t_gr1_customized_13frame_sf_warmup",
+    "cosmos_predict2p5_2B_action_gr00t_gr1_warmup",
+):
+    register_experiment(
+        Experiment(name=_name, base="predict2_interactive_2b_causal",
+                   overrides={"model.net.action_dim": 7 * 12, "model.state_t": 4})
+    )
+
 # ---------------------------------------------------------------------------
 # The reference's names that wait for modules the port lacks:
 # (name, roadmap item that brings it)
 # ---------------------------------------------------------------------------
 
 WAITING: tuple[tuple[str, str], ...] = (
-    # action-conditioned interactive gr00t runs (causal DiT + action embedder)
-    ("cosmos_predict2p5_2B_action_conditioned_gr00t_gr1_customized_13frame_sf_warmup", "A12.2"),
-    ("cosmos_predict2p5_2B_action_gr00t_gr1_warmup", "A12.2"),
     # the post-trained variants' training recipes and their data
     ("ac_reason_embeddings_rectified_flow_2b_256_320", "A13.t"),
     ("predict2_multiview_post_train_waymo", "A13.t"),
-    # the 14B sparse configs: neighborhood-attention parameters per layer
-    ("predict2_video2world_14b_sparse", "A13"),
-    ("predict2_video2world_14b_sparse_comb02", "A13"),
 )

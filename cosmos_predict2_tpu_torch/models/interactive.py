@@ -16,7 +16,9 @@ overwritten by the commit, which keeps them. The window slide rolls each
 buffer in place, one chunk at a time (``shift_cache_window``). So the loop
 holds one copy of the cache (28 x 2 x (B, 16, S_max, 128) bf16: 3.43 GB at
 352x640 with 16 + 1 frames). Self-forcing training (``SelfForcingDMD2``)
-is not ported yet; the cached forward raises under autograd.
+is not ported yet; the cached forward raises under autograd. The
+action-conditioned gr00t names stream the same way: ``condition.action``
+rides into every cached forward (prefill, denoise and commit).
 """
 
 from __future__ import annotations
@@ -63,10 +65,19 @@ class CausalVideo2WorldModel(Video2WorldModel):
         """One forward of the new frame block against the cached context:
         (net output, caches with the block appended). Keeping the returned
         caches commits the block (prefill); dropping them leaves the old
-        ``len`` (a denoise step)."""
+        ``len`` (a denoise step). An action-conditioned net takes
+        ``condition.action`` (the stream's one action chunk, as JAX passes
+        it) and, with ``concat_condition_mask``, a zero condition mask."""
+        cfg = self.config.net
+        kwargs = {}
+        if cfg.action_dim is not None:
+            kwargs["action"] = condition.action
+        if cfg.concat_condition_mask:
+            B, _, T, H, W = x_new_B_C_T_H_W.shape
+            kwargs["condition_mask"] = x_new_B_C_T_H_W.new_zeros((B, 1, T, H, W))
         return self.net(
             x_new_B_C_T_H_W, timesteps_B_T, condition.crossattn_emb, fps=condition.fps,
-            padding_mask=condition.padding_mask, kv_caches=kv_caches, t_start=t_start,
+            padding_mask=condition.padding_mask, kv_caches=kv_caches, t_start=t_start, **kwargs,
         )
 
 

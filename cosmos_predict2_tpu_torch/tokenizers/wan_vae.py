@@ -90,13 +90,16 @@ class AttentionBlock(nn.Module):
 
 class Resample(nn.Module):
     """Spatial (and temporal) up/down sampling. ``resample`` keeps the
-    reference's (Upsample | ZeroPad2d, Conv2d) indices."""
+    reference's (Upsample | ZeroPad2d, Conv2d) indices. The upsampling conv
+    halves the width (Wan2.1) unless ``up_out_dim`` is given (Wan2.2 keeps
+    it)."""
 
-    def __init__(self, dim: int, mode: str):
+    def __init__(self, dim: int, mode: str, up_out_dim: int | None = None):
         super().__init__()
         self.mode = mode
         if mode in ("upsample2d", "upsample3d"):
-            self.resample = nn.Sequential(nn.Upsample(scale_factor=2.0, mode="nearest-exact"), nn.Conv2d(dim, dim // 2, 3, padding=1))
+            out = dim // 2 if up_out_dim is None else up_out_dim
+            self.resample = nn.Sequential(nn.Upsample(scale_factor=2.0, mode="nearest-exact"), nn.Conv2d(dim, out, 3, padding=1))
             if mode == "upsample3d":
                 self.time_conv = nn.Conv3d(dim, 2 * dim, (3, 1, 1))
         elif mode in ("downsample2d", "downsample3d"):

@@ -11,7 +11,10 @@ variants' keys (``action_embedder_B_{D,3D}.fc{1,2}``, ``view_embeddings.weight``
 ``blocks.{i}.cam_encoder.weight``) are the reference's, as JAX's converter
 reads them; its converter maps no reference key for the cross-view
 attention, so a checkpoint without ``blocks.{i}.cross_view_attn.*`` raises
-KeyError naming them, as for any key it lacks.
+KeyError naming them, as for any key it lacks. The Wan2.1 DiT and the
+Wan2.2 VAE carry the reference's names too; their converters
+(:func:`convert_wan_dit_state_dict`, :func:`convert_wan22_vae_state_dict`)
+make the few changes the JAX package's make.
 """
 
 from __future__ import annotations
@@ -83,3 +86,45 @@ def load_reference_state_dict(module: Any, sd: Mapping[str, Any], what: str) -> 
         return v
 
     module.load_state_dict({k: value(k) for k in own}, strict=True)
+
+
+# ----------------------------- Wan2.1 DiT -----------------------------
+
+
+def convert_wan_dit_state_dict(
+    sd: Mapping[str, Any], extra_in_channels: int = 1, patch_size: tuple[int, int, int] = (1, 2, 2)
+) -> dict[str, Any]:
+    """A reference ``WanModel`` state dict -> networks/wan_dit.WanModel's, the
+    mapping of the JAX package's ``convert_wan_dit_state_dict``: every name
+    is the reference's; the patch embedding (a Linear (dim, C kt kh kw), or
+    the Conv3d (dim, C, kt, kh, kw) that flattens to it, (C, kt, kh, kw)-
+    major) gains zero columns for the ``extra_in_channels`` input channels
+    the port appends and the released weights were trained without (the
+    padding-mask channel, ``WanConfig.concat_padding_mask``)."""
+    import torch
+
+    out = dict(sd)
+    w = sd["patch_embedding.weight"]
+    w = w if isinstance(w, torch.Tensor) else torch.from_numpy(np.asarray(w))
+    w = w.reshape(w.shape[0], -1)
+    per_channel = int(np.prod(patch_size))
+    if w.shape[1] % per_channel:
+        raise ValueError(f"patch embedding has {w.shape[1]} inputs, not a multiple of prod(patch_size)={per_channel}")
+    if extra_in_channels:
+        w = torch.cat([w, w.new_zeros((w.shape[0], extra_in_channels * per_channel))], dim=1)
+    out["patch_embedding.weight"] = w
+    return out
+
+
+# ----------------------------- Wan2.2 VAE -----------------------------
+
+
+def convert_wan22_vae_state_dict(sd: Mapping[str, Any]) -> dict[str, Any]:
+    """A reference Wan2.2 VAE state dict -> tokenizers/wan22_vae.Wan22VAE's,
+    the mapping of the JAX package's ``convert_wan22_vae_state_dict``: the
+    names are the reference's (``encoder.downsamples.{s}.downsamples.{j}``,
+    ``decoder.upsamples.{s}.upsamples.{j}``, the stage's resample after its
+    res blocks; AvgDown3D and DupUp3D hold no parameters), so only the
+    encoder, decoder and outer conv entries are kept; a flat RMS_norm gamma
+    is reshaped when the state dict is loaded (:func:`load_reference_state_dict`)."""
+    return {k: v for k, v in sd.items() if k.split(".")[0] in ("encoder", "decoder", "conv1", "conv2")}

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (torch's CPU threads under xdist)
 
 from cosmos_predict2_tpu.conditioning import conditioner as jcond
 from cosmos_predict2_tpu.models import action_conditioned as jac
@@ -31,7 +32,7 @@ from cosmos_predict2_tpu_torch.models import action_conditioned as tac
 from cosmos_predict2_tpu_torch.models.video2world import Video2WorldModel
 from cosmos_predict2_tpu_torch.networks.dit import MiniTrainDIT
 from torch_variants_util import (
-    REL_L2, REL_L2_SAMPLED, noisy_params, port_net, rel_l2, seeded_jax_params, tiny_jax_config, vae_pair,
+    REL_L2, REL_L2_SAMPLED, jit_init, noisy_params, port_net, rel_l2, seeded_jax_params, tiny_jax_config, vae_pair,
 )
 
 
@@ -112,7 +113,7 @@ def _tiny_action_model():
     jcfg = jac.action_conditioned_model_config(net, action_dim=7, num_action_per_chunk=4, state_t=2,
                                                sampling_num_steps=2)
     jmodel = jac.ActionConditionedVideo2WorldModel(jcfg)
-    params = jmodel.net.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 2, 4, 4)), jnp.zeros((1,)),
+    params = jit_init(jmodel.net.init, jax.random.PRNGKey(0), jnp.zeros((1, 16, 2, 4, 4)), jnp.zeros((1,)),
                              jnp.zeros((1, 8, 1024)), condition_mask=jnp.zeros((1, 1, 2, 4, 4)),
                              action=jnp.zeros((1, 4, 7)))
     params = noisy_params(params)

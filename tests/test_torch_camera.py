@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (torch's CPU threads under xdist)
 
 from cosmos_predict2_tpu.conditioning import conditioner as jcond
 from cosmos_predict2_tpu.models import camera as jcam

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (torch's CPU threads under xdist)
 
 from cosmos_predict2_tpu.networks.dit import DiTConfig as JDiTConfig
 from cosmos_predict2_tpu.networks.dit import MiniTrainDIT as JDiT

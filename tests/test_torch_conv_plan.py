@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (torch's CPU threads under xdist)
 import torch.nn as nn
 
 from cosmos_predict2_tpu_torch.ops.conv3d import (

@@ -13,6 +13,7 @@ bf16 output (one rounding), fp32 sums in another order.
 
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (torch's CPU threads under xdist)
 
 from cosmos_predict2_tpu_torch.ops.conv3d import conv3d_causal, conv3d_causal_plain, conv_weight_taps
 from cosmos_predict2_tpu_torch.ops.flash_attention import (

@@ -15,6 +15,7 @@ import pickle
 import tarfile
 
 import numpy as np
+import torch_cpu_threads  # noqa: F401  (torch's CPU threads under xdist)
 import pytest
 from PIL import Image
 

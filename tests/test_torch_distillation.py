@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (torch's CPU threads under xdist)
 
 from cosmos_predict2_tpu.conditioning import conditioner as jcond
 from cosmos_predict2_tpu.models import distillation as jd
@@ -39,6 +40,7 @@ from cosmos_predict2_tpu_torch.models.video2world import RFModelConfig
 from cosmos_predict2_tpu_torch.networks import discriminator as tdisc
 from cosmos_predict2_tpu_torch.networks.dit import DiTConfig, MiniTrainDIT
 from cosmos_predict2_tpu_torch.utils.convert import jax_dit_params_to_torch, jax_discriminator_params_to_torch
+from torch_variants_util import jit_init
 
 SHAPE = (2, 16, 2, 8, 8)
 TEXT = (2, 8, 1024)
@@ -73,7 +75,7 @@ def setup():
     rng = np.random.default_rng(0)
     trees = []
     for seed in range(3):
-        params = jdm.base.init_params(jax.random.PRNGKey(seed), SHAPE, text_len=TEXT[1])
+        params = jit_init(jdm.base.init_params, jax.random.PRNGKey(seed), SHAPE, text_len=TEXT[1])
         leaves, tdef = jax.tree.flatten(params)
         trees.append(jax.tree.unflatten(tdef, [np.asarray(l) + 0.05 * rng.standard_normal(l.shape).astype(np.float32)
                                                for l in leaves]))
@@ -238,7 +240,7 @@ def test_discriminator_head_and_gan_losses_match_jax():
     rng = np.random.default_rng(9)
     feats = [rng.standard_normal((2, 12, 64)).astype(np.float32) for _ in range(3)]
     jhead = jdisc.DiscriminatorHead(hidden_dim=32)
-    params = jhead.init(jax.random.PRNGKey(0), [jnp.asarray(f) for f in feats])
+    params = jit_init(jhead.init, jax.random.PRNGKey(0), [jnp.asarray(f) for f in feats])
     head = tdisc.DiscriminatorHead(feature_dim=64, num_features=3, hidden_dim=32)
     head.load_state_dict(jax_discriminator_params_to_torch(jax.tree.map(np.asarray, params)), strict=True)
     assert {n for n, _ in head.named_parameters()} == {

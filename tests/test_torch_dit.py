@@ -13,12 +13,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (torch's CPU threads under xdist)
 
 from cosmos_predict2_tpu.networks.dit import DiTConfig as JDiTConfig
 from cosmos_predict2_tpu.networks.dit import MiniTrainDIT as JDiT
 from cosmos_predict2_tpu.utils.checkpoint_convert import convert_dit_state_dict
 from cosmos_predict2_tpu_torch.networks import dit as tdit
 from cosmos_predict2_tpu_torch.utils.convert import jax_dit_params_to_torch
+from torch_variants_util import jit_init
 
 TOL = 1e-4
 
@@ -36,7 +38,7 @@ def tiny_configs(**over):
 def seeded_jax_params(jcfg, x, t, ctx, seed=0, **kw):
     """JAX init (which zero-inits the AdaLN outputs) plus seeded noise on
     every leaf, so every path of the forward contributes."""
-    params = JDiT(jcfg).init(jax.random.PRNGKey(seed), x, t, ctx, **kw)
+    params = jit_init(JDiT(jcfg).init, jax.random.PRNGKey(seed), x, t, ctx, **kw)
     leaves, tdef = jax.tree.flatten(params)
     rng = np.random.default_rng(seed)
     leaves = [np.asarray(l, np.float32) + 0.05 * rng.standard_normal(l.shape).astype(np.float32) for l in leaves]
@@ -89,7 +91,7 @@ def test_dit_state_dict_maps_onto_the_jax_tree():
     jcfg, tcfg = tiny_configs(**CASES["2B-like"])
     x, t = jnp.zeros((1, 16, 2, 8, 8)), jnp.zeros((1,))
     ctx = jnp.zeros((1, 4, jcfg.crossattn_proj_in_channels))
-    shapes = jax.tree.map(lambda a: a.shape, JDiT(jcfg).init(jax.random.PRNGKey(0), x, t, ctx))
+    shapes = jax.tree.map(lambda a: a.shape, jax.eval_shape(JDiT(jcfg).init, jax.random.PRNGKey(0), x, t, ctx))
     sd = {k: v.numpy() for k, v in tdit.MiniTrainDIT(tcfg).state_dict().items()}
     converted = jax.tree.map(lambda a: a.shape, convert_dit_state_dict(sd, tcfg.num_blocks))
     assert converted == shapes

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (torch's CPU threads under xdist)
 import torch.autograd.forward_ad as fwAD
 from jax.experimental.pallas import tpu as pltpu
 

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (torch's CPU threads under xdist)
 
 from cosmos_predict2_tpu.conditioning.conditioner import make_condition as j_make_condition
 from cosmos_predict2_tpu.models import interactive as jint

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (torch's CPU threads under xdist)
 from jax.experimental.pallas import tpu as pltpu
 
 from cosmos_predict2_tpu.ops.flash_attention_jvp import _jvp_bhsd, reference_attention_jvp

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (torch's CPU threads under xdist)
 from test_torch_training import LATENT, TRAIN_OPT, Record, _batches, jax_draws, nets, t
 from test_training import _batches as jax_batches
 

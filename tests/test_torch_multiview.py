@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (torch's CPU threads under xdist)
 
 from cosmos_predict2_tpu.conditioning import conditioner as jcond
 from cosmos_predict2_tpu.inference import multiview as jinf
@@ -35,7 +36,7 @@ from cosmos_predict2_tpu_torch.models import multiview as tmv
 from cosmos_predict2_tpu_torch.networks import dit as tdit
 from cosmos_predict2_tpu_torch.utils.checkpoint_convert import load_reference_state_dict
 from torch_variants_util import (
-    REL_L2, REL_L2_SAMPLED, noisy_params, port_net, rel_l2, seeded_jax_params, tiny_jax_config, vae_pair,
+    REL_L2, REL_L2_SAMPLED, jit_init, noisy_params, port_net, rel_l2, seeded_jax_params, tiny_jax_config, vae_pair,
 )
 
 RING = ((1, 2), (0, 2), (0, 1))  # three views, each attending the other two
@@ -123,7 +124,7 @@ def _cross_view_pair(seed=0, Tv=2):
     chain = ((1,), (0, 2), (1,))
     jm = JCrossView(dim=32, n_heads=2, head_dim=16, attn_map=chain, dtype=jnp.float32)
     x = np.random.default_rng(seed).standard_normal((1, 3, Tv, 2, 2, 32)).astype(np.float32)
-    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    params = jit_init(jm.init, jax.random.PRNGKey(0), jnp.asarray(x))
 
     def port(p):
         m = tdit.CrossViewAttention(32, 2, 16, chain, torch.float32)
@@ -166,7 +167,7 @@ def two_views():
     net = tiny_jax_config(model_channels=128, adaln_lora_dim=8, crossattn_emb_channels=1024, tokens_per_view=8)
     jcfg = jmv.multiview_model_config(net, n_views=2, state_t=2, sampling_num_steps=2)
     jmodel = jmv.MultiviewVid2VidModel(jcfg)
-    params = noisy_params(jmodel.init_params(jax.random.PRNGKey(0), (1, 16, 4, 4, 4), text_len=16))
+    params = noisy_params(jit_init(jmodel.init_params, jax.random.PRNGKey(0), (1, 16, 4, 4, 4), text_len=16))
     tnet = port_net(params, jcfg.net)
     tmodel = tmv.MultiviewVid2VidModel(tmv.multiview_model_config(
         dataclasses.replace(tnet.cfg, n_views=1, concat_view_embedding=False, concat_condition_mask=False),

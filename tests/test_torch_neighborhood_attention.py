@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_cpu_threads import keep_default_threads  # noqa: F401  (an autouse fixture: tolerances at fp32 noise)
 from jax.experimental.pallas import tpu as pltpu
 
 from cosmos_predict2_tpu.ops import neighborhood_attention as jna

@@ -15,6 +15,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (torch's CPU threads under xdist)
 
 from cosmos_predict2_tpu.training import optim as joptim
 from cosmos_predict2_tpu_torch.training import optim as toptim

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # torch's CPU threads under xdist
 
 from cosmos_predict2_tpu.conditioning import conditioner as jcond
 from cosmos_predict2_tpu.inference.pipeline import InferenceSetup as JSetup
@@ -39,6 +40,7 @@ from cosmos_predict2_tpu_torch.networks.dit import block_layout as tdit_block_la
 from cosmos_predict2_tpu_torch.schedulers import unipc as tunipc
 from cosmos_predict2_tpu_torch.tokenizers.wan_vae import WanVAE, WanVAEConfig
 from cosmos_predict2_tpu_torch.utils.convert import jax_dit_params_to_torch, jax_vae_params_to_torch
+from torch_variants_util import jit_init
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 32
@@ -95,11 +97,11 @@ def _pipelines(size: tuple[int, int], **net_over):
     jsetup = JSetup(model_config=JRFConfig(net=jnet, state_t=2, sampling_num_steps=2),
                     vae_config=JVAEConfig(dim=16, dtype=jnp.float32), text_len=8, size_override=size,
                     streaming_vae=True)
-    params = JModel(jsetup.model_config).init_params(jax.random.PRNGKey(0), (1, 16, 2, 4, 4), text_len=8)
+    params = jit_init(JModel(jsetup.model_config).init_params, jax.random.PRNGKey(0), (1, 16, 2, 4, 4), text_len=8)
     leaves, tdef = jax.tree.flatten(params)
     rng = np.random.default_rng(0)
     params = jax.tree.unflatten(tdef, [np.asarray(l) + 0.05 * rng.standard_normal(l.shape).astype(np.float32) for l in leaves])
-    vae_params = JVAE(jsetup.vae_config).init(jax.random.PRNGKey(1), jnp.zeros((1, 5, SIZE, SIZE, 3)))
+    vae_params = jit_init(JVAE(jsetup.vae_config).init, jax.random.PRNGKey(1), jnp.zeros((1, 5, SIZE, SIZE, 3)))
     jpipe = JPipe(jsetup, jax.tree.map(jnp.asarray, params), vae_params)
 
     names = {f.name for f in dataclasses.fields(DiTConfig)} - {"dtype"}
@@ -241,7 +243,7 @@ def test_inference_api_writes_samples(pipes, tmp_path):
 
 
 def _cli_smoke(out_dir, *extra):
-    env = dict(os.environ, COSMOS_SMOKE="1")
+    env = torch_cpu_threads.subprocess_env(COSMOS_SMOKE="1")
     cmd = [sys.executable, "-m", "cosmos_predict2_tpu_torch.inference.cli", "--experiment=error-free_mock_data_smoke",
            "--prompt", "a robot", "--output-dir", str(out_dir), "--device", "cpu", *extra]
     proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=600)

@@ -22,6 +22,12 @@ released-weights verifier, held against the JAX package (CPU).
   JAX package's export.
 * A golden blessed by the JAX verifier on the smoke experiment is met by
   the port's verifier at PSNR >= 35 dB.
+* The 14B sparse pair and the gr00t action names build through the
+  registry; comb02's 35 sparse layers pass the kernels' plan at the 720p
+  token grid and its 13 dilated ones are refused at 480p's; a DiT with a
+  per-layer list of comb02's kinds (dilated full sub-grid, mixed stride
+  and dilation, strided, dense) matches JAX's at 1e-4, as
+  tests/test_torch_dit.py's sparse DiTs.
 """
 
 import dataclasses
@@ -34,6 +40,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (torch's CPU threads under xdist)
 
 from cosmos_predict2_tpu.configs.defaults import make_config as jax_make_config
 from cosmos_predict2_tpu.configs.registry import list_experiments as jax_list_experiments
@@ -41,6 +48,7 @@ from cosmos_predict2_tpu_torch.configs.defaults import make_config
 from cosmos_predict2_tpu_torch.configs.registry import Experiment, list_experiments, register_experiment, resolve_experiment
 from cosmos_predict2_tpu_torch.configs.released_experiments import INDEX_26, INDEX_26_RESUME2, WAITING
 from cosmos_predict2_tpu_torch.utils import checkpoint_db as db
+from torch_variants_util import jit_init
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = "error-free_mock_data_smoke"
@@ -78,14 +86,10 @@ def test_registered_names_and_waiting_list_are_the_jax_registry():
     assert not set(waiting) & set(PORT_NAMES)
     jax_names = {n for n in jax_list_experiments() if not n.startswith("_")}
     assert set(PORT_NAMES) | set(waiting) == jax_names
-    assert {item for _, item in WAITING} == {"A12.2", "A13", "A13.t"}
+    assert {item for _, item in WAITING} == {"A13.t"}
     assert dict(WAITING) == {
-        "cosmos_predict2p5_2B_action_conditioned_gr00t_gr1_customized_13frame_sf_warmup": "A12.2",
-        "cosmos_predict2p5_2B_action_gr00t_gr1_warmup": "A12.2",
         "ac_reason_embeddings_rectified_flow_2b_256_320": "A13.t",
         "predict2_multiview_post_train_waymo": "A13.t",
-        "predict2_video2world_14b_sparse": "A13",
-        "predict2_video2world_14b_sparse_comb02": "A13",
     }
 
 
@@ -184,11 +188,11 @@ def exported(tmp_path_factory):
 
     jcfg = jax_make_config(SMOKE)
     model = JModel(jcfg.model)
-    ema = model.init_params(jax.random.PRNGKey(0), (1, 16, 2, 4, 4), text_len=8)
-    reg = model.init_params(jax.random.PRNGKey(1), (1, 16, 2, 4, 4), text_len=8)
+    ema = jit_init(model.init_params, jax.random.PRNGKey(0), (1, 16, 2, 4, 4), text_len=8)
+    reg = jit_init(model.init_params, jax.random.PRNGKey(1), (1, 16, 2, 4, 4), text_len=8)
     sd_ema = ce.export_dit_state_dict(jax.tree.map(np.asarray, ema), prefix="net_ema.")
     sd_reg = ce.export_dit_state_dict(jax.tree.map(np.asarray, reg), prefix="net.")
-    vae_params = JVAE(jcfg.tokenizer).init(jax.random.PRNGKey(2), jnp.zeros((1, 5, 16, 16, 3)))
+    vae_params = jit_init(JVAE(jcfg.tokenizer).init, jax.random.PRNGKey(2), jnp.zeros((1, 5, 16, 16, 3)))
     sd_vae = ce.export_vae_state_dict(jax.tree.map(np.asarray, vae_params))
     d = tmp_path_factory.mktemp("exported")
     ce.save_torch_state_dict({**sd_reg, **sd_ema}, str(d / "model.pt"))
@@ -249,7 +253,8 @@ def test_loader_resolves_db_names_and_raises_with_the_path(exported, tmp_path, m
 
 @pytest.mark.parametrize("experiment", [INDEX_26_RESUME2, "predict2_video2world_14b_rectified_flow",
                                         "predict2_video2world_2b_action_conditioned",
-                                        "predict2_video2world_2b_camera_conditioned", "predict2_multiview_2b_7views"])
+                                        "predict2_video2world_2b_camera_conditioned", "predict2_multiview_2b_7views",
+                                        "cosmos_predict2p5_2B_action_gr00t_gr1_warmup"])
 def test_true_shape_state_dict_equals_the_jax_export(experiment, monkeypatch):
     """Keys and shapes at the released sizes, without making a tensor: the
     port's net on the meta device, JAX's export over ``jax.eval_shape``
@@ -338,3 +343,85 @@ def test_port_verifier_meets_the_jax_verifier_golden(exported, tmp_path, capsys)
     save_torch_state_dict(bad, str(tmp_path / "missing.pt"))
     assert vrw.main(["--dit", str(tmp_path / "missing.pt"), *common, "--cpu"]) == 1
     assert "contract" in json.loads(capsys.readouterr().out.strip().splitlines()[-1])["error"]
+
+
+# ------------------------- the 14B sparse pair, gr00t -------------------------
+
+
+SPARSE_14B = ("predict2_video2world_14b_sparse", "predict2_video2world_14b_sparse_comb02")
+GR00T = ("cosmos_predict2p5_2B_action_conditioned_gr00t_gr1_customized_13frame_sf_warmup",
+         "cosmos_predict2p5_2B_action_gr00t_gr1_warmup")
+
+
+@pytest.mark.parametrize("experiment", SPARSE_14B + GR00T)
+def test_sparse_pair_and_gr00t_names_build_through_the_registry(experiment):
+    """Each name's net on the meta device: the 14B sparse name's 9 dense
+    blocks spread over 36 as JAX lays them out, comb02's per-layer list
+    (JAX's tuple, layer 27 dense), the gr00t names' causal 2B with action
+    embedders of 7 x 12 x 12 inputs at 4 latent frames."""
+    from cosmos_predict2_tpu.networks.dit import block_layout as jax_block_layout
+    from cosmos_predict2_tpu_torch.networks.dit import MiniTrainDIT, block_layout
+
+    cfg, jcfg = make_config(experiment), jax_make_config(experiment)
+    with torch.device("meta"):
+        net = MiniTrainDIT(cfg.model.net)
+    layout = block_layout(cfg.model.net)
+    assert [p is not None for p in layout] == jax_block_layout(jcfg.model.net)[0]
+    if experiment in GR00T:
+        assert cfg.model.net.temporal_causal and cfg.model.state_t == 4 and not any(layout)
+        assert net.action_embedder_B_D.fc1.in_features == 7 * 12 * 12 and net.cfg.model_channels == 2048
+        return
+    assert net.cfg.model_channels == 5120 and len(net.blocks) == 36
+    if experiment.endswith("comb02"):
+        assert cfg.model.net.natten_parameters == jcfg.model.net.natten_parameters
+        assert [i for i, p in enumerate(layout) if p is None] == [27]
+        assert {p[2] for p in layout[:11]} == {(1, 11, 5)} and {p[2] for p in layout[11:13]} == {(1, 1, 5)}
+    else:
+        assert sum(p is None for p in layout) == 9
+
+
+@pytest.mark.parametrize("grid,refused", [((24, 44, 80), []), ((21, 30, 52), list(range(13)))])
+def test_comb02_layers_at_720p_pass_and_at_480p_the_dilated_are_refused(grid, refused):
+    """At the released 720p grid (T x 44 x 80 tokens) every sparse layer of
+    comb02 scales to parameters the kernels take; at 480p (30 x 52) the
+    13 dilated layers' windows no longer cover their sub-grids and the
+    plan refuses them (ROADMAP: A8's per-class windows)."""
+    from cosmos_predict2_tpu_torch.configs.defaults import COMB02_NATTEN_PARAMETERS
+    from cosmos_predict2_tpu_torch.ops.neighborhood_attention import VideoSize, adaptive_na_parameters, effective_params
+
+    got = []
+    for i, p in enumerate(COMB02_NATTEN_PARAMETERS):
+        if p is None:
+            continue
+        window, stride, dilation = adaptive_na_parameters(p[0], p[1], grid, p[3], p[2])
+        try:
+            effective_params(VideoSize(*grid), window, stride, dilation)
+        except NotImplementedError as e:
+            assert "sub-grid" in str(e)
+            got.append(i)
+    assert got == refused
+
+
+def test_dit_with_comb02_kinds_of_layer_matches_jax():
+    """A 4-block DiT (head_dim 128) whose per-layer list holds one of each
+    of comb02's kinds at a grid where each passes unscaled: a dilated full
+    sub-grid window, stride and dilation mixed, a strided window and a
+    dense block; the port's plain K10 route against JAX's DiT."""
+    from cosmos_predict2_tpu.networks.dit import MiniTrainDIT as JDiT
+    from torch_variants_util import port_net, tiny_jax_config
+
+    base = (-1, 4, 8)
+    layers = (((-1, 2, 4), (1, 1, 1), (1, 2, 2), base), ((-1, 2, 4), (1, 2, 1), (1, 1, 2), base),
+              ((-1, 3, 4), (1, 1, 2), (1, 1, 1), base), None)
+    jcfg = tiny_jax_config(num_blocks=4, natten_parameters=layers)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((1, 16, 2, 8, 16)).astype(np.float32)
+    t, ctx = np.asarray([600.0], np.float32), rng.standard_normal((1, 6, 64)).astype(np.float32)
+    shapes = jax.eval_shape(lambda r: JDiT(jcfg).init(r, x, t, ctx), jax.random.PRNGKey(0))
+    draw = lambda leaf: (rng.standard_normal(leaf.shape) / np.sqrt(leaf.shape[0])).astype(np.float32)  # noqa: E731
+    params = jax.tree.map(draw, shapes)
+    want = jax.jit(JDiT(jcfg).apply)(params, x, t, ctx)
+    net = port_net(params, jcfg)
+    with torch.no_grad():
+        got = net(*map(torch.from_numpy, (x, t, ctx)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # torch's CPU threads under xdist
 
 from cosmos_predict2_tpu.inference.pipeline import InferenceSetup as JSetup
 from cosmos_predict2_tpu.inference.pipeline import Text2ImageInference as JText2Image
@@ -40,6 +41,7 @@ from cosmos_predict2_tpu_torch.networks.dit import DiTConfig, MiniTrainDIT
 from cosmos_predict2_tpu_torch.tokenizers.wan_vae import WanVAE, WanVAEConfig
 from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import decode_streaming, encode_streaming
 from cosmos_predict2_tpu_torch.utils.convert import jax_dit_params_to_torch, jax_vae_params_to_torch
+from torch_variants_util import jit_init
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 32
@@ -55,11 +57,11 @@ def built():
     jsetup = JSetup(model_config=JRFConfig(net=jnet, state_t=2, sampling_num_steps=2),
                     vae_config=JVAEConfig(dim=16, dtype=jnp.float32), text_len=8, size_override=(SIZE, SIZE),
                     streaming_vae=True)
-    params = JModel(jsetup.model_config).init_params(jax.random.PRNGKey(0), (1, 16, 2, 4, 4), text_len=8)
+    params = jit_init(JModel(jsetup.model_config).init_params, jax.random.PRNGKey(0), (1, 16, 2, 4, 4), text_len=8)
     leaves, tdef = jax.tree.flatten(params)
     rng = np.random.default_rng(0)
     params = jax.tree.unflatten(tdef, [np.asarray(l) + 0.05 * rng.standard_normal(l.shape).astype(np.float32) for l in leaves])
-    vae_params = JVAE(jsetup.vae_config).init(jax.random.PRNGKey(1), jnp.zeros((1, 5, SIZE, SIZE, 3)))
+    vae_params = jit_init(JVAE(jsetup.vae_config).init, jax.random.PRNGKey(1), jnp.zeros((1, 5, SIZE, SIZE, 3)))
 
     names = {f.name for f in dataclasses.fields(DiTConfig)} - {"dtype"}
     tnet_cfg = DiTConfig(dtype=torch.float32, **{n: getattr(jnet, n) for n in names})
@@ -176,6 +178,19 @@ def test_image_buckets_match_jax():
     with torch.device("meta"):
         t2i = tpipe.Text2ImageInference(setup, MiniTrainDIT(DiTConfig(num_blocks=1)), WanVAE(WanVAEConfig(dim=16)))
     assert t2i.image_size() == (720, 1280)
+
+
+def test_gif_export_is_the_jax_packages_file(tmp_path):
+    """Where no video codec is installed, a clip is written as a GIF: the
+    port quantizes its frames on several threads and writes the same bytes
+    as the JAX package's writer on the same frames."""
+    from cosmos_predict2_tpu.utils import io as jio
+    from cosmos_predict2_tpu_torch.utils import io as tio
+
+    frames = np.random.default_rng(4).uniform(-1, 1, (5, 24, 40, 3)).astype(np.float32)
+    got = tio.save_img_or_video(frames, str(tmp_path / "port.gif"))
+    want = jio.save_img_or_video(frames, str(tmp_path / "jax.gif"))
+    assert got.endswith(".gif") and open(got, "rb").read() == open(want, "rb").read()
 
 
 # ------------------------------ one-shot VAE ------------------------------
@@ -296,7 +311,7 @@ def test_api_routes_image_and_autoregressive_requests(pipes, tmp_path):
 
 
 def _cli_smoke(out_dir, *extra):
-    env = dict(os.environ, COSMOS_SMOKE="1")
+    env = torch_cpu_threads.subprocess_env(COSMOS_SMOKE="1")
     cmd = [sys.executable, "-m", "cosmos_predict2_tpu_torch.inference.cli", "--experiment=error-free_mock_data_smoke",
            "--prompt", "a robot", "--output-dir", str(out_dir), "--device", "cpu", *extra]
     proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=600)

@@ -27,6 +27,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_cpu_threads  # torch's CPU threads under xdist
 from test_training import GOLDEN_LOSSES
 
 from cosmos_predict2_tpu.conditioning import conditioner as jcond
@@ -54,6 +55,7 @@ from cosmos_predict2_tpu_torch.training.checkpointing import (
 )
 from cosmos_predict2_tpu_torch.training.trainer import Callback, Trainer, TrainerConfig
 from cosmos_predict2_tpu_torch.utils.convert import jax_dit_params_to_torch
+from torch_variants_util import jit_init
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LATENT = (1, 16, 2, 4, 4)
@@ -206,7 +208,7 @@ def _training_step_matches_jax(jnet, tnet, over: dict, shape: tuple, iteration: 
     rng = np.random.default_rng(1)
     x0 = rng.standard_normal(shape).astype(np.float32)
     emb = rng.standard_normal((shape[0], 8, 1024)).astype(np.float32) * 0.1
-    params = jmodel.init_params(jax.random.PRNGKey(0), shape, text_len=8)
+    params = jit_init(jmodel.init_params, jax.random.PRNGKey(0), shape, text_len=8)
     leaves, tdef = jax.tree.flatten(params)
     params = jax.tree.unflatten(tdef, [np.asarray(l) + 0.05 * rng.standard_normal(l.shape).astype(np.float32)
                                        for l in leaves])  # AdaLN is zero at init: perturb so every path counts
@@ -299,7 +301,7 @@ def test_trainer_reproduces_jax_golden_losses():
     batches, its optimizer) through the port's Trainer fed JAX's draws."""
     jnet, _ = nets("none")
     jmodel = JModel(JRFConfig(net=jnet, state_t=2))
-    jparams = jax.tree.map(np.asarray, jmodel.init_params(jax.random.PRNGKey(0), LATENT, text_len=8))
+    jparams = jax.tree.map(np.asarray, jit_init(jmodel.init_params, jax.random.PRNGKey(0), LATENT, text_len=8))
     trainer = _trainer(jparams, draw_fn=lambda it, x0: jax_draws(jmodel, 0, it, tuple(x0.shape))[0])
     losses = Record(lambda state, m: float(m["loss"]))
     trainer.callbacks.callbacks.append(losses)
@@ -424,7 +426,7 @@ def test_make_config_applies_dotlist_overrides():
 def test_train_cli_smoke_on_cpu():
     """2 iterations of error-free_mock_data_smoke through the entry point, on
     the CPU (COSMOS_SMOKE=1), at a reduced clip size."""
-    env = dict(os.environ, COSMOS_SMOKE="1")
+    env = torch_cpu_threads.subprocess_env(COSMOS_SMOKE="1")
     cmd = [sys.executable, "-m", "cosmos_predict2_tpu_torch.training.train", "--experiment=error-free_mock_data_smoke",
            "--device", "cpu", "data_train.num_frames=5", "data_train.height=32", "data_train.width=32",
            "data_train.text_len=16"]

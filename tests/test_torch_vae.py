@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu_threads  # noqa: F401  (torch's CPU threads under xdist)
 
 from cosmos_predict2_tpu.tokenizers import wan_vae_streaming as jvs
 from cosmos_predict2_tpu.tokenizers.wan_vae import WanVAE as JVAE
@@ -24,6 +25,7 @@ from cosmos_predict2_tpu.utils.checkpoint_convert import convert_vae_state_dict
 from cosmos_predict2_tpu_torch.tokenizers import wan_vae_streaming as tvs
 from cosmos_predict2_tpu_torch.tokenizers.wan_vae import WanVAE, WanVAEConfig, build_vae, upsample2x_conv3x3
 from cosmos_predict2_tpu_torch.utils.convert import jax_vae_params_to_torch
+from torch_variants_util import jit_init
 
 TOL = 1e-4
 H = W = 32
@@ -33,7 +35,7 @@ H = W = 32
 def vaes():
     """The same seeded weights in both packages (dim 16, fp32)."""
     jcfg = JVAEConfig(dim=16, dtype=jnp.float32)
-    params = JVAE(jcfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 5, H, W, 3), jnp.float32))
+    params = jit_init(JVAE(jcfg).init, jax.random.PRNGKey(0), jnp.zeros((1, 5, H, W, 3), jnp.float32))
     leaves, tdef = jax.tree.flatten(params)
     rng = np.random.default_rng(0)
     # perturb the zero-initialized biases too, so every term of each conv counts

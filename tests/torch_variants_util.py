@@ -1,9 +1,9 @@
-"""Shared helpers of the post-trained variants' tests (test_torch_action.py,
-test_torch_camera.py, test_torch_multiview.py): the same tiny DiT in both
-packages, seeded JAX parameters converted to the port, the VAE pair and
-the relative-L2 measure."""
+"""Shared helpers of the port's tests: the same tiny DiT in both packages, seeded
+JAX parameters converted to the port, JAX's inits compiled, the VAE pair
+and the relative-L2 measure."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -53,8 +53,17 @@ def noisy_params(params, seed: int = 0):
         tdef, [np.asarray(l, np.float32) + 0.05 * rng.standard_normal(l.shape).astype(np.float32) for l in leaves])
 
 
+def jit_init(init, *args, **kwargs):
+    """``init(*args, **kwargs)`` (a Flax init) compiled as one program: the
+    eager call's values bit for bit (checked on the dim-16 VAE and a
+    2-block DiT) in about a third of its time on the CPU. Tuple and int
+    arguments (shapes) are static."""
+    static = tuple(i for i, a in enumerate(args) if isinstance(a, (tuple, int)))
+    return jax.jit(functools.partial(init, **kwargs), static_argnums=static)(*args)
+
+
 def seeded_jax_params(jcfg: JDiTConfig, x, t, ctx, seed: int = 0, **kw):
-    return noisy_params(JDiT(jcfg).init(jax.random.PRNGKey(seed), x, t, ctx, **kw), seed)
+    return noisy_params(jit_init(JDiT(jcfg).init, jax.random.PRNGKey(seed), x, t, ctx, **kw), seed)
 
 
 def port_net(params, jcfg: JDiTConfig) -> tdit.MiniTrainDIT:
