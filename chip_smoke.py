@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Video2World serving and training paths (dense, sparse, DMD2, 14B), its streaming, forward-mode, released-weights, autoregressive, Text2Image, one-shot-VAE and post-training (LoRA, local clips, remat, bf16 moments) paths, the post-trained variants (multiview, camera, action) and the gr00t action stream, Wan2.1 i2v, the Wan2.2 VAE, EDM and the 14B sparse pair, once on one NVIDIA GPU.
+"""Drive the PyTorch port's Video2World serving and training paths (dense, sparse, DMD2, 14B), its streaming, forward-mode, released-weights, autoregressive, Text2Image, one-shot-VAE and post-training (LoRA, local clips, remat, bf16 moments) paths, the post-trained variants (multiview, camera, action) and the gr00t action stream, Wan2.1 i2v, the Wan2.2 VAE, EDM and the 14B sparse pair, and the prompt encoders (Reason1 through the CLI, umT5 and CLIP into Wan i2v, T5-11B, the Qwen2.5-VL vision tower, SigLIP, XLM-R), once on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
@@ -185,7 +185,27 @@ Phases, each printed with its wall time:
    dilated layers 0-10 and its layers 11-12 with the 14B's 40 heads, K10
    at its two wide windows (layers 23-35), and K5 and K1 at the gr00t
    stream's shapes (one 16 x 20 frame a block, fills of 1 and 5 frames;
-   cross-attention at B1 Sq320 Skv512).
+   cross-attention at B1 Sq320 Skv512);
+18. the prompt encoders (A15), each tower at its released width on seeded
+   weights, built on the meta device in bf16 and drawn on the card, its
+   build time, forward time (CUDA events) and peak memory logged: a
+   2-layer full-width Cosmos-Reason1 file with HF Qwen2.5-VL keys (a .pt:
+   the card's machine has no safetensors) through the inference CLI's
+   ``--text-encoder`` (COSMOS_SMOKE, the 2B), which attaches it and, with no
+   ``--tokenizer-path``, raises on a prompt; those 2 layers on 512 ids in
+   bf16 on the card against fp32 on the CPU (the pipelines' 8e-2 limit);
+   the Qwen2.5-VL vision tower on a 2-frame 448x448 clip (1,024 patches ->
+   256 tokens) spliced into them by ``encode_multimodal``; the 28-layer 7B
+   on a prompt and a negative prompt (seeded ids through a stand-in
+   tokenizer: the card has no transformers): (2, 512, 100,352), finite,
+   each row's channel mean 0 and std 1 on its real tokens, then one
+   Text2World request through Inference on them (93 frames at 192x320, 35
+   steps, CFG 7): exactly 1,960 K1 and K2; umT5-XXL (24 x 4,096) on 512
+   ids and CLIP ViT-H/14 on the first frame inside ``make_i2v_condition``
+   condition one Wan 1.3B i2v request as phase 17's (81 x 480x832, 3
+   steps): exactly 270 K1 and K2; T5-11B at the published widths through
+   ``OfflineT5Encoder`` (zero past each length), SigLIP so400m on four
+   384x384 frames and XLM-R large with its head on 512 ids.
 
 Then it prints the kernels' JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero without that line.
@@ -3593,6 +3613,347 @@ def a13_slice() -> dict:
     return out
 
 
+# prompt encoders (phase 18): every tower at its released width on seeded weights
+REASON1_FILE_LAYERS = 2  # the Reason1 file written for the CLI's --text-encoder route
+REASON1_PAD_ID = 151643  # Qwen2.5's <|endoftext|>, its tokenizer's padding
+REASON1_PROMPT_TOKENS = (377, 211)  # real ids of the prompt and the negative prompt; padded to 512
+REASON1_STEPS = NUM_STEPS
+# The first 2 Reason1 layers in bf16 on the card against fp32 on the CPU, on
+# the same (bf16) weights and ids: 3x the 1.015e-2 relative L2 on the pooled
+# embedding that this check measures on an H100.
+REASON1_REL_L2 = 3e-2
+UMT5_TOKENS = 200  # real ids of the Wan prompt; padded to 512
+T5_11B_TOKENS = 300
+XLMR_TOKENS = 400
+QWEN_VISION_CLIP = (2, 448, 448)  # frames, height, width: one temporal patch of 32 x 32 patches
+QWEN_VISION_OFFSET = 16  # where the 256 merged vision tokens sit among the 512 ids
+SIGLIP_FRAMES = 4
+
+
+class SeededTokenizer:
+    """The chat tokenizer's stand-in on the card, which has no transformers:
+    a prompt (the user turn) maps to the phase's seeded ids, and
+    CosmosTextEncoder.tokenize pads them to 512 as it pads a real
+    tokenizer's."""
+
+    pad_token_id = REASON1_PAD_ID
+
+    def __init__(self, table: dict):
+        self.table = table
+
+    def apply_chat_template(self, conversation, tokenize=True, add_generation_prompt=False):
+        return self.table[conversation[-1]["content"]]
+
+
+def tower_record(name: str, module, build_s: float, forward, what: str) -> dict:
+    """A tower's parameters, build time, forward time (CUDA events: one
+    warm-up, three timed calls) and peak memory since the last fresh_memory."""
+    import torch
+
+    n = sum(p.numel() for p in module.parameters())
+    ms = cuda_ms(forward, warmup=1, iters=3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  {name}: {n / 1e9:.3f} B params, built on the card in {build_s:.2f} s; forward ({what}) {ms:.2f} ms; "
+        f"peak {peak:.2f} GiB")
+    return {"params": n, "build_s": build_s, "forward_ms": ms, "peak_gb": peak}
+
+
+def _timed_build(build):
+    import torch
+
+    t = time.perf_counter()
+    module = build()
+    torch.cuda.synchronize()
+    return module, time.perf_counter() - t
+
+
+def _check(name: str, ok: bool, detail: str) -> None:
+    if not ok:
+        raise AssertionError(f"{name}: {detail}")
+
+
+def reason1_slice(out: dict) -> dict:
+    """Phase 18, Reason1: the CLI's --text-encoder route on a 2-layer
+    full-width file, those layers card bf16 against CPU fp32, the Qwen2.5-VL
+    vision tower spliced into them, and the 28-layer 7B serving a Text2World
+    request through Inference."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.inference import cli
+    from cosmos_predict2_tpu_torch.inference.api import InferenceArguments
+    from cosmos_predict2_tpu_torch.text_encoders.qwen import QwenConfig, build_qwen_lm
+    from cosmos_predict2_tpu_torch.text_encoders.qwen_vision import (
+        QwenVisionConfig,
+        build_qwen_vision,
+        encode_pixels,
+        patchify,
+    )
+    from cosmos_predict2_tpu_torch.text_encoders.text_encoder import (
+        CosmosTextEncoder,
+        TextEncoderConfig,
+        build_text_encoder,
+        load_text_encoder,
+    )
+    from cosmos_predict2_tpu_torch.utils import flags
+
+    towers = out["towers"]
+    cfg7b = QwenConfig.qwen2_5_vl_7b()
+    rng = np.random.default_rng(41)
+    prompt, negative = "a robot arm stacks red cubes on a table", "blurry, low quality"
+    tokenizer = SeededTokenizer({p: rng.integers(0, cfg7b.vocab_size, n).tolist()
+                                 for p, n in zip((prompt, negative), REASON1_PROMPT_TOKENS)})
+    ids = CosmosTextEncoder(TextEncoderConfig(), tokenizer=tokenizer).tokenize([prompt, negative])
+    out_dir = OUT_DIR / "reason1"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"reason1_{REASON1_FILE_LAYERS}layers.pt"
+
+    # 1. the CLI's route: a 2-layer full-width file with HF Qwen2.5-VL keys
+    fresh_memory()
+    t = time.perf_counter()
+    lm2 = build_qwen_lm(dataclasses.replace(cfg7b, num_hidden_layers=REASON1_FILE_LAYERS), "cuda", seed=42)
+    torch.save({f"model.language_model.{k}": v.cpu() for k, v in lm2.state_dict().items()}, path)
+    write_s, size_gb = time.perf_counter() - t, path.stat().st_size / 2**30
+    del lm2
+    smoke, flags.SMOKE = flags.SMOKE, True
+    try:
+        pipe, load_s = _timed_build(lambda: cli.build_pipeline(cli.parse_args(
+            [f"--experiment={DENSE_EXPERIMENT}", "--text-encoder", str(path)])))
+    finally:
+        flags.SMOKE = smoke
+    enc2 = pipe.text_encoder
+    _check("the CLI's --text-encoder", isinstance(enc2, CosmosTextEncoder) and pipe.video_size() == SIZE
+           and enc2.config.model.num_hidden_layers == REASON1_FILE_LAYERS
+           and enc2.config.model.dtype == torch.bfloat16 and enc2.config.tokenizer_path is None,
+           f"attached {type(enc2).__name__} at {pipe.video_size()}")
+    try:
+        enc2([prompt])
+        raise AssertionError("a text encoder without --tokenizer-path tokenized a prompt")
+    except ValueError:
+        pass
+    log(f"  a {REASON1_FILE_LAYERS}-layer full-width Reason1 file with HF keys ({size_gb:.2f} GiB, bf16) written in "
+        f"{write_s:.2f} s; cli.build_pipeline --text-encoder (COSMOS_SMOKE, {DENSE_EXPERIMENT}) in {load_s:.2f} s "
+        f"attached it; without --tokenizer-path a prompt raises")
+
+    # 3. those layers: card bf16 against CPU fp32, the same weights and ids
+    got = enc2.encode_tokens(ids[:1])
+    t = time.perf_counter()
+    cpu = load_text_encoder(str(path), device="cpu")
+    ref = cpu.encode_tokens(ids[:1])
+    cpu_s = time.perf_counter() - t
+    del cpu
+    max_abs, rel = errors(got.cpu(), ref)
+    log(f"  {REASON1_FILE_LAYERS} full-width layers, 512 ids, card bf16 vs cpu fp32 ({cpu_s:.1f} s): pooled "
+        f"{tuple(got.shape)} max_abs {max_abs:.3e} rel_l2 {rel:.3e} (limit {REASON1_REL_L2})")
+    _check("Reason1 card vs CPU", bool(torch.isfinite(got).all()) and rel <= REASON1_REL_L2, f"rel_l2 {rel:.3e}")
+    out["reason1_cpu_rel_l2"] = rel
+
+    # 5a. the Qwen2.5-VL vision tower on a 2-frame 448x448 clip, spliced into those layers
+    vcfg = dataclasses.replace(QwenVisionConfig(), dtype=torch.bfloat16)
+    vision, build_s = _timed_build(lambda: build_qwen_vision(vcfg, "cuda", seed=49))
+    T, H, W = QWEN_VISION_CLIP
+    frames = torch.rand((T, 3, H, W), generator=torch.Generator(device="cuda").manual_seed(50), device="cuda") * 2 - 1
+    patches, grid = patchify(frames, vcfg)
+    feats = encode_pixels(vision, patches, grid)
+    n_vis = int(np.prod(grid)) // vcfg.spatial_merge_size ** 2
+    _check("Qwen vision tower", feats.shape == (n_vis, cfg7b.hidden_size) and bool(torch.isfinite(feats).all()),
+           f"{tuple(feats.shape)}")
+    towers["qwen2_5_vl_vision"] = tower_record("Qwen2.5-VL vision tower", vision, build_s,
+                                               lambda: encode_pixels(vision, patches, grid),
+                                               f"{T} frames {H}x{W}: {patches.shape[0]} patches -> {n_vis} tokens")
+    mask = np.zeros((1, ids.shape[1]), dtype=bool)
+    mask[0, QWEN_VISION_OFFSET:QWEN_VISION_OFFSET + n_vis] = True
+    embeds = torch.zeros((1, ids.shape[1], cfg7b.hidden_size), dtype=feats.dtype, device="cuda")
+    embeds[0, QWEN_VISION_OFFSET:QWEN_VISION_OFFSET + n_vis] = feats
+    mm = enc2.encode_multimodal(ids[:1], embeds, mask)
+    _check("encode_multimodal", mm.shape == got.shape and bool(torch.isfinite(mm).all())
+           and float((mm - got).abs().max()) > 0, f"{tuple(mm.shape)}")
+    log(f"  encode_multimodal: {n_vis} vision tokens at ids {QWEN_VISION_OFFSET}-{QWEN_VISION_OFFSET + n_vis - 1} "
+        f"of 512 through the {REASON1_FILE_LAYERS}-layer LM -> {tuple(mm.shape)}")
+    del vision, feats, embeds, mm, enc2, got
+    pipe.text_encoder = None
+    path.unlink()
+    fresh_memory()
+
+    # 2. the 7B at 28 layers: a prompt and a negative prompt, then a Text2World request
+    enc, build_s = _timed_build(lambda: build_text_encoder(TextEncoderConfig(), "cuda", seed=43, tokenizer=tokenizer))
+    emb = enc([prompt, negative])
+    width = cfg7b.num_hidden_layers * cfg7b.hidden_size
+    _check("Reason1 7B", emb.shape == (2, 512, width) and bool(torch.isfinite(emb).all()), f"{tuple(emb.shape)}")
+    for row, n in enumerate(REASON1_PROMPT_TOKENS):
+        real = emb[row, :n]
+        mean_err = float(real.mean(dim=-1).abs().max())
+        std_err = float((real.std(dim=-1) - 1).abs().max())
+        _check("Reason1 7B pooling", mean_err < 1e-3 and std_err < 1e-3,
+               f"row {row}: channel mean off by {mean_err:.2e}, std by {std_err:.2e}")
+    log(f"  Reason1 7B: (2, 512, {width:,}) fp32, finite; over each row's {REASON1_PROMPT_TOKENS} real tokens the "
+        f"channel mean is 0 and the std 1 within 1e-3")
+    towers["reason1_7b"] = tower_record("Reason1 7B (Qwen2.5-VL LM, 28 layers)", enc.lm, build_s,
+                                        lambda: enc.encode_tokens(ids), "2 x 512 ids, FULL_CONCAT pooling")
+    del emb
+    pipe.text_encoder = enc
+    api, export_s = _timed_api(pipe, out_dir)
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    (video,) = api.generate([InferenceArguments(name="reason1_text2world", prompt=prompt, negative_prompt=negative,
+                                                num_steps=REASON1_STEPS, guidance=GUIDANCE, seed=1)])
+    request_s = time.perf_counter() - t
+    counts = _build.launch_counts()
+    check_launches("reason1 text2world", counts, REASON1_STEPS * 2 * NUM_BLOCKS)
+    _check("the Reason1 request", Path(video).stat().st_size > 0, f"wrote {video}")
+    tm = pipe.last_timings
+    log(f"  Text2World through Inference with the 7B's embeddings ({NUM_FRAMES} frames at {SIZE[0]}x{SIZE[1]}, "
+        f"{REASON1_STEPS} steps, CFG {GUIDANCE} against the negative prompt): {request_s:.2f} s (denoise "
+        f"{tm['denoise_s']:.2f} s, export {export_s[0]:.2f} s); launches {counts}")
+    result = {"counts": counts, "request_s": request_s, "export_s": export_s[0], **tm,
+              "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+    del enc, pipe, api
+    fresh_memory()
+    return result
+
+
+def wan_encoders_slice(out: dict) -> dict:
+    """Phase 18, Wan i2v: umT5-XXL encodes the prompt, CLIP ViT-H/14 the
+    first frame inside make_i2v_condition, and Wan 1.3B serves the request."""
+    import dataclasses as dc
+
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.models.wan_video2world import WanModelConfig, WanVideo2WorldModel, image2world
+    from cosmos_predict2_tpu_torch.networks.wan_dit import WAN_PRESETS, build_wan
+    from cosmos_predict2_tpu_torch.text_encoders.clip_vision import (
+        CLIPVisionConfig,
+        build_clip_vision,
+        encode_first_frame,
+    )
+    from cosmos_predict2_tpu_torch.text_encoders.t5_encoder import T5Config, build_t5_encoder
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae import WanVAEConfig, build_vae
+
+    towers = out["towers"]
+    ucfg = dc.replace(T5Config.umt5_xxl(), dtype=torch.bfloat16)
+    umt5, build_s = _timed_build(lambda: build_t5_encoder(ucfg, "cuda", seed=44))
+    rng = np.random.default_rng(45)
+    mask = torch.zeros((1, 512), dtype=torch.long, device="cuda")
+    mask[:, :UMT5_TOKENS] = 1
+    ids = torch.from_numpy(rng.integers(1, ucfg.vocab_size, (1, 512))).to("cuda") * mask
+    with torch.no_grad():
+        text = umt5(ids, mask)
+    _check("umT5-XXL", text.shape == (1, 512, 4096) and bool(torch.isfinite(text).all())
+           and not bool(text[0, UMT5_TOKENS:].any()), f"{tuple(text.shape)}")
+    towers["umt5_xxl"] = tower_record("umT5-XXL encoder (24 x 4096)", umt5, build_s, lambda: umt5(ids, mask),
+                                      f"512 ids, {UMT5_TOKENS} real")
+    del umt5
+    fresh_memory()
+
+    clip, build_s = _timed_build(lambda: build_clip_vision(CLIPVisionConfig(), "cuda", seed=46))
+    H, W = WAN_HW
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    frame = torch.rand((1, H, W, 3), generator=gen, device="cuda") * 2 - 1
+    tokens = encode_first_frame(clip, frame[:, None])
+    _check("CLIP ViT-H/14", tokens.shape == (1, 257, 1280) and bool(torch.isfinite(tokens).all()),
+           f"{tuple(tokens.shape)}")
+    towers["clip_vit_h14"] = tower_record("CLIP ViT-H/14 (31 of 32 blocks)", clip, build_s,
+                                          lambda: encode_first_frame(clip, frame[:, None]),
+                                          f"one {H}x{W} frame -> 257 tokens")
+    del tokens
+
+    cfg = WAN_PRESETS["1.3B"]
+    net = build_wan(cfg, "cuda", seed=23)
+    vae = build_vae(WanVAEConfig(), "cuda", seed=24)
+    model = WanVideo2WorldModel(WanModelConfig(net=cfg), net)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    latents, px = image2world(model, vae, frame, text, None, torch.Generator(device="cuda").manual_seed(26),
+                              num_frames=WAN_FRAMES, guidance=WAN_GUIDANCE, num_steps=WAN_STEPS, clip_tower=clip)
+    torch.cuda.synchronize()
+    request_s = time.perf_counter() - t
+    counts = _build.launch_counts()
+    check_launches("wan i2v with umT5 and CLIP", counts, WAN_STEPS * 3 * cfg.num_layers)
+    _check("the Wan request", latents.shape == (1, 16, 21, 60, 104) and px.shape == (1, WAN_FRAMES, H, W, 3)
+           and bool(torch.isfinite(px).all()) and float(px.float().std()) > 0,
+           f"latents {tuple(latents.shape)}, pixels {tuple(px.shape)}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  Wan 1.3B i2v on umT5's text and CLIP's first-frame tokens ({WAN_FRAMES} x {H}x{W}, {WAN_STEPS} steps, "
+        f"the frame CLIP-encoded inside make_i2v_condition): {request_s:.2f} s; peak {peak_gb:.2f} GiB; "
+        f"launches {counts}")
+    del net, vae, model, latents, px, clip, text
+    fresh_memory()
+    return {"counts": counts, "request_s": request_s, "peak_gb": peak_gb}
+
+
+def other_towers_slice(out: dict) -> None:
+    """Phase 18, the rest at full width: T5-11B through OfflineT5Encoder's
+    tower route, SigLIP so400m on 384x384 frames, XLM-R large on 512 ids."""
+    import dataclasses as dc
+
+    import torch
+
+    from cosmos_predict2_tpu_torch.text_encoders.siglip_vision import (
+        SigLIPVisionConfig,
+        build_siglip_vision,
+        make_frame_embedder,
+        preprocess_siglip,
+    )
+    from cosmos_predict2_tpu_torch.text_encoders.t5 import OfflineT5Encoder
+    from cosmos_predict2_tpu_torch.text_encoders.t5_encoder import T5Config, build_t5_encoder
+    from cosmos_predict2_tpu_torch.text_encoders.xlm_roberta import XLMRobertaConfig, build_xlm_roberta
+
+    towers = out["towers"]
+    rng = np.random.default_rng(51)
+    tcfg = dc.replace(T5Config.t5_11b(), dtype=torch.bfloat16)
+    t5, build_s = _timed_build(lambda: build_t5_encoder(tcfg, "cuda", seed=52))
+    mask = np.zeros((1, 512), dtype=np.int64)
+    mask[:, :T5_11B_TOKENS] = 1
+    ids = rng.integers(1, tcfg.vocab_size, (1, 512)) * mask
+    offline = OfflineT5Encoder(encoder=t5, device="cuda")
+    emb = offline.encode_ids(ids, mask)
+    _check("T5-11B", emb.shape == (1, 512, 1024) and np.isfinite(emb).all() and not emb[0, T5_11B_TOKENS:].any()
+           and np.abs(emb[0, :T5_11B_TOKENS]).sum(-1).min() > 0, f"{emb.shape}")
+    ids_t, mask_t = torch.from_numpy(ids).to("cuda"), torch.from_numpy(mask).to("cuda")
+    towers["t5_11b"] = tower_record("T5-11B encoder (published widths: d_kv 128, d_ff 65,536)", t5, build_s,
+                                    lambda: t5(ids_t, mask_t), f"512 ids, {T5_11B_TOKENS} real, via OfflineT5Encoder")
+    del t5, offline
+    fresh_memory()
+
+    siglip, build_s = _timed_build(lambda: build_siglip_vision(SigLIPVisionConfig(), "cuda", seed=53))
+    frames = rng.integers(0, 256, (SIGLIP_FRAMES, 384, 384, 3), dtype=np.uint8)
+    feats = make_frame_embedder(siglip)(frames)
+    _check("SigLIP so400m", feats.shape == (SIGLIP_FRAMES, 1152) and np.isfinite(feats).all(), f"{feats.shape}")
+    pixels = preprocess_siglip(frames, 384, "cuda")
+    towers["siglip_so400m"] = tower_record("SigLIP so400m/14-384", siglip, build_s, lambda: siglip(pixels),
+                                           f"{SIGLIP_FRAMES} frames 384x384 -> 729 tokens each")
+    del siglip, pixels
+    fresh_memory()
+
+    xcfg = dc.replace(XLMRobertaConfig.large(), dtype=torch.bfloat16)
+    xlm, build_s = _timed_build(lambda: build_xlm_roberta(xcfg, "cuda", seed=54, with_head=True))
+    xids = torch.from_numpy(rng.integers(2, xcfg.vocab_size, (1, 512))).to("cuda")
+    xids[:, XLMR_TOKENS:] = xcfg.pad_id
+    with torch.no_grad():
+        pooled, hidden = xlm(xids), xlm.encode(xids)
+    _check("XLM-R large", pooled.shape == (1, xcfg.out_dim) and hidden.shape == (1, 512, xcfg.dim)
+           and bool(torch.isfinite(pooled).all()) and bool(torch.isfinite(hidden).all()), f"{tuple(pooled.shape)}")
+    towers["xlm_roberta_large"] = tower_record("XLM-R large with its head", xlm, build_s, lambda: xlm(xids),
+                                               f"512 ids, {XLMR_TOKENS} real")
+    del xlm
+    fresh_memory()
+
+
+def prompt_encoders_slice() -> dict:
+    """Phase 18: A15, the prompt encoders."""
+    out: dict = {"towers": {}}
+    out["reason1"] = reason1_slice(out)
+    out["wan_encoders"] = wan_encoders_slice(out)
+    other_towers_slice(out)
+    if "transformers" in sys.modules:
+        raise AssertionError("the prompt encoders' phase imported transformers")
+    return out
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)  # --help; no options
     t_start = time.perf_counter()
@@ -3670,13 +4031,17 @@ def main(argv=None) -> int:
         var = variants_slice()
     with Phase("A13 and A12.2: the gr00t action stream, Wan 1.3B i2v, the Wan2.2 VAE, EDM, the 14B sparse pair"):
         a13 = a13_slice()
+    with Phase("A15, the prompt encoders: Reason1 7B through the CLI and a request, umT5 + CLIP into Wan i2v, "
+               "T5-11B, Qwen vision, SigLIP, XLM-R"):
+        a15 = prompt_encoders_slice()
     paths = {"serve": sl, "train": tr, "sparse_serve": ssl, "sparse_train": stl, "interactive": it,
              "interactive_window": itw, "fwdmode": fm, "fa_jvp": fj, "dmd2_serve": dsl, "distill": dtl,
              "released": rel, "autoregressive": ar, "text2image": t2i, "oneshot": osl, "14b": big,
              "posttrain_lora": post["lora"], "posttrain_full": post["rows"], "multiview": var["multiview"],
              "camera": var["camera"], "action": var["action"], "gr00t": a13["gr00t"], "wan": a13["wan"],
              "wan22_vae": a13["wan22_vae"], "edm": a13["edm"],
-             **{name: a13["sparse_14b"][name] for name in SPARSE_14B_EXPERIMENTS}}
+             **{name: a13["sparse_14b"][name] for name in SPARSE_14B_EXPERIMENTS},
+             "reason1": a15["reason1"], "wan_encoders": a15["wan_encoders"]}
     path_kernels = {
         "serve": ("flash_attention_fwd", "conv3d_causal"),
         "train": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal"),
@@ -3691,7 +4056,7 @@ def main(argv=None) -> int:
         "distill": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal"),
         **{path: ("flash_attention_fwd", "conv3d_causal")
            for path in ("released", "autoregressive", "text2image", "oneshot", "14b", "multiview", "camera", "action",
-                        "wan", "edm")},
+                        "wan", "edm", "reason1", "wan_encoders")},
         "gr00t": ("flash_attention_fwd", "flash_attention_kv_cache"),
         "wan22_vae": ("conv3d_causal",),
         **{name: ("flash_attention_fwd", "na_fwd") for name in SPARSE_14B_EXPERIMENTS},

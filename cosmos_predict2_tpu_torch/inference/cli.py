@@ -4,6 +4,7 @@
         --experiment=predict2_video2world_2b_rectified_flow \
         --checkpoint=model.pt --vae=Wan2.1_VAE.pth \
         --text-embedding-path=prompt.npy --input=input.jpg [--batch samples.json] [--sampler dmd2] \
+        [--text-encoder=reason1.safetensors --tokenizer-path=tokenizer_dir] \
         [--mode text2image] [--autoregressive --num-output-frames 181 --chunk-size 93 --chunk-overlap 2] \
         [--no-vae-streaming] [--device cpu]
 
@@ -14,9 +15,14 @@ downloaded). Weights load through utils/model_loader.py: every key the
 model has must be there with its shape, other entries are ignored and
 logged; with no checkpoint, seeded random weights. The VAE streams by
 default; ``--no-vae-streaming`` takes the one-shot route, the JAX CLI's
-default.
-COSMOS_SMOKE=1 uses random weights, 1 step, the 192x320 geometry and zero
-text embeddings for plumbing checks.
+default. ``--text-encoder`` takes a Cosmos-Reason1 (Qwen2.5-VL) state
+dict, a file or a directory of shards with HF's keys, and attaches it as
+the pipeline's text encoder (text_encoders/text_encoder.py::
+load_text_encoder: bf16 on a card, fp32 on the CPU); prompts are then
+tokenized by ``transformers`` from ``--tokenizer-path``, and a prompt
+without a tokenizer path raises.
+COSMOS_SMOKE=1 uses random weights, 1 step, the 192x320 geometry and, when
+no ``--text-encoder`` is given, zero text embeddings for plumbing checks.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ def parse_args(argv=None):
     p.add_argument("--experiment", default="predict2_video2world_2b_rectified_flow")
     p.add_argument("--checkpoint", default=None, help="DiT torch state dict (.pt/.pth/.safetensors)")
     p.add_argument("--vae", default=None, help="Wan2.1_VAE.pth torch state dict")
+    p.add_argument("--text-encoder", default=None, help="Cosmos-Reason1 (Qwen2.5-VL) weights: a file or a directory")
+    p.add_argument("--tokenizer-path", default=None, help="HF tokenizer directory for the text encoder")
     p.add_argument("--prompt", default="")
     p.add_argument("--negative-prompt", default="")
     p.add_argument("--input", dest="input_path", default=None)
@@ -59,9 +67,9 @@ def parse_args(argv=None):
 
 
 def build_pipeline(args):
-    """utils/model_loader.py's pipeline for the arguments; under
-    COSMOS_SMOKE with random weights, the 192x320 geometry and zero text
-    embeddings."""
+    """utils/model_loader.py's pipeline for the arguments, with the
+    ``--text-encoder`` attached; under COSMOS_SMOKE with random weights, the
+    192x320 geometry and, without ``--text-encoder``, zero text embeddings."""
     import torch
 
     from cosmos_predict2_tpu_torch.utils.flags import SMOKE
@@ -76,7 +84,12 @@ def build_pipeline(args):
         device=args.device,
     )
     pipe.setup = dataclasses.replace(pipe.setup, streaming_vae=not args.no_vae_streaming)
-    if SMOKE:
+    if args.text_encoder:
+        from cosmos_predict2_tpu_torch.text_encoders.text_encoder import load_text_encoder
+
+        pipe.text_encoder = load_text_encoder(args.text_encoder, tokenizer_path=args.tokenizer_path,
+                                              device=args.device)
+    elif SMOKE:
         net_cfg = config.model.net
         ctx_dim = net_cfg.crossattn_proj_in_channels if net_cfg.use_crossattn_projection else net_cfg.crossattn_emb_channels
         pipe.text_encoder = lambda prompts: torch.zeros((len(prompts), 512, ctx_dim))

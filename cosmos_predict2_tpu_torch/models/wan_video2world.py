@@ -4,9 +4,9 @@ Counterpart of cosmos_predict2_tpu/models/wan_video2world.py. Wan's i2v
 conditioning replaces FRAME_REPLACE: the conditional frames enter as extra
 input channels ``y = [mask x4 | masked latents]`` (20 channels for the
 16-channel latent), and a CLIP image embedding (B, 257, 1280) feeds the
-cross-attention's image branch. CLIP is not ported (it waits with the
-text encoders), so the embedding comes in precomputed, as the text
-embeddings do: :func:`make_i2v_condition` takes it directly.
+cross-attention's image branch: :func:`make_i2v_condition` encodes the
+first pixel frame with the CLIP tower (text_encoders/clip_vision.py), as
+JAX does, or takes the tokens precomputed.
 
 ``generate`` is UniPC at shift 5 with CFG against zero (or negative) text,
 ``uncond + g * (cond - uncond)``; the port runs the two branches as one
@@ -56,13 +56,23 @@ class WanCondition:
 
 
 def make_i2v_condition(
-    crossattn_emb: torch.Tensor, media_latents_B_C_T_H_W: torch.Tensor, clip_emb: Optional[torch.Tensor] = None
+    crossattn_emb: torch.Tensor,
+    media_latents_B_C_T_H_W: torch.Tensor,
+    clip_emb: Optional[torch.Tensor] = None,
+    clip_tower=None,
+    video_pm1_B_T_H_W_C: Optional[torch.Tensor] = None,
 ) -> WanCondition:
-    """The i2v bundle: with ``clip_emb`` (the first frame's CLIP tokens)
-    latent frame 0 is conditional; without it (text only) the CLIP context
-    is zeros and no frame is."""
+    """The i2v bundle (the reference's Wan2pt1CLIPEmb): with ``clip_tower``
+    (text_encoders/clip_vision.CLIPVisionTower) and the pixel clip ([-1, 1],
+    channels last) its first frame is CLIP-encoded, or the tokens come in
+    as ``clip_emb``; either way latent frame 0 is conditional. Without them
+    (text only) the CLIP context is zeros and no frame is."""
     B, _, T = media_latents_B_C_T_H_W.shape[:3]
     dev = media_latents_B_C_T_H_W.device
+    if clip_tower is not None and video_pm1_B_T_H_W_C is not None:
+        from cosmos_predict2_tpu_torch.text_encoders.clip_vision import encode_first_frame
+
+        clip_emb = encode_first_frame(clip_tower, video_pm1_B_T_H_W_C)
     mask = torch.zeros((B, 1, T, 1, 1), device=dev)
     if clip_emb is None:
         clip_emb = torch.zeros((B, CLIP_TOKENS, 1280), device=dev)
@@ -151,19 +161,22 @@ def image2world(
     vae,
     first_frame_B_H_W_C: torch.Tensor,
     crossattn_emb: torch.Tensor,
-    clip_emb: torch.Tensor,
+    clip_emb: Optional[torch.Tensor],
     generator: torch.Generator,
     num_frames: int = 81,
     guidance: float = 5.0,
     num_steps: Optional[int] = None,
+    clip_tower=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One i2v request: encode the conditioning video, sample, decode.
+    """One i2v request: encode the conditioning video, sample, decode. The
+    CLIP tokens: ``clip_emb``, or the first frame through ``clip_tower``.
     Returns (latents (B, 16, T, h, w) fp32, pixels (B, num_frames, H, W, 3)
     in [-1, 1], the VAE's dtype)."""
     from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import decode_streaming
 
     latents = encode_i2v_latents(vae, first_frame_B_H_W_C, num_frames)
-    condition = make_i2v_condition(crossattn_emb, latents, clip_emb)
+    condition = make_i2v_condition(crossattn_emb, latents, clip_emb, clip_tower=clip_tower,
+                                   video_pm1_B_T_H_W_C=first_frame_B_H_W_C[:, None])
     noise = torch.randn(latents.shape, generator=generator, device=generator.device).to(latents.device)
     out = model.generate(noise, condition, guidance=guidance, num_steps=num_steps)
     return out, decode_streaming(vae, out.permute(0, 2, 3, 4, 1).to(vae.config.dtype))

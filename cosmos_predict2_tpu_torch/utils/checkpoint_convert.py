@@ -14,12 +14,18 @@ attention, so a checkpoint without ``blocks.{i}.cross_view_attn.*`` raises
 KeyError naming them, as for any key it lacks. The Wan2.1 DiT and the
 Wan2.2 VAE carry the reference's names too; their converters
 (:func:`convert_wan_dit_state_dict`, :func:`convert_wan22_vae_state_dict`)
-make the few changes the JAX package's make.
+make the few changes the JAX package's make. The prompt encoders
+(text_encoders/) carry HF's or the reference's names: their converters
+pick the tower's prefix (Qwen's by where its layers sit, as the JAX
+package's ``convert_qwen_hf_state_dict``) and fill what a checkpoint may
+leave out (a tied LM head, T5's ``shared`` table); the vision towers and
+XLM-R only sit under a prefix (``TOWER_PREFIXES``).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 from typing import Any, Mapping
 
 import numpy as np
@@ -33,12 +39,24 @@ def strip_prefix(sd: Mapping[str, Any], prefix: str) -> dict[str, Any]:
 
 
 def read_state_dict(path: str) -> dict[str, Any]:
-    """A .pt/.pth/.safetensors state dict as CPU tensors in the file's
+    """A .pt/.pth/.bin/.safetensors state dict as CPU tensors in the file's
     dtypes, memory-mapped where the format allows (a .pt written by
     ``torch.save``), so a multi-GB checkpoint is read into the module it
-    loads into without a second host copy."""
+    loads into without a second host copy. A directory (an HF checkpoint)
+    gives the union of its ``*.safetensors`` shards, else of its ``*.bin``,
+    ``*.pt`` and ``*.pth`` files."""
     import torch
 
+    if os.path.isdir(path):
+        names = sorted(os.listdir(path))
+        shards = [n for n in names if n.endswith(".safetensors")] or \
+            [n for n in names if n.endswith((".bin", ".pt", ".pth"))]
+        if not shards:
+            raise FileNotFoundError(f"no state dict file in {path}")
+        sd: dict[str, Any] = {}
+        for name in shards:
+            sd.update(read_state_dict(os.path.join(path, name)))
+        return sd
     if path.endswith(".safetensors"):
         from safetensors.torch import load_file
 
@@ -128,3 +146,70 @@ def convert_wan22_vae_state_dict(sd: Mapping[str, Any]) -> dict[str, Any]:
     encoder, decoder and outer conv entries are kept; a flat RMS_norm gamma
     is reshaped when the state dict is loaded (:func:`load_reference_state_dict`)."""
     return {k: v for k, v in sd.items() if k.split(".")[0] in ("encoder", "decoder", "conv1", "conv2")}
+
+
+# ----------------------------- prompt encoders -----------------------------
+# HF (or reference) state dicts of the text_encoders/ towers. The towers
+# carry the checkpoints' names, so a converter only finds the tower's prefix
+# and fills what a checkpoint may leave out; the result goes through
+# :func:`load_reference_state_dict`.
+
+
+def qwen_lm_prefix(sd: Mapping[str, Any]) -> str:
+    """Where the Qwen LM's layers sit: Qwen2.5-VL's ``model.language_model.``
+    (transformers >= 4.52), a causal LM's ``model.``, or the top level, as
+    the JAX package's ``convert_qwen_hf_state_dict`` looks for them."""
+    for prefix in ("model.language_model.", "model.", ""):
+        if any(k.startswith(f"{prefix}layers.0.") for k in sd):
+            return prefix
+    raise KeyError("could not locate transformer layers in state dict")
+
+
+def convert_qwen_hf_state_dict(sd: Mapping[str, Any]) -> dict[str, Any]:
+    """An HF Qwen2 / Qwen2.5-VL / Qwen3 state dict -> text_encoders/qwen.QwenLM's."""
+    prefix = qwen_lm_prefix(sd)
+    return strip_prefix(sd, prefix) if prefix else dict(sd)
+
+
+def qwen_hf_deltas(lm_sd: Mapping[str, Any]) -> dict[str, Any]:
+    """What a converted LM state dict says of its config: the layer count,
+    the q/k/v biases (Qwen2) and the per-head q/k norms (Qwen3)."""
+    layers = {int(k.split(".")[1]) for k in lm_sd if k.startswith("layers.")}
+    return {"num_hidden_layers": max(layers) + 1, "attention_bias": "layers.0.self_attn.q_proj.bias" in lm_sd,
+            "qk_norm": "layers.0.self_attn.q_norm.weight" in lm_sd}
+
+
+def convert_qwen_guard_hf_state_dict(sd: Mapping[str, Any]) -> dict[str, Any]:
+    """An HF causal-LM guard checkpoint (Qwen2 or Qwen3, e.g.
+    Qwen/Qwen3Guard-Gen-0.6B) -> text_encoders/qwen.QwenGuardLM's: the LM under
+    ``model.`` and ``lm_head.weight``, the checkpoint's own or, tied
+    (``tie_word_embeddings``), the token embeddings."""
+    lm = convert_qwen_hf_state_dict(sd)
+    out = {f"model.{k}": v for k, v in lm.items()}
+    out["lm_head.weight"] = sd["lm_head.weight"] if "lm_head.weight" in sd else lm["embed_tokens.weight"]
+    return out
+
+
+def convert_t5_hf_state_dict(sd: Mapping[str, Any]) -> dict[str, Any]:
+    """An HF T5EncoderModel / UMT5EncoderModel state dict -> t5_encoder.T5Encoder's:
+    the token embeddings as ``shared.weight`` (or ``encoder.embed_tokens.weight``)."""
+    out = dict(sd)
+    if "shared.weight" not in out:
+        if "encoder.embed_tokens.weight" not in out:
+            raise KeyError("no token embedding in state dict")
+        out["shared.weight"] = out["encoder.embed_tokens.weight"]
+    return out
+
+
+# Where each vision tower (and XLM-R) sits in its checkpoint, for
+# ``load_reference_state_dict(module, pick_prefix(sd, TOWER_PREFIXES[kind]), what)``:
+# the open-clip / Wan CLIP's ``visual.`` (its text tower's entries left out),
+# a Qwen2.5-VL checkpoint's vision tower, an HF SiglipVisionModel (or
+# SiglipModel), the reference XLMRoberta(WithHead) as the CLIP's ``textual.``
+# tower; a file under none of them is read as it is.
+TOWER_PREFIXES = {
+    "clip_vision": ("visual.",),
+    "qwen_vision": ("model.visual.", "visual."),
+    "siglip_vision": ("vision_model.",),
+    "xlm_roberta": ("textual.",),
+}

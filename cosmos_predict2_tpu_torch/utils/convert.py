@@ -13,7 +13,8 @@ variants' parameters map as JAX's converter maps them
 (``action_embedder_B_{D,3D}.fc{1,2}``, ``blocks.{i}.cam_encoder``, the
 ``view_embeddings`` table as ``view_embeddings.weight``); the cross-view
 attention's keep JAX's module names (``blocks.{i}.cross_view_attn.*``,
-``blocks.{i}.ln_cross_view_{scale,bias}``).
+``blocks.{i}.ln_cross_view_{scale,bias}``). The prompt encoders' trees
+(text_encoders/) map onto the HF / reference names the port's towers carry.
 """
 
 from __future__ import annotations
@@ -145,4 +146,174 @@ def jax_vae_params_to_torch(params_np: Mapping[str, Any]) -> dict[str, torch.Ten
         elif leaf == "weight" and a.ndim == 4:  # HWIO -> OIHW
             a = np.transpose(a, (3, 2, 0, 1))
         sd[f"{prefix}.{leaf}"] = _tensor(a)
+    return sd
+
+
+# ----------------------------- prompt encoders -----------------------------
+# JAX text_encoders/ parameter trees -> the port's towers, whose modules carry
+# the HF / reference names (the inverses of the JAX package's
+# convert_*_state_dict converters).
+
+
+def _linear(sd: dict, name: str, tree: Mapping[str, Any]) -> None:
+    """A Flax Dense {"kernel" (in, out)[, "bias"]} as ``name.weight`` (out, in)[, ``name.bias``]."""
+    sd[f"{name}.weight"] = _tensor(np.asarray(tree["kernel"]).T)
+    if "bias" in tree:
+        sd[f"{name}.bias"] = _tensor(np.asarray(tree["bias"]))
+
+
+def _qwen_lm(tree: Mapping[str, Any], prefix: str = "") -> dict[str, torch.Tensor]:
+    sd = {f"{prefix}embed_tokens.weight": _tensor(np.asarray(tree["embed_tokens"])),
+          f"{prefix}norm.weight": _tensor(np.asarray(tree["norm"]["weight"]))}
+    for name, layer in tree.items():
+        if not name.startswith("layers_"):
+            continue
+        lp = f"{prefix}layers.{name[len('layers_'):]}"
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            sd[f"{lp}.{norm}.weight"] = _tensor(np.asarray(layer[norm]["weight"]))
+        for proj, sub in layer["self_attn"].items():
+            if proj in ("q_norm", "k_norm"):
+                sd[f"{lp}.self_attn.{proj}.weight"] = _tensor(np.asarray(sub["weight"]))
+            else:
+                _linear(sd, f"{lp}.self_attn.{proj}", sub)
+        for proj, sub in layer["mlp"].items():
+            _linear(sd, f"{lp}.mlp.{proj}", sub)
+    return sd
+
+
+def jax_qwen_params_to_torch(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX QwenLM params -> text_encoders/qwen.QwenLM's state dict, or JAX
+    QwenGuardLM params ({"model", "lm_head" (hidden, vocab)}) -> QwenGuardLM's."""
+    tree = _params(params_np)
+    if "model" not in tree:
+        return _qwen_lm(tree)
+    sd = _qwen_lm(tree["model"], "model.")
+    sd["lm_head.weight"] = _tensor(np.asarray(tree["lm_head"]).T)
+    return sd
+
+
+def jax_t5_params_to_torch(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX T5Encoder params -> text_encoders/t5_encoder.T5Encoder's state dict."""
+    tree = _params(params_np)
+    sd = {"shared.weight": _tensor(np.asarray(tree["embed_tokens"])),
+          "encoder.final_layer_norm.weight": _tensor(np.asarray(tree["final_norm"]["weight"]))}
+    layers = sorted(int(k.split("_")[1]) for k in tree if k.startswith("attn_"))
+    for i in layers:
+        lp = f"encoder.block.{i}.layer"
+        attn = tree[f"attn_{i}"]
+        for proj in ("q", "k", "v", "o"):
+            _linear(sd, f"{lp}.0.SelfAttention.{proj}", attn[proj])
+        if "relative_attention_bias" in attn:
+            sd[f"{lp}.0.SelfAttention.relative_attention_bias.weight"] = _tensor(
+                np.asarray(attn["relative_attention_bias"]))
+        sd[f"{lp}.0.layer_norm.weight"] = _tensor(np.asarray(tree[f"ln_attn_{i}"]["weight"]))
+        for proj, sub in tree[f"ffn_{i}"].items():
+            _linear(sd, f"{lp}.1.DenseReluDense.{proj}", sub)
+        sd[f"{lp}.1.layer_norm.weight"] = _tensor(np.asarray(tree[f"ln_ffn_{i}"]["weight"]))
+    return sd
+
+
+def jax_clip_vision_params_to_torch(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX CLIPVisionTower params (its default ``run_head=False`` tree) ->
+    clip_vision.CLIPVisionTower's state dict (the patch conv HWIO -> OIHW)."""
+    tree = _params(params_np)
+    sd = {"patch_embedding.weight": _tensor(np.transpose(np.asarray(tree["patch_embedding"]["kernel"]), (3, 2, 0, 1)))}
+    if "bias" in tree["patch_embedding"]:
+        sd["patch_embedding.bias"] = _tensor(np.asarray(tree["patch_embedding"]["bias"]))
+    for name in ("cls_embedding", "pos_embedding"):
+        sd[name] = _tensor(np.asarray(tree[name]))
+    if "pre_norm_w" in tree:
+        sd["pre_norm.weight"] = _tensor(np.asarray(tree["pre_norm_w"]))
+        sd["pre_norm.bias"] = _tensor(np.asarray(tree["pre_norm_b"]))
+    for name, block in tree.items():
+        if not name.startswith("block_"):
+            continue
+        bp = f"transformer.{name[len('block_'):]}"
+        for ours, theirs in (("ln1", "norm1"), ("ln2", "norm2")):
+            sd[f"{bp}.{theirs}.weight"] = _tensor(np.asarray(block[f"{ours}_w"]))
+            sd[f"{bp}.{theirs}.bias"] = _tensor(np.asarray(block[f"{ours}_b"]))
+        for ours, theirs in (("to_qkv", "attn.to_qkv"), ("attn_proj", "attn.proj"), ("mlp_fc1", "mlp.0"),
+                             ("mlp_fc2", "mlp.2")):
+            _linear(sd, f"{bp}.{theirs}", block[ours])
+    return sd
+
+
+def jax_qwen_vision_params_to_torch(params_np: Mapping[str, Any], cfg) -> dict[str, torch.Tensor]:
+    """JAX QwenVisionTower params -> qwen_vision.QwenVisionTower's state dict
+    (the patch kernel (C tp P P, E) -> the Conv3d's (E, C, tp, P, P))."""
+    tree = _params(params_np)
+    tp, P = cfg.temporal_patch_size, cfg.patch_size
+    kernel = np.asarray(tree["patch_embed"])
+    sd = {"patch_embed.proj.weight": _tensor(kernel.T.reshape(kernel.shape[1], cfg.in_channels, tp, P, P)),
+          "merger.ln_q.weight": _tensor(np.asarray(tree["ln_q"]))}
+    _linear(sd, "merger.mlp.0", tree["mlp_0"])
+    _linear(sd, "merger.mlp.2", tree["mlp_2"])
+    for name, block in tree.items():
+        if not name.startswith("blocks_"):
+            continue
+        bp = f"blocks.{name[len('blocks_'):]}"
+        for norm in ("norm1", "norm2"):
+            sd[f"{bp}.{norm}.weight"] = _tensor(np.asarray(block[norm]))
+        for ours, theirs in (("qkv", "attn.qkv"), ("proj", "attn.proj"), ("gate_proj", "mlp.gate_proj"),
+                             ("up_proj", "mlp.up_proj"), ("down_proj", "mlp.down_proj")):
+            _linear(sd, f"{bp}.{theirs}", block[ours])
+    return sd
+
+
+def jax_siglip_params_to_torch(params_np: Mapping[str, Any], cfg) -> dict[str, torch.Tensor]:
+    """JAX SigLIPVisionTower params -> siglip_vision.SigLIPVisionTower's state
+    dict (the patch Dense over (ph, pw, c) -> the conv's OIHW; the MAP head's
+    q, k, v packed into ``in_proj``)."""
+    tree = _params(params_np)
+    p = cfg.patch_size
+    kernel = np.asarray(tree["patch"]["kernel"])
+    sd = {"embeddings.patch_embedding.weight": _tensor(np.transpose(kernel.reshape(p, p, 3, -1), (3, 2, 0, 1))),
+          "embeddings.patch_embedding.bias": _tensor(np.asarray(tree["patch"]["bias"])),
+          "embeddings.position_embedding.weight": _tensor(np.asarray(tree["pos_emb"])),
+          "head.probe": _tensor(np.asarray(tree["probe"]))}
+    for ours, theirs in (("post_ln", "post_layernorm"), ("head_ln", "head.layernorm")):
+        sd[f"{theirs}.weight"] = _tensor(np.asarray(tree[f"{ours}_w"]))
+        sd[f"{theirs}.bias"] = _tensor(np.asarray(tree[f"{ours}_b"]))
+    heads = [tree[n] for n in ("head_q", "head_k", "head_v")]
+    sd["head.attention.in_proj_weight"] = _tensor(np.concatenate([np.asarray(h["kernel"]).T for h in heads]))
+    sd["head.attention.in_proj_bias"] = _tensor(np.concatenate([np.asarray(h["bias"]) for h in heads]))
+    for ours, theirs in (("head_out", "head.attention.out_proj"), ("head_fc1", "head.mlp.fc1"),
+                         ("head_fc2", "head.mlp.fc2")):
+        _linear(sd, theirs, tree[ours])
+    for name, block in tree.items():
+        if not name.startswith("block_"):
+            continue
+        lp = f"encoder.layers.{name[len('block_'):]}"
+        for ours, theirs in (("ln1", "layer_norm1"), ("ln2", "layer_norm2")):
+            sd[f"{lp}.{theirs}.weight"] = _tensor(np.asarray(block[f"{ours}_w"]))
+            sd[f"{lp}.{theirs}.bias"] = _tensor(np.asarray(block[f"{ours}_b"]))
+        for ours, theirs in (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"), ("v", "self_attn.v_proj"),
+                             ("out", "self_attn.out_proj"), ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            _linear(sd, f"{lp}.{theirs}", block[ours])
+    return sd
+
+
+def jax_xlm_roberta_params_to_torch(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX XLMRoberta params, or XLMRobertaWithHead's ({"backbone", "head_0",
+    "head_2"}) -> xlm_roberta.XLMRoberta(WithHead)'s state dict."""
+    tree = _params(params_np)
+    backbone = tree.get("backbone", tree)
+    sd = {f"{name}.weight": _tensor(np.asarray(backbone[name]))
+          for name in ("token_embedding", "type_embedding", "pos_embedding")}
+    sd["norm.weight"] = _tensor(np.asarray(backbone["norm"]["weight"]))
+    sd["norm.bias"] = _tensor(np.asarray(backbone["norm"]["bias"]))
+    for name, block in backbone.items():
+        if not name.startswith("blocks_"):
+            continue
+        bp = f"blocks.{name[len('blocks_'):]}"
+        for proj in ("q", "k", "v", "o"):
+            _linear(sd, f"{bp}.attn.{proj}", block["attn"][proj])
+        for norm in ("norm1", "norm2"):
+            sd[f"{bp}.{norm}.weight"] = _tensor(np.asarray(block[norm]["weight"]))
+            sd[f"{bp}.{norm}.bias"] = _tensor(np.asarray(block[norm]["bias"]))
+        _linear(sd, f"{bp}.ffn.0", block["ffn_0"])
+        _linear(sd, f"{bp}.ffn.2", block["ffn_2"])
+    if "head_0" in tree:
+        _linear(sd, "head.0", tree["head_0"])
+        _linear(sd, "head.2", tree["head_2"])
     return sd

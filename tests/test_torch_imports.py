@@ -45,3 +45,50 @@ def test_port_file_imports_no_jax(path):
 def test_every_port_module_is_checked():
     assert len(FILES) > 20 and "chip_smoke.py" in FILES
     assert all(os.path.exists(REPO / f) for f in FILES)
+
+
+# transformers (tokenizers, HF modules) is not on the card's machine: the
+# port's prompt encoders import it only inside the functions that tokenize
+# or build an HF module, and chip_smoke.py not at all.
+TRANSFORMERS_ALLOWED = {
+    "cosmos_predict2_tpu_torch/text_encoders/text_encoder.py": {"tokenizer"},
+    "cosmos_predict2_tpu_torch/text_encoders/t5.py": {"tokenize", "_load"},
+}
+TEXT_ENCODER_FILES = sorted(str(p.relative_to(REPO)) for p in (REPO / "cosmos_predict2_tpu_torch" / "text_encoders")
+                            .rglob("*.py"))
+
+
+def transformers_imports(source: str) -> list:
+    """The name of the function enclosing each ``transformers`` import (None:
+    at module level)."""
+    found = []
+
+    def visit(node, func):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                visit(child, child.name)
+                continue
+            names = []
+            if isinstance(child, ast.Import):
+                names = [a.name for a in child.names]
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
+                names = [child.module]
+            if any(n.split(".")[0] == "transformers" for n in names):
+                found.append(func)
+            visit(child, func)
+
+    visit(ast.parse(source), None)
+    return found
+
+
+def test_transformers_checker_sees_the_enclosing_function():
+    src = "import transformers\nclass A:\n    def tok(self):\n        from transformers import AutoTokenizer\n"
+    assert transformers_imports(src) == [None, "tok"]
+
+
+@pytest.mark.parametrize("path", TEXT_ENCODER_FILES + ["chip_smoke.py"])
+def test_transformers_only_where_prompts_are_tokenized(path):
+    found = transformers_imports((REPO / path).read_text())
+    allowed = TRANSFORMERS_ALLOWED.get(path, set())
+    assert set(found) <= allowed, f"{path} imports transformers in {sorted(map(str, found))}"
+    assert len(TEXT_ENCODER_FILES) == 10 and set(found) == allowed  # every allowed site is still the only one
