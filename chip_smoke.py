@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Video2World serving and training paths (dense, sparse, DMD2, 14B), its streaming, forward-mode, released-weights, autoregressive, Text2Image, one-shot-VAE and post-training (LoRA, local clips, remat, bf16 moments) paths, the post-trained variants (multiview, camera, action) and the gr00t action stream, Wan2.1 i2v, the Wan2.2 VAE, EDM and the 14B sparse pair, and the prompt encoders (Reason1 through the CLI, umT5 and CLIP into Wan i2v, T5-11B, the Qwen2.5-VL vision tower, SigLIP, XLM-R), once on one NVIDIA GPU.
+"""Drive the PyTorch port's Video2World serving and training paths (dense, sparse, DMD2, 14B), its streaming, forward-mode, released-weights, autoregressive, Text2Image, one-shot-VAE and post-training (LoRA, local clips, remat, bf16 moments) paths, the post-trained variants (multiview, camera, action) and the gr00t action stream, Wan2.1 i2v, the Wan2.2 VAE, EDM and the 14B sparse pair, and the prompt encoders (Reason1 through the CLI, umT5 and CLIP into Wan i2v, T5-11B, the Qwen2.5-VL vision tower, SigLIP, XLM-R), and the training of self-forcing DMD2 (the causal 2B), Wan2.1 and EDM, once on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
@@ -139,11 +139,11 @@ Phases, each printed with its wall time:
    the 7-view driving model (predict2_multiview_2b_7views) through
    MultiviewInference, 7 views of 29 frames at 704x1280 (197,120 DiT
    tokens), video2world from 2 latent frames of every view, guidance 7,
-   2 of its 35 steps, the VAE view by view: each step's time and share of
-   the bf16 peak (FLOPs from the shapes), the second step under
-   torch.profiler (device time by kernel family), the encode and decode
-   per view, peak memory inside the DiT forward, before it (the VAE
-   encode) and after it (the decode), exactly 112 K1 and K2; a
+   1 of its 35 steps, the VAE view by view: the step's time and share of
+   the bf16 peak (FLOPs from the shapes) under torch.profiler (device
+   time by kernel family), the encode and decode per view, peak memory
+   inside the DiT forward, before it (the VAE encode) and after it (the
+   decode), exactly 56 K1 and K2; a
    narrow 7-view net (2 blocks)
    with cross-view attention over a ring at the same 44 x 80 token grid,
    card bf16 against CPU fp32 (phase 4's limit), K1 18 times; the
@@ -161,8 +161,8 @@ Phases, each printed with its wall time:
    S1,280 and cross-attention to 512 keys whole; and K2 at each stage of
    the streaming VAE at the action model's 256x320;
 17. the rest of A13 and A12.2, each on seeded random weights: the two
-   gr00t names (the causal 2B with action embedders of 84 x 12 inputs)
-   stream 6 one-frame blocks of 4 steps at 256x320 after one prefilled
+   gr00t names (one config, the causal 2B with action embedders of 84 x 12
+   inputs; the first name's model) stream 6 one-frame blocks of 4 steps at 256x320 after one prefilled
    frame through StreamingInference with one action chunk, exactly 28 x 31
    K5 and as many K1, the same stream with the action zeroed moving the
    output; Wan2.1 1.3B i2v (models/wan_video2world.image2world: the first
@@ -206,6 +206,24 @@ Phases, each printed with its wall time:
    steps): exactly 270 K1 and K2; T5-11B at the published widths through
    ``OfflineT5Encoder`` (zero past each length), SigLIP so400m on four
    384x384 frames and XLM-R large with its head on 512 ids.
+
+19. self-forcing and the variants' training (A12.1, A13.t), each on seeded
+   random weights: SelfForcingDMD2 over the interactive experiment's
+   full-width causal 2B (student, frozen teacher and fake score in fp32,
+   block remat, as phase 7's nets): a rollout of 2 one-frame blocks of 4
+   steps at 352x640 (880 tokens a block), one generator_loss backward and
+   an AdamW step of the student, one critic_loss backward and a step of
+   the fake score: finite losses, a finite non-zero gradient on the net
+   stepped and none on the others, the exact K5, K1, K7 and K8 launches and
+   cached-attention recomputes of each step (ops/flash_attention.py::
+   kv_cache_vjp), its time and peak memory; Wan2.1 1.3B i2v training through
+   training/trainer.py at full width (no remat, as the JAX net: 25 frames
+   at 480x832, 10,920 tokens, through the VAE), one warm-up and two timed
+   steps, 90 K1, K7 and K8 a step; EDM training of the 2B at 93 frames of
+   192x320, one warm-up and two timed steps, 112 K1 and 56 K7 and K8 a
+   step, sigma_mean; a narrow self-forcing generator and critic step, Wan
+   step and EDM step in bf16 on the card against fp32 on the CPU at phase
+   6's limits.
 
 Then it prints the kernels' JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero without that line.
@@ -296,8 +314,8 @@ FULL_FT_ROWS = (("block", "float32", 4 * NUM_BLOCKS), ("block", "bfloat16", 4 * 
                 ("selective", "bfloat16", 2 * NUM_BLOCKS), ("mixed:14", "bfloat16", 4 * NUM_BLOCKS - 2 * 14))
 # post-trained variants (phase 16): the 7-view driving model at 29 frames of
 # 704x1280 per view (8 latent frames of 44 x 80 tokens per view: 197,120
-# DiT tokens), video2world from 2 latent frames, 2 of its 35 UniPC steps
-# (the second under the profiler);
+# DiT tokens), video2world from 2 latent frames, 1 of its 35 UniPC steps
+# (under the profiler; a second step took as long, 41-42 s);
 # the camera-conditioned model on a 29-frame 704x1280 clip packed [0 | clip
 # | 0] into 24 latent frames (84,480 tokens), 2 steps at guidance 1.5; the
 # action-conditioned model on 13 frames at 256x320 (1,280 tokens), all 35
@@ -309,7 +327,7 @@ CAMERA_EXPERIMENT = "predict2_video2world_2b_camera_conditioned"
 ACTION_EXPERIMENT = "predict2_video2world_2b_action_conditioned"
 VARIANT_HW = (704, 1280)
 VARIANT_FRAMES = 29
-MULTIVIEW_STEPS = 2
+MULTIVIEW_STEPS = 1
 CAMERA_STEPS = 2
 CAMERA_GUIDANCE = 1.5
 ACTION_HW = (256, 320)
@@ -3106,13 +3124,13 @@ def small_action_stream(device: str, dtype, state_dict=None):
 
 
 def gr00t_slice() -> dict:
-    """The two gr00t names (one config: the causal 2B with action embedders
-    of 84 x 12 inputs, 4 latent frames) on seeded random bf16 matmul
-    weights: StreamingInference streams GR00T_BLOCKS one-frame blocks of
-    GR00T_STEPS steps at 256x320 after one prefilled frame, a cache of
-    state_t + 1 frames (the window slides), one seeded action chunk; each
-    name's stream, then the first with the action zeroed on the same noise.
-    Then the narrow stream card bf16 against CPU fp32."""
+    """The two gr00t names (one config, checked equal: the causal 2B with
+    action embedders of 84 x 12 inputs, 4 latent frames) on seeded random
+    bf16 matmul weights: StreamingInference streams GR00T_BLOCKS one-frame
+    blocks of GR00T_STEPS steps at 256x320 after one prefilled frame, a
+    cache of state_t + 1 frames (the window slides), one seeded action
+    chunk; the first name's stream, then the same with the action zeroed on
+    the same noise. Then the narrow stream card bf16 against CPU fp32."""
     import torch
 
     from cosmos_predict2_tpu_torch import _build
@@ -3144,7 +3162,7 @@ def gr00t_slice() -> dict:
                                            device="cuda")
     cond = make_condition(emb).replace(action=action)
     out = {}
-    for name in GR00T_EXPERIMENTS:
+    for name in GR00T_EXPERIMENTS[:1]:  # the second name builds the same model
         laps, state = [], {}
 
         def on_block(step, x, caches):
@@ -3173,8 +3191,6 @@ def gr00t_slice() -> dict:
             f"the prefill {laps[0] * 1e3:.1f} ms, p50 block {out[name]['p50_s'] * 1e3:.1f} ms; peak "
             f"{out[name]['peak_gb']:.2f} GiB; launches {counts}")
     first = out[GR00T_EXPERIMENTS[0]]
-    if not torch.equal(first["latents"], out[GR00T_EXPERIMENTS[1]]["latents"]):
-        raise AssertionError("the two gr00t names' streams differ on the same weights, actions and noise")
     zero = stream.generate(cond.replace(action=torch.zeros_like(action)), init, 1 + GR00T_BLOCKS, (h, w), draw=draw)
     moved = float((first["latents"][:, :, 1:] - zero[:, :, 1:]).abs().max())
     log(f"  the action reaches the output: max |stream - stream with the action zeroed| {moved:.3e}")
@@ -3954,6 +3970,487 @@ def prompt_encoders_slice() -> dict:
     return out
 
 
+# ------------- self-forcing and the variants' training steps (phase 19) -------------
+
+SF_EXPERIMENT = "predict2_interactive_2b_causal"
+SF_BLOCKS = 2  # one-frame blocks of the rollout, at phase 9's 352x640
+# 7 latent frames of 30 x 52 tokens: 10,920 tokens. The Wan net keeps every
+# activation (no remat, as the JAX net): ~4.3 MiB a token on an H100 beside
+# 23.3 GiB of fp32 weights, gradients and moments, so 81 frames (32,760
+# tokens) would take ~160 GiB
+WAN_TRAIN_FRAMES = 25
+WAN_TRAIN_TIMED = 2  # after one warm-up step
+EDM_TRAIN_TIMED = 2
+SF_WATCH = ("blocks.0.self_attn.k_proj.weight", "blocks.27.mlp.layer2.weight", "final_layer.linear.weight")
+# The narrow steps are held at phase 6's limits (TRAIN_*). On the CPU, bf16
+# against fp32 (same weights and draws) gives, for the self-forcing
+# generator / critic step, the Wan step and the EDM step: losses within
+# 7.3e-4 / 7.1e-4 / 1.2e-4 / 3.2e-4 relative, all gradients within 4.5e-3 /
+# 5.3e-3 / 4.4e-3 / 4.5e-3 relative L2 together, every parameter's within
+# 1.35e-2 / 9.1e-3 / 2.05e-2 / 8.4e-3.
+
+
+def _grad_norm(net) -> float:
+    from cosmos_predict2_tpu_torch.training.optim import global_norm
+
+    grads = [p.grad for p in net.parameters() if p.grad is not None]
+    return float(global_norm(grads)) if grads else 0.0
+
+
+def _self_forcing_setup(mc, device: str, nets, hw: tuple[int, int], seed: int, steps: int = INTERACTIVE_STEPS):
+    """StreamingInference over the student and SelfForcingDMD2, a seeded
+    text condition of the experiment's width and the loss draws of a CPU
+    generator."""
+    import torch
+
+    from cosmos_predict2_tpu_torch.conditioning.conditioner import make_condition
+    from cosmos_predict2_tpu_torch.models.distillation import DistillationConfig
+    from cosmos_predict2_tpu_torch.models.interactive import (CausalVideo2WorldModel, SelfForcingDMD2, StreamingConfig,
+                                                              StreamingInference)
+
+    scfg = StreamingConfig(distill=DistillationConfig(model=mc), num_frame_per_block=1, cache_frame_size=SF_BLOCKS,
+                           num_steps=steps)
+    sf = SelfForcingDMD2(StreamingInference(scfg, CausalVideo2WorldModel(mc, nets[0])))
+    rng = np.random.default_rng(seed)
+    emb = torch.from_numpy((rng.standard_normal((1, 512, mc.net.crossattn_proj_in_channels)) * 0.5)
+                           .astype(np.float32)).to(device)
+    draws = sf.sample_draws(torch.Generator().manual_seed(seed), 1, SF_BLOCKS, hw).to(device)
+    return sf, make_condition(emb), draws
+
+
+def sf_want(blocks: int, steps: int, layers: int, remat: bool) -> dict:
+    """Launches and backward recomputes of one generator and one critic
+    step over a rollout of ``blocks`` one-frame blocks of ``steps`` denoise
+    steps and a commit each, ``layers`` DiT blocks: each cached forward
+    launches K5 and K1 (its cross-attention) once a layer; the denoise
+    forwards record the graph and, under block remat, run again in the
+    backward; the generator adds the teacher's and the fake score's full
+    forwards (no graph: 2 K1 a layer each), the critic the fake score's
+    (a graph under remat: twice)."""
+    cached = blocks * (steps + 1) * layers
+    graph = blocks * steps * layers
+    again = graph if remat else 0
+    full = 2 * layers
+    return {
+        "generator": {"flash_attention_kv_cache": cached + again, "flash_attention_fwd": cached + again + 2 * full,
+                      "flash_attention_bwd_dq": graph, "flash_attention_bwd_dkv": graph, "recomputes": graph},
+        "critic": {"flash_attention_kv_cache": cached, "flash_attention_fwd": cached + full * (2 if remat else 1),
+                   "flash_attention_bwd_dq": full, "flash_attention_bwd_dkv": full, "recomputes": 0},
+    }
+
+
+def _sf_counts(counts0: dict, recomputes0: int) -> dict:
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.ops.flash_attention import kv_cache_vjp
+
+    counts = {k: v - counts0[k] for k, v in _build.launch_counts().items()}
+    counts["recomputes"] = kv_cache_vjp.recomputes - recomputes0
+    return counts
+
+
+def self_forcing_slice() -> dict:
+    """Self-forcing DMD2 of the full-width causal 2B (the interactive
+    experiment's net, fp32 student, frozen teacher and fake score as phase
+    7's nets, block remat; seeded random weights): a rollout of SF_BLOCKS
+    one-frame blocks of INTERACTIVE_STEPS steps at 352x640 (880 tokens a
+    block), one generator_loss backward and an AdamW step of the student,
+    then one critic_loss backward and a step of the fake score."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.networks.dit import build_dit
+    from cosmos_predict2_tpu_torch.ops.flash_attention import kv_cache_vjp
+    from cosmos_predict2_tpu_torch.training.optim import OptimizerConfig, make_optimizer
+
+    mc = make_config(SF_EXPERIMENT).model
+    net_cfg = mc.net
+    if (net_cfg.num_blocks, net_cfg.model_channels, net_cfg.remat) != (NUM_BLOCKS, 2048, "block") or \
+            not net_cfg.temporal_causal:
+        raise AssertionError("the self-forcing slice must run the full-width causal 2B DiT with block remat")
+    fresh_memory()
+    t = time.perf_counter()
+    nets = [build_dit(net_cfg, "cuda", seed=50 + i, trainable=i != 1) for i in range(3)]  # student, teacher, fake
+    student, teacher, fake = nets
+    torch.cuda.synchronize()
+    nets_gb = torch.cuda.memory_allocated() / 2**30
+    log(f"  three causal 2B DiTs (fp32) built in {time.perf_counter() - t:.1f} s: {nets_gb:.2f} GiB")
+    hw = INTERACTIVE_HW
+    sf, cond, draws = _self_forcing_setup(mc, "cuda", nets, hw, seed=51)
+    want = sf_want(SF_BLOCKS, INTERACTIVE_STEPS, NUM_BLOCKS, remat=True)
+    out = {}
+    for phase, net, loss_fn in (
+        ("generator", student, lambda: sf.generator_loss(teacher, fake, cond, None, SF_BLOCKS, hw, draws)),
+        ("critic", fake, lambda: sf.critic_loss(fake, cond, SF_BLOCKS, hw, draws)),
+    ):
+        opt, _ = make_optimizer(OptimizerConfig(lr=1e-5, warm_up_steps=(0,)), [p for p in net.parameters()])
+        watch = {n: p.detach().clone() for n, p in net.named_parameters() if n in SF_WATCH}
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        counts0, recomputes0 = _build.launch_counts(), kv_cache_vjp.recomputes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = loss_fn()
+        loss.backward()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        counts = _sf_counts(counts0, recomputes0)
+        norm = _grad_norm(net)
+        stray = [i for i, n in enumerate(nets) if n is not net and any(p.grad is not None for p in n.parameters())]
+        opt.step()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        moved = all(not torch.equal(p.detach(), watch[n]) for n, p in net.named_parameters() if n in SF_WATCH)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        loss_v = float(loss.detach())
+        owner = "the student" if net is student else "the fake score"
+        log(f"  {phase} step: loss {loss_v:.6f}, gradient norm {norm:.4e} over {owner}; loss + backward "
+            f"{t1 - t0:.3f} s, AdamW {t2 - t1:.3f} s; peak {peak:.2f} GiB; launches {counts}")
+        if not (np.isfinite(loss_v) and np.isfinite(norm) and norm > 0 and moved):
+            raise AssertionError(f"the {phase} step: loss {loss_v}, gradient norm {norm}, parameters moved {moved}")
+        if stray or any(p.grad is not None for p in teacher.parameters()):
+            raise AssertionError(f"the {phase} step put gradients on nets {stray} (0 student, 1 teacher, 2 fake)")
+        got = {k: counts[k] for k in want[phase]}
+        if got != want[phase] or counts["flash_attention_kv_cache_window"]:
+            raise AssertionError(f"the {phase} step launched {counts}, want {want[phase]}")
+        out[phase] = {"loss": loss_v, "grad_norm": norm, "loss_backward_s": t1 - t0, "optimizer_s": t2 - t1,
+                      "peak_gb": peak, "counts": counts}
+        net.zero_grad(set_to_none=True)
+        del opt, loss
+    del nets, student, teacher, fake, sf, cond, draws
+    fresh_memory()
+    counts = {k: out["generator"]["counts"][k] + out["critic"]["counts"][k] for k in out["generator"]["counts"]}
+    return {"counts": counts, "nets_gb": nets_gb, **out}
+
+
+class VariantStepProbe:
+    """Training callback of phase 19: per step the launches, the loss (and
+    sigma_mean where the model gives it), the trainer's timings and the
+    peak memory; every parameter's gradient finite at step 1."""
+
+    def __init__(self):
+        self.steps = []
+
+    def on_train_start(self, trainer, state):
+        self.start = {n: p.detach()[..., :4].clone() for n, p in state.params.items()}
+
+    def on_training_step_start(self, trainer, state, batch, iteration):
+        import torch
+
+        from cosmos_predict2_tpu_torch import _build
+
+        self.counts0 = _build.launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+
+    def on_training_step_end(self, trainer, state, metrics, iteration):
+        import torch
+
+        from cosmos_predict2_tpu_torch import _build
+
+        counts = {k: v - self.counts0[k] for k, v in _build.launch_counts().items()}
+        if iteration == 1:
+            bad = [n for n, p in state.params.items() if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+            if bad:
+                raise AssertionError(f"{len(bad)} parameters without a finite gradient at step 1, e.g. {bad[:3]}")
+        st = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]), "counts": counts,
+              "peak_gb": torch.cuda.max_memory_allocated() / 2**30, **trainer.last_timings}
+        if "sigma_mean" in metrics:
+            st["sigma_mean"] = float(metrics["sigma_mean"])
+        self.steps.append(st)
+        sigma = f" sigma_mean {st['sigma_mean']:.4f}" if "sigma_mean" in st else ""
+        log(f"  step {iteration}: loss {st['loss']:.4f}{sigma} grad_norm {st['grad_norm']:.3e} step {st['step_s']:.3f} s (data+vae {st['data_s']:.3f} s, fwd+bwd "
+            f"{st['forward_backward_s']:.3f} s, optimizer {st['optimizer_s']:.3f} s); peak {st['peak_gb']:.2f} GiB; "
+            f"launches {counts}")
+
+    def on_save_checkpoint(self, trainer, state, iteration): ...
+
+    def on_train_end(self, trainer, state): ...
+
+    def moved(self, state) -> bool:
+        import torch
+
+        return all(not torch.equal(p.detach()[..., :4], self.start[n]) for n, p in state.params.items())
+
+
+def _train_variant(name: str, model, batches, steps: int, ema: bool, want: dict) -> dict:
+    """training/trainer.py's Trainer over ``model`` for ``steps`` steps (one
+    warm-up and the timed rest); checks finite losses, a finite gradient on
+    every parameter, every parameter moved, and each step's launches."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.training.optim import OptimizerConfig
+    from cosmos_predict2_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    probe = VariantStepProbe()
+    # no warm-up: the schedule's first factor is f_start (1e-6), which leaves most weights where they were
+    optimizer = OptimizerConfig(lr=1e-4, warm_up_steps=(0,))
+    trainer = Trainer(TrainerConfig(max_iter=steps, logging_iter=1, save_iter=0, ema_enabled=ema, optimizer=optimizer),
+                      model, callbacks=[probe])
+    state = trainer.init_state()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = trainer.train(state, batches)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    if state.step != steps or not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in probe.steps):
+        raise AssertionError(f"{name}: {state.step} steps, losses {[s['loss'] for s in probe.steps]}")
+    if not probe.moved(state):
+        raise AssertionError(f"{name}: not every parameter moved")
+    for i, s in enumerate(probe.steps):
+        if {k: s["counts"][k] for k in want} != want:
+            raise AssertionError(f"{name} step {i + 1} launched {s['counts']}, want {want}")
+    if counts["conv3d_causal"] == 0:
+        raise AssertionError(f"{name}: conv3d_causal never ran in the data phase's VAE encode")
+    timed = probe.steps[1:]
+    mean = lambda key: sum(s[key] for s in timed) / len(timed)  # noqa: E731
+    out = {"counts": counts, "steps": probe.steps, "total_s": total_s, "params": len(state.params),
+           "peak_gb": max(s["peak_gb"] for s in probe.steps),
+           **{k: mean(k) for k in ("step_s", "data_s", "forward_backward_s", "optimizer_s")}}
+    del trainer, state
+    return out
+
+
+def wan_train_slice() -> dict:
+    """Wan2.1 1.3B i2v training at full width (fp32 parameters, bf16
+    matmuls, no remat as the JAX net): WAN_TRAIN_FRAMES-frame clips at
+    480x832 through the Wan2.1 VAE (K2) in the data phase, seeded umT5 and
+    CLIP tokens, frame 0 conditional; one warm-up and WAN_TRAIN_TIMED timed
+    steps of the Trainer, no EMA."""
+    import torch
+
+    from cosmos_predict2_tpu_torch.models.wan_video2world import WanModelConfig, WanVideo2WorldModel, make_i2v_condition
+    from cosmos_predict2_tpu_torch.networks.wan_dit import WAN_PRESETS, WanModel, init_wan_weights
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae import WanVAEConfig, build_vae
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import encode_streaming
+
+    cfg = WAN_PRESETS["1.3B"]
+    fresh_memory()
+    with torch.device("meta"):
+        net = WanModel(cfg)
+    net = init_wan_weights(net.to_empty(device="cuda"), torch.Generator(device="cuda").manual_seed(60)).train()
+    vae = build_vae(WanVAEConfig(), "cuda", seed=61)
+    model = WanVideo2WorldModel(WanModelConfig(net=cfg), net)
+    H, W = WAN_HW
+
+    def batches():
+        gen = torch.Generator(device="cuda").manual_seed(62)
+        while True:
+            clip = torch.randint(0, 256, (1, WAN_TRAIN_FRAMES, H, W, 3), generator=gen, device="cuda",
+                                 dtype=torch.uint8)
+            with torch.no_grad():
+                x0 = encode_streaming(vae, clip, pixel_format="uint8").permute(0, 4, 1, 2, 3).float()
+            text = torch.randn((1, 512, cfg.text_dim), generator=gen, device="cuda")
+            yield x0, make_i2v_condition(text, x0, torch.randn((1, 257, cfg.clip_dim), generator=gen, device="cuda"))
+
+    per_step = 3 * cfg.num_layers  # self, text cross and CLIP cross attention a layer, no remat
+    out = _train_variant("wan", model, batches(), 1 + WAN_TRAIN_TIMED, ema=False, want={
+        "flash_attention_fwd": per_step, "flash_attention_bwd_dq": per_step, "flash_attention_bwd_dkv": per_step})
+    tokens = (1 + (WAN_TRAIN_FRAMES - 1) // 4) * (H // 16) * (W // 16)
+    out["tokens"] = tokens
+    log(f"  Wan 1.3B i2v training, {WAN_TRAIN_FRAMES} frames at {H}x{W} ({tokens:,} tokens): {out['params']} "
+        f"parameters; step {out['step_s']:.3f} s (fwd+bwd {out['forward_backward_s']:.3f}, optimizer "
+        f"{out['optimizer_s']:.3f}), data+vae {out['data_s']:.3f} s; {tokens / out['step_s']:.0f} tokens/s; peak "
+        f"{out['peak_gb']:.2f} GiB")
+    del net, vae, model
+    fresh_memory()
+    return out
+
+
+def edm_train_slice() -> dict:
+    """EDM training of the full-width 2B (phase 7's arrangement: fp32, block
+    remat, EMA; 93 frames at 192x320, 5,760 tokens, mock clips through the
+    VAE): one warm-up and EDM_TRAIN_TIMED timed steps of the Trainer."""
+    import torch
+
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.models.edm import EDMModelConfig, EDMVideo2WorldModel
+    from cosmos_predict2_tpu_torch.networks.dit import build_dit
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae import build_vae
+    from cosmos_predict2_tpu_torch.training.train import latent_batches, make_loader
+
+    H, W = SIZE
+    cfg = make_config(DENSE_EXPERIMENT, [f"data_train.num_frames={NUM_FRAMES}", f"data_train.height={H}",
+                                         f"data_train.width={W}", "data_train.text_dim=100352"])
+    fresh_memory()
+    net = build_dit(cfg.model.net, "cuda", seed=70, trainable=True)
+    vae = build_vae(cfg.tokenizer, "cuda", seed=71)
+    model = EDMVideo2WorldModel(EDMModelConfig(model=cfg.model), net)
+    per_step = 2 * NUM_BLOCKS  # self and cross attention a block
+    out = _train_variant("edm", model, latent_batches(make_loader(cfg.data_train), vae, torch.device("cuda")),
+                         1 + EDM_TRAIN_TIMED, ema=True, want={"flash_attention_fwd": 2 * per_step,
+                                                              "flash_attention_bwd_dq": per_step,
+                                                              "flash_attention_bwd_dkv": per_step})
+    sigmas = [s["sigma_mean"] for s in out["steps"]]
+    if not all(np.isfinite(sigmas)) or min(sigmas) <= 0:
+        raise AssertionError(f"edm: sigma_mean {sigmas}")
+    log(f"  EDM 2B training at {NUM_FRAMES} x {H}x{W} (5,760 tokens): sigma_mean by step {sigmas}; step "
+        f"{out['step_s']:.3f} s (fwd+bwd {out['forward_backward_s']:.3f}, optimizer+ema {out['optimizer_s']:.3f}), "
+        f"data+vae {out['data_s']:.3f} s; peak {out['peak_gb']:.2f} GiB")
+    del net, vae, model
+    fresh_memory()
+    return out
+
+
+def small_self_forcing(device: str, dtype, state=None):
+    """A generator step and a critic step of self-forcing on narrow causal
+    nets (the interactive experiment, 2 blocks of 256 channels, head_dim
+    128, block remat; student, teacher and fake score on their own seeds), a
+    rollout of SF_BLOCKS one-frame blocks of 2 steps at a 16 x 24 latent
+    (8 x 12 tokens), bf16 caches, fixed draws. Returns ({phase: (loss, {name:
+    grad fp32 on the CPU})}, launches per phase, state dicts)."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.networks.dit import build_dit
+    from cosmos_predict2_tpu_torch.ops.flash_attention import kv_cache_vjp
+
+    mc = make_config(SF_EXPERIMENT).model
+    net_cfg = dataclasses.replace(mc.net, model_channels=256, num_heads=2, num_blocks=2, adaln_lora_dim=32,
+                         crossattn_proj_in_channels=64, crossattn_emb_channels=128, dtype=dtype)
+    mc = dataclasses.replace(mc, net=net_cfg)
+    nets = [build_dit(net_cfg, device, seed=80 + i, trainable=i != 1) for i in range(3)]
+    if state is not None:
+        for net, sd in zip(nets, state):
+            net.load_state_dict(sd)
+    hw = (16, 24)
+    sf, cond, draws = _self_forcing_setup(mc, device, nets, hw, seed=81, steps=2)
+    student, teacher, fake = nets
+    out, counts = {}, {}
+    for phase, net, loss_fn in (
+        ("generator", student, lambda: sf.generator_loss(teacher, fake, cond, None, SF_BLOCKS, hw, draws)),
+        ("critic", fake, lambda: sf.critic_loss(fake, cond, SF_BLOCKS, hw, draws)),
+    ):
+        _build.reset_launch_counts()
+        counts0, recomputes0 = _build.launch_counts(), kv_cache_vjp.recomputes
+        loss, _ = loss_fn()
+        loss.backward()
+        counts[phase] = _sf_counts(counts0, recomputes0)
+        out[phase] = (float(loss.detach()), {n: p.grad.float().cpu() for n, p in net.named_parameters()})
+        net.zero_grad(set_to_none=True)
+    return out, counts, [{k: v.cpu() for k, v in n.state_dict().items()} for n in nets]
+
+
+def small_wan_step(device: str, dtype, state=None):
+    """One training step of a narrow Wan i2v (2 layers, dim 256: 2 heads of
+    128; text and CLIP width 64) on 3 latent frames of 16 x 24, frame 0
+    conditional, fixed weights, inputs and draws. Returns (loss, {name:
+    grad fp32 on the CPU}, launches, state dict)."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.models.wan_video2world import WanModelConfig, WanVideo2WorldModel, make_i2v_condition
+    from cosmos_predict2_tpu_torch.networks.wan_dit import WanConfig, WanModel, init_wan_weights
+
+    cfg = WanConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=2, text_dim=64, clip_dim=64, dtype=dtype)
+    with torch.device("meta"):
+        net = WanModel(cfg)
+    net = net.to_empty(device=device)
+    if state is None:
+        init_wan_weights(net, torch.Generator(device=device).manual_seed(90))
+    else:
+        net.load_state_dict(state)
+    model = WanVideo2WorldModel(WanModelConfig(net=cfg, state_t=3), net.train())
+    rng = np.random.default_rng(91)
+    t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(device)  # noqa: E731
+    x0 = t(1, 16, 3, 16, 24)
+    cond = make_i2v_condition(t(1, 512, 64), x0, t(1, 257, 64))
+    draws = model.sample_train_draws(torch.Generator().manual_seed(92), tuple(x0.shape)).to(device)
+    _build.reset_launch_counts()
+    loss, _ = model.training_step(x0, cond, draws)
+    loss.backward()
+    counts = _build.launch_counts()
+    grads = {n: p.grad.float().cpu() for n, p in net.named_parameters()}
+    return float(loss.detach()), grads, counts, {k: v.cpu() for k, v in net.state_dict().items()}
+
+
+def small_edm_step(device: str, dtype, state=None):
+    """One EDM training step of small_train_step's narrow DiT (2 blocks of
+    256 channels, head_dim 128, block remat) on 4 latent frames of 16 x 24
+    with the clean latents as gt_frames, fixed weights, inputs and draws.
+    Returns (loss, {name: grad fp32 on the CPU}, launches, state dict)."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.conditioning.conditioner import make_condition
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.models.edm import EDMModelConfig, EDMVideo2WorldModel
+    from cosmos_predict2_tpu_torch.networks.dit import build_dit
+
+    cfg = make_config(DENSE_EXPERIMENT)
+    net_cfg = dataclasses.replace(cfg.model.net, model_channels=256, num_heads=2, num_blocks=2, adaln_lora_dim=32,
+                                  crossattn_proj_in_channels=64, crossattn_emb_channels=128, dtype=dtype)
+    net = build_dit(net_cfg, device, seed=93, trainable=True)
+    if state is not None:
+        net.load_state_dict(state)
+    model = EDMVideo2WorldModel(EDMModelConfig(model=dataclasses.replace(cfg.model, net=net_cfg, state_t=4)), net)
+    rng = np.random.default_rng(94)
+    x0 = torch.from_numpy((0.5 * rng.standard_normal((1, 16, 4, 16, 24))).astype(np.float32)).to(device)
+    emb = torch.from_numpy(rng.standard_normal((1, 32, 64)).astype(np.float32)).to(device)
+    draws = model.sample_train_draws(torch.Generator().manual_seed(95), tuple(x0.shape)).to(device)
+    _build.reset_launch_counts()
+    loss, metrics = model.training_step(x0, make_condition(emb).replace(gt_frames=x0), draws)
+    loss.backward()
+    counts = _build.launch_counts()
+    grads = {n: p.grad.float().cpu() for n, p in net.named_parameters()}
+    return float(loss.detach()), grads, counts, {k: v.cpu() for k, v in net.state_dict().items()}
+
+
+def _hold_step(name: str, loss: float, grads: dict, ref_loss: float, ref_grads: dict) -> dict:
+    """A step's loss and gradients on the card against fp32 on the CPU at
+    phase 6's limits."""
+    import torch
+
+    num = sum(float((grads[n] - g).norm()) ** 2 for n, g in ref_grads.items()) ** 0.5
+    den = sum(float(g.norm()) ** 2 for g in ref_grads.values()) ** 0.5
+    worst = max((float((grads[n] - g).norm() / g.norm().clamp_min(1e-30)), n) for n, g in ref_grads.items())
+    loss_rel = abs(loss / ref_loss - 1)
+    log(f"  {name}: card bf16 loss {loss:.6f} vs cpu fp32 {ref_loss:.6f}: rel {loss_rel:.3e} (limit {TRAIN_LOSS_REL}); "
+        f"gradients rel_l2 {num / den:.3e} (limit {TRAIN_GRAD_REL_L2}), worst parameter {worst[0]:.3e} {worst[1]} "
+        f"(limit {TRAIN_GRAD_TENSOR_REL_L2})")
+    if not (all(torch.isfinite(g).all() for g in grads.values()) and loss_rel <= TRAIN_LOSS_REL
+            and num / den <= TRAIN_GRAD_REL_L2 and worst[0] <= TRAIN_GRAD_TENSOR_REL_L2):
+        raise AssertionError(f"the narrow {name} on the card disagrees with its fp32 CPU reference")
+    return {"loss_rel": loss_rel, "grad_rel_l2": num / den, "worst_tensor_rel_l2": worst[0]}
+
+
+def small_training_variants_reference() -> dict:
+    """The narrow self-forcing generator and critic steps, Wan step and EDM
+    step in bf16 on the card against the same weights and draws in fp32 on
+    the CPU (plain versions), with their exact launches."""
+    import torch
+
+    out = {}
+    got, counts, sds = small_self_forcing("cuda", torch.bfloat16)
+    ref, _, _ = small_self_forcing("cpu", torch.float32, sds)
+    want = sf_want(SF_BLOCKS, 2, 2, remat=True)
+    for phase in ("generator", "critic"):
+        out[f"self_forcing_{phase}"] = _hold_step(f"self-forcing {phase} step", *got[phase], *ref[phase])
+        if {k: counts[phase][k] for k in want[phase]} != want[phase]:
+            raise AssertionError(f"the narrow self-forcing {phase} step launched {counts[phase]}, want {want[phase]}")
+    loss, grads, counts, sd = small_wan_step("cuda", torch.bfloat16)
+    ref_loss, ref_grads, _, _ = small_wan_step("cpu", torch.float32, sd)
+    out["wan"] = _hold_step("Wan training step", loss, grads, ref_loss, ref_grads)
+    if (counts["flash_attention_fwd"], counts["flash_attention_bwd_dq"], counts["flash_attention_bwd_dkv"]) != (6, 6, 6):
+        raise AssertionError(f"the narrow Wan step launched {counts}, want K1, K7 and K8 6 times each")
+    loss, grads, counts, sd = small_edm_step("cuda", torch.bfloat16)
+    ref_loss, ref_grads, _, _ = small_edm_step("cpu", torch.float32, sd)
+    out["edm"] = _hold_step("EDM training step", loss, grads, ref_loss, ref_grads)
+    if (counts["flash_attention_fwd"], counts["flash_attention_bwd_dq"], counts["flash_attention_bwd_dkv"]) != (8, 4, 4):
+        raise AssertionError(f"the narrow EDM step launched {counts}, want K1 8, K7 and K8 4 times")
+    return out
+
+
+def training_variants_slice() -> dict:
+    """Phase 19: self-forcing DMD2 and the Wan and EDM training steps."""
+    out = {"self_forcing": self_forcing_slice(), "wan_train": wan_train_slice(), "edm_train": edm_train_slice(),
+           "narrow": small_training_variants_reference()}
+    fresh_memory()
+    return out
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)  # --help; no options
     t_start = time.perf_counter()
@@ -4034,6 +4531,8 @@ def main(argv=None) -> int:
     with Phase("A15, the prompt encoders: Reason1 7B through the CLI and a request, umT5 + CLIP into Wan i2v, "
                "T5-11B, Qwen vision, SigLIP, XLM-R"):
         a15 = prompt_encoders_slice()
+    with Phase("self-forcing DMD2 of the causal 2B, Wan 1.3B and EDM 2B training, narrow steps card vs CPU"):
+        p19 = training_variants_slice()
     paths = {"serve": sl, "train": tr, "sparse_serve": ssl, "sparse_train": stl, "interactive": it,
              "interactive_window": itw, "fwdmode": fm, "fa_jvp": fj, "dmd2_serve": dsl, "distill": dtl,
              "released": rel, "autoregressive": ar, "text2image": t2i, "oneshot": osl, "14b": big,
@@ -4041,7 +4540,8 @@ def main(argv=None) -> int:
              "camera": var["camera"], "action": var["action"], "gr00t": a13["gr00t"], "wan": a13["wan"],
              "wan22_vae": a13["wan22_vae"], "edm": a13["edm"],
              **{name: a13["sparse_14b"][name] for name in SPARSE_14B_EXPERIMENTS},
-             "reason1": a15["reason1"], "wan_encoders": a15["wan_encoders"]}
+             "reason1": a15["reason1"], "wan_encoders": a15["wan_encoders"],
+             "self_forcing": p19["self_forcing"], "wan_train": p19["wan_train"], "edm_train": p19["edm_train"]}
     path_kernels = {
         "serve": ("flash_attention_fwd", "conv3d_causal"),
         "train": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal"),
@@ -4058,6 +4558,10 @@ def main(argv=None) -> int:
            for path in ("released", "autoregressive", "text2image", "oneshot", "14b", "multiview", "camera", "action",
                         "wan", "edm", "reason1", "wan_encoders")},
         "gr00t": ("flash_attention_fwd", "flash_attention_kv_cache"),
+        "self_forcing": ("flash_attention_fwd", "flash_attention_kv_cache", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv"),
+        **{path: ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal")
+           for path in ("wan_train", "edm_train")},
         "wan22_vae": ("conv3d_causal",),
         **{name: ("flash_attention_fwd", "na_fwd") for name in SPARSE_14B_EXPERIMENTS},
         **{path: ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal")

@@ -12,10 +12,11 @@ recipes (cosmos-nemo-assets in full and with LoRA, and groot GR1 480p),
 and the post-trained 2B variants' serving names (the four auto-multiview
 "buttercup" runs, the two robot-multicamera runs and the bridge
 action-conditioned run), and the two interactive gr00t GR1 action names
-(the causal streaming net with the action embedders).
+(the causal streaming net with the action embedders), and the variants'
+two training recipes (bridge action-conditioned, Waymo multiview).
 
-The reference's other names need modules the port does not have yet; they
-are listed in :data:`WAITING` with the roadmap item that brings them.
+:data:`WAITING` would list the reference's names that need modules the
+port lacks, with the roadmap item that brings each; it is empty.
 """
 
 from __future__ import annotations
@@ -215,12 +216,30 @@ for _name in (
     )
 
 # ---------------------------------------------------------------------------
-# The reference's names that wait for modules the port lacks:
-# (name, roadmap item that brings it)
+# The post-trained variants' training recipes, as the JAX package registers
+# them. Neither package has a data flow from their clip layouts (robot state
+# tracks, 7-view clips with per-view captions) to a condition: the action
+# recipe's net refuses batches without actions at its first step (ROADMAP
+# C8), and the multiview recipe trains on data whose latent frames and
+# caption tokens divide among its 7 views.
 # ---------------------------------------------------------------------------
 
-WAITING: tuple[tuple[str, str], ...] = (
-    # the post-trained variants' training recipes and their data
-    ("ac_reason_embeddings_rectified_flow_2b_256_320", "A13.t"),
-    ("predict2_multiview_post_train_waymo", "A13.t"),
+register_experiment(
+    Experiment(
+        name="ac_reason_embeddings_rectified_flow_2b_256_320",
+        base="predict2_video2world_2b_action_conditioned",
+        overrides={"trainer.max_iter": 1000, "trainer.save_iter": 200, "data_train.num_frames": 13,
+                   "data_train.height": 256, "data_train.width": 320, "data_train.batch_size": 1},
+    )
 )
+register_experiment(
+    Experiment(
+        name="predict2_multiview_post_train_waymo",
+        base="predict2_multiview_2b_7views",
+        overrides={"trainer.max_iter": 1000, "trainer.save_iter": 200, "data_train.batch_size": 1},
+    )
+)
+
+# The reference's names that wait for modules the port lacks, as (name,
+# roadmap item that brings it): none.
+WAITING: tuple[tuple[str, str], ...] = ()

@@ -129,6 +129,11 @@ def action_conditioned_model_config(
     return RFModelConfig(net=net, **model_kwargs)
 
 
+class ActionConditionedVideo2WorldModel(Video2WorldModel):
+    """Video2World's training and sampling; the action rides in
+    ``condition.action`` into the net's action embedders."""
+
+
 class ActionConditionedInference:
     """Robot video prediction: the first frame(s) and an action sequence ->
     a clip, from a precomputed prompt embedding. ``vae`` streams at batch 1

@@ -6,9 +6,11 @@ convention) over the 2B DiT of models/video2world.py, with its
 FRAME_REPLACE conditioning (clean latents in, and in the x0 out, on the
 conditional frames), and CFG x0 sampling ``cond + g * (cond - uncond)``
 through the Karras 2ab sampler (schedulers/edm_sampler.py). The two CFG
-branches run as one forward at batch 2B. Training (JAX's
-``training_step``, with its log-normal sigma draws) waits with the
-post-trained variants' training (ROADMAP A13.t).
+branches run as one forward at batch 2B. ``training_step`` is JAX's:
+per-sample conditional frames drawn as the rectified-flow model draws them,
+a log-normal sigma, the x0 MSE weighted by (sigma^2 + sd^2) / (sigma
+sd)^2; its draws are explicit (:class:`EDMTrainDraws`), so that
+training/trainer.py drives it; it draws no conditioning dropout, as JAX's.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import dataclasses
 import torch
 
 from cosmos_predict2_tpu_torch.conditioning.conditioner import Video2WorldCondition, get_condition_uncondition
-from cosmos_predict2_tpu_torch.models.video2world import RFModelConfig, _per_sample_flag
+from cosmos_predict2_tpu_torch.models.video2world import RFModelConfig, Video2WorldModel, _per_sample_flag
 from cosmos_predict2_tpu_torch.networks.dit import MiniTrainDIT
 from cosmos_predict2_tpu_torch.schedulers import edm_sampler
 
@@ -26,16 +28,38 @@ from cosmos_predict2_tpu_torch.schedulers import edm_sampler
 class EDMModelConfig:
     model: RFModelConfig = RFModelConfig()
     sigma_data: float = 0.5
+    p_mean: float = -1.2  # log-normal training sigma
+    p_std: float = 1.2
     sigma_min: float = 0.002
     sigma_max: float = 80.0
     rho: float = 7.0
     c_noise_scale: float = 1000.0
 
 
+@dataclasses.dataclass(frozen=True)
+class EDMTrainDraws:
+    """An EDM training step's draws: ``num_conditional_frames`` (B,) int,
+    ``sigma_n`` (B,) the standard normal of sigma = exp(p_mean + p_std n),
+    and ``eps`` the noise, shaped like the latents, fp32."""
+
+    num_conditional_frames: torch.Tensor
+    sigma_n: torch.Tensor
+    eps: torch.Tensor
+
+    def to(self, device) -> "EDMTrainDraws":
+        return EDMTrainDraws(self.num_conditional_frames.to(device), self.sigma_n.to(device), self.eps.to(device))
+
+
 class EDMVideo2WorldModel:
     def __init__(self, config: EDMModelConfig, net: MiniTrainDIT):
         self.config = config
         self.net = net
+        # the rectified-flow model over the same net draws the conditional frames, as in JAX
+        self.base = Video2WorldModel(config.model, net)
+
+    def trainable_parameters(self) -> dict[str, torch.nn.Parameter]:
+        """The parameters a trainer updates, by name: the net's that require grad."""
+        return self.base.trainable_parameters()
 
     def denoise(self, xt: torch.Tensor, sigma_B: torch.Tensor, condition: Video2WorldCondition) -> torch.Tensor:
         """x0 prediction (fp32) with EDM preconditioning and FRAME_REPLACE.
@@ -60,6 +84,31 @@ class EDMVideo2WorldModel:
         if mask is not None and cfg.model.denoise_replace_gt_frames:
             x0 = condition.gt_frames.float() * mask + x0 * (1.0 - mask)
         return x0
+
+    def sample_train_draws(self, generator: torch.Generator, latent_shape: tuple[int, ...]) -> EDMTrainDraws:
+        """One training step's draws, on the generator's device."""
+        B, dev = latent_shape[0], generator.device
+        return EDMTrainDraws(
+            num_conditional_frames=self.base.sample_num_conditional_frames(generator, B),
+            sigma_n=torch.randn((B,), generator=generator, device=dev),
+            eps=torch.randn(latent_shape, generator=generator, device=dev),
+        )
+
+    def training_step(self, x0_B_C_T_H_W: torch.Tensor, condition: Video2WorldCondition,
+                      draws: EDMTrainDraws) -> tuple[torch.Tensor, dict]:
+        """The EDM loss of one batch (JAX ``training_step``). Returns (loss,
+        metrics) with ``loss`` detached and ``sigma_mean``."""
+        cfg = self.config
+        if condition.is_video and condition.gt_frames is not None:
+            condition = condition.set_video_condition(condition.gt_frames, draws.num_conditional_frames)
+        sigma = torch.exp(cfg.p_mean + cfg.p_std * draws.sigma_n.float())
+        x0 = x0_B_C_T_H_W.float()
+        x0_pred = self.denoise(x0 + sigma.reshape(-1, 1, 1, 1, 1) * draws.eps, sigma, condition)
+        sd = cfg.sigma_data
+        weight = (sigma**2 + sd**2) / torch.square(sigma * sd)
+        per_instance = torch.mean(torch.square(x0_pred - x0), dim=tuple(range(1, x0_pred.ndim)))
+        loss = torch.mean(weight * per_instance)
+        return loss, {"loss": loss.detach(), "sigma_mean": sigma.mean()}
 
     @torch.no_grad()
     def generate(

@@ -15,10 +15,20 @@ denoise forward drops them, so its writes stay past ``len`` and are
 overwritten by the commit, which keeps them. The window slide rolls each
 buffer in place, one chunk at a time (``shift_cache_window``). So the loop
 holds one copy of the cache (28 x 2 x (B, 16, S_max, 128) bf16: 3.43 GB at
-352x640 with 16 + 1 frames). Self-forcing training (``SelfForcingDMD2``)
-is not ported yet; the cached forward raises under autograd. The
-action-conditioned gr00t names stream the same way: ``condition.action``
-rides into every cached forward (prefill, denoise and commit).
+352x640 with 16 + 1 frames). The action-conditioned gr00t names stream the
+same way: ``condition.action`` rides into every cached forward (prefill,
+denoise and commit).
+
+Self-forcing DMD2 training (:class:`SelfForcingDMD2`, JAX
+``models/interactive.py:250-347``): the student rolls the clip out block by
+block through its caches with gradients through each block's few-step
+denoise (networks/dit.py::CachedAttention: K5 / K6 forward, the plain
+masked reference in the backward), then the DMD2 losses of
+models/distillation.py apply. Each block's commit runs under ``no_grad``:
+in JAX its only output, the caches, is ``stop_gradient``ed before any use,
+so that is the same function and the same gradients with no graph kept.
+The rollout never slides the window (the caches hold all ``n_blocks``
+blocks, as JAX sizes them).
 """
 
 from __future__ import annotations
@@ -30,9 +40,9 @@ from typing import Callable, Optional
 import torch
 
 from cosmos_predict2_tpu_torch.conditioning.conditioner import Video2WorldCondition
-from cosmos_predict2_tpu_torch.models.distillation import DistillationConfig, trigflow_scalings_rf
+from cosmos_predict2_tpu_torch.models.distillation import DistillationConfig, DistillationModel, trigflow_scalings_rf
 from cosmos_predict2_tpu_torch.models.video2world import RFModelConfig, Video2WorldModel
-from cosmos_predict2_tpu_torch.networks.dit import DiTConfig
+from cosmos_predict2_tpu_torch.networks.dit import DiTConfig, MiniTrainDIT, cache_write
 
 
 def causal_model_config(base_net: DiTConfig, num_frame_per_block: int = 1, **model_kwargs) -> RFModelConfig:
@@ -94,11 +104,12 @@ def shift_cache_window(cache: dict, drop_tokens: int) -> dict:
         S = buf.shape[2]
         if not 0 < drop_tokens <= S:
             raise ValueError(f"shift_cache_window: drop_tokens {drop_tokens} outside [1, {S}]")
-        front = buf[:, :, :drop_tokens].clone()
-        for s0 in range(0, S - drop_tokens, drop_tokens):
-            n = min(drop_tokens, S - drop_tokens - s0)
-            buf[:, :, s0:s0 + n].copy_(buf[:, :, s0 + drop_tokens:s0 + drop_tokens + n])
-        buf[:, :, S - drop_tokens:].copy_(front)
+        with cache_write(buf, 0):
+            front = buf[:, :, :drop_tokens].clone()
+            for s0 in range(0, S - drop_tokens, drop_tokens):
+                n = min(drop_tokens, S - drop_tokens - s0)
+                buf[:, :, s0:s0 + n].copy_(buf[:, :, s0 + drop_tokens:s0 + drop_tokens + n])
+            buf[:, :, S - drop_tokens:].copy_(front)
     return {"k": cache["k"], "v": cache["v"], "len": cache["len"] - drop_tokens}
 
 
@@ -137,6 +148,14 @@ class StreamingInference:
                        t_start: int) -> tuple[torch.Tensor, list]:
         """Few-step TrigFlow denoise of one new frame block from ``noise``
         (B, C, nb, h, w) fp32, then the commit: (clean block fp32, caches)."""
+        x = self.denoise_block(noise, condition, kv_caches, t_start)
+        return x, self.prefill(x, condition, kv_caches, t_start)
+
+    def denoise_block(self, noise: torch.Tensor, condition: Video2WorldCondition, kv_caches: list,
+                      t_start: int) -> torch.Tensor:
+        """The few-step TrigFlow denoise of one frame block against the
+        caches, without the commit: the clean block, fp32. Differentiable
+        when gradients are recorded (the self-forcing rollout)."""
         cfg = self.config
         x = noise
         t_steps = list(self.distill.selected_sampling_time[: cfg.num_steps]) + [0.0]
@@ -152,7 +171,7 @@ class StreamingInference:
             x = c_skip * x + c_out * net_out.float()
             if t_next > 1e-5:
                 x = math.cos(t_next) * x / sd + math.sin(t_next) * noise
-        return x, self.prefill(x, condition, kv_caches, t_start)
+        return x
 
     @torch.no_grad()
     def generate(
@@ -205,3 +224,112 @@ class StreamingInference:
             if on_block is not None:
                 on_block(step, x, caches)
         return torch.cat(blocks, dim=2)[:, :, :num_latent_frames]
+
+
+# -------------------------- self-forcing training --------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SelfForcingDraws:
+    """Every random draw of one self-forcing loss: ``noise`` (B, C,
+    n_blocks nb, h, w) the rollout's block noises along T (block i's are
+    frames [i nb, (i + 1) nb)), ``time_D`` (B, 1) the critic's TrigFlow time
+    (broadcast over the rollout's frames, as JAX takes column 0) and
+    ``D_eps`` the re-noising noise, shaped like the rollout; fp32."""
+
+    noise: torch.Tensor
+    time_D: torch.Tensor
+    D_eps: torch.Tensor
+
+    def to(self, device) -> "SelfForcingDraws":
+        return SelfForcingDraws(self.noise.to(device), self.time_D.to(device), self.D_eps.to(device))
+
+
+class SelfForcingDMD2:
+    """Self-forcing DMD2 training of the causal student (JAX
+    ``SelfForcingDMD2``; the reference's
+    ActionVideo2WorldModelTrigflowSelfForcingDMD2): the student generates the
+    clip autoregressively through its KV caches, then the DMD2 generator
+    loss (against the frozen teacher and the fake-score critic) or the
+    critic's denoising loss applies. Three nets of the causal architecture:
+    the student streams (``streaming.model.net``), the teacher and the fake
+    score run full block-causal forwards (``DistillationModel.denoise_edm``).
+    """
+
+    def __init__(self, streaming: StreamingInference):
+        self.streaming = streaming
+        self.dm = DistillationModel(streaming.distill)
+
+    def sample_draws(self, generator: torch.Generator, batch: int, n_blocks: int, latent_hw: tuple[int, int],
+                     state_ch: int = 16) -> SelfForcingDraws:
+        """One loss's draws, on the generator's device."""
+        shape = (batch, state_ch, n_blocks * self.streaming.config.num_frame_per_block, *latent_hw)
+        dev = generator.device
+        return SelfForcingDraws(
+            noise=torch.randn(shape, generator=generator, device=dev),
+            time_D=self.dm.draw_training_time_D(generator, batch),
+            D_eps=torch.randn(shape, generator=generator, device=dev),
+        )
+
+    def rollout(self, condition: Video2WorldCondition, n_blocks: int, latent_hw: tuple[int, int],
+                noise: torch.Tensor, grad_on_last_step: bool = True) -> torch.Tensor:
+        """The student's autoregressive generation from the block noises
+        ``noise`` (B, C, n_blocks nb, h, w): each block's denoise records a
+        graph when gradients are on (unless not ``grad_on_last_step``), its
+        commit does not. Returns (B, C, n_blocks nb, h, w) fp32."""
+        s = self.streaming
+        nb = s.config.num_frame_per_block
+        h, w = latent_hw
+        caches = s.model.init_kv_caches(noise.shape[0], n_blocks * nb, h, w, noise.device)
+        blocks = []
+        for step in range(n_blocks):
+            t_pos = step * nb
+            with torch.set_grad_enabled(torch.is_grad_enabled() and grad_on_last_step):
+                x = s.denoise_block(noise[:, :, t_pos:t_pos + nb].float(), condition, caches, t_pos)
+            caches = s.prefill(x, condition, caches, t_pos)
+            blocks.append(x)
+        return torch.cat(blocks, dim=2)
+
+    def _critic_input(self, G_x0: torch.Tensor, draws: SelfForcingDraws) -> tuple[torch.Tensor, torch.Tensor]:
+        """(D_time (B, T), D_xt): the rollout re-noised to the critic's time."""
+        B, T = G_x0.shape[0], G_x0.shape[2]
+        D_time_B_T = draws.time_D[:, :1].expand(B, T)
+        D_time = D_time_B_T[:, None, :, None, None]
+        return D_time_B_T, G_x0 * torch.cos(D_time) / self.dm.config.sigma_data + draws.D_eps * torch.sin(D_time)
+
+    def generator_loss(
+        self, teacher: MiniTrainDIT, fake_score: MiniTrainDIT, condition: Video2WorldCondition,
+        uncondition: Optional[Video2WorldCondition], n_blocks: int, latent_hw: tuple[int, int],
+        draws: SelfForcingDraws,
+    ) -> tuple[torch.Tensor, dict]:
+        """The DMD generator loss over the self-forced rollout; its graph
+        reaches the student only. Returns (loss, metrics)."""
+        cfg = self.dm.config
+        G_x0 = self.rollout(condition, n_blocks, latent_hw, draws.noise)
+        D_time_B_T, D_xt = self._critic_input(G_x0, draws)
+        with torch.no_grad():
+            D_xt = D_xt.detach()
+            fake_x0 = self.dm.denoise_edm(fake_score, D_xt, D_time_B_T, condition)
+            teacher_x0 = self.dm.denoise_edm(teacher, D_xt, D_time_B_T, condition)
+            if cfg.teacher_guidance > 0.0 and uncondition is not None:
+                t_un = self.dm.denoise_edm(teacher, D_xt, D_time_B_T, uncondition)
+                teacher_x0 = teacher_x0 + cfg.teacher_guidance * (teacher_x0 - t_un)
+            weight = torch.mean(torch.abs(G_x0 - teacher_x0), dim=(1, 2, 3, 4), keepdim=True).clamp(min=1e-5)
+            grad = (fake_x0 - teacher_x0) / weight
+        loss = cfg.loss_scale_sid * torch.mean(torch.nan_to_num(torch.square(G_x0 - (G_x0 - grad).detach())))
+        return loss, {"self_forcing_dmd_loss": loss.detach()}
+
+    def critic_loss(
+        self, fake_score: MiniTrainDIT, condition: Video2WorldCondition, n_blocks: int, latent_hw: tuple[int, int],
+        draws: SelfForcingDraws,
+    ) -> tuple[torch.Tensor, dict]:
+        """The fake-score net's denoising loss on the rollout, which carries
+        no gradient. Returns (loss, metrics)."""
+        cfg = self.dm.config
+        with torch.no_grad():
+            G_x0 = self.rollout(condition, n_blocks, latent_hw, draws.noise, grad_on_last_step=False)
+        D_time_B_T, D_xt = self._critic_input(G_x0, draws)
+        fake_x0 = self.dm.denoise_edm(fake_score, D_xt, D_time_B_T, condition)
+        D_time = D_time_B_T[:, None, :, None, None]
+        loss = cfg.loss_scale_fake_score * torch.mean(torch.square(G_x0 - fake_x0) / torch.square(torch.sin(D_time)))
+        return loss, {"self_forcing_critic_loss": loss.detach()}

@@ -143,6 +143,11 @@ class Video2WorldModel:
             B, _, T, H, W = xt_B_C_T_H_W.shape
             net_kwargs["condition_mask"] = mask.expand(B, 1, T, H, W)
         if cfg.net.action_dim is not None:
+            if condition.action is None:
+                raise ValueError(
+                    "config.action_dim set but no action passed: an action-conditioned net needs condition.action, "
+                    "and no data flow here (mock or local clips: text and fps only) makes one from robot state "
+                    "tracks, as in the JAX package (ROADMAP C8)")
             net_kwargs["action"] = condition.action
         if cfg.net.camera_dim is not None:
             net_kwargs["camera"] = condition.camera

@@ -13,8 +13,10 @@ JAX does, or takes the tokens precomputed.
 forward at batch 2B where JAX runs two. :func:`image2world` is the serving
 path: the first frame and zeros through the Wan2.1 VAE encoder
 (tokenizers/wan_vae_streaming.py, K2 on the card), the conditioned sampling,
-and the decode. Training (JAX's ``training_step``) waits with the
-post-trained variants' training (ROADMAP A13.t).
+and the decode. ``training_step`` is JAX's rectified-flow loss (logit-normal
+train time at shift 5, the per-instance velocity MSE times ``loss_scale``)
+with its draws explicit (:class:`WanTrainDraws`), so that
+training/trainer.py drives it; it draws no conditioning dropout, as JAX's.
 """
 
 from __future__ import annotations
@@ -26,16 +28,16 @@ import torch
 
 from cosmos_predict2_tpu_torch.networks.wan_dit import CLIP_TOKENS, WanConfig, WanModel
 from cosmos_predict2_tpu_torch.schedulers import unipc
+from cosmos_predict2_tpu_torch.schedulers.rectified_flow import RectifiedFlow, RectifiedFlowConfig
 
 
 @dataclasses.dataclass(frozen=True)
 class WanModelConfig:
-    """The serving fields of JAX's config; its training fields (the
-    rectified-flow schedule, the loss scale) come with training."""
-
     net: WanConfig = WanConfig()
+    rectified_flow: RectifiedFlowConfig = RectifiedFlowConfig(shift=5.0, train_time_distribution="logitnormal")
     state_ch: int = 16
     state_t: int = 21  # Wan's 81 frames
+    loss_scale: float = 1.0
     sampling_num_steps: int = 35
     sampling_shift: float = 5.0
 
@@ -82,12 +84,29 @@ def make_i2v_condition(
                         condition_video_mask=mask)
 
 
+@dataclasses.dataclass(frozen=True)
+class WanTrainDraws:
+    """A Wan training step's draws: ``eps`` the noise, shaped like the
+    latents, fp32, and ``u`` (B,) the train time in [0, 1)."""
+
+    eps: torch.Tensor
+    u: torch.Tensor
+
+    def to(self, device) -> "WanTrainDraws":
+        return WanTrainDraws(self.eps.to(device), self.u.to(device))
+
+
 class WanVideo2WorldModel:
-    """Denoising and sampling around a WanModel."""
+    """Training loss, denoising and sampling around a WanModel."""
 
     def __init__(self, config: WanModelConfig, net: WanModel):
         self.config = config
         self.net = net
+        self.rectified_flow = RectifiedFlow(config.rectified_flow)
+
+    def trainable_parameters(self) -> dict[str, torch.nn.Parameter]:
+        """The parameters a trainer updates, by name: the net's that require grad."""
+        return {n: p for n, p in self.net.named_parameters() if p.requires_grad}
 
     def _build_y(self, condition: WanCondition, latent_shape) -> Optional[torch.Tensor]:
         """The i2v input channels [mask x (extra - C) | masked latents], fp32."""
@@ -108,6 +127,25 @@ class WanVideo2WorldModel:
             xt.to(self.config.net.dtype), timesteps_B, condition.crossattn_emb, y_B_C_T_H_W=y,
             frame_cond_crossattn_emb=condition.clip_emb, padding_mask=condition.padding_mask,
         ).float()
+
+    def sample_train_draws(self, generator: torch.Generator, latent_shape: tuple[int, ...]) -> WanTrainDraws:
+        """One training step's draws, on the generator's device."""
+        eps = torch.randn(latent_shape, generator=generator, device=generator.device)
+        return WanTrainDraws(eps=eps, u=self.rectified_flow.sample_train_time(generator, latent_shape[0]))
+
+    def training_step(self, x0_B_C_T_H_W: torch.Tensor, condition: WanCondition,
+                      draws: WanTrainDraws) -> tuple[torch.Tensor, dict]:
+        """The rectified-flow loss of one batch (JAX ``training_step``): x_t
+        between the noise and the clean latents at the drawn time, the
+        velocity MSE per instance, their mean times ``loss_scale``. Returns
+        (loss, metrics) with ``loss`` detached."""
+        rf = self.rectified_flow
+        timesteps, sigmas = rf.discretize(draws.u)
+        xt, v_target = rf.get_interpolation(draws.eps, x0_B_C_T_H_W.float(), sigmas)
+        v_pred = self.denoise(xt, timesteps, condition)
+        per_instance = torch.mean(torch.square(v_pred - v_target), dim=tuple(range(1, v_pred.ndim)))
+        loss = torch.mean(per_instance) * self.config.loss_scale
+        return loss, {"loss": loss.detach()}
 
     @torch.no_grad()
     def generate(

@@ -32,6 +32,17 @@ block; one that drops them keeps the old ``len``, and the slots written past
 it are never read. That is the JAX package's functional update without a
 copy of the cache per forward.
 
+Under autograd (self-forcing training) the cached self-attention is
+:class:`CachedAttention`: the new block's k/v are inputs of the Function and
+take the gradient of their rows [len, len + s_new); the prefix [0, len)
+takes none (the JAX rollout's ``stop_gradient`` on the caches). The
+backward reads the prefix from the buffers themselves, which later forwards
+keep writing in place at or above ``len``, so autograd's version counter
+cannot guard it: every cache write is logged (:func:`cache_write`) and the
+backward raises if a write since its forward began below ``len`` (a window
+slide, or a cache reused from a lower fill). That keeps no copy of the
+prefix.
+
 Training: with ``remat="block"`` (the default, as the reference) each block
 runs under ``torch.utils.checkpoint`` while gradients are recorded: only its
 input is kept and the block is computed again in the backward, the
@@ -39,7 +50,15 @@ counterpart of ``nn.remat(Block)``. ``"selective"`` also keeps each
 attention call's result (out and lse, ops/flash_attention.py::SavedAttention),
 so the recompute runs the rest of the block and no attention forward;
 ``"mixed:K"`` is selective on blocks < K and block remat after (``"mixed"``:
-K = num_blocks // 2); ``"none"`` keeps every activation.
+K = num_blocks // 2); ``"none"`` keeps every activation. A cached forward
+under autograd (the self-forcing rollout) takes block remat under any
+setting but ``"none"``: the recompute writes the block's k/v into the
+cache again at the same rows, which hold that block's committed k/v by
+then and which no graph still to run reads (the guard below raises if one
+does). The JAX package keeps every activation of its cached forward;
+here each recorded forward would also keep the bf16 copy of every matmul
+weight that ``linear`` makes (~4 GB for the 2B), beside three fp32 nets
+in self-forcing.
 
 The post-trained variants: ``concat_condition_mask`` adds the condition
 mask as an input channel; ``action_dim`` adds two action MLPs to the
@@ -59,6 +78,7 @@ output in :func:`linear`, unmerged: the frozen weight gets no gradient.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -70,11 +90,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from cosmos_predict2_tpu_torch.ops.attention import dot_product_attention
-from cosmos_predict2_tpu_torch.ops.flash_attention import (
-    SavedAttention,
-    flash_attention_kv_cache,
-    flash_attention_kv_cache_window,
-)
+from cosmos_predict2_tpu_torch.ops.flash_attention import SavedAttention, kv_cache_attention, kv_cache_vjp
 from cosmos_predict2_tpu_torch.ops.neighborhood_attention import VideoSize, adaptive_na_parameters, neighborhood_attention
 from cosmos_predict2_tpu_torch.ops.normalization import layer_norm, rms_norm
 from cosmos_predict2_tpu_torch.ops.rope import RopeSpec, apply_rope, rope_angles_3d
@@ -262,20 +278,90 @@ def cached_attention(q, k, v, kv_cache: dict, cache_window: Optional[tuple]):
     """Write the new block's k/v (B, s_new, H, D) into the head-major ring
     buffers at [len, len + s_new) in place and attend q over [0, len +
     s_new): K6 with ``cache_window`` = ((gh, gw), rows), else K5. Returns
-    (out, {"k", "v", "len": len + s_new})."""
-    if torch.is_grad_enabled() and q.requires_grad:
-        raise NotImplementedError("the cached forward has no backward in the port (self-forcing training waits)")
+    (out, {"k", "v", "len": len + s_new}). Under autograd the same, through
+    :class:`CachedAttention`."""
     kb, vb, n = kv_cache["k"], kv_cache["v"], kv_cache["len"]
     end = n + k.shape[1]
     if end > kb.shape[2]:
         raise ValueError(f"kv cache overflow: {n} + {k.shape[1]} tokens > capacity {kb.shape[2]}")
-    kb[:, :, n:end] = k.transpose(1, 2)
-    vb[:, :, n:end] = v.transpose(1, 2)
-    if cache_window is None:
-        out = flash_attention_kv_cache(q, kb, vb, end)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        out = CachedAttention.apply(q, k, v, kb, vb, n, cache_window)
     else:
-        out = flash_attention_kv_cache_window(q, kb, vb, end, *cache_window)
+        write_block(kb, vb, n, k, v)
+        out = kv_cache_attention(q, kb, vb, end, cache_window)
     return out, {"k": kb, "v": vb, "len": end}
+
+
+def write_block(kb: torch.Tensor, vb: torch.Tensor, n: int, k: torch.Tensor, v: torch.Tensor) -> None:
+    """k/v (B, s_new, H, D) into the head-major buffers at [n, n + s_new), logged."""
+    with cache_write(kb, n), cache_write(vb, n):
+        kb[:, :, n:n + k.shape[1]] = k.transpose(1, 2)
+        vb[:, :, n:n + v.shape[1]] = v.transpose(1, 2)
+
+
+@contextlib.contextmanager
+def cache_write(buf: torch.Tensor, first_row: int):
+    """Log the in-place write, inside this context, of rows >= ``first_row``
+    of a cache buffer. The log on the buffer keeps (version after, first
+    row) pairs whose rows rise with the version (a write pops the entries at
+    or above its row); a write found on the way in that the log lacks is
+    logged as a write of every row."""
+    before = buf._version
+    yield
+    log = buf.__dict__.setdefault("_cache_writes", [])
+    if before != (log[-1][0] if log else 0):
+        log.clear()
+        log.append((before, 0))
+    while log and log[-1][1] >= first_row:
+        log.pop()
+    log.append((buf._version, first_row))
+
+
+def check_cache_prefix(buf: torch.Tensor, rows: int, version: int) -> None:
+    """Raise unless rows [0, ``rows``) of a cache buffer still hold what they
+    held at its ``version``: every write since then was logged by
+    :func:`cache_write` and began at or above ``rows``."""
+    if rows == 0 or buf._version == version:
+        return
+    log = buf.__dict__.get("_cache_writes", [])
+    if not log or log[-1][0] != buf._version:
+        raise RuntimeError("a kv cache buffer was written in place outside the cache's own writes while a graph "
+                           "reads its prefix: the cached attention has no gradient")
+    first = next(row for v, row in log if v > version)
+    if first < rows:
+        raise RuntimeError(f"a kv cache buffer was written from row {first}, below the fill {rows} that a graph "
+                           "reads (a window slide, or a cache reused from a lower fill), between the cached "
+                           "attention's forward and its backward")
+
+
+class CachedAttention(torch.autograd.Function):
+    """:func:`cached_attention` under autograd: the forward writes k/v into
+    the buffers at [n, n + s_new) and launches K5 / K6 as the inference route
+    does; the backward checks the prefix [0, n) (:func:`check_cache_prefix`)
+    and recomputes through the plain masked reference over [prefix | k, v]
+    (ops/flash_attention.py::kv_cache_vjp), the JAX package's VJP. q, k and v
+    take gradients; the buffers take none.
+    ``CachedAttention.apply(q, k, v, k_buf, v_buf, n, cache_window)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kb, vb, n: int, cache_window: Optional[tuple]):
+        write_block(kb, vb, n, k, v)
+        ctx.save_for_backward(q, k, v)
+        ctx.buffers, ctx.versions = (kb, vb), (kb._version, vb._version)
+        ctx.n, ctx.cache_window = n, cache_window
+        return kv_cache_attention(q, kb, vb, n + k.shape[1], cache_window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        n = ctx.n
+        for buf, version in zip(ctx.buffers, ctx.versions):
+            check_cache_prefix(buf, n, version)
+        kb, vb = (torch.cat([buf[:, :, :n], t.transpose(1, 2).to(buf.dtype)], dim=2)
+                  for buf, t in zip(ctx.buffers, (k, v)))
+        dq, dk, dv = kv_cache_vjp(q, kb, vb, kb.shape[2], do, ctx.cache_window)
+        dk, dv = (d[:, :, n:].transpose(1, 2).to(t.dtype) for d, t in ((dk, k), (dv, v)))
+        return dq, dk, dv, None, None, None, None
 
 
 class CrossViewAttention(nn.Module):
@@ -582,6 +668,7 @@ class MiniTrainDIT(nn.Module):
         condition_mask: Optional[torch.Tensor] = None,
         action: Optional[torch.Tensor] = None,
         camera: Optional[torch.Tensor] = None,
+        view_indices_B_T: Optional[torch.Tensor] = None,
     ):
         """Returns the output (B, C, T, H, W); with ``kv_caches`` (one per
         block) it runs x as the new frame block at absolute latent frame
@@ -595,7 +682,9 @@ class MiniTrainDIT(nn.Module):
         T_act, action_dim) for ``action_dim`` and ``camera`` (B, Tt, Hp, Wp,
         camera_dim) for ``camera_dim`` (no camera term when None). With
         ``n_views`` > 1 the caption holds ``tokens_per_view`` tokens per
-        view, view-major, and view v takes view embedding v."""
+        view, view-major, and view v takes view embedding v, or with
+        ``view_indices_B_T`` (B, T) the embedding of each (view, frame)'s
+        index, clipped to ``n_cameras_emb - 1``."""
         cfg = self.cfg
         B, C, T, H, W = x_B_C_T_H_W.shape
         ps, pt = cfg.patch_spatial, cfg.patch_temporal
@@ -614,13 +703,18 @@ class MiniTrainDIT(nn.Module):
             mask = padding_mask[:, :1, None, :, :].expand(B, 1, T, H, W).to(x_B_C_T_H_W.dtype)
             x_B_C_T_H_W = torch.cat([x_B_C_T_H_W, mask], dim=1)
         V = cfg.n_views
+        if V > 1 and T % V:
+            raise ValueError(f"a {V}-view input packs {V} views of equal length on T, got {T} latent frames")
         if V > 1 and crossattn_emb.shape[1] != V * cfg.tokens_per_view:
             raise ValueError(f"a {V}-view caption holds {V} x tokens_per_view = {V * cfg.tokens_per_view} tokens, "
                              f"got {crossattn_emb.shape[1]}")
         if self.view_embedding_channels:  # channels [x | cond | pad | view]
-            idx = torch.arange(V, device=x_B_C_T_H_W.device).clamp(0, cfg.n_cameras_emb - 1)
-            ve = self.view_embeddings.weight[idx][None, :, None].expand(B, V, T // V, -1)
-            ve = ve.reshape(B, T, -1).permute(0, 2, 1)[..., None, None].expand(B, -1, T, H, W)
+            if view_indices_B_T is None:
+                idx = torch.arange(V, device=x_B_C_T_H_W.device).clamp(0, cfg.n_cameras_emb - 1)
+                ve = self.view_embeddings.weight[idx][None, :, None].expand(B, V, T // V, -1).reshape(B, T, -1)
+            else:
+                ve = self.view_embeddings.weight[view_indices_B_T.long().clamp(0, cfg.n_cameras_emb - 1)]
+            ve = ve.permute(0, 2, 1)[..., None, None].expand(B, -1, T, H, W)
             x_B_C_T_H_W = torch.cat([x_B_C_T_H_W, ve.to(x_B_C_T_H_W.dtype)], dim=1)
 
         x = self.x_embedder(x_B_C_T_H_W)  # (B, T', H', W', D) in cfg.dtype
@@ -644,12 +738,16 @@ class MiniTrainDIT(nn.Module):
         if cfg.use_crossattn_projection:
             crossattn_emb = F.gelu(linear(self.crossattn_proj[0], crossattn_emb, cfg.dtype))
 
-        remat = cfg.remat != "none" and torch.is_grad_enabled() and kv_caches is None
+        remat = cfg.remat != "none" and torch.is_grad_enabled()
         new_caches = None if kv_caches is None else []
         intermediates = []
         for i, block in enumerate(self.blocks):
             if kv_caches is not None:
-                x, cache = block(x, emb, crossattn_emb, rope_angles, adaln_lora, kv_cache=kv_caches[i])
+                if remat:  # block remat under any remat setting: the cached attention keeps nothing to reuse
+                    x, cache = checkpoint(block, x, emb, crossattn_emb, rope_angles, adaln_lora, use_reentrant=False,
+                                          kv_cache=kv_caches[i])
+                else:
+                    x, cache = block(x, emb, crossattn_emb, rope_angles, adaln_lora, kv_cache=kv_caches[i])
                 new_caches.append(cache)
             elif remat:
                 context_fn = (lambda: SavedAttention().contexts()) if i < cfg.selective_blocks else noop_context_fn

@@ -16,9 +16,10 @@ themselves.
 The cache decode (counterparts of ``flash_attention_kv_cache`` and
 ``flash_attention_kv_cache_window``) takes BSHD queries of a new block and
 HEAD-MAJOR (B, H, S_max, 128) ring buffers filled to ``kv_valid`` (a host
-int), as in the JAX package, and returns only the output. It has no
-backward here: the JAX package's VJP recomputes through the plain
-reference, and only self-forcing training (not ported) needs it.
+int), as in the JAX package, and returns only the output. Its gradient
+(:class:`KvCacheAttention`, :func:`kv_cache_vjp`) is the JAX package's VJP:
+a recompute through the plain masked reference, with no backward kernel
+(the JAX package has none for K5 or K6); self-forcing training takes it.
 
 :class:`SavedAttention` carries the DiT's "selective" activation
 checkpointing: within one block's checkpointed run it keeps each attention
@@ -763,3 +764,57 @@ def flash_attention_kv_cache_window(
 
 
 flash_attention_kv_cache_window.launches = 0
+
+
+# ------------------------- the cache decode under autograd -------------------------
+
+
+def kv_cache_vjp(q: torch.Tensor, k_buf: torch.Tensor, v_buf: torch.Tensor, kv_valid: int, do: torch.Tensor,
+                 cache_window: tuple | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk_buf, dv_buf) of the cache decode at the cotangent ``do``: the
+    JAX package's VJP (``_flash_kv_cache_bwd``, ``_flash_kv_cache_window_bwd``),
+    autograd through the plain masked reference, :func:`kv_cache_plain` or,
+    with ``cache_window`` = (grid_hw, window_rows), :func:`kv_cache_window_plain`
+    (whose whole-frame check holds here too). Buffer rows past ``kv_valid``
+    get zeros. Each call adds one to ``kv_cache_vjp.recomputes``."""
+    with torch.enable_grad():
+        qd, kd, vd = (t.detach().requires_grad_() for t in (q, k_buf, v_buf))
+        if cache_window is None:
+            out = kv_cache_plain(qd, kd, vd, kv_valid)
+        else:
+            out = kv_cache_window_plain(qd, kd, vd, kv_valid, *cache_window)
+        grads = torch.autograd.grad(out, (qd, kd, vd), do)
+    kv_cache_vjp.recomputes += 1
+    return grads
+
+
+kv_cache_vjp.recomputes = 0
+
+
+def kv_cache_attention(q: torch.Tensor, k_buf: torch.Tensor, v_buf: torch.Tensor, kv_valid: int,
+                       cache_window: tuple | None = None) -> torch.Tensor:
+    """The cache decode, :func:`flash_attention_kv_cache` (K5) or with
+    ``cache_window`` = (grid_hw, window_rows) :func:`flash_attention_kv_cache_window`
+    (K6)."""
+    if cache_window is None:
+        return flash_attention_kv_cache(q, k_buf, v_buf, kv_valid)
+    return flash_attention_kv_cache_window(q, k_buf, v_buf, kv_valid, *cache_window)
+
+
+class KvCacheAttention(torch.autograd.Function):
+    """Differentiable cache decode: the forward is :func:`kv_cache_attention`
+    (K5 / K6 on the card, their plain versions on the CPU), the backward
+    :func:`kv_cache_vjp`. It saves q and both buffers, so autograd refuses a
+    backward after a buffer was written in place.
+    ``KvCacheAttention.apply(q, k_buf, v_buf, kv_valid, cache_window)``."""
+
+    @staticmethod
+    def forward(ctx, q, k_buf, v_buf, kv_valid: int, cache_window: tuple | None = None):
+        ctx.save_for_backward(q, k_buf, v_buf)
+        ctx.kv_valid, ctx.cache_window = kv_valid, cache_window
+        return kv_cache_attention(q, k_buf, v_buf, kv_valid, cache_window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k_buf, v_buf = ctx.saved_tensors
+        return (*kv_cache_vjp(q, k_buf, v_buf, ctx.kv_valid, do, ctx.cache_window), None, None)

@@ -13,10 +13,20 @@ k micro-steps; the EMA decay is taken at the optimizer-step count before
 the update, so the EMA equals the parameters after the first update.
 ``grad_norm`` is the global norm of each micro-step's raw gradients.
 
-Random draws: each step's :class:`TrainDraws` come from ``draw_fn(iteration,
-x0)``; the default draws them from a CPU ``torch.Generator`` seeded from
-``(config.seed, iteration)``, so a resumed run draws what an unbroken one
-would.
+Random draws: each step's draws come from ``draw_fn(iteration, x0)``; the
+default draws them with ``model.sample_train_draws`` from a CPU
+``torch.Generator`` seeded from ``(config.seed, iteration)``, so a resumed
+run draws what an unbroken one would.
+
+The model is any of the port's trainable models: ``trainable_parameters()``,
+``sample_train_draws`` and ``training_step(x0, condition, draws)`` over a
+``net``. The rectified-flow Video2World models (and their variants) draw
+conditioning dropout in their :class:`TrainDraws`, applied here before the
+step as the JAX trainer does. Wan2.1 (models/wan_video2world.py) and EDM
+(models/edm.py) train without it: their JAX training steps draw none, and
+the JAX trainer cannot drive them at all (it reads
+``model.config.text_dropout_rate``, which neither config has, and raises;
+ROADMAP C9).
 """
 
 from __future__ import annotations
@@ -29,8 +39,8 @@ from typing import Callable, Iterable, Optional
 
 import torch
 
-from cosmos_predict2_tpu_torch.conditioning.conditioner import Video2WorldCondition, apply_train_dropout
-from cosmos_predict2_tpu_torch.models.video2world import TrainDraws, Video2WorldModel
+from cosmos_predict2_tpu_torch.conditioning.conditioner import apply_train_dropout
+from cosmos_predict2_tpu_torch.models.video2world import TrainDraws
 from cosmos_predict2_tpu_torch.training.ema import ema_update, power_ema_beta
 from cosmos_predict2_tpu_torch.training.optim import OptimizerConfig, clip_by_global_norm_, global_norm, make_optimizer
 
@@ -191,10 +201,10 @@ class Trainer:
     def __init__(
         self,
         config: TrainerConfig,
-        model: Video2WorldModel,
+        model,
         callbacks: Optional[list[Callback]] = None,
         checkpointer=None,
-        draw_fn: Optional[Callable[[int, torch.Tensor], TrainDraws]] = None,
+        draw_fn: Optional[Callable[[int, torch.Tensor], object]] = None,
     ):
         self.config = config
         self.model = model
@@ -205,7 +215,7 @@ class Trainer:
         self.device = next(model.net.parameters()).device
         self.last_timings: dict[str, float] = {}
 
-    def default_draws(self, iteration: int, x0: torch.Tensor) -> TrainDraws:
+    def default_draws(self, iteration: int, x0: torch.Tensor):
         gen = torch.Generator().manual_seed(self.config.seed * 1_000_003 + iteration)
         return self.model.sample_train_draws(gen, tuple(x0.shape))
 
@@ -223,12 +233,13 @@ class Trainer:
 
     # ---------------------------- train step ----------------------------
 
-    def train_step(self, state: TrainState, x0: torch.Tensor, condition: Video2WorldCondition, iteration: int) -> dict:
+    def train_step(self, state: TrainState, x0: torch.Tensor, condition, iteration: int) -> dict:
         """One micro-step; updates ``state`` in place and returns the metrics."""
         cfg = self.config
         t0 = time.perf_counter()
         draws = (self.draw_fn or self.default_draws)(iteration, x0).to(self.device)
-        condition = apply_train_dropout(condition, draws.text_keep, draws.use_video)
+        if isinstance(draws, TrainDraws):  # the conditioning dropout of the rectified-flow Video2World models
+            condition = apply_train_dropout(condition, draws.text_keep, draws.use_video)
         for p in state.params.values():
             p.grad = None
         loss, metrics = self.model.training_step(x0, condition, draws)
@@ -292,7 +303,7 @@ class Trainer:
     def train(
         self,
         state: TrainState,
-        batches: Iterable[tuple[torch.Tensor, Video2WorldCondition]],
+        batches: Iterable[tuple[torch.Tensor, object]],
         start_iteration: int = 0,
         val_batches: Optional[Iterable] = None,
     ) -> TrainState:

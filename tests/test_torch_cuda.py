@@ -601,3 +601,68 @@ def test_jvp_kernel_raises_on_what_it_does_not_take(cuda):
         flash_attention_jvp(x, x, x, x, x, x, frame_group=-1)
     o, do = flash_attention_jvp(x, x, x, x.float(), x.float(), x.float())  # tangents take the primal's dtype
     assert o.dtype == do.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("window", [None, ((22, 40), 7)], ids=["K5", "K6 window"])
+def test_kv_cache_autograd_launches_the_kernel_and_recomputes_plain_on_cuda(cuda, window):
+    """KvCacheAttention on the card: the forward launches K5 (K6 with a
+    window) once; the backward is the plain masked reference's, on the
+    card's bf16 inputs, against the same recompute on the CPU (fp32 sums
+    there)."""
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.ops.flash_attention import KvCacheAttention
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    F, H = 880, 16
+    q = torch.randn((1, F, H, 128), generator=gen, device=cuda).bfloat16().requires_grad_()
+    kb, vb = (torch.randn((1, H, 3 * F, 128), generator=gen, device=cuda).bfloat16().requires_grad_() for _ in range(2))
+    do = torch.randn((1, F, H, 128), generator=gen, device=cuda).bfloat16()
+    name = "flash_attention_kv_cache" if window is None else "flash_attention_kv_cache_window"
+    _build.reset_launch_counts()
+    out = KvCacheAttention.apply(q, kb, vb, 2 * F, window)
+    out.backward(do)
+    assert _build.launch_counts()[name] == 1
+    ref = [t.detach().cpu().float().requires_grad_() for t in (q, kb, vb)]
+    ref_out = KvCacheAttention.apply(*ref, 2 * F, window)
+    ref_out.backward(do.cpu().float())
+    assert _rel(out.detach().cpu(), ref_out.detach()) < 1e-2
+    for got, want in zip((q.grad, kb.grad, vb.grad), (r.grad for r in ref)):
+        assert _rel(got.cpu(), want) < 1e-2
+    assert not kb.grad[:, :, 2 * F:].any()
+
+
+def test_self_forcing_losses_train_through_the_cache_kernels_on_cuda(cuda):
+    """A narrow causal student (2 blocks of 2 heads of 128, block remat)
+    rolls out 2 one-frame blocks of 2 steps on the card: the generator
+    loss's backward reaches every student parameter with a finite gradient
+    through K5, K1, K7 and K8 and the cached attention's recompute (once a
+    layer and denoise step); the critic's reaches the fake score only."""
+    import dataclasses
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.conditioning.conditioner import make_condition
+    from cosmos_predict2_tpu_torch.models import interactive as tint
+    from cosmos_predict2_tpu_torch.networks.dit import DiTConfig, build_dit
+    from cosmos_predict2_tpu_torch.ops.flash_attention import kv_cache_vjp
+
+    cfg = DiTConfig(model_channels=256, num_heads=2, num_blocks=2, adaln_lora_dim=32, crossattn_emb_channels=128,
+                    temporal_causal=True, remat="block")
+    student, teacher, fake = (build_dit(cfg, cuda, seed=s, trainable=s != 1) for s in range(3))
+    stream = tint.StreamingInference(tint.StreamingConfig(num_frame_per_block=1, cache_frame_size=2, num_steps=2),
+                                     tint.CausalVideo2WorldModel(tint.causal_model_config(cfg), student))
+    sf = tint.SelfForcingDMD2(stream)
+    cond = make_condition(torch.randn((1, 16, 128), device=cuda) * 0.05)
+    draws = sf.sample_draws(torch.Generator().manual_seed(0), 1, 2, (16, 24)).to(cuda)
+    _build.reset_launch_counts()
+    recomputes = kv_cache_vjp.recomputes
+    loss, _ = sf.generator_loss(teacher, fake, cond, None, 2, (16, 24), draws)
+    loss.backward()
+    counts = _build.launch_counts()
+    assert torch.isfinite(loss) and kv_cache_vjp.recomputes - recomputes == 2 * 2 * 2
+    assert (counts["flash_attention_kv_cache"], counts["flash_attention_bwd_dq"]) == (2 * 3 * 2 + 8, 8)
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in student.parameters())
+    assert all(p.grad is None for p in list(teacher.parameters()) + list(fake.parameters()))
+    loss, _ = sf.critic_loss(fake, cond, 2, (16, 24), draws)
+    loss.backward()
+    assert torch.isfinite(loss) and all(p.grad is not None for p in fake.parameters())
+    assert dataclasses.asdict(sf.dm.config.model.net)["temporal_causal"]

@@ -45,6 +45,19 @@ def test_port_file_imports_no_jax(path):
 def test_every_port_module_is_checked():
     assert len(FILES) > 20 and "chip_smoke.py" in FILES
     assert all(os.path.exists(REPO / f) for f in FILES)
+    # the training callbacks and the modules that gained training steps
+    assert {"cosmos_predict2_tpu_torch/callbacks/__init__.py", "cosmos_predict2_tpu_torch/callbacks/callbacks.py",
+            "cosmos_predict2_tpu_torch/models/interactive.py", "cosmos_predict2_tpu_torch/models/wan_video2world.py",
+            "cosmos_predict2_tpu_torch/models/edm.py", "cosmos_predict2_tpu_torch/models/action_conditioned.py",
+            "cosmos_predict2_tpu_torch/training/trainer.py"} <= set(FILES)
+
+
+def test_wandb_only_inside_the_metrics_logger():
+    """wandb is on neither machine: the port imports it only inside
+    WandbLogger's constructor (which falls back to a jsonl file), and
+    chip_smoke.py not at all."""
+    found = {path: imports_in_functions((REPO / path).read_text(), "wandb") for path in FILES}
+    assert {path: f for path, f in found.items() if f} == {"cosmos_predict2_tpu_torch/callbacks/callbacks.py": ["__init__"]}
 
 
 # transformers (tokenizers, HF modules) is not on the card's machine: the
@@ -61,6 +74,12 @@ TEXT_ENCODER_FILES = sorted(str(p.relative_to(REPO)) for p in (REPO / "cosmos_pr
 def transformers_imports(source: str) -> list:
     """The name of the function enclosing each ``transformers`` import (None:
     at module level)."""
+    return imports_in_functions(source, "transformers")
+
+
+def imports_in_functions(source: str, module: str) -> list:
+    """The name of the function enclosing each import of ``module`` (None:
+    at module level)."""
     found = []
 
     def visit(node, func):
@@ -73,7 +92,7 @@ def transformers_imports(source: str) -> list:
                 names = [a.name for a in child.names]
             elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
                 names = [child.module]
-            if any(n.split(".")[0] == "transformers" for n in names):
+            if any(n.split(".")[0] == module for n in names):
                 found.append(func)
             visit(child, func)
 

@@ -194,11 +194,21 @@ def test_causal_dit_with_sparse_blocks_raises():
 
 
 def test_cached_forward_under_autograd_raises(models):
+    """The cached forward records a graph under autograd (self-forcing
+    training, tests/test_torch_self_forcing.py); once a window slide has
+    rewritten the prefix that graph reads, its backward raises."""
     _, _, tmodel, emb = models
     net = tdit.MiniTrainDIT(tmodel.net.cfg)
-    caches = tmodel.init_kv_caches(1, 1, 8, 8, "cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError):
-        net(torch.zeros((1, 16, 1, 8, 8)), torch.zeros((1, 1)), torch.from_numpy(emb), kv_caches=caches)
+    caches = tmodel.init_kv_caches(1, 2, 8, 8, "cpu", dtype=torch.float32)
+    x = torch.randn((1, 16, 1, 8, 8))
+    with torch.no_grad():
+        _, caches = net(x, torch.zeros((1, 1)), torch.from_numpy(emb), kv_caches=caches)
+    out, caches = net(x, torch.zeros((1, 1)), torch.from_numpy(emb), kv_caches=caches, t_start=1)
+    assert out.requires_grad and caches[0]["len"] == 32
+    with torch.no_grad():
+        caches = [tint.shift_cache_window(c, 16) for c in caches]
+    with pytest.raises(RuntimeError, match="below the fill"):
+        out.sum().backward()
 
 
 def test_shift_cache_window_is_a_roll_in_place():
