@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Video2World serving and training paths (dense, sparse, DMD2, 14B), its streaming, forward-mode, released-weights, autoregressive, Text2Image, one-shot-VAE and post-training (LoRA, local clips, remat, bf16 moments) paths, the post-trained variants (multiview, camera, action) and the gr00t action stream, Wan2.1 i2v, the Wan2.2 VAE, EDM and the 14B sparse pair, and the prompt encoders (Reason1 through the CLI, umT5 and CLIP into Wan i2v, T5-11B, the Qwen2.5-VL vision tower, SigLIP, XLM-R), and the training of self-forcing DMD2 (the causal 2B), Wan2.1 and EDM, once on one NVIDIA GPU.
+"""Drive the PyTorch port's Video2World serving and training paths (dense, sparse, DMD2, 14B), the HTTP server with its guardrails, its streaming, forward-mode, released-weights, autoregressive, Text2Image, one-shot-VAE and post-training (LoRA, local clips, remat, bf16 moments) paths, the post-trained variants (multiview, camera, action) and the gr00t action stream, Wan2.1 i2v, the Wan2.2 VAE, EDM and the 14B sparse pair, and the prompt encoders (Reason1 through the CLI, umT5 and CLIP into Wan i2v, T5-11B, the Qwen2.5-VL vision tower, SigLIP, XLM-R), and the training of self-forcing DMD2 (the causal 2B), Wan2.1 and EDM, once on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
@@ -110,10 +110,28 @@ Phases, each printed with its wall time:
    (relative L2 limits 3x the bf16 gap measured on the CPU), with K2
    launches, times and peak memory of both; then one Text2World request at
    35 steps on the one-shot route;
+13a. the serving front end with guardrails (A16), on phases 11-13's 2B
+   pipeline: Qwen3Guard-Gen-0.6B (a byte-level tokenizer), SigLIP so400m
+   with the 7-class safety head and RetinaFace-ResNet50 built on the card at
+   released widths on seeded weights (build time, peak, Qwen3Guard's
+   verdict time and tokens); ModelServer(Inference(pipe, text_guardrail=
+   blocklist + Qwen3Guard, video_guardrail=safety filter + RetinaFace face
+   blur)) on 127.0.0.1, spoken to with urllib: /health, /schema and /; a
+   blocklisted prompt ends in status error with no kernel launched; two
+   same-key Image2World requests (by input_path and by input_image_b64)
+   queued behind a held job run as one batched pass of 2 steps (a cut:
+   phase 5 times 35-step requests at these shapes): exactly 112 K1 and 2 x
+   844 K2 (vae_k2_launches), /output serves each as (93, 192, 320, 3)
+   uint8 (GET and HEAD); with a second head whose last bias makes an unsafe
+   class win, a request ends in "video blocked by guardrail"; SigLIP + head
+   on the 12 sampled frames, RetinaFace on 93 frames and its host box math
+   timed; narrow card fp32 vs CPU fp32: RetinaFace's loc and conf within
+   1e-4 relative L2 and the same boxes from the host math, a 2-layer
+   full-width SigLIP + a seeded head giving the same classes;
 14. 14B: predict2_video2world_14b_rectified_flow (5120 channels, 36
    blocks, 40 heads) on seeded random bf16 matmul weights built by
    load_model_from_checkpoint, one Text2World request (93 frames at
-   192x320, 35 steps, CFG 7): exactly 2,520 K1 (72 per forward) and K2,
+   192x320, 5 of its 35 steps, CFG 7): exactly 360 K1 (72 per forward) and K2,
    time per step and peak memory;
 15. post-training: a local folder of three npz clips (two of 100 frames at
    720x1280, one of 60 that pads; captions; (512, 100352) fp16 embeddings
@@ -149,9 +167,9 @@ Phases, each printed with its wall time:
    card bf16 against CPU fp32 (phase 4's limit), K1 18 times; the
    camera-conditioned model on a 29-frame 704x1280 clip packed [0 | clip
    | 0] into 24 latent frames (84,480 tokens) with Plücker rays of a
-   seeded camera track, 2 steps at guidance 1.5, the two generated chunks
-   decoded, the last step under torch.profiler and the same split of the
-   peak, exactly 112 K1 and K2; the action-conditioned model (12
+   seeded camera track, 1 of its steps at guidance 1.5, the two generated
+   chunks decoded, the step under torch.profiler and the same split of the
+   peak, exactly 56 K1 and K2; the action-conditioned model (12
    actions of 7 from a seeded robot-state track) through
    ActionConditionedInference on 13 frames at 256x320, 35 steps, exactly
    1,960 K1 and K2. Phase 3 holds K1 at the variants' shapes: self at
@@ -292,6 +310,9 @@ AR_CHUNK = 93
 AR_OVERLAP = 2
 AR_FRAMES = 181
 FOURTEEN_B_EXPERIMENT = "predict2_video2world_14b_rectified_flow"
+# a cut: each of the 14B request's 35 steps repeats the first's shapes and
+# kernels (949.1 ms a step on an H100); 5 keep the request's path whole
+FOURTEEN_B_STEPS = 5
 # The one-shot VAE against the streaming route on the card (bf16, 93 frames
 # at 192x320). On the CPU the full-width VAE in bf16, one-shot against
 # streaming on the same weights (17 frames at 64x64,
@@ -317,7 +338,8 @@ FULL_FT_ROWS = (("block", "float32", 4 * NUM_BLOCKS), ("block", "bfloat16", 4 * 
 # DiT tokens), video2world from 2 latent frames, 1 of its 35 UniPC steps
 # (under the profiler; a second step took as long, 41-42 s);
 # the camera-conditioned model on a 29-frame 704x1280 clip packed [0 | clip
-# | 0] into 24 latent frames (84,480 tokens), 2 steps at guidance 1.5; the
+# | 0] into 24 latent frames (84,480 tokens), 1 step at guidance 1.5 (under
+# the profiler; a second took as long, 8.85 s); the
 # action-conditioned model on 13 frames at 256x320 (1,280 tokens), all 35
 # steps, 12 actions of 7 from a seeded robot-state track; a narrow 7-view
 # net (2 blocks) with cross-view attention over a ring, card bf16 against
@@ -328,7 +350,7 @@ ACTION_EXPERIMENT = "predict2_video2world_2b_action_conditioned"
 VARIANT_HW = (704, 1280)
 VARIANT_FRAMES = 29
 MULTIVIEW_STEPS = 1
-CAMERA_STEPS = 2
+CAMERA_STEPS = 1  # a cut: a second step repeated the first's shapes and kernels (8.85 s on an H100)
 CAMERA_GUIDANCE = 1.5
 ACTION_HW = (256, 320)
 ACTION_FRAMES = 13
@@ -2322,10 +2344,338 @@ def oneshot_slice(pipe, cfg) -> dict:
             "frame_rel_l2": px_rel}
 
 
+# ------------- the serving front end with guardrails (phase 13a) -------------
+
+GUARD_STEPS = 2  # a cut: phase 5 times 35-step requests at these shapes and kernels
+GUARD_BLOCKED_PROMPT = "a beheading in the town square"
+QWEN3GUARD_EOS = 151645  # Qwen3's <|im_end|>
+# the heads' last bias: class 0 ("Safe") or class 3 wins by this margin
+# (the seeded heads' logits on normalized embeddings are ~1e-2)
+SAFETY_BIAS = 10.0
+NARROW_SIGLIP_LAYERS = 1  # the card-vs-CPU SigLIP: full width, 1 of 27 layers, fp32
+# RetinaFace on one 192x320 frame, card fp32 (TF32 off) against CPU fp32:
+# the same arithmetic in another order; 1e-6 relative L2 expected, 1e-4 allowed
+RETINAFACE_REL_L2 = 1e-4
+
+
+def vae_k2_launches(vae, frames: int, decode_chunk: int) -> int:
+    """K2 launches of one sample's streaming encode and decode of a clip of
+    ``frames`` (tokenizers/wan_vae_streaming.py): each causal 3x3x3 conv of
+    the encoder / decoder that the kernel gate takes runs once per chunk,
+    the encoder's chunks 1 + ceil((frames - 1) / 4), the decoder's 1 +
+    ceil((t - 1) / decode_chunk) over the t latent frames; a batch's samples
+    go through K2 one at a time, so a batch of B launches B times this."""
+    import torch
+
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import _use_kernel_conv
+
+    def gated(module) -> int:
+        return sum(1 for m in module.modules() if isinstance(m, torch.nn.Conv3d)
+                   and _use_kernel_conv(torch.empty((1, 3, 1, 1, m.weight.shape[1]), device="meta"), m))
+
+    t = 1 + (frames - 1) // 4
+    return gated(vae.encoder) * (1 + -(-(frames - 1) // 4)) + gated(vae.decoder) * (1 + -(-(t - 1) // decode_chunk))
+
+
+def _http(port: int, path: str, payload=None, method: str | None = None):
+    """(status, content type, body bytes) of one request to the local server."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.headers.get("Content-Type", ""), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type", ""), e.read()
+
+
+def _job(port: int, payload: dict) -> str:
+    code, _, body = _http(port, "/generate", payload)
+    if code != 200:
+        raise AssertionError(f"POST /generate {payload.get('name')}: {code} {body[:200]!r}")
+    return json.loads(body)["job_id"]
+
+
+def _wait_job(port: int, job_id: str, states=("done", "error"), timeout: float = 600) -> dict:
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        status = json.loads(_http(port, f"/status/{job_id}")[2])
+        if status["status"] in states:
+            return status
+        time.sleep(0.25)  # a poll takes the GIL from the worker's launches
+    raise AssertionError(f"job {job_id} not {states} after {timeout} s")
+
+
+def _decode_video(data: bytes, ctype: str) -> np.ndarray:
+    """An mp4 or GIF served by /output -> (T, H, W, 3) uint8."""
+    import io
+
+    if ctype == "image/gif":
+        from PIL import Image, ImageSequence
+
+        return np.stack([np.asarray(f.convert("RGB")) for f in ImageSequence.Iterator(Image.open(io.BytesIO(data)))])
+    import imageio.v3 as iio
+
+    return np.asarray(iio.imread(io.BytesIO(data), index=None, extension=".mp4"))
+
+
+def _timed(fn, laps: list):
+    """fn, its wall time per call appended to ``laps``."""
+
+    def run(*a):
+        t = time.perf_counter()
+        out = fn(*a)
+        laps.append(time.perf_counter() - t)
+        return out
+
+    return run
+
+
+def guardrails_serving_slice(pipe, cfg, smi: str) -> dict:
+    """The serving front end with the guardrails (A16): the guard towers at
+    their released widths on seeded weights (Qwen3Guard-Gen-0.6B, SigLIP
+    so400m with the 7-class safety head, RetinaFace-ResNet50), then
+    ModelServer over Inference on the 2B pipeline of phases 11-13, spoken to
+    over HTTP: a blocklisted prompt (no kernel), two same-key Image2World
+    requests (by path and by upload) as one batched pass of GUARD_STEPS
+    steps, the video guard's two outcomes decided by the head's weights;
+    then the narrow card-vs-CPU checks."""
+    import base64
+    import threading
+
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.inference.api import Inference
+    from cosmos_predict2_tpu_torch.inference.serving import ModelServer
+    from cosmos_predict2_tpu_torch.text_encoders.qwen import QwenConfig, build_qwen_lm
+    from cosmos_predict2_tpu_torch.text_encoders.siglip_vision import (
+        SigLIPVisionConfig,
+        build_siglip_vision,
+        make_frame_embedder,
+        preprocess_siglip,
+    )
+    from cosmos_predict2_tpu_torch.utils import guardrails as G
+    from cosmos_predict2_tpu_torch.utils.retinaface import RetinaFace, RetinaFaceDetector, build_retinaface
+
+    H, W = SIZE
+    out_dir = OUT_DIR / "guardrails"
+    image, prompt = _request_files(out_dir, cfg, seed=61)
+    fresh_memory()
+    base = torch.cuda.memory_allocated()
+    towers = {}
+
+    def record(name, module, build_s):
+        n = sum(p.numel() for p in module.parameters())
+        towers[name] = {"params": n, "build_s": build_s,
+                        "peak_gb": (torch.cuda.max_memory_allocated() - base) / 2**30}
+        log(f"  {name}: {n / 1e9:.3f} B params, built on the card in {build_s:.2f} s; peak "
+            f"{towers[name]['peak_gb']:.2f} GiB over the 2B pipeline [{smi}]")
+
+    # Qwen3Guard-Gen-0.6B on a byte-level tokenizer (tests/test_guard_models.py's ids), bf16
+    lm, build_s = _timed_build(lambda: build_qwen_lm(QwenConfig.qwen3guard_0_6b(), "cuda", seed=62, guard=True))
+    record("Qwen3Guard-Gen-0.6B", lm, build_s)
+    qwen3 = G.create_qwen3_guard(lm, lambda text: [ord(c) % 256 for c in text],
+                                 lambda ids: "".join(chr(i % 256) for i in ids), eos_ids=(QWEN3GUARD_EOS,))
+    verdicts = []
+
+    def timed_verdict(prompt_text: str) -> bool:
+        t = time.perf_counter()
+        safe = qwen3(prompt_text)
+        verdicts.append({"prompt": prompt_text, "s": time.perf_counter() - t, "tokens": qwen3.last_tokens, "safe": safe})
+        return safe
+
+    siglip, build_s = _timed_build(lambda: build_siglip_vision(SigLIPVisionConfig(), "cuda", seed=63))
+    record("SigLIP so400m/14-384", siglip, build_s)
+    heads = {}
+    for label, cls in (("safe", 0), ("unsafe", 3)):
+        head, build_s = _timed_build(lambda: G.build_safety_classifier(device="cuda", seed=64))
+        head.network.layers[6].bias[cls] = SAFETY_BIAS
+        heads[label] = head
+    record("safety head (1152 -> 512 -> 256 -> 7)", heads["safe"], build_s)
+    vfilter = G.VideoContentSafetyFilter(make_frame_embedder(siglip), heads["safe"])
+    retina, build_s = _timed_build(lambda: build_retinaface("cuda", seed=65))
+    record("RetinaFace-ResNet50", retina, build_s)
+    detector = G.create_face_detector(retina)
+
+    text_laps, video_laps, guarded = [], [], []
+    text_guard = _timed(G.create_text_guardrail_runner(G.GuardrailConfig(llm_classifier=timed_verdict)), text_laps)
+    video_runner = G.create_video_guardrail_runner(G.GuardrailConfig(video_classifier=vfilter,
+                                                                     face_detector=detector, blur_faces=True))
+    video_guard = _timed(lambda frames: guarded.append(frames) or video_runner(frames), video_laps)
+    api = Inference(pipe, output_dir=str(out_dir), text_guardrail=text_guard, video_guardrail=video_guard,
+                    keep_going=False)
+    export_laps = []
+    api._finish = _timed(api._finish, export_laps)
+    # a request named "hold" keeps the worker busy until released, so that
+    # the two Image2World requests go in before it drains the queue
+    hold, generate_batch = threading.Event(), api.generate_batch
+    api.generate_batch = lambda samples: {} if samples[0].name == "hold" and hold.wait(120) else generate_batch(samples)
+    server = ModelServer(api, host="127.0.0.1", port=0)
+    server.serve_background()
+    port = server.port
+    try:
+        code, _, body = _http(port, "/health")
+        health = json.loads(body)
+        _check("/health", code == 200 and health == {"status": "ok", "devices": torch.cuda.device_count()}
+               and health["devices"] >= 1, f"{code} {health}")
+        code, _, body = _http(port, "/schema")
+        _check("/schema", code == 200 and json.loads(body)["num_steps"]["min"] == 1, f"{code}")
+        code, ctype, body = _http(port, "/")
+        _check("/", code == 200 and ctype.startswith("text/html") and b"/generate" in body, f"{code} {ctype}")
+
+        request = {"prompt": "a robot arm pours coffee into a mug", "text_embedding_path": prompt,
+                   "num_steps": GUARD_STEPS, "guidance": GUIDANCE}
+        request_b = {**request, "prompt": "a red car drives along a coastal road at dusk"}
+        _build.reset_launch_counts()
+        blocked = _wait_job(port, _job(port, {**request, "name": "blocked", "prompt": GUARD_BLOCKED_PROMPT}))
+        blocked_counts = _build.launch_counts()
+        _check("blocked prompt", blocked["status"] == "error" and "blocked by text guardrail" in blocked["error"]
+               and blocked["output"] is None and not any(blocked_counts.values()), f"{blocked} {blocked_counts}")
+        log(f"  a blocklisted prompt: status {blocked['status']} ({blocked['error']}); no kernel launched")
+
+        hold_id = _job(port, {"name": "hold", "prompt": "hold"})
+        _wait_job(port, hold_id, states=("running",))
+        with open(image, "rb") as f:
+            upload = "data:image/png;base64," + base64.b64encode(f.read()).decode()
+        ids = {"i2w_path": _job(port, {**request, "name": "i2w_path", "input_path": image, "seed": 1}),
+               "i2w_upload": _job(port, {**request_b, "name": "i2w_upload", "input_image_b64": upload, "seed": 2})}
+        depth = json.loads(_http(port, "/queue")[2])["depth"]
+        _check("queue", depth == 2, f"depth {depth} before the drain, want 2")
+        text_laps.clear()
+        export_laps.clear()
+        fresh_memory()
+        _build.reset_launch_counts()
+        t = time.perf_counter()
+        hold.set()
+        statuses = {name: _wait_job(port, jid) for name, jid in ids.items()}
+        request_s = time.perf_counter() - t
+        counts = _build.launch_counts()
+        batch_peak = torch.cuda.max_memory_allocated() / 2**30
+        _check("batched requests", all(s["status"] == "done" for s in statuses.values()), f"{statuses}")
+        # one batched pass: GUARD_STEPS batched-CFG forwards (one K1 launch per
+        # attention, 2 x 28 a forward, whatever the batch); K2 per sample
+        want = {"flash_attention_fwd": GUARD_STEPS * 2 * NUM_BLOCKS,
+                "conv3d_causal": 2 * vae_k2_launches(pipe.vae, NUM_FRAMES, pipe.setup.decode_chunk_latent_frames)}
+        _check("batched pass launches", {k: v for k, v in counts.items() if v} == want, f"{counts}, want {want}")
+        videos = {}
+        for name, jid in ids.items():
+            code, ctype, data = _http(port, f"/output/{jid}")
+            _, head_type, head_body = _http(port, f"/output/{jid}", method="HEAD")
+            videos[name] = _decode_video(data, ctype)
+            v = videos[name]
+            _check(f"/output of {name}", code == 200 and head_type == ctype and not head_body
+                   and v.shape == (NUM_FRAMES, H, W, 3) and v.dtype == np.uint8 and v.std() > 0,
+                   f"{code} {ctype} {v.shape} {v.dtype}")
+        _check("distinct outputs", not np.array_equal(videos["i2w_path"], videos["i2w_upload"]), "equal")
+        tm = pipe.last_timings
+        split = {"text_guard_s": sum(text_laps), "vae_encode_s": tm["vae_encode_s"], "denoise_s": tm["denoise_s"],
+                 "vae_decode_s": tm["vae_decode_s"], "video_guard_s": sum(video_laps), "export_s": sum(export_laps)}
+        split["rest_s"] = request_s - sum(split.values())
+        log(f"  two Image2World requests (by path and by upload) as one batched pass of {GUARD_STEPS} steps: "
+            f"{request_s:.2f} s from the release to both done: {', '.join(f'{k} {v:.2f}' for k, v in split.items())} "
+            f"(rest: the worker's prep, the embedding files, HTTP); peak {batch_peak:.2f} GiB; launches {want}; "
+            f"served as {ctype}, decoded {videos['i2w_path'].shape} [{smi}]")
+        safe_classes = vfilter.last_classes
+        for v in verdicts:
+            log(f"  Qwen3Guard verdict on {v['prompt']!r} in the server: {'safe' if v['safe'] else 'unsafe'} in "
+                f"{v['s'] * 1e3:.1f} ms, {v['tokens']} tokens generated (a 512-id buffer recomputed each token) [{smi}]")
+        _check("Qwen3Guard", len(verdicts) == 2 and all(0 < v["tokens"] <= 128 for v in verdicts), f"{verdicts}")
+
+        # the video guard's other outcome; Qwen3Guard's verdicts were taken above, so this
+        # request's text guard is the blocklist alone
+        vfilter.classifier = heads["unsafe"]
+        api.text_guardrail = G.create_text_guardrail_runner()
+        _build.reset_launch_counts()
+        t = time.perf_counter()
+        unsafe = _wait_job(port, _job(port, {**request, "name": "i2w_unsafe", "input_path": image, "seed": 3}))
+        unsafe_s = time.perf_counter() - t
+        unsafe_counts = _build.launch_counts()
+        _check("unsafe video", unsafe["status"] == "error" and "video blocked by guardrail" in unsafe["error"]
+               and unsafe["output"] is None and (vfilter.last_classes == 3).all() and (safe_classes == 0).all(),
+               f"{unsafe} {vfilter.last_classes} {safe_classes}")
+        _check("unsafe request launches", unsafe_counts["flash_attention_fwd"] == GUARD_STEPS * 2 * NUM_BLOCKS
+               and unsafe_counts["conv3d_causal"] == want["conv3d_causal"] // 2, f"{unsafe_counts}")
+        log(f"  the safe head: {len(safe_classes)} sampled frames all class 0, requests done; the unsafe head: "
+            f"{unsafe['status']} ({unsafe['error']}) in {unsafe_s:.2f} s, nothing written")
+    finally:
+        hold.set()
+        server.shutdown()
+        server.httpd.server_close()
+        server.worker.inference = None  # the worker thread waits on its queue for good; let it hold no pipeline
+
+    frames = guarded[0]
+    sampled = frames[:: vfilter.sample_every]
+    classify_ms = cuda_ms(lambda: vfilter.classify(frames), warmup=1, iters=1)
+    pixels = preprocess_siglip(sampled, siglip.cfg.image_size, "cuda")
+    siglip_ms = cuda_ms(lambda: siglip(pixels), warmup=1, iters=1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    raw = [detector.forward(f) for f in frames]
+    retina_s = time.perf_counter() - t
+    retina_ms = cuda_ms(lambda: retina(torch.zeros((1, 3, H, W), device="cuda")), warmup=1, iters=5)
+    t = time.perf_counter()
+    boxes = [detector.boxes(loc, score, H, W) for loc, score in raw]
+    nms_s = time.perf_counter() - t
+    n_boxes = sum(len(b) for b in boxes)
+    log(f"  SigLIP + head on {len(sampled)} sampled frames: {classify_ms:.2f} ms (the tower alone {siglip_ms:.2f} ms); "
+        f"RetinaFace on {len(frames)} frames: forward {retina_s * 1e3:.1f} ms with the copies "
+        f"({retina_ms:.2f} ms a frame on the card), host box math {nms_s * 1e3:.1f} ms, {n_boxes} boxes [{smi}]")
+
+    # narrow card vs CPU, fp32 on both sides (TF32 off)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu_retina = RetinaFace().eval()
+        cpu_retina.load_state_dict({k: v.cpu() for k, v in retina.state_dict().items()})
+        frame = frames[0]
+        (loc, score), (cloc, cscore) = detector.forward(frame), RetinaFaceDetector(cpu_retina).forward(frame)
+        loc_rel = float(np.linalg.norm(loc - cloc) / np.linalg.norm(cloc))
+        conf_rel = float(np.linalg.norm(score - cscore) / np.linalg.norm(cscore))
+        # seeded weights score no face above 0.7; a threshold midway between the
+        # CPU's 32nd and 33rd scores sends 32 candidates through the sort and NMS
+        top = np.sort(cscore)[::-1]
+        threshold = float(top[31] + top[32]) / 2
+        card_boxes = RetinaFaceDetector(retina, confidence_threshold=threshold).boxes(loc, score, H, W)
+        cpu_boxes = RetinaFaceDetector(cpu_retina, confidence_threshold=threshold).boxes(cloc, cscore, H, W)
+        _check("RetinaFace card vs CPU", loc_rel <= RETINAFACE_REL_L2 and conf_rel <= RETINAFACE_REL_L2
+               and card_boxes == cpu_boxes and len(cpu_boxes) > 0, f"loc {loc_rel:.3e}, conf {conf_rel:.3e}, "
+               f"{len(card_boxes)} vs {len(cpu_boxes)} boxes")
+        ncfg = dataclasses.replace(SigLIPVisionConfig(), num_layers=NARROW_SIGLIP_LAYERS, dtype=torch.float32)
+        narrow = build_siglip_vision(ncfg, "cuda", seed=66)
+        cpu_narrow = build_siglip_vision(ncfg, "cpu", seed=None)
+        cpu_narrow.load_state_dict({k: v.cpu() for k, v in narrow.state_dict().items()})
+        head = G.build_safety_classifier(device="cuda", seed=67)
+        cpu_head = G.build_safety_classifier({k: v.cpu() for k, v in head.state_dict().items()}, device="cpu")
+        card_filter = G.VideoContentSafetyFilter(make_frame_embedder(narrow), head)
+        cpu_filter = G.VideoContentSafetyFilter(make_frame_embedder(cpu_narrow), cpu_head)
+        t = time.perf_counter()
+        card_classes, cpu_classes = card_filter.classify(frames), cpu_filter.classify(frames)
+        _check("SigLIP + head card vs CPU", np.array_equal(card_classes, cpu_classes),
+               f"{card_classes} vs {cpu_classes}")
+        log(f"  narrow card fp32 vs CPU fp32: RetinaFace loc rel_l2 {loc_rel:.3e}, conf {conf_rel:.3e} (limit "
+            f"{RETINAFACE_REL_L2}), the host box math on the card's outputs at confidence {threshold:.4f}: the "
+            f"CPU's {len(cpu_boxes)} boxes; SigLIP ({NARROW_SIGLIP_LAYERS} of 27 layers at full width) + a seeded "
+            f"head on {len(card_classes)} "
+            f"sampled frames: classes {card_classes.tolist()} on both ({time.perf_counter() - t:.2f} s)")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del lm, siglip, heads, retina, narrow, head, api, server
+    fresh_memory()
+    return {"counts": counts, "request_s": request_s, **split, "unsafe_s": unsafe_s, "towers": towers,
+            "qwen3guard": verdicts,
+            "classify_ms": classify_ms, "siglip_ms": siglip_ms, "retinaface_93_s": retina_s,
+            "retinaface_frame_ms": retina_ms, "nms_s": nms_s, "boxes": n_boxes, "batch_peak_gb": batch_peak,
+            "retinaface_loc_rel_l2": loc_rel, "retinaface_conf_rel_l2": conf_rel}
+
+
 def fourteen_b_slice() -> dict:
     """One Text2World request on the 14B base (5120 channels, 36 blocks, 40
     heads of 128) on seeded random bf16 matmul weights, built by
-    load_model_from_checkpoint: 93 frames at 192x320, 35 steps, CFG 7."""
+    load_model_from_checkpoint: 93 frames at 192x320, FOURTEEN_B_STEPS steps, CFG 7."""
     import torch
 
     from cosmos_predict2_tpu_torch import _build
@@ -2342,12 +2692,13 @@ def fourteen_b_slice() -> dict:
     torch.cuda.synchronize()
     t = time.perf_counter()
     frames = pipe.generate_vid2world(np.zeros((1, 3, NUM_FRAMES, H, W), np.uint8), emb, guidance=GUIDANCE,
-                                     num_steps=NUM_STEPS, num_conditional_frames=0, seed=1, pixel_format="uint8")
+                                     num_steps=FOURTEEN_B_STEPS, num_conditional_frames=0, seed=1,
+                                     pixel_format="uint8")
     request_s = time.perf_counter() - t
     counts = _build.launch_counts()
     if frames.shape != (NUM_FRAMES, H, W, 3) or frames.dtype != np.uint8 or frames.std() == 0:
         raise AssertionError(f"14B text2world output {frames.shape} {frames.dtype}")
-    check_launches("14b", counts, NUM_STEPS * 2 * net.num_blocks)
+    check_launches("14b", counts, FOURTEEN_B_STEPS * 2 * net.num_blocks)
     tm = pipe.last_timings
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     log(f"  14B text2world: {request_s:.2f} s: vae_encode {tm['vae_encode_s']:.2f} s, denoise {tm['denoise_s']:.2f} s "
@@ -4517,6 +4868,9 @@ def main(argv=None) -> int:
         t2i = text2image_slice(pipe, cfg)
     with Phase("one-shot VAE: against the streaming route, then text2world on the one-shot route"):
         osl = oneshot_slice(pipe, cfg)
+    with Phase("serving front end with guardrails: ModelServer over HTTP, Qwen3Guard-0.6B, SigLIP so400m + safety "
+               "head, RetinaFace-ResNet50"):
+        sgd = guardrails_serving_slice(pipe, cfg, smi)
     del pipe
     with Phase("14B: text2world on predict2_video2world_14b_rectified_flow"):
         big = fourteen_b_slice()
@@ -4535,7 +4889,8 @@ def main(argv=None) -> int:
         p19 = training_variants_slice()
     paths = {"serve": sl, "train": tr, "sparse_serve": ssl, "sparse_train": stl, "interactive": it,
              "interactive_window": itw, "fwdmode": fm, "fa_jvp": fj, "dmd2_serve": dsl, "distill": dtl,
-             "released": rel, "autoregressive": ar, "text2image": t2i, "oneshot": osl, "14b": big,
+             "released": rel, "autoregressive": ar, "text2image": t2i, "oneshot": osl, "serving_guardrails": sgd,
+             "14b": big,
              "posttrain_lora": post["lora"], "posttrain_full": post["rows"], "multiview": var["multiview"],
              "camera": var["camera"], "action": var["action"], "gr00t": a13["gr00t"], "wan": a13["wan"],
              "wan22_vae": a13["wan22_vae"], "edm": a13["edm"],
@@ -4555,8 +4910,8 @@ def main(argv=None) -> int:
         "dmd2_serve": ("flash_attention_fwd", "conv3d_causal"),
         "distill": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal"),
         **{path: ("flash_attention_fwd", "conv3d_causal")
-           for path in ("released", "autoregressive", "text2image", "oneshot", "14b", "multiview", "camera", "action",
-                        "wan", "edm", "reason1", "wan_encoders")},
+           for path in ("released", "autoregressive", "text2image", "oneshot", "serving_guardrails", "14b", "multiview",
+                        "camera", "action", "wan", "edm", "reason1", "wan_encoders")},
         "gr00t": ("flash_attention_fwd", "flash_attention_kv_cache"),
         "self_forcing": ("flash_attention_fwd", "flash_attention_kv_cache", "flash_attention_bwd_dq",
                          "flash_attention_bwd_dkv"),

@@ -7,7 +7,14 @@ as the batched pass is the UniPC CFG program). ``mode="image"`` runs
 Text2Image and writes ``<name>.png``; ``enable_autoregressive`` generates
 ``num_output_frames`` in chunks of ``chunk_size`` frames overlapping by
 ``chunk_overlap`` latent frames. Both are served one request at a time.
-The guardrail hooks wait for a later port.
+
+Guardrail hooks, where the JAX package has them: ``text_guardrail``
+(prompt -> safe bool) runs before any device work of a sample;
+``video_guardrail`` (uint8 frames -> frames, or None when unsafe) runs on
+the generated frames before they are written, on the sequential, batched
+and autoregressive routes (utils/guardrails.py builds both). A blocked
+sample raises JAX's ValueError / RuntimeError; under ``keep_going`` it is
+logged and skipped.
 """
 
 from __future__ import annotations
@@ -86,9 +93,12 @@ class Inference:
     """Top-level generate() loop. With ``keep_going`` (the default) a failed
     sample is logged and skipped; without it the exception propagates."""
 
-    def __init__(self, pipe: Video2WorldInference, output_dir: str = "outputs", keep_going: bool = True):
+    def __init__(self, pipe: Video2WorldInference, output_dir: str = "outputs", text_guardrail=None,
+                 video_guardrail=None, keep_going: bool = True):
         self.pipe = pipe
         self.output_dir = output_dir
+        self.text_guardrail = text_guardrail
+        self.video_guardrail = video_guardrail
         self.keep_going = keep_going
         self._t2i: Optional[Text2ImageInference] = None
         os.makedirs(output_dir, exist_ok=True)
@@ -131,6 +141,19 @@ class Inference:
         return (args.mode, args.enable_autoregressive, args.guidance, args.num_steps, k,
                 bool(args.negative_prompt), args.sampler)
 
+    def _check_prompt(self, args: InferenceArguments) -> None:
+        if self.text_guardrail is not None and not self.text_guardrail(args.prompt):
+            raise ValueError(f"prompt for {args.name} blocked by text guardrail")
+
+    def _guard_video(self, args: InferenceArguments, frames: np.ndarray) -> np.ndarray:
+        """The video guardrail's frames; fails closed with a clear reason."""
+        if self.video_guardrail is None:
+            return frames
+        frames = self.video_guardrail(frames)
+        if frames is None:
+            raise RuntimeError(f"sample {args.name}: video blocked by guardrail")
+        return frames
+
     def _finish(self, args: InferenceArguments, frames: np.ndarray) -> str:
         path = save_img_or_video(frames, os.path.join(self.output_dir, args.name), fps=16)
         log.info(f"saved {path}")
@@ -157,6 +180,7 @@ class Inference:
         for args in samples:
             try:
                 _check_mode(args)
+                self._check_prompt(args)
                 videos.append(self._prepare_video(args)[0])
                 ok.append(args)
             except Exception:
@@ -175,7 +199,7 @@ class Inference:
         outputs: dict[str, str] = {}
         for args, frames in zip(ok, frames_b):
             try:
-                outputs[args.name] = self._finish(args, frames)
+                outputs[args.name] = self._finish(args, self._guard_video(args, frames))
             except Exception:
                 if not self.keep_going:
                     raise
@@ -191,6 +215,7 @@ class Inference:
 
     def _generate_sample(self, args: InferenceArguments) -> str:
         _check_mode(args)
+        self._check_prompt(args)
         emb = self._text_embedding(args, args.prompt)
         neg = self._text_embedding(args, args.negative_prompt) if args.negative_prompt else None
         if args.mode == "image":
@@ -212,4 +237,4 @@ class Inference:
                 video, emb, neg_text_emb=neg, guidance=args.guidance, num_steps=args.num_steps,
                 num_conditional_frames=k, seed=args.seed, pixel_format="uint8", sampler=args.sampler,
             )
-        return self._finish(args, frames)
+        return self._finish(args, self._guard_video(args, frames))

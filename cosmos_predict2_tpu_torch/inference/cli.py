@@ -6,7 +6,7 @@
         --text-embedding-path=prompt.npy --input=input.jpg [--batch samples.json] [--sampler dmd2] \
         [--text-encoder=reason1.safetensors --tokenizer-path=tokenizer_dir] \
         [--mode text2image] [--autoregressive --num-output-frames 181 --chunk-size 93 --chunk-overlap 2] \
-        [--no-vae-streaming] [--device cpu]
+        [--no-vae-streaming] [--disable-guardrails] [--device cpu]
 
 ``--experiment`` takes any registered name (configs/defaults.py,
 configs/released_experiments.py); ``--checkpoint`` and ``--vae`` take a
@@ -21,8 +21,12 @@ the pipeline's text encoder (text_encoders/text_encoder.py::
 load_text_encoder: bf16 on a card, fp32 on the CPU); prompts are then
 tokenized by ``transformers`` from ``--tokenizer-path``, and a prompt
 without a tokenizer path raises.
-COSMOS_SMOKE=1 uses random weights, 1 step, the 192x320 geometry and, when
-no ``--text-encoder`` is given, zero text embeddings for plumbing checks.
+The prompt passes the text guardrail (utils/guardrails.py: the default
+blocklist) first, as in the JAX CLI: a blocked prompt writes nothing and
+exits 1 (``--disable-guardrails`` turns it off).
+COSMOS_SMOKE=1 uses random weights, 1 step, the 192x320 geometry, no
+guardrail and, when no ``--text-encoder`` is given, zero text embeddings
+for plumbing checks.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ def parse_args(argv=None):
     p.add_argument("--chunk-overlap", type=int, default=1)
     p.add_argument("--no-vae-streaming", action="store_true",
                    help="the one-shot VAE route: the whole clip through the encoder and decoder at once")
+    p.add_argument("--disable-guardrails", action="store_true", help="no text guardrail (the blocklist)")
     p.add_argument("--device", default="cuda", help="torch device; the CPU only when asked for (cpu)")
     return p.parse_args(argv)
 
@@ -101,8 +106,13 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="[%(asctime)s|%(levelname)s] %(message)s")
     from cosmos_predict2_tpu_torch.inference.api import Inference, InferenceArguments
     from cosmos_predict2_tpu_torch.utils.flags import SMOKE
+    from cosmos_predict2_tpu_torch.utils.guardrails import create_text_guardrail_runner
 
-    api = Inference(build_pipeline(args), output_dir=args.output_dir)
+    guard = None if (args.disable_guardrails or SMOKE) else create_text_guardrail_runner()
+    if args.mode == "text2image" and guard is not None and not guard(args.prompt):
+        print("prompt rejected by guardrail")
+        return 1
+    api = Inference(build_pipeline(args), output_dir=args.output_dir, text_guardrail=guard)
     if args.batch:
         samples = InferenceArguments.from_file(args.batch)
     else:

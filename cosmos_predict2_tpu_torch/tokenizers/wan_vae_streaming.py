@@ -9,7 +9,8 @@ Streaming is exact for any chunk size. Activations are channels-last
 (B, T, H, W, C).
 
 The causal 3x3x3 convs with at least 64 channels on both sides go through
-ops/conv3d.conv3d_causal (the Hopper kernel on a CUDA tensor); thin convs
+ops/conv3d.conv3d_causal (the Hopper kernel on a CUDA tensor), one sample
+of a batch at a time (the kernel takes batch 1); thin convs
 (the RGB input conv, the latent-side convs, the heads), 1x1x1, (3,1,1) and
 2D convs are plain torch. uint8 input is normalized on the device; uint8
 output is quantized on the device.
@@ -95,9 +96,10 @@ def kernel_weight(conv: nn.Conv3d, dtype: torch.dtype) -> tuple[torch.Tensor, to
 def _stream_conv(conv: nn.Conv3d, x: torch.Tensor, cache: torch.Tensor, dtype: torch.dtype):
     """Causal k_t = 3 conv with a 2-frame input cache (zeros at stream start)."""
     xin = torch.cat([cache.to(x.dtype), x], dim=1)
-    if _use_kernel_conv(xin, conv):
+    if _use_kernel_conv(xin[:1], conv):  # a batch goes through the kernel one sample at a time
         w, w_taps = kernel_weight(conv, dtype)
-        out = conv3d_causal(xin.to(dtype).contiguous(), w, conv.bias, out_dtype=dtype, w_taps=w_taps)
+        out = _per_sample(lambda xb: conv3d_causal(xb.to(dtype).contiguous(), w, conv.bias, out_dtype=dtype,
+                                                   w_taps=w_taps), xin)
     else:
         out = _conv3d(conv, xin, dtype=dtype)
     return out, xin[:, -CACHE_T:]
@@ -356,6 +358,8 @@ def decode_streaming(
 
 def _per_sample(fn, x: torch.Tensor) -> torch.Tensor:
     """fn over x's samples one at a time: the kernel takes batch 1."""
+    if x.shape[0] == 1:
+        return fn(x)
     return torch.cat([fn(x[b : b + 1]) for b in range(x.shape[0])], dim=0)
 
 

@@ -50,6 +50,10 @@ def test_every_port_module_is_checked():
             "cosmos_predict2_tpu_torch/models/interactive.py", "cosmos_predict2_tpu_torch/models/wan_video2world.py",
             "cosmos_predict2_tpu_torch/models/edm.py", "cosmos_predict2_tpu_torch/models/action_conditioned.py",
             "cosmos_predict2_tpu_torch/training/trainer.py"} <= set(FILES)
+    # the serving front end and the guardrails
+    assert {f"cosmos_predict2_tpu_torch/{m}.py" for m in (
+        "utils/validator", "utils/env_parsers", "utils/blocklist", "utils/retinaface", "utils/guardrails",
+        "inference/serving", "inference/web_ui", "inference/api", "inference/cli")} <= set(FILES)
 
 
 def test_wandb_only_inside_the_metrics_logger():

@@ -19,19 +19,14 @@ import os
 import subprocess
 import sys
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 import torch_cpu_threads  # torch's CPU threads under xdist
 
-from cosmos_predict2_tpu.inference.pipeline import InferenceSetup as JSetup
 from cosmos_predict2_tpu.inference.pipeline import Text2ImageInference as JText2Image
 from cosmos_predict2_tpu.inference.pipeline import Video2WorldInference as JPipe
-from cosmos_predict2_tpu.models.video2world import RFModelConfig as JRFConfig
-from cosmos_predict2_tpu.models.video2world import Video2WorldModel as JModel
-from cosmos_predict2_tpu.networks.dit import DiTConfig as JDiTConfig
 from cosmos_predict2_tpu.tokenizers.wan_vae import WanVAE as JVAE
 from cosmos_predict2_tpu.tokenizers.wan_vae import WanVAEConfig as JVAEConfig
 from cosmos_predict2_tpu_torch.inference import pipeline as tpipe
@@ -40,38 +35,15 @@ from cosmos_predict2_tpu_torch.models.video2world import RFModelConfig
 from cosmos_predict2_tpu_torch.networks.dit import DiTConfig, MiniTrainDIT
 from cosmos_predict2_tpu_torch.tokenizers.wan_vae import WanVAE, WanVAEConfig
 from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import decode_streaming, encode_streaming
-from cosmos_predict2_tpu_torch.utils.convert import jax_dit_params_to_torch, jax_vae_params_to_torch
-from torch_variants_util import jit_init
+from torch_variants_util import CTX_IN, SIZE, tiny_serving_setup
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SIZE = 32
-CTX_IN = 48
 
 
 @pytest.fixture(scope="module")
 def built():
     """(JAX setup, JAX params, JAX VAE params, the port's setup, net, VAE)."""
-    jnet = JDiTConfig(model_channels=128, num_heads=2, num_blocks=2, adaln_lora_dim=16, crossattn_emb_channels=64,
-                      use_crossattn_projection=True, crossattn_proj_in_channels=CTX_IN, rope_h_extrapolation_ratio=3.0,
-                      rope_w_extrapolation_ratio=3.0, rope_enable_fps_modulation=False, dtype=jnp.float32, remat="none")
-    jsetup = JSetup(model_config=JRFConfig(net=jnet, state_t=2, sampling_num_steps=2),
-                    vae_config=JVAEConfig(dim=16, dtype=jnp.float32), text_len=8, size_override=(SIZE, SIZE),
-                    streaming_vae=True)
-    params = jit_init(JModel(jsetup.model_config).init_params, jax.random.PRNGKey(0), (1, 16, 2, 4, 4), text_len=8)
-    leaves, tdef = jax.tree.flatten(params)
-    rng = np.random.default_rng(0)
-    params = jax.tree.unflatten(tdef, [np.asarray(l) + 0.05 * rng.standard_normal(l.shape).astype(np.float32) for l in leaves])
-    vae_params = jit_init(JVAE(jsetup.vae_config).init, jax.random.PRNGKey(1), jnp.zeros((1, 5, SIZE, SIZE, 3)))
-
-    names = {f.name for f in dataclasses.fields(DiTConfig)} - {"dtype"}
-    tnet_cfg = DiTConfig(dtype=torch.float32, **{n: getattr(jnet, n) for n in names})
-    net = MiniTrainDIT(tnet_cfg)
-    net.load_state_dict(jax_dit_params_to_torch(params, tnet_cfg), strict=True)
-    vae = WanVAE(WanVAEConfig(dim=16, dtype=torch.float32))
-    vae.load_state_dict(jax_vae_params_to_torch(jax.tree.map(np.asarray, vae_params)), strict=True)
-    setup = tpipe.InferenceSetup(model_config=RFModelConfig(net=tnet_cfg, state_t=2, sampling_num_steps=2),
-                                 vae_config=vae.config, size_override=(SIZE, SIZE))
-    return jsetup, jax.tree.map(jnp.asarray, params), vae_params, setup, net, vae
+    return tiny_serving_setup()
 
 
 @pytest.fixture(scope="module")
