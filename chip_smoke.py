@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Video2World serving and training paths (dense, sparse, DMD2, 14B), the HTTP server with its guardrails, its streaming, forward-mode, released-weights, autoregressive, Text2Image, one-shot-VAE and post-training (LoRA, local clips, remat, bf16 moments) paths, the post-trained variants (multiview, camera, action) and the gr00t action stream, Wan2.1 i2v, the Wan2.2 VAE, EDM and the 14B sparse pair, and the prompt encoders (Reason1 through the CLI, umT5 and CLIP into Wan i2v, T5-11B, the Qwen2.5-VL vision tower, SigLIP, XLM-R), and the training of self-forcing DMD2 (the causal 2B), Wan2.1 and EDM, once on one NVIDIA GPU.
+"""Drive the PyTorch port's Video2World serving and training paths (dense, sparse, DMD2, 14B), the HTTP server with its guardrails, its streaming, forward-mode, released-weights, autoregressive, Text2Image, one-shot-VAE and post-training (LoRA, local clips, tar shards from an S3 store under the profiler, remat, bf16 moments) paths, the post-trained variants (multiview, camera, action) and the gr00t action stream, Wan2.1 i2v, the Wan2.2 VAE, EDM and the 14B sparse pair, and the prompt encoders (Reason1 through the CLI, umT5 and CLIP into Wan i2v, T5-11B, the Qwen2.5-VL vision tower, SigLIP, XLM-R), and the training of self-forcing DMD2 (the causal 2B), Wan2.1 and EDM, once on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
@@ -114,11 +114,11 @@ Phases, each printed with its wall time:
    pipeline: Qwen3Guard-Gen-0.6B (a byte-level tokenizer), SigLIP so400m
    with the 7-class safety head and RetinaFace-ResNet50 built on the card at
    released widths on seeded weights (build time, peak, Qwen3Guard's
-   verdict time and tokens); ModelServer(Inference(pipe, text_guardrail=
-   blocklist + Qwen3Guard, video_guardrail=safety filter + RetinaFace face
-   blur)) on 127.0.0.1, spoken to with urllib: /health, /schema and /; a
-   blocklisted prompt ends in status error with no kernel launched; two
-   same-key Image2World requests (by input_path and by input_image_b64)
+   verdict time and tokens, 32 of its 128 a verdict: a cut);
+   ModelServer(Inference(pipe, text_guardrail=blocklist + Qwen3Guard,
+   video_guardrail=safety filter + RetinaFace face blur)) on 127.0.0.1,
+   spoken to with urllib: /health, /schema and /; a blocklisted prompt
+   ends in status error with no kernel launched; two same-key Image2World requests (by input_path and by input_image_b64)
    queued behind a held job run as one batched pass of 2 steps (a cut:
    phase 5 times 35-step requests at these shapes): exactly 112 K1 and 2 x
    844 K2 (vae_k2_launches), /output serves each as (93, 192, 320, 3)
@@ -147,12 +147,33 @@ Phases, each printed with its wall time:
    trainable count, the split of step 2, tokens/s, peak memory and step 3
    under torch.profiler (device time by kernel); then the full fine-tune recipe
    on the same folder at 192x320, one warm-up and 2 timed steps under
-   (block, fp32 moments), (block, bf16), (selective, bf16) and (mixed:14,
-   bf16): K1 112, 112, 56 and 84 per step, K7 and K8 56, step time and peak
-   memory beside phase 7's; then a narrow LoRA step and a narrow
+   (selective, bf16 moments) and (mixed:14, bf16): K1 56 and 84 per step,
+   K7 and K8 56, step time and peak memory beside phase 7's ((block, fp32)
+   runs in phase 15b); then a narrow LoRA step and a narrow
    bf16-moment step (2 blocks) in bf16 on the card against the same
    weights, adapters, draws and rounding noise in fp32 on the CPU, at phase
    6's limits;
+15b. post-training from remote shards (A16): two tar shards of two clips
+   each (93 frames at 192x320 as uint8 npz, (512, 100352) fp16 embeddings
+   as npy, fps and caption as json) put with signed PUTs into a fake S3
+   store (a threaded http.server on 127.0.0.1) and read back as
+   s3://bucket/shard-0000N.tar through easy_io's S3 backend: data/
+   loaders.py's ShardedTarDataset downloads them ahead into its ShardSpool
+   and feeds training/train.py's latent_batches (the streaming VAE
+   encode), and the full fine-tune recipe (block remat, fp32 moments, the
+   trainer built as launch builds it) takes one warm-up and 2 timed
+   iterations, each inside utils/profiling.py's maybe_enable_profiling
+   window test (iteration 1 traced to a Chrome trace) and its
+   TrainingTimer's "data" and "step" sections; checks the bytes served
+   against the shards', each sample bit-equal to the local route's, an
+   empty spool after the epoch, K1 112 and K7 = K8 56 a step and K2 480 a
+   clip's encode, finite losses, parameters and EMA moved, a trace naming
+   K1, K7 and K8, both timer sections; logs device_memory_report(); then
+   tokenizers/interface.py's WanVAEInterface on one clip with seeded
+   statistics against the streaming encode normalized (phase 13's
+   one-shot limit) and its decode's shape, and utils/golden_activations.py
+   dumps of phase 4's narrow 2B net, card bf16 (K1) against CPU fp32
+   (phase 4's limit on every tensor);
 16. post-trained variants, full-width 2B nets on seeded random weights:
    the 7-view driving model (predict2_multiview_2b_7views) through
    MultiviewInference, 7 views of 29 frames at 704x1280 (197,120 DiT
@@ -331,8 +352,10 @@ POSTTRAIN_SHORT = 60
 POSTTRAIN_CLIP_HW = (720, 1280)
 POSTTRAIN_GEOMETRY = (93, 704, 1280)  # the recipe's frames, height and width
 FULL_FT_TIMED = 2  # after one warm-up step
-FULL_FT_ROWS = (("block", "float32", 4 * NUM_BLOCKS), ("block", "bfloat16", 4 * NUM_BLOCKS),
-                ("selective", "bfloat16", 2 * NUM_BLOCKS), ("mixed:14", "bfloat16", 4 * NUM_BLOCKS - 2 * 14))
+# (a cut: (block, fp32 moments) runs in phase 15b, on remote shards; (block,
+# bf16) last took 0.924 s a step at 35.30 GiB against its 0.854 s at 47.13 on
+# an H100 80GB HBM3 at 700 W: PERF.md section 5)
+FULL_FT_ROWS = (("selective", "bfloat16", 2 * NUM_BLOCKS), ("mixed:14", "bfloat16", 4 * NUM_BLOCKS - 2 * 14))
 # post-trained variants (phase 16): the 7-view driving model at 29 frames of
 # 704x1280 per view (8 latent frames of 44 x 80 tokens per view: 197,120
 # DiT tokens), video2world from 2 latent frames, 1 of its 35 UniPC steps
@@ -2349,6 +2372,10 @@ def oneshot_slice(pipe, cfg) -> dict:
 GUARD_STEPS = 2  # a cut: phase 5 times 35-step requests at these shapes and kernels
 GUARD_BLOCKED_PROMPT = "a beheading in the town square"
 QWEN3GUARD_EOS = 151645  # Qwen3's <|im_end|>
+# a cut: a verdict generates at most this many of the guard's 128 greedy
+# tokens; each token is the same full 512-id forward (50-70 ms on an H100),
+# and the seeded LM never ends a verdict early
+QWEN3GUARD_TOKENS = 32
 # the heads' last bias: class 0 ("Safe") or class 3 wins by this margin
 # (the seeded heads' logits on normalized embeddings are ~1e-2)
 SAFETY_BIAS = 10.0
@@ -2480,6 +2507,7 @@ def guardrails_serving_slice(pipe, cfg, smi: str) -> dict:
     record("Qwen3Guard-Gen-0.6B", lm, build_s)
     qwen3 = G.create_qwen3_guard(lm, lambda text: [ord(c) % 256 for c in text],
                                  lambda ids: "".join(chr(i % 256) for i in ids), eos_ids=(QWEN3GUARD_EOS,))
+    qwen3.max_new_tokens = QWEN3GUARD_TOKENS
     verdicts = []
 
     def timed_verdict(prompt_text: str) -> bool:
@@ -2583,7 +2611,8 @@ def guardrails_serving_slice(pipe, cfg, smi: str) -> dict:
         for v in verdicts:
             log(f"  Qwen3Guard verdict on {v['prompt']!r} in the server: {'safe' if v['safe'] else 'unsafe'} in "
                 f"{v['s'] * 1e3:.1f} ms, {v['tokens']} tokens generated (a 512-id buffer recomputed each token) [{smi}]")
-        _check("Qwen3Guard", len(verdicts) == 2 and all(0 < v["tokens"] <= 128 for v in verdicts), f"{verdicts}")
+        _check("Qwen3Guard", len(verdicts) == 2 and all(0 < v["tokens"] <= QWEN3GUARD_TOKENS for v in verdicts),
+               f"{verdicts}")
 
         # the video guard's other outcome; Qwen3Guard's verdicts were taken above, so this
         # request's text guard is the blocklist alone
@@ -3089,6 +3118,391 @@ def posttrain_slice() -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"lora": lora, "rows": rows, "counts": {k: lora["counts"][k] + rows["counts"][k] for k in lora["counts"]}}
+
+
+# ---------------- post-training from remote shards (phase 15b) ----------------
+
+REMOTE_SHARDS = 2
+REMOTE_CLIPS_PER_SHARD = 2
+REMOTE_SEED = 0  # ShardedTarDataset's shuffle seed
+REMOTE_TIMED = 2  # after one warm-up iteration; the first timed one runs under the profiler
+# the launches of one clip's streaming VAE encode at 93 x 192x320 (PERF.md's K2 row)
+REMOTE_K2_PER_CLIP = 480
+REMOTE_KERNELS = ("flash_attention_fwd_kernel", "flash_attention_bwd_dq_kernel", "flash_attention_bwd_dkv_kernel")
+
+
+def write_remote_shards(root: Path, text_dim: int) -> list[Path]:
+    """REMOTE_SHARDS tar shards of REMOTE_CLIPS_PER_SHARD clips each under
+    ``root``: per clip a uint8 npz of NUM_FRAMES frames at SIZE (a colour ramp
+    moving 4 levels per frame plus one of four noise frames, as
+    write_posttrain_folder makes them), its (512, text_dim) fp16 text
+    embedding as npy, and its fps and caption as json. Made in bulk."""
+    import io
+    import tarfile
+
+    rng = np.random.default_rng(151)
+    h, w = SIZE
+    ramp = (np.arange(h, dtype=np.uint16)[:, None] * 255 // (h - 1)
+            + np.arange(w, dtype=np.uint16)[None, :] * 255 // (w - 1)).astype(np.uint8)  # wraps mod 256
+    noise = rng.integers(0, 16, (4, h, w, 3), dtype=np.uint8)
+    emb = rng.standard_normal((512, text_dim), dtype=np.float32).astype(np.float16)
+    root.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for s in range(REMOTE_SHARDS):
+        paths.append(root / f"shard-{s:05d}.tar")
+        with tarfile.open(paths[-1], "w") as tf:
+            for c in range(REMOTE_CLIPS_PER_SHARD):
+                i = s * REMOTE_CLIPS_PER_SHARD + c
+                t = (4 * np.arange(NUM_FRAMES) + 64 * i).astype(np.uint8)
+                video = ramp[None, :, :, None] + t[:, None, None, None] + np.array([0, 85, 170], np.uint8)
+                video += noise[np.arange(NUM_FRAMES) % 4]
+                members = {}
+                for ext, save, value in (("npz", np.savez, {"video": video}), ("npy", np.save, emb if i % 2 else -emb)):
+                    buf = io.BytesIO()
+                    save(buf, **value) if ext == "npz" else save(buf, value)
+                    members[ext] = buf.getvalue()
+                members["json"] = json.dumps({"fps": 16.0, "caption": f"clip {i}: a robot arm moves a block"}).encode()
+                for ext, data in members.items():
+                    info = tarfile.TarInfo(f"clip_{i:03d}.{ext}")
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+    return paths
+
+
+def fake_s3_store():
+    """A threaded http.server on 127.0.0.1 speaking the S3 calls the port's
+    S3Backend makes (PUT, GET, HEAD of an object), counting the bytes its
+    GETs serve. Returns (server, its thread, the endpoint URL, the
+    served-bytes counter)."""
+    import threading
+    import urllib.parse
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    objects, served, lock = {}, {"bytes": 0, "gets": 0}, threading.Lock()
+
+    class Store(BaseHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+        def _key(self):
+            return urllib.parse.unquote(urllib.parse.urlparse(self.path).path.lstrip("/"))
+
+        def do_PUT(self):
+            objects[self._key()] = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+            self.send_response(200)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+        def do_GET(self):
+            data = objects.get(self._key())
+            self.send_response(200 if data is not None else 404)
+            self.send_header("Content-Length", str(len(data or b"")))
+            self.end_headers()
+            if self.command == "GET" and data is not None:
+                self.wfile.write(data)
+                with lock:
+                    served["bytes"] += len(data)
+                    served["gets"] += 1
+
+        do_HEAD = do_GET
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Store)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, thread, f"http://127.0.0.1:{server.server_port}", served
+
+
+def _same_sample(a: dict, b: dict) -> bool:
+    """Two decoded shard samples equal bit for bit: keys, arrays (dtype,
+    shape, bytes) and the json."""
+    if a.keys() != b.keys():
+        return False
+    for k in a:
+        x, y = a[k], b[k]
+        if isinstance(x, dict) and k == "npz":
+            if x.keys() != y.keys() or not all(x[n].dtype == y[n].dtype and np.array_equal(x[n], y[n]) for n in x):
+                return False
+        elif isinstance(x, np.ndarray):
+            if not (x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes()):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+class RemoteProbe:
+    """Phase 15b's callback: each iteration inside maybe_enable_profiling's
+    window test and the TrainingTimer's "step" section, entered and left from
+    the trainer's step hooks."""
+
+    def __init__(self, profiling_config, timer):
+        self.config, self.timer, self.active = profiling_config, timer, []
+
+    def on_train_start(self, trainer, state): ...
+
+    def on_training_step_start(self, trainer, state, batch, iteration):
+        from cosmos_predict2_tpu_torch.utils.profiling import maybe_enable_profiling
+
+        self._prof = maybe_enable_profiling(self.config, iteration, device="cuda")
+        self.active.append(self._prof.__enter__())
+        self._step = self.timer("step")
+        self._step.__enter__()
+
+    def on_training_step_end(self, trainer, state, metrics, iteration):
+        self._step.__exit__(None, None, None)
+        self._prof.__exit__(None, None, None)
+
+    def on_save_checkpoint(self, trainer, state, iteration): ...
+
+    def on_train_end(self, trainer, state): ...
+
+
+def remote_posttrain(root: Path, served: dict, shard_paths: list[Path]) -> dict:
+    """The full fine-tune recipe at SIZE on the remote shards: the trainer
+    built as training/train.py's launch builds it, fed by ShardedTarDataset
+    -> latent_batches (the streaming VAE encode), one warm-up and
+    REMOTE_TIMED timed iterations under the profile window and the section
+    timers; then the rest of the epoch, the spool, the bytes served and the
+    samples held against the local route."""
+    import itertools
+
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.data.loaders import ShardedTarDataset
+    from cosmos_predict2_tpu_torch.models.video2world import Video2WorldModel
+    from cosmos_predict2_tpu_torch.networks.dit import build_dit
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae import build_vae
+    from cosmos_predict2_tpu_torch.training.train import latent_batches
+    from cosmos_predict2_tpu_torch.training.trainer import IterSpeedCallback, Trainer
+    from cosmos_predict2_tpu_torch.utils.profiling import ProfilingConfig, TrainingTimer, device_memory_report
+
+    H, W = SIZE
+    iters = 1 + REMOTE_TIMED
+    cfg = make_config(FULL_FT_EXPERIMENT, [f"data_train.height={H}", f"data_train.width={W}",
+                                           f"trainer.max_iter={iters}", "trainer.save_iter=0",
+                                           "trainer.logging_iter=1"])
+    m, tc = cfg.model, cfg.trainer
+    if (m.net.num_blocks, m.net.model_channels, m.net.crossattn_proj_in_channels, m.net.remat, m.use_lora,
+            tc.optimizer.moments_dtype, cfg.data_train.num_frames) != (NUM_BLOCKS, 2048, 100352, "block", False,
+                                                                      "float32", NUM_FRAMES):
+        raise AssertionError("phase 15b must run the full fine-tune recipe (block remat, fp32 moments, 93 frames)")
+    remote = [f"s3://bucket/{p.name}" for p in shard_paths]
+    spool_dir = root / "spool"
+    trace_dir = root / "profile"
+    pcfg = ProfilingConfig(enabled=True, skip_first_n=1, first_n_iterations=1, trace_dir=str(trace_dir))
+    device = torch.device("cuda")
+    timer = TrainingTimer(device)
+
+    fresh_memory()
+    # the trainer as launch builds it (seeded 2B, the VAE), handed the remote batches
+    net = build_dit(m.net, device, seed=tc.seed, trainable=True)
+    model = Video2WorldModel(m, net)
+    vae = build_vae(cfg.tokenizer, device, seed=tc.seed + 1)
+    probe = StepProbe(watch=("x_embedder.proj.1.weight", "blocks.0.self_attn.q_proj.weight",
+                             f"blocks.{NUM_BLOCKS - 1}.mlp.layer2.weight", "final_layer.linear.weight"))
+    rprobe = RemoteProbe(pcfg, timer)
+    trainer = Trainer(tc, model, callbacks=[IterSpeedCallback(tc.logging_iter), probe, rprobe])
+    state = trainer.init_state()
+
+    dataset = ShardedTarDataset(remote, shuffle_seed=REMOTE_SEED, spool_dir=str(spool_dir))
+    samples_it = iter(dataset)
+    seen, data_counts = [], []
+
+    def to_batches(samples):
+        for s in samples:
+            seen.append(s)
+            yield {"video": s["npz"]["video"].transpose(3, 0, 1, 2)[None],  # (1, 3, T, H, W) uint8
+                   "t5_text_embeddings": s["npy"][None].astype(np.float32),
+                   "fps": np.asarray([s["json"]["fps"]], np.float32)}
+
+    def timed(batches):
+        while True:
+            c0 = _build.launch_counts()
+            with timer("data"):
+                try:
+                    batch = next(batches)
+                except StopIteration:
+                    return
+            data_counts.append({k: v - c0[k] for k, v in _build.launch_counts().items()})
+            yield batch
+
+    batches = timed(latent_batches(to_batches(samples_it), vae, device))
+    served.update(bytes=0, gets=0)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = trainer.train(state, batches)
+    # the rest of the epoch: its clips through the same encode, then the
+    # dataset closed at the epoch's end (the last shard leaves the spool)
+    rest = list(itertools.islice(batches, REMOTE_SHARDS * REMOTE_CLIPS_PER_SHARD - iters))
+    samples_it.close()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    memory = device_memory_report()
+    summary = timer.summary()
+    log(f"  launches over the epoch (3 iterations and the last clip's encode): {counts}")
+    log("  device_memory_report() after the last step: " + ", ".join(
+        f"{k} {v / 2**30:.2f} GiB" for k, v in memory[0].items() if k.endswith(("all.peak", "all.current"))))
+
+    n_clips = REMOTE_SHARDS * REMOTE_CLIPS_PER_SHARD
+    shard_bytes = sum(p.stat().st_size for p in shard_paths)
+    spool_left = sorted(p.name for p in spool_dir.iterdir())
+    if len(probe.steps) != iters or not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
+                                            for s in probe.steps):
+        raise AssertionError(f"losses {[s['loss'] for s in probe.steps]}: want {iters} finite")
+    check_step_launches("phase 15b", probe.steps, 4 * NUM_BLOCKS)
+    if len(rest) != n_clips - iters or len(seen) != n_clips or len(data_counts) != n_clips:
+        raise AssertionError(f"the epoch gave {len(seen)} clips, want {n_clips}")
+    for i, c in enumerate(data_counts):
+        if {k: v for k, v in c.items() if v} != {"conv3d_causal": REMOTE_K2_PER_CLIP}:
+            raise AssertionError(f"clip {i}'s data phase launched {c}, want K2 {REMOTE_K2_PER_CLIP} and nothing else")
+    if not (probe.moved["params"] and probe.moved["ema_params"]) or probe.moment_dtypes != {"torch.float32"}:
+        raise AssertionError(f"parameters / EMA moved {probe.moved}, moments {probe.moment_dtypes}")
+    if served["bytes"] != shard_bytes or served["gets"] != REMOTE_SHARDS:
+        raise AssertionError(f"the store served {served} for {REMOTE_SHARDS} shards of {shard_bytes} bytes")
+    if spool_left:
+        raise AssertionError(f"the spool holds {spool_left} after the epoch")
+    local = ShardedTarDataset([str(p) for p in shard_paths], shuffle_seed=REMOTE_SEED)
+    local_samples = list(itertools.islice(local, n_clips))
+    if [s["__key__"] for s in seen] != [s["__key__"] for s in local_samples] or not all(
+            _same_sample(a, b) for a, b in zip(seen, local_samples)):
+        raise AssertionError("a remote sample differs from the local route's")
+    if rprobe.active != [False, True, False]:
+        raise AssertionError(f"profile window {rprobe.active}, want iteration 1 only")
+    trace = trace_dir / "iteration_000001.json"
+    text = trace.read_text() if trace.exists() else ""
+    missing = [k for k in REMOTE_KERNELS if k not in text]
+    if missing:
+        raise AssertionError(f"the Chrome trace {trace} ({len(text)} bytes) does not name {missing}")
+    if set(summary) != {"data", "step"}:
+        raise AssertionError(f"TrainingTimer.summary() {summary}")
+
+    timed_steps = probe.steps[1:]
+    out = {"counts": counts, "epoch_s": epoch_s, "peak_gb": peak_gb, "fetched_mb": served["bytes"] / 1e6,
+           "timer": summary, "trace_mb": len(text) / 1e6, "first_clip": seen[0]["npz"]["video"],
+           "steps": [{k: s[k] for k in ("loss", "data_s", "step_s", "forward_backward_s", "optimizer_s")}
+                     for s in probe.steps],
+           "vae": vae}
+    for i, s in enumerate(probe.steps):
+        log(f"  iteration {i}{' (profiled)' if rprobe.active[i] else ''}: data {s['data_s']:.3f} s (fetch, decode, "
+            f"VAE encode), step {s['step_s']:.3f} s, iteration {s['data_s'] + s['step_s']:.3f} s, loss {s['loss']:.4f}")
+    log(f"  TrainingTimer.summary(): data {summary['data']:.3f} s over {timer.counts['data']} clips, step "
+        f"{summary['step']:.3f} s over {timer.counts['step']} steps (the card synchronised at each end); the "
+        f"unprofiled timed step {timed_steps[-1]['step_s']:.3f} s; peak {peak_gb:.2f} GiB; "
+        f"{served['bytes'] / 1e6:.1f} MB fetched in {served['gets']} GETs (the shards' {shard_bytes} bytes); spool "
+        f"empty; {n_clips} samples bit-equal to the local route; trace {trace.name} {len(text) / 1e6:.1f} MB names "
+        f"K1, K7, K8; epoch {epoch_s:.1f} s")
+    del trainer, state, model, net, probe, rprobe, batches, rest
+    return out
+
+
+def interface_and_golden_checks(vae, clip_u8: np.ndarray) -> dict:
+    """WanVAEInterface on one clip on the card with seeded statistics against
+    the streaming encode, normalized; decode(encode(x)) shapes; golden dumps of
+    small_reference's narrow 2B net, card bf16 (K1) against CPU fp32."""
+    import dataclasses as dc
+
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.networks.dit import build_dit
+    from cosmos_predict2_tpu_torch.tokenizers.interface import VAEInterfaceConfig, WanVAEInterface
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import encode_streaming
+    from cosmos_predict2_tpu_torch.utils.golden_activations import compare_activation_dumps, dump_dit_activations
+
+    fresh_memory()
+    rng = np.random.default_rng(152)
+    stats = dict(img_mean=rng.standard_normal((1, 16, 1, 1, 1)).astype(np.float32),
+                 img_std=rng.uniform(0.5, 2.0, (1, 16, 1, 1, 1)).astype(np.float32),
+                 video_mean=rng.standard_normal((1, 1, 50, 1, 1)).astype(np.float32),
+                 video_std=rng.uniform(0.5, 2.0, (1, 1, 50, 1, 1)).astype(np.float32))
+    tok = WanVAEInterface(VAEInterfaceConfig(vae=vae.config), vae, **stats)
+    u8 = torch.from_numpy(clip_u8).cuda()[None]  # (1, T, H, W, 3)
+    x = (u8.to(vae.config.dtype) / 127.5 - 1.0).permute(0, 4, 1, 2, 3)  # (1, 3, T, H, W)
+    _build.reset_launch_counts()
+    z = tok.encode(x)
+    k2_encode = _build.launch_counts()["conv3d_causal"]
+    stream = encode_streaming(vae, u8, pixel_format="uint8").permute(0, 4, 1, 2, 3).float()
+    mean, std = tok._stats(stream.shape[2])
+    _, rel = errors(z, (stream - mean) / std)
+    px = tok.decode(z)
+    t = tok.get_latent_num_frames(NUM_FRAMES)
+    H, W = SIZE
+    log(f"  WanVAEInterface on one clip (seeded statistics): encode {tuple(z.shape)} {z.dtype} against the streaming "
+        f"encode normalized: rel_l2 {rel:.3e} (limit {ONESHOT_LATENT_REL_L2}); K2 {k2_encode} in the one-shot "
+        f"encode; decode(encode(x)) {tuple(px.shape)}")
+    if not (z.shape == (1, 16, t, H // 8, W // 8) and z.dtype == torch.float32 and rel <= ONESHOT_LATENT_REL_L2
+            and px.shape == (1, 3, NUM_FRAMES, H, W) and bool(torch.isfinite(px).all()) and k2_encode > 0):
+        raise AssertionError(f"WanVAEInterface: {tuple(z.shape)} rel_l2 {rel:.3e}, {tuple(px.shape)}, K2 {k2_encode}")
+    del tok, z, px, stream, u8, x
+
+    cfg = make_config(DENSE_EXPERIMENT)
+    net_cfg = dc.replace(cfg.model.net, model_channels=256, num_heads=2, num_blocks=2, adaln_lora_dim=32,
+                         crossattn_proj_in_channels=64, crossattn_emb_channels=128)
+    net = build_dit(net_cfg, "cuda", seed=10)
+    net32 = build_dit(dc.replace(net_cfg, dtype=torch.float32), "cpu", seed=0)
+    net32.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    xs = torch.from_numpy(rng.standard_normal((1, 16, 4, 16, 24)).astype(np.float32))
+    ts = torch.tensor([[0.6]])
+    emb = torch.from_numpy(rng.standard_normal((1, 32, 64)).astype(np.float32))
+    root = OUT_DIR / "golden"
+    root.mkdir(parents=True, exist_ok=True)
+    _build.reset_launch_counts()
+    card = dump_dit_activations(net, xs.cuda(), ts.cuda(), emb.cuda(), str(root / "card.npz"))
+    k1 = _build.launch_counts()["flash_attention_fwd"]
+    cpu = dump_dit_activations(net32, xs, ts, emb, str(root / "cpu.npz"))
+    diffs = compare_activation_dumps(str(root / "card.npz"), str(root / "cpu.npz"))
+    rels = {k: float(np.linalg.norm(card[k] - cpu[k]) / max(np.linalg.norm(cpu[k]), 1e-30)) for k in cpu}
+    names = {d.name for d in diffs}
+    want = {f"block_{i:02d}" for i in range(net_cfg.num_blocks)} | {"output", "input"}
+    log(f"  golden dumps of the narrow 2B net (2 blocks of 256), card bf16 (K1 {k1}) vs cpu fp32: rel_l2 " + ", ".join(
+        f"{k} {v:.3e}" for k, v in sorted(rels.items())) + f" (limit {PIPELINE_REL_L2}); worst max_abs {diffs[0]}")
+    if names != want or any(n.startswith("MISSING:") for n in names) or max(rels.values()) > PIPELINE_REL_L2 \
+            or k1 != 2 * net_cfg.num_blocks:
+        raise AssertionError(f"golden dumps: keys {sorted(names)}, rel_l2 {rels}, K1 {k1}")
+    return {"interface_rel_l2": rel, "golden_rel_l2": rels}
+
+
+def remote_shards_slice() -> dict:
+    """Phase 15b: the shards written and put into the fake S3 store, the
+    remote post-training epoch, then the interface and golden checks; the
+    store is stopped and the files deleted at the end."""
+    import shutil
+
+    import torch
+
+    from cosmos_predict2_tpu_torch.utils import easy_io
+    from cosmos_predict2_tpu_torch.utils.remote_io import S3Backend
+
+    root = OUT_DIR / "remote_shards"
+    shutil.rmtree(root, ignore_errors=True)
+    server, thread, url, served = fake_s3_store()
+    try:
+        t0 = time.perf_counter()
+        shard_paths = write_remote_shards(root / "local", text_dim=100352)
+        easy_io.register_backend("s3", S3Backend(access_key="chip", secret_key="smoke", endpoint_url=url))
+        for p in shard_paths:  # a signed PUT each
+            easy_io.get_backend("s3").put(p.read_bytes(), f"s3://bucket/{p.name}")
+        log(f"  wrote {len(shard_paths)} shards ({sum(p.stat().st_size for p in shard_paths) / 1e6:.1f} MB) and put "
+            f"them in the fake S3 store at {url} in {time.perf_counter() - t0:.1f} s")
+        out = remote_posttrain(root, served, shard_paths)
+        vae, clip = out.pop("vae"), out.pop("first_clip")
+        out.update(interface_and_golden_checks(vae, clip))
+        del vae
+    finally:
+        easy_io._BACKENDS.pop("s3", None)
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(OUT_DIR / "golden", ignore_errors=True)
+    fresh_memory()
+    torch.cuda.synchronize()
+    return out
 
 
 def dit_forward_flops(net, batch: int, tokens: int, ctx_tokens: int) -> float:
@@ -4878,6 +5292,9 @@ def main(argv=None) -> int:
         post = posttrain_slice()
     log(f"  beside phase 7 (block remat, fp32 moments, mock data): step {tr['step_s']:.3f} s, peak "
         f"{tr['peak_gb']:.2f} GiB")
+    with Phase("15b, post-training from remote shards: the full fine-tune on tar shards from a fake S3 store through "
+               "the spool, profiled and timed; WanVAEInterface; golden activation dumps"):
+        rsh = remote_shards_slice()
     with Phase("post-trained variants: 7-view multiview at 704x1280, camera-conditioned, action-conditioned"):
         var = variants_slice()
     with Phase("A13 and A12.2: the gr00t action stream, Wan 1.3B i2v, the Wan2.2 VAE, EDM, the 14B sparse pair"):
@@ -4891,7 +5308,8 @@ def main(argv=None) -> int:
              "interactive_window": itw, "fwdmode": fm, "fa_jvp": fj, "dmd2_serve": dsl, "distill": dtl,
              "released": rel, "autoregressive": ar, "text2image": t2i, "oneshot": osl, "serving_guardrails": sgd,
              "14b": big,
-             "posttrain_lora": post["lora"], "posttrain_full": post["rows"], "multiview": var["multiview"],
+             "posttrain_lora": post["lora"], "posttrain_full": post["rows"], "remote_shards": rsh,
+             "multiview": var["multiview"],
              "camera": var["camera"], "action": var["action"], "gr00t": a13["gr00t"], "wan": a13["wan"],
              "wan22_vae": a13["wan22_vae"], "edm": a13["edm"],
              **{name: a13["sparse_14b"][name] for name in SPARSE_14B_EXPERIMENTS},
@@ -4920,7 +5338,7 @@ def main(argv=None) -> int:
         "wan22_vae": ("conv3d_causal",),
         **{name: ("flash_attention_fwd", "na_fwd") for name in SPARSE_14B_EXPERIMENTS},
         **{path: ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal")
-           for path in ("posttrain_lora", "posttrain_full")},
+           for path in ("posttrain_lora", "posttrain_full", "remote_shards")},
     }
     for path, names in path_kernels.items():
         idle = [n for n in names if paths[path]["counts"][n] == 0]

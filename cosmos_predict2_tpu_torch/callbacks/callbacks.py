@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import gc
 import json
-import logging
 import os
 import time
 from collections import deque
@@ -28,7 +27,7 @@ import torch
 
 from cosmos_predict2_tpu_torch.training.trainer import Callback, IterSpeedCallback
 
-log = logging.getLogger("cosmos_predict2_tpu_torch")
+from cosmos_predict2_tpu_torch.utils import log
 
 
 class EveryN(Callback):

@@ -15,12 +15,11 @@ Layout convention: videos are (T, H, W, C) uint8 or float; images (H, W, C).
 
 from __future__ import annotations
 
-import logging
 from typing import Optional, Sequence
 
 import numpy as np
 
-log = logging.getLogger("cosmos_predict2_tpu_torch")
+from cosmos_predict2_tpu_torch.utils import log
 
 
 class Augmentor:

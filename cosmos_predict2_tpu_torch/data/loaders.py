@@ -9,25 +9,28 @@ reference's data plumbing:
   re-yield each batch, fetching the next one in a background thread;
 * ShardedTarDataset (imaginaire/datasets/webdataset/): tar shards of
   (sample.ext) files through data/native_tar.py, split across hosts by
-  index and shuffled per epoch; local shards only until the port has
-  ``easy_io`` (ROADMAP A16);
+  index and shuffled per epoch; remote shards (s3:// gs:// msc://
+  http(s)://) download ahead through a ShardSpool (utils/easy_io.py);
 * OperationWatchdog (predict2/datasets/watchdog.py:27): a background
   thread that warns when an operation stalls.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import hashlib
 import io
 import json
-import logging
+import os
 import queue
+import tempfile
 import threading
 import time
 from typing import Any, Callable, Iterable, Iterator, Optional
 
 import numpy as np
 
-log = logging.getLogger("cosmos_predict2_tpu_torch")
+from cosmos_predict2_tpu_torch.utils import log
 
 
 class IterativeJointDataLoader:
@@ -80,6 +83,57 @@ class CachedReplayDataLoader:
         self._stop.set()
 
 
+class ShardSpool:
+    """Local-disk spool for REMOTE tar shards (s3:// gs:// msc:// http(s)://).
+
+    Downloads shards through easy_io's backends into a spool directory,
+    fetching the NEXT shard in a background thread (a pool of 2) while the
+    current one feeds the native reader: the role the reference gives to
+    webdataset's streaming S3 pipe (imaginaire/datasets/webdataset/), built
+    as download-ahead + a local tar, since the native prefetcher reads at
+    random offsets. A download lands in ``<name>.part`` and is renamed into
+    place, so a reader never sees half a shard.
+    """
+
+    def __init__(self, spool_dir: Optional[str] = None):
+        self.dir = spool_dir or tempfile.mkdtemp(prefix="cosmos_shard_spool_")
+        os.makedirs(self.dir, exist_ok=True)
+        self._futures: dict[str, concurrent.futures.Future] = {}
+        self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
+
+    def _local(self, path: str) -> str:
+        h = hashlib.sha1(path.encode()).hexdigest()[:16]
+        return os.path.join(self.dir, f"{h}_{os.path.basename(path)}")
+
+    def _download(self, path: str) -> str:
+        from cosmos_predict2_tpu_torch.utils import easy_io
+
+        local = self._local(path)
+        if not os.path.exists(local):
+            data = easy_io._read_bytes(path)
+            tmp = local + ".part"
+            with open(tmp, "wb") as f:
+                f.write(data)
+            os.replace(tmp, local)
+        return local
+
+    def prefetch(self, path: str) -> None:
+        if path not in self._futures:
+            self._futures[path] = self._pool.submit(self._download, path)
+
+    def get(self, path: str) -> str:
+        """The local path of ``path``'s shard: the prefetch's result, or a
+        download now."""
+        fut = self._futures.pop(path, None)
+        return fut.result() if fut is not None else self._download(path)
+
+    def discard(self, path: str) -> None:
+        try:
+            os.remove(self._local(path))
+        except OSError:
+            pass
+
+
 def _is_remote(path: str) -> bool:
     return "://" in path
 
@@ -89,9 +143,10 @@ class ShardedTarDataset:
 
     Files sharing a basename stem form one sample: ``0001.npy`` +
     ``0001.txt`` -> {"npy": array, "txt": str}. Shards are partitioned
-    across hosts (process_index) and shuffled per epoch. Shards are local
-    paths: a remote one (s3:// gs:// http://) raises, since its download
-    needs ``easy_io``, which the port does not have yet (ROADMAP A16).
+    across hosts (process_index) and shuffled per epoch. Remote shard
+    paths (s3:// gs:// msc:// http(s)://) stream through a
+    :class:`ShardSpool` in ``spool_dir`` with one shard of download
+    look-ahead; each is deleted once read, so the spool holds at most two.
     """
 
     def __init__(
@@ -101,14 +156,12 @@ class ShardedTarDataset:
         process_count: int = 1,
         shuffle_seed: Optional[int] = 0,
         decoders: Optional[dict[str, Callable[[bytes], Any]]] = None,
+        spool_dir: Optional[str] = None,
         augmentors: Optional[list] = None,
     ):
-        remote = [s for s in shard_paths if _is_remote(s)]
-        if remote:
-            raise NotImplementedError(
-                f"remote shard {remote[0]!r}: downloading shards needs easy_io, not ported yet (ROADMAP A16)")
         self.shards = sorted(shard_paths)[process_index::process_count]
         self.shuffle_seed = shuffle_seed
+        self.spool = ShardSpool(spool_dir) if any(_is_remote(s) for s in self.shards) else None
         # augmentor chain (data/augmentors.py zoo); an augmentor returning
         # None rejects the sample, matching the reference contract
         self.augmentors = augmentors or []
@@ -170,8 +223,19 @@ class ShardedTarDataset:
             shards = list(self.shards)
             if self.shuffle_seed is not None:
                 np.random.RandomState(self.shuffle_seed + epoch).shuffle(shards)
-            for shard in shards:
-                yield from self._iter_shard(shard)
+            for i, shard in enumerate(shards):
+                if self.spool is not None and _is_remote(shard):
+                    # download-ahead: the next remote shard fetches while this
+                    # one is read; the spool holds at most 2 shards on disk
+                    if i + 1 < len(shards) and _is_remote(shards[i + 1]):
+                        self.spool.prefetch(shards[i + 1])
+                    local = self.spool.get(shard)
+                    try:
+                        yield from self._iter_shard(local)
+                    finally:
+                        self.spool.discard(shard)
+                else:
+                    yield from self._iter_shard(shard)
             epoch += 1
             if not shards:
                 return

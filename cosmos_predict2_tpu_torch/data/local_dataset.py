@@ -18,7 +18,6 @@ Layout:
 from __future__ import annotations
 
 import dataclasses
-import logging
 import os
 
 import numpy as np
@@ -26,7 +25,7 @@ import numpy as np
 from cosmos_predict2_tpu_torch.inference.pipeline import resize_input
 from cosmos_predict2_tpu_torch.utils.io import read_video
 
-log = logging.getLogger("cosmos_predict2_tpu_torch")
+from cosmos_predict2_tpu_torch.utils import log
 
 
 @dataclasses.dataclass(frozen=True)

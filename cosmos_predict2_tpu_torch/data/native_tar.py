@@ -12,7 +12,6 @@ is available, so :class:`NativeTarShard` is always safe to use.
 from __future__ import annotations
 
 import ctypes
-import logging
 import threading
 from typing import Optional
 
@@ -20,7 +19,7 @@ import numpy as np
 
 from cosmos_predict2_tpu_torch.utils.native import build_host_library
 
-log = logging.getLogger("cosmos_predict2_tpu_torch")
+from cosmos_predict2_tpu_torch.utils import log
 
 TAR_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread")
 

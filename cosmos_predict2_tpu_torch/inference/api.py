@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import logging
 import os
 import traceback
 from typing import Optional
@@ -40,7 +39,7 @@ from cosmos_predict2_tpu_torch.inference.pipeline import (
 from cosmos_predict2_tpu_torch.utils.flags import SMOKE
 from cosmos_predict2_tpu_torch.utils.io import save_img_or_video
 
-log = logging.getLogger("cosmos_predict2_tpu_torch")
+from cosmos_predict2_tpu_torch.utils import log
 
 
 @dataclasses.dataclass

@@ -14,7 +14,6 @@ conditions view 0 only, see models/multiview.py).
 from __future__ import annotations
 
 import dataclasses
-import logging
 from time import perf_counter
 from typing import Callable, Optional
 
@@ -27,7 +26,7 @@ from cosmos_predict2_tpu_torch.tokenizers.wan_vae import WanVAE
 from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import decode_streaming, encode_streaming, truncate_u8
 from cosmos_predict2_tpu_torch.utils.misc import arch_invariant_rand
 
-log = logging.getLogger("cosmos_predict2_tpu_torch")
+from cosmos_predict2_tpu_torch.utils import log
 
 # the 7-view driving rig's camera order
 VIEW_NAMES = (

@@ -13,7 +13,6 @@ long video; :class:`Text2ImageInference` samples one latent frame.
 from __future__ import annotations
 
 import dataclasses
-import logging
 import math
 import time
 from typing import Callable, Optional
@@ -42,7 +41,7 @@ from cosmos_predict2_tpu_torch.utils.io import (
 )
 from cosmos_predict2_tpu_torch.utils.misc import arch_invariant_rand
 
-log = logging.getLogger("cosmos_predict2_tpu_torch")
+from cosmos_predict2_tpu_torch.utils import log
 
 _IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".webp")
 _VIDEO_EXTS = (".mp4", ".webm", ".mkv", ".mov")

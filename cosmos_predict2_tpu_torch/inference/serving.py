@@ -34,7 +34,6 @@ import base64
 import binascii
 import dataclasses
 import json
-import logging
 import os
 import queue
 import shutil
@@ -49,7 +48,7 @@ import torch
 from cosmos_predict2_tpu_torch.inference.api import Inference, InferenceArguments
 from cosmos_predict2_tpu_torch.utils import validator as V
 
-log = logging.getLogger("cosmos_predict2_tpu_torch")
+from cosmos_predict2_tpu_torch.utils import log
 
 
 class GenerateRequest(V.ValidatedParams):

@@ -20,14 +20,13 @@ are zero, like the reference's masked fill.
 from __future__ import annotations
 
 import json
-import logging
 import os
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
-log = logging.getLogger("cosmos_predict2_tpu_torch")
+from cosmos_predict2_tpu_torch.utils import log
 
 
 def load_t5_tower(model_path: str, device: torch.device | str = "cuda", dtype: torch.dtype = torch.bfloat16):

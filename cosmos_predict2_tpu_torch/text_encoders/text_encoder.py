@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import logging
 import os
 from typing import Any, Optional
 
@@ -30,7 +29,7 @@ import torch
 
 from cosmos_predict2_tpu_torch.text_encoders.qwen import QwenConfig, QwenLM, build_qwen_lm, pool_hidden_states
 
-log = logging.getLogger("cosmos_predict2_tpu_torch")
+from cosmos_predict2_tpu_torch.utils import log
 
 NUM_EMBEDDING_PADDING_TOKENS = 512
 SYSTEM_PROMPT = "You are a helpful assistant who will provide prompts to an image generator."

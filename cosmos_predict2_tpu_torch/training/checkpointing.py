@@ -15,14 +15,13 @@ a checkpoint's EMA weights in its parameters' place.
 
 from __future__ import annotations
 
-import logging
 import os
 import shutil
 from typing import Mapping, Optional
 
 import torch
 
-log = logging.getLogger("cosmos_predict2_tpu_torch")
+from cosmos_predict2_tpu_torch.utils import log
 
 _STATE_FILE = "state.pt"
 

@@ -22,7 +22,6 @@ active net holds gradients.
 from __future__ import annotations
 
 import dataclasses
-import logging
 import time
 from typing import Callable, Iterable, Optional
 
@@ -35,7 +34,7 @@ from cosmos_predict2_tpu_torch.networks.dit import MiniTrainDIT
 from cosmos_predict2_tpu_torch.training.optim import OptimizerConfig, clip_by_global_norm_, global_norm, make_optimizer
 from cosmos_predict2_tpu_torch.training.trainer import Callback, CallbackGroup
 
-log = logging.getLogger("cosmos_predict2_tpu_torch")
+from cosmos_predict2_tpu_torch.utils import log
 
 
 @dataclasses.dataclass(frozen=True)

@@ -81,9 +81,9 @@ def launch(config, ckpt_dir: Optional[str] = None, device: str = "cuda", callbac
     from cosmos_predict2_tpu_torch.training.checkpointing import Checkpointer
     from cosmos_predict2_tpu_torch.training.lora import LoRAModelWrapper, count_lora_params
     from cosmos_predict2_tpu_torch.training.trainer import IterSpeedCallback, Trainer
+    from cosmos_predict2_tpu_torch.utils import log
     from cosmos_predict2_tpu_torch.utils.flags import SMOKE
 
-    log = logging.getLogger("cosmos_predict2_tpu_torch")
     device = torch.device(device)
     trainer_cfg = config.trainer
     if SMOKE:
@@ -123,7 +123,9 @@ def main(argv=None, callbacks: Optional[list] = None) -> int:
 
     config = make_config(args.experiment, args.overrides)
     if args.dryrun:
-        logging.getLogger("cosmos_predict2_tpu_torch").info(f"config OK:\n{config}")
+        from cosmos_predict2_tpu_torch.utils import log
+
+        log.info(f"config OK:\n{config}")
         return 0
     state = launch(config, ckpt_dir=args.ckpt_dir, device=args.device, callbacks=callbacks)
     print(f"trained {state.step} iterations")

@@ -32,7 +32,6 @@ ROADMAP C9).
 from __future__ import annotations
 
 import dataclasses
-import logging
 import signal
 import time
 from typing import Callable, Iterable, Optional
@@ -44,7 +43,7 @@ from cosmos_predict2_tpu_torch.models.video2world import TrainDraws
 from cosmos_predict2_tpu_torch.training.ema import ema_update, power_ema_beta
 from cosmos_predict2_tpu_torch.training.optim import OptimizerConfig, clip_by_global_norm_, global_norm, make_optimizer
 
-log = logging.getLogger("cosmos_predict2_tpu_torch")
+from cosmos_predict2_tpu_torch.utils import log
 
 
 @dataclasses.dataclass(frozen=True)

@@ -24,14 +24,13 @@ starter list keeps the check real rather than a no-op. Pure Python.
 
 from __future__ import annotations
 
-import logging
 import os
 import re
 import string
 from difflib import SequenceMatcher
 from itertools import islice, product
 
-log = logging.getLogger("cosmos_predict2_tpu_torch")
+from cosmos_predict2_tpu_torch.utils import log
 
 CENSOR_CHAR = "*"
 

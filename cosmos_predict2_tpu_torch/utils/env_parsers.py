@@ -19,13 +19,12 @@ from __future__ import annotations
 
 import base64
 import json
-import logging
 import os
 from typing import Any
 
 from cosmos_predict2_tpu_torch.utils.validator import Bool, Int, String, Validator
 
-log = logging.getLogger("cosmos_predict2_tpu_torch")
+from cosmos_predict2_tpu_torch.utils import log
 
 
 class EnvParser:
@@ -84,7 +83,9 @@ class EnvParser:
 class CredentialEnvParser(EnvParser):
     """Object-store credentials (cred_env_parser.py:20-43): one block per
     role; :meth:`backend_args` formats a role into a backend's arguments
-    (SigV4 keys, endpoint, region)."""
+    (SigV4 keys, endpoint, region), the keywords utils/remote_io.py's
+    ``S3Backend`` takes: ``easy_io.register_backend("s3",
+    S3Backend(**CredentialEnvParser().backend_args("TEAM_DIR")))``."""
 
     APP_ENV = String(default="")
 

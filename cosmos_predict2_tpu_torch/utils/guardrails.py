@@ -27,7 +27,6 @@ runs where it is.
 from __future__ import annotations
 
 import dataclasses
-import logging
 import re
 from typing import Any, Callable, Mapping, Optional, Union
 
@@ -37,7 +36,7 @@ from torch import nn
 
 from cosmos_predict2_tpu_torch.utils.blocklist import Blocklist, LeetCensor
 
-log = logging.getLogger("cosmos_predict2_tpu_torch")
+from cosmos_predict2_tpu_torch.utils import log
 
 StateDict = Mapping[str, Any]
 

@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import logging
 import os
 import subprocess
 import threading
@@ -24,7 +23,7 @@ from typing import Optional
 
 import numpy as np
 
-log = logging.getLogger("cosmos_predict2_tpu_torch")
+from cosmos_predict2_tpu_torch.utils import log
 
 HOST_SRC_DIR = Path(__file__).resolve().parent.parent / "csrc" / "host"
 HOST_BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "cosmos_torch_host"

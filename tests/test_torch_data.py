@@ -7,7 +7,9 @@ distributor gives its JAX counterpart's output on the same seeded inputs;
 the native resize is within 1 LSB of JAX's NumPy fallback, the native crop
 equals it exactly and the native normalize within 2^-23 (and JAX's native
 normalize exactly); the native tar reader equals
-``tarfile``; a remote shard path raises. (No timing is asserted.)
+``tarfile``; remote shards (s3, gs, msc) through the fake store of
+tests/torch_fake_store.py give JAX's samples in JAX's order, downloaded one
+ahead into a spool of at most two shards. (No timing is asserted.)
 """
 
 import io
@@ -290,9 +292,103 @@ def test_sharded_tar_dataset_equals_jax(tmp_path):
     assert "jpg" in port.decoders and "pkl" in port.decoders
 
 
-def test_remote_shard_raises():
-    with pytest.raises(NotImplementedError, match="easy_io"):
-        tload.ShardedTarDataset(["local.tar", "s3://bucket/shard_000.tar"])
+def _remote_shards(tmp_path, scheme: str, store: str, n: int = 3):
+    """``n`` shards of 3 samples written locally and put in the fake store
+    (s3, gs) or in a fake MSC client under ``scheme``; both packages'
+    easy_io get a backend for ``scheme`` (returned: the port's, JAX's)."""
+    from cosmos_predict2_tpu.utils import remote_io as jrio
+    from cosmos_predict2_tpu_torch.utils import remote_io as rio
+
+    if scheme == "s3":
+        backends = [mod.S3Backend(access_key="k", secret_key="s", endpoint_url=store) for mod in (rio, jrio)]
+    elif scheme == "gs":
+        backends = [mod.GCSBackend(token="t", endpoint_url=store) for mod in (rio, jrio)]
+    else:
+        from torch_fake_store import FakeMSCClient
+
+        client = FakeMSCClient()
+        backends = [mod.MSCBackend(client=client) for mod in (rio, jrio)]
+    paths = []
+    tmp_path.mkdir(parents=True, exist_ok=True)
+    for s in range(n):
+        local = tmp_path / f"shard_{s:05d}.tar"
+        _write_shard(local, 3 * s, 3)
+        paths.append(f"{scheme}://data/shards/{local.name}")
+        backends[0].put(local.read_bytes(), paths[-1])
+    return paths, backends
+
+
+@pytest.fixture
+def store():
+    from cosmos_predict2_tpu.utils import easy_io as j_easy_io
+    from cosmos_predict2_tpu_torch.utils import easy_io
+    from torch_fake_store import serve
+
+    with serve() as url:
+        yield url
+    for mod in (easy_io, j_easy_io):
+        for scheme in ("s3", "gs", "msc"):
+            mod._BACKENDS.pop(scheme, None)
+
+
+@pytest.mark.parametrize("scheme", ["s3", "gs", "msc"])
+def test_remote_shards_equal_jax(tmp_path, store, scheme):
+    """Remote shards, downloaded ahead through the spool, give JAX's samples
+    in JAX's order per epoch and seed, and the local route's samples."""
+    from cosmos_predict2_tpu.utils import easy_io as j_easy_io
+    from cosmos_predict2_tpu_torch.utils import easy_io
+
+    paths, (port_be, jax_be) = _remote_shards(tmp_path / "local", scheme, store)
+    easy_io.register_backend(scheme, port_be)
+    j_easy_io.register_backend(scheme, jax_be)
+    local = sorted(str(p) for p in (tmp_path / "local").glob("*.tar"))
+    chain = lambda mod: [mod.CenterCrop(["npy"], output_keys=["video"], args={"height": 16, "width": 16}),
+                         mod.Normalize(["video"])]
+    for kwargs in (dict(shuffle_seed=3), dict(shuffle_seed=None, process_index=1, process_count=2)):
+        port = tload.ShardedTarDataset(paths, spool_dir=str(tmp_path / "spool_port"), augmentors=chain(taug), **kwargs)
+        ref = jload.ShardedTarDataset(paths, spool_dir=str(tmp_path / "spool_jax"), augmentors=chain(jaug), **kwargs)
+        on_disk = tload.ShardedTarDataset(local, augmentors=chain(taug), **kwargs)
+        n = 3 * len(port.shards) * 2 + 1  # two epochs, reshuffled, and the third's first sample
+        got = [a for a, _ in zip(port, range(n))]
+        for a, b, c in zip(got, ref, on_disk):
+            assert_same(a, b)
+            assert_same(a, c)
+        assert len(got) == n and port.spool is not None and on_disk.spool is None
+
+
+def test_spool_prefetches_the_next_shard_and_holds_at_most_two(tmp_path, store):
+    """While shard i is read, shard i + 1 downloads (a ``.part`` renamed into
+    place); shard i is deleted once read, so the spool never holds more
+    than two shards, and an epoch's rollover downloads anew."""
+    from cosmos_predict2_tpu_torch.utils import easy_io
+
+    paths, (port_be, _) = _remote_shards(tmp_path / "local", "s3", store)
+    fetched = []
+
+    class Recording:
+        def get(self, path):
+            fetched.append(path)
+            return port_be.get(path)
+
+    easy_io.register_backend("s3", Recording())
+    spool = tmp_path / "spool"
+    ds = tload.ShardedTarDataset(paths, shuffle_seed=None, spool_dir=str(spool))
+    it = iter(ds)
+    held = []
+    for i in range(10):  # an epoch of 9 samples, and the next epoch's first
+        sample = next(it)
+        for fut in list(ds.spool._futures.values()):
+            fut.result()
+        held.append(sorted(p.name.split("_", 1)[1] for p in spool.iterdir()))
+        assert sample["__key__"] == f"{i % 9:03d}"
+    name = lambda s: f"shard_{s:05d}.tar"
+    # shard 0 read, shard 1 fetched ahead from the first sample on
+    assert held[0] == [name(0), name(1)] and held[3] == [name(1), name(2)]
+    assert held[6] == [name(2)]  # the last shard: nothing to fetch ahead
+    assert held[9] == [name(0), name(1)]  # the next epoch downloads again
+    assert max(len(h) for h in held) == 2 and not list(spool.glob("*.part"))
+    # each shard once an epoch (shard i + 1's prefetch may start before shard i's own fetch)
+    assert sorted(fetched) == sorted([paths[0], paths[1], paths[2], paths[0], paths[1]])
 
 
 def test_joint_cached_and_watchdog_loaders_equal_jax():
