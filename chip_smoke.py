@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Video2World serving and training paths (dense, sparse, DMD2, 14B), the HTTP server with its guardrails, its streaming, forward-mode, released-weights, autoregressive, Text2Image, one-shot-VAE and post-training (LoRA, local clips, tar shards from an S3 store under the profiler, remat, bf16 moments) paths, the post-trained variants (multiview, camera, action) and the gr00t action stream, Wan2.1 i2v, the Wan2.2 VAE, EDM and the 14B sparse pair, and the prompt encoders (Reason1 through the CLI, umT5 and CLIP into Wan i2v, T5-11B, the Qwen2.5-VL vision tower, SigLIP, XLM-R), and the training of self-forcing DMD2 (the causal 2B), Wan2.1 and EDM, once on one NVIDIA GPU.
+"""Drive the PyTorch port's Video2World serving and training paths (dense, sparse, DMD2, 14B), the HTTP server with its guardrails, its streaming, forward-mode, released-weights, autoregressive, Text2Image, one-shot-VAE and post-training (LoRA, local clips, tar shards from an S3 store under the profiler, remat, bf16 moments) paths, the post-trained variants (multiview, camera, action) and the gr00t action stream, Wan2.1 i2v, the Wan2.2 VAE, EDM and the 14B sparse pair, and the prompt encoders (Reason1 through the CLI, umT5 and CLIP into Wan i2v, T5-11B, the Qwen2.5-VL vision tower, SigLIP, XLM-R), and the training of self-forcing DMD2 (the causal 2B), Wan2.1 and EDM, and context parallelism (Ulysses, ring, the head-sharded stream, halo'd VAE slabs), once on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
@@ -139,13 +139,12 @@ Phases, each printed with its wall time:
    end; the released LoRA recipe
    (predict2_lora_training_2b_cosmos_nemo_assets: the full-width 2B DiT
    frozen under rank-32 adapters, 93 frames at 704x1280, 84,480 tokens,
-   batch 1) through training/train.py's main for 2 iterations saved at 2,
-   then 1 resumed from the checkpoint: finite losses, K1 112, K7 56 and K8
+   batch 1) through training/train.py's main for 2 iterations saved at 2
+   (the resumed third iteration is cut): finite losses, K1 112, K7 56 and K8
    56 per step and K2 in the data phase, the native media ops taken (not
    their NumPy fallback), the base bit-equal, adapters (every B) and their
-   EMA moved, an adapter-only checkpoint and a resume equal to it; the
-   trainable count, the split of step 2, tokens/s, peak memory and step 3
-   under torch.profiler (device time by kernel); then the full fine-tune recipe
+   EMA moved, an adapter-only checkpoint equal to the state; the
+   trainable count, the split of step 2, tokens/s and peak memory; then the full fine-tune recipe
    on the same folder at 192x320, one warm-up and 2 timed steps under
    (selective, bf16 moments) and (mixed:14, bf16): K1 56 and 84 per step,
    K7 and K8 56, step time and peak memory beside phase 7's ((block, fp32)
@@ -262,7 +261,24 @@ Phases, each printed with its wall time:
    192x320, one warm-up and two timed steps, 112 K1 and 56 K7 and K8 a
    step, sigma_mean; a narrow self-forcing generator and critic step, Wan
    step and EDM step in bf16 on the card against fp32 on the CPU at phase
-   6's limits.
+   6's limits;
+20. context parallelism (cosmos_predict2_tpu_torch/parallel/): the
+   reckoning of what cp = 4 moves; (a) the real entry at the machine's
+   world size, torch.cuda.device_count() NCCL ranks through
+   parallel/launch.py's init_distributed and make_mesh(cp=world) (in this
+   process on one card, spawned on more; no collective is skipped at world
+   size 1): the full-width 2B DiT at 720p (24 x 88 x 160 latents, 84,480
+   tokens; 4 of 28 blocks) through Ulysses and through ring, the sparse
+   2B's Ulysses + NA block, and the causal 2B stream at 88 x 160 with
+   head-sharded caches (dense, then the 14-row window), each against the
+   same net unsharded, with exact launches; (b) the rank programs of cp = 4
+   at full width on this card, each fed the shards the collectives would
+   deliver and assembled against the unsharded kernel: K1 at 84,480 tokens
+   x 4 heads (Ulysses) and 4 x 4 blocks of 21,120 x 21,120 x 16 heads
+   merged by lse (ring), K10 on 4 head shards, K5 and K6 on head-sharded
+   caches of 9 frames x 3,520 tokens, K2 on halo'd 720p decoder slabs,
+   cropped; (c) scripts/interactive_latency.py's --cp-proxy at 720p for
+   k = 2 and 4 beside the card's name and power limit.
 
 Then it prints the kernels' JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero without that line.
@@ -274,6 +290,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2876,7 +2893,9 @@ def _equal_states(a, b) -> bool:
 def lora_posttrain_slice(root: Path) -> dict:
     """The LoRA recipe through training/train.py's main at its geometry (93
     frames at 704x1280, 84,480 tokens, batch 1, rank 32) on the local folder:
-    2 iterations saved at 2, then 1 resumed from the checkpoint."""
+    2 iterations saved at 2. (A cut: the run resumed from that checkpoint for
+    a third iteration, ~48 s on an H100, left to make room for phase 20; the
+    CPU tests hold the resume.)"""
     import torch
 
     from cosmos_predict2_tpu_torch import _build
@@ -2901,25 +2920,20 @@ def lora_posttrain_slice(root: Path) -> dict:
     fresh_memory()
     native.route_counts.update(native=0, numpy=0)
     _build.reset_launch_counts()
-    first, second = StepProbe(keep_base=True, grads_of=".lora_A"), StepProbe(keep_base=True, profile_step=3)
+    first = StepProbe(keep_base=True, grads_of=".lora_A")
     t0 = time.perf_counter()
     if main(args + ["trainer.max_iter=2"], callbacks=[first]) != 0:
         raise AssertionError("the LoRA run exited non-zero")
     first_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     saved = Checkpointer(str(ckpt_dir)).read()
-    fresh_memory()
-    t0 = time.perf_counter()
-    if main(args + ["trainer.max_iter=3"], callbacks=[second]) != 0:
-        raise AssertionError("the resumed LoRA run exited non-zero")
-    resumed_s = time.perf_counter() - t0
     counts = _build.launch_counts()
     routes = dict(native.route_counts)
-    log(f"  launches over both runs: {counts}; media ops by route: {routes}")
+    log(f"  launches: {counts}; media ops by route: {routes}")
 
-    steps = first.steps + second.steps
-    if len(steps) != 3 or not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps):
-        raise AssertionError(f"losses {[s['loss'] for s in steps]}: want 3 finite")
+    steps = first.steps
+    if len(steps) != 2 or not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps):
+        raise AssertionError(f"losses {[s['loss'] for s in steps]}: want 2 finite")
     check_step_launches("the LoRA run", steps, 4 * NUM_BLOCKS)
     if counts["conv3d_causal"] == 0:
         raise AssertionError("K2 never ran in the LoRA run's VAE encode")
@@ -2935,33 +2949,28 @@ def lora_posttrain_slice(root: Path) -> dict:
     moved = {g: [n for n, t in first.start[g].items() if not torch.equal(first.end[g][n], t)]
              for g in ("params", "ema_params")}
     b_names = [n for n in first.start["params"] if n.endswith(".lora_B")]
-    a_moved_by_3 = sum(not torch.equal(second.end["params"][n], t) for n, t in first.start["params"].items()
-                       if n.endswith(".lora_A"))
     log(f"  after 2 iterations: {len(moved['params'])} of {len(first.start['params'])} adapter tensors moved "
-        f"(every lora_B: {set(b_names) <= set(moved['params'])}), {len(moved['ema_params'])} of their EMA; "
-        f"after 3: {a_moved_by_3} of {len(b_names)} lora_A")
+        f"(every lora_B: {set(b_names) <= set(moved['params'])}), {len(moved['ema_params'])} of their EMA")
     if not (set(b_names) <= set(moved["params"]) and set(b_names) <= set(moved["ema_params"])):
         raise AssertionError("an adapter's B or its EMA did not move")
-    if not (first.base_same and second.base_same):
+    if not first.base_same:
         raise AssertionError("the frozen base weights changed")
     if saved["step"] != 2 or not all(k.endswith((".lora_A", ".lora_B")) for k in saved["params"]):
         raise AssertionError("the checkpoint is not the adapters' at iteration 2")
     if not _equal_states({"params": saved["params"], "ema_params": saved["ema_params"],
                           "optimizer": saved["optimizer"]["state"]}, first.end):
         raise AssertionError("the checkpoint does not hold the first run's adapters, EMA and optimizer state")
-    if second.start_step != 2 or not _equal_states(second.start, first.end):
-        raise AssertionError("the resumed state is not the saved one")
     trainable = count_lora_params(first.end["params"])
-    timed = steps[1]  # step 1 warms up; step 3 runs under torch.profiler
+    timed = steps[1]  # step 1 warms up
     out = {"counts": counts, "routes": routes, "trainable": trainable, "tokens": tokens, "peak_gb": peak_gb,
-           "first_run_s": first_s, "resumed_run_s": resumed_s, "profile": second.profile,
+           "first_run_s": first_s,
            **{k: timed[k] for k in ("data_s", "forward_backward_s", "optimizer_s", "step_s")}}
     log(f"  {LORA_EXPERIMENT}: {trainable:,} trainable parameters (rank-32 adapters); step 2: data+vae "
         f"{out['data_s']:.3f} s, fwd+bwd {out['forward_backward_s']:.3f} s, optimizer+ema {out['optimizer_s']:.3f} s; "
         f"{tokens} tokens/step: {tokens / out['step_s']:.0f} tokens/s over the train step, "
         f"{tokens / (out['step_s'] + out['data_s']):.0f} over the iteration; peak device memory {peak_gb:.2f} GiB "
-        f"(first run); runs {first_s:.1f} s + {resumed_s:.1f} s (resumed); base weights bit-equal, adapters and "
-        f"EMA moved, the resume equal to the checkpoint")
+        f"; run {first_s:.1f} s; base weights bit-equal, adapters and EMA moved, the checkpoint equal to the "
+        f"state")
     return out
 
 
@@ -3101,8 +3110,8 @@ def small_posttrain_reference() -> None:
 
 
 def posttrain_slice() -> dict:
-    """Phase 15: the local folder, the LoRA recipe at 704x1280 and its resume,
-    the full fine-tune rows at 192x320 and the small references; the folder
+    """Phase 15: the local folder, the LoRA recipe at 704x1280, the full
+    fine-tune rows at 192x320 and the small references; the folder
     is deleted at the end."""
     import shutil
 
@@ -5216,6 +5225,353 @@ def training_variants_slice() -> dict:
     return out
 
 
+# ---------------- context parallelism (phase 20) ----------------
+
+CP_LATENT = (24, 88, 160)  # 93 frames at 704x1280: 24 x 44 x 80 = 84,480 tokens
+CP_DEPTH = 4  # blocks of the full-width 2B nets in (a) (a cut: depth)
+CP_STREAM_HW = (88, 160)  # the stream's latent frame at 720p: 3,520 tokens a block
+CP_STREAM_CACHE = 8  # frames the stream's cache holds beside the block (8 + 1: 31,680 tokens)
+CP_STREAM_BLOCKS = 2  # streamed one-frame blocks after one prefilled frame
+CP_WINDOW = 2 * INTERACTIVE_WINDOW  # the 720p row window (phase 3's 720p K6 case)
+CP_SHARDS = 4  # the cp degree of (b)'s rank programs
+CP_PROXY_KS = (2, 4)
+CP_PROXY_BLOCKS = 4
+
+
+def _cp_nets(device):
+    """(a)'s nets on seeded weights: the dense 2B at full width and CP_DEPTH
+    blocks, the sparse 2B's NA block (one block, the sparse recipe's window),
+    and their configs."""
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.networks.dit import build_serving_dit
+
+    dense_cfg = dataclasses.replace(make_config(DENSE_EXPERIMENT).model.net, num_blocks=CP_DEPTH, remat="none")
+    sparse_cfg = dataclasses.replace(make_config(SPARSE_EXPERIMENT).model.net, num_blocks=1, n_dense_blocks=0,
+                                     natten_parameters=None, remat="none")
+    return build_serving_dit(dense_cfg, device, seed=0), build_serving_dit(sparse_cfg, device, seed=1)
+
+
+def cp_entry(world: int, device: str = "cuda") -> dict:
+    """(a): on every rank of a NCCL group of ``world`` (one card each,
+    parallel/launch.py::init_distributed, a mesh of cp = world): the 2B DiT
+    at 720p through Ulysses and through ring, the sparse 2B's Ulysses + NA
+    block, and the causal 2B stream at 720p with head-sharded caches (dense,
+    then with the row window), each against the same net unsharded on the
+    rank; launches counted per path, from 0 just before it."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.conditioning.conditioner import make_condition
+    from cosmos_predict2_tpu_torch.networks.dit import set_context_parallel
+    from cosmos_predict2_tpu_torch.parallel.comm import COMM
+    from cosmos_predict2_tpu_torch.parallel.launch import init_distributed, world_info
+    from cosmos_predict2_tpu_torch.parallel.mesh import make_mesh
+    from cosmos_predict2_tpu_torch.scripts import interactive_latency as il
+
+    info = init_distributed(device=device)
+    dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else torch.device(device)
+    group = make_mesh(cp=world, device_type=dev.type).get_group("cp")
+    rank = info["process_index"]
+    out = {"world": world_info(), "paths": {}}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    dense, sparse = _cp_nets(dev)
+    T, H, W = CP_LATENT
+    text_dim = dense.cfg.crossattn_proj_in_channels if dense.cfg.use_crossattn_projection else \
+        dense.cfg.crossattn_emb_channels
+    x = torch.randn((1, 16, T, H, W), generator=gen, device=dev)
+    ctx = (torch.randn((1, 512, text_dim), generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+    ts = torch.full((1,), 700.0, device=dev)
+
+    def drive(name, net, strategy, want):
+        """net unsharded, then context-parallel by ``strategy``: the errors of the CP output and its launches."""
+        set_context_parallel(net, None)
+        with torch.no_grad():
+            ref = net(x, ts, ctx)
+        net.cfg = dataclasses.replace(net.cfg, cp_strategy=strategy)
+        set_context_parallel(net, group)
+        torch.cuda.synchronize()
+        COMM.reset()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            got = net(x, ts, ctx)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        set_context_parallel(net, None)
+        max_abs, rel = errors(got, ref)
+        ok = bool(torch.isfinite(got).all()) and got.shape == ref.shape and rel <= KERNEL_REL_L2
+        seen = {k: counts[k] for k in want}
+        out["paths"][name] = {"counts": counts, "max_abs": max_abs, "rel_l2": rel, "s": wall,
+                              "comm_bytes": dict(COMM.bytes), "comm_calls": dict(COMM.calls)}
+        if rank == 0:
+            log(f"  (a) {name}: cp={world} vs unsharded on rank 0: max_abs {max_abs:.3e} rel_l2 {rel:.3e} (limit "
+                f"{KERNEL_REL_L2}); {wall:.2f} s; launches {seen} (want {want}); collectives {dict(COMM.calls)}, "
+                f"bytes in {dict(COMM.bytes)}")
+        if not ok or seen != want:
+            raise AssertionError(f"(a) {name}: rel_l2 {rel:.3e}, launches {seen}, want {want}")
+
+    # a block: one self-attention (Ulysses) or one K1 per ring step (world), and the cross-attention
+    drive("cp_ulysses", dense, "ulysses", {"flash_attention_fwd": 2 * CP_DEPTH})
+    drive("cp_ring", dense, "ring", {"flash_attention_fwd": (world + 1) * CP_DEPTH})
+    drive("cp_sparse", sparse, "ulysses", {"na_fwd": 1, "flash_attention_fwd": 1})
+    del dense, sparse
+    fresh_memory()
+
+    # the causal 2B stream at 720p, head-sharded caches, against the same loop unsharded
+    h, w = CP_STREAM_HW
+    cfg = dataclasses.replace(il.NET_2B, num_blocks=CP_DEPTH)
+    noise = [torch.randn((1, 16, 1, h, w), generator=gen, device=dev) for _ in range(CP_STREAM_BLOCKS)]
+    init = torch.randn((1, 16, 1, h, w), generator=gen, device=dev)
+    for window, kernel in ((-1, "flash_attention_kv_cache"), (CP_WINDOW, "flash_attention_kv_cache_window")):
+        stream = il.build_stream(cfg, 1, CP_STREAM_CACHE, INTERACTIVE_STEPS, window, dev, seed=2)
+        cond = il.text_condition(stream, dev)
+        run = lambda: stream.generate(cond, init, 1 + CP_STREAM_BLOCKS, (h, w), draw=lambda s, shape: noise[s])
+        ref = run()
+        set_context_parallel(stream.model.net, group)
+        heads = stream.model.init_kv_caches(1, 1, h, w, dev)[0]["k"].shape[1]
+        torch.cuda.synchronize()
+        COMM.reset()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        max_abs, rel = errors(got, ref)
+        n = CP_DEPTH * (1 + CP_STREAM_BLOCKS * (INTERACTIVE_STEPS + 1))
+        want = {kernel: n, "flash_attention_fwd": n}
+        seen = {k: counts[k] for k in want}
+        name = "cp_stream" if window < 0 else "cp_stream_window"
+        out["paths"][name] = {"counts": counts, "max_abs": max_abs, "rel_l2": rel, "s": wall, "cache_heads": heads,
+                              "comm_bytes": dict(COMM.bytes), "comm_calls": dict(COMM.calls)}
+        if rank == 0:
+            log(f"  (a) {name}: causal 2B ({CP_DEPTH} blocks) at {h}x{w}, {CP_STREAM_BLOCKS} blocks after a "
+                f"prefilled frame, caches of {heads} of 16 heads a rank: cp={world} vs unsharded max_abs {max_abs:.3e} "
+                f"rel_l2 {rel:.3e} (limit {STREAM_REL_L2}); {wall:.2f} s; launches {seen} (want {want}); bytes into "
+                f"collectives {dict(COMM.bytes)}")
+        if not (bool(torch.isfinite(got).all()) and rel <= STREAM_REL_L2 and seen == want
+                and heads == 16 // world):
+            raise AssertionError(f"(a) {name}: rel_l2 {rel:.3e}, launches {seen}, heads {heads}")
+        del stream, cond, ref, got
+        fresh_memory()
+    return out
+
+
+def _cp_rank(rank: int, world: int, port: int, result_dir: str, device: str = "cuda") -> None:
+    """One spawned rank of (a) on a machine with several cards."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from cosmos_predict2_tpu_torch.parallel.launch import shutdown_distributed
+
+    try:
+        res = cp_entry(world, device)
+    finally:
+        shutdown_distributed()
+    (Path(result_dir) / f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def cp_world_slice(device: str = "cuda") -> dict:
+    """(a) at the machine's world size: every card a NCCL rank. One card:
+    the rank runs in this process; more: spawned, one process a card."""
+    import torch
+
+    world = torch.cuda.device_count()
+    log(f"  (a) world size {world} (torch.cuda.device_count()), {'NCCL' if device == 'cuda' else device}, "
+        "tcp://localhost")
+    port = _free_port()
+    if world == 1:
+        saved = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        from cosmos_predict2_tpu_torch.parallel.launch import shutdown_distributed
+
+        try:
+            return cp_entry(1, device)
+        finally:
+            shutdown_distributed()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    import torch.multiprocessing as mp
+
+    result_dir = OUT_DIR / "cp_ranks"
+    result_dir.mkdir(parents=True, exist_ok=True)
+    mp.spawn(_cp_rank, args=(world, port, str(result_dir), device), nprocs=world, join=True)
+    return json.loads((result_dir / "rank0.json").read_text())
+
+
+def _shard_heads(fn, tensors, shards: int, head_dim_of):
+    """fn over head shards of ``tensors`` (each with its heads at
+    ``head_dim_of[i]``), the outputs concatenated on their head dim 2."""
+    import torch
+
+    outs = []
+    for r in range(shards):
+        part = []
+        for t, hd in zip(tensors, head_dim_of):
+            n = t.shape[hd] // shards
+            part.append(t.narrow(hd, r * n, n).contiguous())
+        outs.append(fn(*part))
+    return torch.cat(outs, dim=2)
+
+
+def cp_rank_programs(smi: str) -> dict:
+    """(b): the rank programs of cp = CP_SHARDS at full width on this card.
+    Each rank's local computation gets the shards the collectives would
+    deliver; the results are assembled and held against the unsharded
+    kernel's at KERNEL_REL_L2; one rank's program is timed (CUDA events)."""
+    import torch
+    import torch.nn.functional as F
+
+    from cosmos_predict2_tpu_torch.ops import neighborhood_attention as na
+    from cosmos_predict2_tpu_torch.ops.conv3d import conv3d_causal
+    from cosmos_predict2_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd,
+        flash_attention_kv_cache,
+        flash_attention_kv_cache_window,
+    )
+    from cosmos_predict2_tpu_torch.parallel.ring_attention import merge
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    c = CP_SHARDS
+    rows = []
+
+    def hold(name, got, ref, rank_ms, whole_ms, note):
+        max_abs, rel = errors(got, ref)
+        rows.append({"name": name, "max_abs": max_abs, "rel_l2": rel, "rank_ms": rank_ms, "whole_ms": whole_ms})
+        log(f"  (b) {name}: assembled vs unsharded max_abs {max_abs:.3e} rel_l2 {rel:.3e} (limit {KERNEL_REL_L2}); "
+            f"one rank's program {rank_ms:.3f} ms, the unsharded call {whole_ms:.3f} ms; {note}")
+        if not (bool(torch.isfinite(got).all()) and rel <= KERNEL_REL_L2):
+            raise AssertionError(f"(b) {name}: rel_l2 {rel:.3e}")
+
+    T, Hl, Wl = CP_LATENT
+    S, H, D = T * (Hl // 2) * (Wl // 2), 16, 128
+    q, k, v = (torch.randn((1, S, H, D), generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+    ref, _ = flash_attention_fwd(q, k, v)
+    whole = cuda_ms(lambda: flash_attention_fwd(q, k, v), 0, 1)
+    got = _shard_heads(lambda a, b, d: flash_attention_fwd(a, b, d)[0], (q, k, v), c, (2, 2, 2))
+    qs = q[:, :, :H // c].contiguous()
+    ks, vs = k[:, :, :H // c].contiguous(), v[:, :, :H // c].contiguous()
+    hold("K1 Ulysses", got, ref, cuda_ms(lambda: flash_attention_fwd(qs, ks, vs), 0, 1), whole,
+         f"{S} tokens x {H // c} heads a rank")
+    del qs, ks, vs
+    # ring: rank r's queries against each source shard in ring order, merged by lse
+    sl = S // c
+    parts = []
+    for r in range(c):
+        qr = q[:, r * sl:(r + 1) * sl].contiguous()
+        acc = (torch.zeros((1, sl, H, D), dtype=torch.float32, device=dev),
+               torch.full((1, H, sl), float("-inf"), dtype=torch.float32, device=dev))
+        for step in range(c):
+            src = (r - step) % c
+            acc = merge(acc, flash_attention_fwd(qr, k[:, src * sl:(src + 1) * sl].contiguous(),
+                                                 v[:, src * sl:(src + 1) * sl].contiguous()))
+        parts.append(acc[0].to(torch.bfloat16))
+    got = torch.cat(parts, dim=1)
+    q0, k0, v0 = (t[:, :sl].contiguous() for t in (q, k, v))
+    hold("K1 ring", got, ref, c * cuda_ms(lambda: flash_attention_fwd(q0, k0, v0), 0, 1), whole,
+         f"{c} x {c} blocks of {sl} x {sl} x {H} heads, merged by lse in fp32; a rank's {c} blocks")
+    del q0, k0, v0, parts, got, ref
+    # K10 on head shards: the sparse 2B's 720p window
+    grid = (T, Hl // 2, Wl // 2)
+    size = na.VideoSize(*grid)
+    wdw, std, dil = na.adaptive_na_parameters((-1, 12, 24), (1, 4, 8), grid, NA_BASE, (1, 1, 1))
+    nat = lambda a, b, d: na.neighborhood_attention(a, b, d, size, wdw, std, dil)
+    ref = nat(q, k, v)
+    whole = cuda_ms(lambda: nat(q, k, v), 0, 1)
+    got = _shard_heads(nat, (q, k, v), c, (2, 2, 2))
+    qs, ks, vs = (t[:, :, :H // c].contiguous() for t in (q, k, v))
+    hold("K10 Ulysses + NA", got, ref, cuda_ms(lambda: nat(qs, ks, vs), 0, 1), whole,
+         f"window {wdw} stride {std} on {grid}, {H // c} heads a rank (layout copies included)")
+    del q, k, v, qs, ks, vs, ref, got
+    fresh_memory()
+    # K5 / K6 on head-sharded caches of 9 frames of 3,520 tokens
+    gh, gw = CP_STREAM_HW[0] // 2, CP_STREAM_HW[1] // 2
+    sb, smax = gh * gw, (CP_STREAM_CACHE + 1) * gh * gw
+    qb = torch.randn((1, sb, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    kb, vb = (torch.randn((1, H, smax, D), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    for name, fn in (("K5 head-sharded cache", lambda a, b, d: flash_attention_kv_cache(a, b, d, smax)),
+                     ("K6 head-sharded cache", lambda a, b, d: flash_attention_kv_cache_window(
+                         a, b, d, smax, (gh, gw), CP_WINDOW))):
+        ref = fn(qb, kb, vb)
+        whole = cuda_ms(lambda: fn(qb, kb, vb), 0, 3)
+        got = _shard_heads(fn, (qb, kb, vb), c, (2, 1, 1))
+        qs, ks, vs = qb[:, :, :H // c].contiguous(), kb[:, :H // c].contiguous(), vb[:, :H // c].contiguous()
+        hold(name, got, ref, cuda_ms(lambda: fn(qs, ks, vs), 0, 3), whole,
+             f"q {sb} tokens, cache {smax} tokens, {H // c} heads a rank")
+    del qb, kb, vb, qs, ks, vs
+    fresh_memory()
+    # K2 on halo'd 720p decoder slabs of a 2 x 2 grid, cropped
+    for label, (t_in, ch, hh, ww) in (("K2 halo'd decoder slab 88x160 384->384", (4, 384, 88, 160)),
+                                      ("K2 halo'd decoder slab 704x1280 96->96", (3, 96, 704, 1280))):
+        xw = torch.randn((1, t_in, hh, ww, ch), generator=gen, device=dev).to(torch.bfloat16)
+        wt = (torch.randn((3, 3, 3, ch, ch), generator=gen, device=dev) / (27 * ch) ** 0.5).to(torch.bfloat16)
+        bias = torch.zeros(ch, device=dev)
+        ref = conv3d_causal(xw, wt, bias)
+        whole = cuda_ms(lambda: conv3d_causal(xw, wt, bias), 0, 1)
+        padded = F.pad(xw, (0, 0, 1, 1, 1, 1))  # zeros beyond the clip: the halo an edge rank gets
+        h2, w2 = hh // 2, ww // 2
+        got = torch.empty_like(ref)
+        for ih in range(2):
+            for iw in range(2):
+                slab = padded[:, :, ih * h2:ih * h2 + h2 + 2, iw * w2:iw * w2 + w2 + 2].contiguous()
+                got[:, :, ih * h2:(ih + 1) * h2, iw * w2:(iw + 1) * w2] = conv3d_causal(slab, wt, bias)[:, :, 1:-1, 1:-1]
+        slab = padded[:, :, :h2 + 2, :w2 + 2].contiguous()
+        hold(label, got, ref, cuda_ms(lambda: conv3d_causal(slab, wt, bias), 0, 1), whole,
+             f"T_in {t_in}, a rank's slab {h2 + 2}x{w2 + 2} with its 1-pixel halo, cropped to {h2}x{w2}")
+        del xw, padded, slab, ref, got
+        fresh_memory()
+    return {"rows": rows}
+
+
+def cp_proxy_slice(smi: str) -> dict:
+    """(c): scripts/interactive_latency.py's --cp-proxy at 720p for k in
+    CP_PROXY_KS on this card (the full causal 2B, 28 blocks)."""
+    from cosmos_predict2_tpu_torch.scripts import interactive_latency as il
+
+    fresh_memory()
+    rows = il.cp_proxy_ladder(CP_STREAM_HW, cache_frames=CP_STREAM_CACHE, blocks=CP_PROXY_BLOCKS, ks=CP_PROXY_KS,
+                              device="cuda", verbose=False)
+    for r in rows:
+        log(f"  (c) cp-proxy 720p cp={r['cp']}: block {r['block_s'] * 1e3:.1f} ms = outside attention "
+            f"{r['nonattn_s'] * 1e3:.1f} + attention {r['attn_s'] * 1e3:.1f} + all-to-all {r['a2a_s'] * 1e3:.3f} ms "
+            f"({r['measured']}) -> {r['pixel_fps']:.1f} pixel fps on {smi}")
+    return {"rows": rows}
+
+
+def context_parallel_slice(smi: str) -> dict:
+    """Phase 20: (a) the real entry at the machine's world size, (b) the
+    rank programs of cp = 4 at full width, (c) the cp-proxy ladder; with the
+    reckoning of what cp = 4 would move."""
+    T, H, W = CP_LATENT
+    tokens = T * (H // 2) * (W // 2)
+    share = tokens // CP_SHARDS * 16 * 128 * 2  # a rank's q, k, v or output at cp = 4, bf16
+    cache = NUM_BLOCKS * 2 * 16 * (CP_STREAM_CACHE + 1) * (CP_STREAM_HW[0] // 2) * (CP_STREAM_HW[1] // 2) * 128 * 2
+    log(f"  reckoning at cp={CP_SHARDS}, {tokens} tokens: Ulysses moves 4 x {share / 1e6:.1f} MB x 3/4 = "
+        f"{4 * share * 3 / 4 / 1e6:.1f} MB a rank per self-attention, {NUM_BLOCKS * 4 * share * 3 / 4 / 1e9:.2f} GB "
+        f"a {NUM_BLOCKS}-block forward; ring {2 * share * (CP_SHARDS - 1) / 1e6:.1f} MB a rank per call; the "
+        f"720p cache ({CP_STREAM_CACHE} + 1 frames) {cache / 1e9:.2f} GB whole, {cache / CP_SHARDS / 1e9:.2f} GB a rank")
+    a = cp_world_slice()
+    b = cp_rank_programs(smi)
+    c = cp_proxy_slice(smi)
+    return {"world": a["world"], "paths": a["paths"], "programs": b["rows"], "proxy": c["rows"]}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)  # --help; no options
     t_start = time.perf_counter()
@@ -5288,7 +5644,7 @@ def main(argv=None) -> int:
     del pipe
     with Phase("14B: text2world on predict2_video2world_14b_rectified_flow"):
         big = fourteen_b_slice()
-    with Phase("post-training: LoRA at 704x1280 and its resume, full fine-tune rows at 192x320, small references"):
+    with Phase("post-training: LoRA at 704x1280, full fine-tune rows at 192x320, small references"):
         post = posttrain_slice()
     log(f"  beside phase 7 (block remat, fp32 moments, mock data): step {tr['step_s']:.3f} s, peak "
         f"{tr['peak_gb']:.2f} GiB")
@@ -5304,6 +5660,9 @@ def main(argv=None) -> int:
         a15 = prompt_encoders_slice()
     with Phase("self-forcing DMD2 of the causal 2B, Wan 1.3B and EDM 2B training, narrow steps card vs CPU"):
         p19 = training_variants_slice()
+    with Phase("20, context parallelism: the 2B at 720p through Ulysses and ring, the sparse NA block and the 720p "
+               "stream on NCCL ranks; the cp=4 rank programs; the cp-proxy ladder"):
+        p20 = context_parallel_slice(smi)
     paths = {"serve": sl, "train": tr, "sparse_serve": ssl, "sparse_train": stl, "interactive": it,
              "interactive_window": itw, "fwdmode": fm, "fa_jvp": fj, "dmd2_serve": dsl, "distill": dtl,
              "released": rel, "autoregressive": ar, "text2image": t2i, "oneshot": osl, "serving_guardrails": sgd,
@@ -5314,7 +5673,8 @@ def main(argv=None) -> int:
              "wan22_vae": a13["wan22_vae"], "edm": a13["edm"],
              **{name: a13["sparse_14b"][name] for name in SPARSE_14B_EXPERIMENTS},
              "reason1": a15["reason1"], "wan_encoders": a15["wan_encoders"],
-             "self_forcing": p19["self_forcing"], "wan_train": p19["wan_train"], "edm_train": p19["edm_train"]}
+             "self_forcing": p19["self_forcing"], "wan_train": p19["wan_train"], "edm_train": p19["edm_train"],
+             **p20["paths"]}
     path_kernels = {
         "serve": ("flash_attention_fwd", "conv3d_causal"),
         "train": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal"),
@@ -5337,6 +5697,9 @@ def main(argv=None) -> int:
            for path in ("wan_train", "edm_train")},
         "wan22_vae": ("conv3d_causal",),
         **{name: ("flash_attention_fwd", "na_fwd") for name in SPARSE_14B_EXPERIMENTS},
+        "cp_ulysses": ("flash_attention_fwd",), "cp_ring": ("flash_attention_fwd",),
+        "cp_sparse": ("flash_attention_fwd", "na_fwd"), "cp_stream": ("flash_attention_fwd", "flash_attention_kv_cache"),
+        "cp_stream_window": ("flash_attention_fwd", "flash_attention_kv_cache_window"),
         **{path: ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal")
            for path in ("posttrain_lora", "posttrain_full", "remote_shards")},
     }

@@ -54,6 +54,14 @@ class Config:
     model: RFModelConfig = RFModelConfig()
     tokenizer: WanVAEConfig = WanVAEConfig()
     data_train: MockDataConfig | LocalVideoDatasetConfig = MockDataConfig()
+    # mesh axis sizes (parallel/mesh.py::make_mesh; dp from the remaining
+    # devices). The trainer runs on one device until its mesh is ported:
+    # training/train.py refuses sizes above 1. pp_size is validated == 1
+    # (no pipeline schedule exists, as in the JAX package and the reference)
+    fsdp_shard_size: int = 1
+    cp_size: int = 1
+    tp_size: int = 1
+    pp_size: int = 1
 
 
 # ------------------------------- groups -------------------------------

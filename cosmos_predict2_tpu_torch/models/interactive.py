@@ -15,7 +15,14 @@ denoise forward drops them, so its writes stay past ``len`` and are
 overwritten by the commit, which keeps them. The window slide rolls each
 buffer in place, one chunk at a time (``shift_cache_window``). So the loop
 holds one copy of the cache (28 x 2 x (B, 16, S_max, 128) bf16: 3.43 GB at
-352x640 with 16 + 1 frames). The action-conditioned gr00t names stream the
+352x640 with 16 + 1 frames).
+
+Under context parallelism (networks/dit.py::set_context_parallel on the
+model's net) every rank runs this same loop on the same replicated noise and
+latents; the net shards each block's tokens over the cp ranks, and each rank
+holds its head shard of every cache, (B, H/c, S_max, D), which never crosses
+ranks: the prefill, the denoise, the commit and the window slide act on it
+in place, and the sparse cache window applies per head shard. The action-conditioned gr00t names stream the
 same way: ``condition.action`` rides into every cached forward (prefill,
 denoise and commit).
 
@@ -43,6 +50,7 @@ from cosmos_predict2_tpu_torch.conditioning.conditioner import Video2WorldCondit
 from cosmos_predict2_tpu_torch.models.distillation import DistillationConfig, DistillationModel, trigflow_scalings_rf
 from cosmos_predict2_tpu_torch.models.video2world import RFModelConfig, Video2WorldModel
 from cosmos_predict2_tpu_torch.networks.dit import DiTConfig, MiniTrainDIT, cache_write
+from cosmos_predict2_tpu_torch.parallel import comm
 
 
 def causal_model_config(base_net: DiTConfig, num_frame_per_block: int = 1, **model_kwargs) -> RFModelConfig:
@@ -58,10 +66,19 @@ class CausalVideo2WorldModel(Video2WorldModel):
         dtype: torch.dtype = torch.bfloat16,
     ) -> list[dict]:
         """One cache per block: zeroed head-major (B, H, S_max, D) k / v ring
-        buffers on ``device`` and the filled length ``len`` (a host int)."""
+        buffers on ``device`` and the filled length ``len`` (a host int).
+        Under context parallelism (the net's ``cp_group``) each rank holds
+        its head shard, (B, H/c, S_max, D)."""
         cfg = self.config.net
         s_max = max_latent_frames * (latent_h // cfg.patch_spatial) * (latent_w // cfg.patch_spatial)
-        shape = (batch, cfg.num_heads, s_max, cfg.head_dim)
+        heads = cfg.num_heads
+        group = getattr(self.net, "cp_group", None)
+        if group is not None:
+            c = comm.group_size(group)
+            if heads % c:
+                raise ValueError(f"head-sharded kv caches: {heads} heads do not split over cp={c}")
+            heads //= c
+        shape = (batch, heads, s_max, cfg.head_dim)
         return [
             {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device),
              "len": 0}

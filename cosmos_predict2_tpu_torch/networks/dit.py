@@ -74,6 +74,18 @@ between self- and cross-attention.
 LoRA: a Linear that carries an ``adapter`` attribute (a module of
 training/lora.py, not registered in this net) adds ``adapter(x)`` to its
 output in :func:`linear`, unmerged: the frozen weight gets no gradient.
+
+Context parallelism (:func:`set_context_parallel`, the JAX package's
+``cp_axis``): every rank of the cp group holds the same replicated inputs
+and runs the same sampler; the net takes its rank's slab of the patch
+tokens on entry (parallel/mesh.py::TokenSlab: whole latent frames, or whole
+rows of one frame for a streaming block of one frame), with the slab's RoPE
+angles and timestep embeddings, and all-gathers the output on exit. Inside,
+self-attention runs by ``cfg.cp_strategy``: Ulysses (parallel/cp.py: K1, or
+K10 on a sparse block) or ring (parallel/ring_attention.py: K1 per block);
+a cached forward takes the head-sharded decode
+(``ulysses_kv_cache_attention``: K5 / K6 over (B, H/c, S_max, D) buffers);
+cross-attention stays local, the caption being replicated.
 """
 
 from __future__ import annotations
@@ -94,6 +106,10 @@ from cosmos_predict2_tpu_torch.ops.flash_attention import SavedAttention, kv_cac
 from cosmos_predict2_tpu_torch.ops.neighborhood_attention import VideoSize, adaptive_na_parameters, neighborhood_attention
 from cosmos_predict2_tpu_torch.ops.normalization import layer_norm, rms_norm
 from cosmos_predict2_tpu_torch.ops.rope import RopeSpec, apply_rope, rope_angles_3d
+from cosmos_predict2_tpu_torch.parallel import comm
+from cosmos_predict2_tpu_torch.parallel.cp import ulysses_attention, ulysses_kv_cache_attention
+from cosmos_predict2_tpu_torch.parallel.mesh import TokenSlab, divisible_cp, token_slab
+from cosmos_predict2_tpu_torch.parallel.ring_attention import ring_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,9 +189,15 @@ class DiTConfig:
     # "selective" also keeps the attention results, "mixed:K" is selective
     # on blocks < K and "block" after, "none" keeps every activation
     remat: str = "block"
+    # self-attention under context parallelism (set_context_parallel):
+    # "ulysses" (all-to-all head scatter, cp must divide num_heads) or
+    # "ring" (K/V hops around the cp ranks, any cp degree; forward only)
+    cp_strategy: str = "ulysses"
 
     def __post_init__(self):
         self.selective_blocks  # validates remat
+        if self.cp_strategy not in ("ulysses", "ring"):
+            raise ValueError(f"cp_strategy={self.cp_strategy!r}: want 'ulysses' or 'ring'")
 
     @property
     def selective_blocks(self) -> int:
@@ -227,6 +249,17 @@ class RMSNorm(nn.Module):
         return rms_norm(x, self.weight, self.eps)
 
 
+@dataclasses.dataclass(frozen=True)
+class ContextParallel:
+    """A forward's context parallelism: the cp process group, the
+    self-attention strategy and this rank's slab of the (T', H', W') patch
+    token grid."""
+
+    group: object
+    strategy: str
+    slab: TokenSlab
+
+
 class Attention(nn.Module):
     """Self- or cross-attention: bias-free projections, per-head q/k RMSNorm,
     RoPE on self-attention only."""
@@ -245,15 +278,17 @@ class Attention(nn.Module):
 
     def forward(
         self, x: torch.Tensor, context: Optional[torch.Tensor] = None, rope_angles=None, na=None, frame_group: int = 0,
-        kv_cache: Optional[dict] = None, cache_window: Optional[tuple] = None,
+        kv_cache: Optional[dict] = None, cache_window: Optional[tuple] = None, cp: Optional[ContextParallel] = None,
     ):
         """``na``: (video_size, window, stride, dilation) sends self-attention
         over a video of more than one frame to neighborhood attention;
         ``frame_group`` > 0 makes self-attention frame-block causal.
         ``kv_cache`` (self-attention only): attend over the cache with the
         new block appended in place; ``cache_window`` = ((gh, gw),
-        window_rows) selects the row-windowed decode. Returns (out, cache)
-        with ``kv_cache``, else out."""
+        window_rows) selects the row-windowed decode. With ``cp`` x is this
+        rank's slab of the tokens and self-attention runs context-parallel
+        (``na`` and ``frame_group`` of the whole sequence; the cache a head
+        shard). Returns (out, cache) with ``kv_cache``, else out."""
         ctx = x if context is None else context
         heads = lambda t: t.reshape(t.shape[:-1] + (self.n_heads, self.head_dim))
         q = self.q_norm(heads(linear(self.q_proj, x, self.dtype)))
@@ -264,7 +299,16 @@ class Attention(nn.Module):
             k = apply_rope(k, rope_angles)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         new_cache = None
-        if kv_cache is not None:
+        if cp is not None and context is None:
+            if kv_cache is not None:
+                out, new_cache = ulysses_kv_cache_attention(q, k, v, kv_cache, cp.group, cache_window)
+            elif na is not None and na[0][0] != 1:
+                out = ulysses_attention(q, k, v, cp.group, na=na)
+            elif cp.strategy == "ring":
+                out = ring_attention(q, k, v, cp.group, frame_group=frame_group)
+            else:
+                out = ulysses_attention(q, k, v, cp.group, frame_group=frame_group)
+        elif kv_cache is not None:
             out, new_cache = cached_attention(q, k, v, kv_cache, cache_window)
         elif context is None and na is not None and na[0][0] != 1:
             out = neighborhood_attention(q, k, v, *na)
@@ -460,13 +504,16 @@ class Block(nn.Module):
             out = out + adaln_lora
         return [c[:, :, None, None, :] for c in out.chunk(3, dim=-1)]  # (B, T, 1, 1, D)
 
-    def forward(self, x, emb, crossattn_emb, rope_angles, adaln_lora, kv_cache=None, camera=None):
+    def forward(self, x, emb, crossattn_emb, rope_angles, adaln_lora, kv_cache=None, camera=None, cp=None):
         """Returns x, or (x, cache) with ``kv_cache``. ``camera`` (B, T, H, W,
-        camera_dim) goes through ``cam_encoder`` when the block has one."""
+        camera_dim) goes through ``cam_encoder`` when the block has one.
+        With ``cp`` (a :class:`ContextParallel`) x is this rank's slab; the
+        attention geometry is the whole grid's."""
         B, T, H, W, D = x.shape
         cfg = self.cfg
         dt = cfg.dtype
         V = cfg.n_views
+        Tg, Hg, Wg = (T, H, W) if cp is None else cp.slab.grid
 
         def modulated(shift, scale):
             return (layer_norm(x) * (1.0 + scale) + shift).to(dt)
@@ -475,8 +522,8 @@ class Block(nn.Module):
         if self.na_params is not None:
             window, stride, dilation, base = self.na_params
             if base is not None:
-                window, stride, dilation = adaptive_na_parameters(window, stride, (T, H, W), base, dilation)
-            na = (VideoSize(T, H, W), tuple(window), tuple(stride), tuple(dilation))
+                window, stride, dilation = adaptive_na_parameters(window, stride, (Tg, Hg, Wg), base, dilation)
+            na = (VideoSize(Tg, Hg, Wg), tuple(window), tuple(stride), tuple(dilation))
 
         shift, scale, gate = self._mod("self_attn", emb, adaln_lora)
         normed = modulated(shift, scale)
@@ -484,11 +531,12 @@ class Block(nn.Module):
             normed = normed + linear(self.cam_encoder, camera, dt)
         attn_in = normed.reshape(B, T * H * W, D)
         if kv_cache is not None:
-            window = ((H, W), cfg.cache_na_window_rows) if cfg.cache_na_window_rows > 0 else None
-            out, kv_cache = self.self_attn(attn_in, rope_angles=rope_angles, kv_cache=kv_cache, cache_window=window)
+            window = ((Hg, Wg), cfg.cache_na_window_rows) if cfg.cache_na_window_rows > 0 else None
+            out, kv_cache = self.self_attn(attn_in, rope_angles=rope_angles, kv_cache=kv_cache, cache_window=window,
+                                           cp=cp)
         else:
-            frame_group = cfg.num_frame_per_block * H * W if cfg.temporal_causal else 0
-            out = self.self_attn(attn_in, rope_angles=rope_angles, na=na, frame_group=frame_group)
+            frame_group = cfg.num_frame_per_block * Hg * Wg if cfg.temporal_causal else 0
+            out = self.self_attn(attn_in, rope_angles=rope_angles, na=na, frame_group=frame_group, cp=cp)
         x = x + gate.to(x.dtype) * out.reshape(B, T, H, W, D).to(x.dtype)
 
         if hasattr(self, "cross_view_attn"):
@@ -650,6 +698,7 @@ class MiniTrainDIT(nn.Module):
             raise NotImplementedError("temporal_causal with sparse (neighborhood-attention) blocks")
         self.blocks = nn.ModuleList(Block(cfg, na_params) for na_params in layout)
         self.final_layer = FinalLayer(cfg)
+        self.cp_group = None  # set_context_parallel
 
     @property
     def view_embedding_channels(self) -> bool:
@@ -738,6 +787,17 @@ class MiniTrainDIT(nn.Module):
         if cfg.use_crossattn_projection:
             crossattn_emb = F.gelu(linear(self.crossattn_proj[0], crossattn_emb, cfg.dtype))
 
+        cp = self._context_parallel((Tt, Hp, Wp), cached=kv_caches is not None)
+        if cp is not None:  # this rank's slab of the tokens, its angles and its frames' embeddings
+            x = cp.slab.take(x)
+            t0, t1 = cp.slab.tokens
+            rope_angles = rope_angles[t0:t1]
+            emb = cp.slab.take_frames(emb)
+            if adaln_lora is not None:
+                adaln_lora = cp.slab.take_frames(adaln_lora)
+            if camera is not None:
+                camera = cp.slab.take(camera)
+
         remat = cfg.remat != "none" and torch.is_grad_enabled()
         new_caches = None if kv_caches is None else []
         intermediates = []
@@ -745,20 +805,23 @@ class MiniTrainDIT(nn.Module):
             if kv_caches is not None:
                 if remat:  # block remat under any remat setting: the cached attention keeps nothing to reuse
                     x, cache = checkpoint(block, x, emb, crossattn_emb, rope_angles, adaln_lora, use_reentrant=False,
-                                          kv_cache=kv_caches[i])
+                                          kv_cache=kv_caches[i], cp=cp)
                 else:
-                    x, cache = block(x, emb, crossattn_emb, rope_angles, adaln_lora, kv_cache=kv_caches[i])
+                    x, cache = block(x, emb, crossattn_emb, rope_angles, adaln_lora, kv_cache=kv_caches[i], cp=cp)
                 new_caches.append(cache)
             elif remat:
                 context_fn = (lambda: SavedAttention().contexts()) if i < cfg.selective_blocks else noop_context_fn
                 x = checkpoint(block, x, emb, crossattn_emb, rope_angles, adaln_lora, use_reentrant=False,
-                               context_fn=context_fn, camera=camera)
+                               context_fn=context_fn, camera=camera, cp=cp)
             else:
-                x = block(x, emb, crossattn_emb, rope_angles, adaln_lora, camera=camera)
+                x = block(x, emb, crossattn_emb, rope_angles, adaln_lora, camera=camera, cp=cp)
             if intermediate_feature_ids and i in intermediate_feature_ids:
-                intermediates.append(x.reshape(B, -1, cfg.model_channels))
+                xi = x if cp is None else cp.slab.gather(x, cp.group)
+                intermediates.append(xi.reshape(B, -1, cfg.model_channels))
 
         x = self.final_layer(x, emb, adaln_lora)
+        if cp is not None:
+            x = cp.slab.gather(x, cp.group)
         # B T H W (p1 p2 t C) -> B C (T t) (H p1) (W p2)
         x = x.reshape(B, Tt, Hp, Wp, ps, ps, pt, cfg.out_channels)
         x = x.permute(0, 7, 1, 6, 2, 4, 3, 5)
@@ -769,6 +832,20 @@ class MiniTrainDIT(nn.Module):
             return x, intermediates
         return x
 
+
+    def _context_parallel(self, grid: tuple[int, int, int], cached: bool) -> Optional[ContextParallel]:
+        """This forward's :class:`ContextParallel`, None without a cp group.
+        A full forward shards latent T (``divisible_cp``); a cached forward
+        shards the block's tokens, which may be rows of one frame."""
+        if self.cp_group is None:
+            return None
+        c, r = comm.group_size(self.cp_group), comm.group_rank(self.cp_group)
+        if self.cfg.n_views > 1:
+            raise NotImplementedError("context parallelism with a multiview net (views pack latent T)")
+        if not cached and not divisible_cp(grid[0], c):
+            raise ValueError(f"context parallelism shards latent T: {grid[0]} latent frames (after the temporal "
+                             f"patch) do not split over cp={c}")
+        return ContextParallel(self.cp_group, self.cfg.cp_strategy, token_slab(grid, c, r))
 
     def _add_action(self, emb: torch.Tensor, adaln_lora: Optional[torch.Tensor], action: Optional[torch.Tensor]):
         """The action embeddings added to the timestep embedding (B, T, D)
@@ -796,6 +873,15 @@ class MiniTrainDIT(nn.Module):
         if adaln_lora is not None:
             adaln_lora = adaln_lora + act_emb_3d
         return emb, adaln_lora
+
+
+def set_context_parallel(net: MiniTrainDIT, group) -> MiniTrainDIT:
+    """Run ``net``'s forwards context-parallel over the process group
+    ``group`` (a mesh's ``mesh.get_group("cp")``), or locally with None.
+    Every rank of the group calls the net with the same inputs; a cached
+    forward needs head-sharded caches (models/interactive.py)."""
+    net.cp_group = group
+    return net
 
 
 @torch.no_grad()

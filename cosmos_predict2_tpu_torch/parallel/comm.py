@@ -1,0 +1,110 @@
+"""The collectives of the context-parallel routes, and a log of what enters each.
+
+Every collective the port's CP code issues goes through this module:
+``all_to_all`` (Ulysses), ``all_gather`` (the net's exit, the VAE's middle
+attention), ``exchange`` (point-to-point: the ring's K/V hop and the VAE's
+halos). All-to-all and all-gather are the autograd-aware functions of
+``torch.distributed.nn.functional``, so a gradient flows back through them.
+
+:data:`COMM` counts, per kind, the calls and the bytes that enter them on
+this rank (a point-to-point call counts the tensors it sends). Inside
+``with COMM.recording() as records:`` each call also appends a
+:class:`CommRecord`, which the communication-pattern tests read.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import warnings
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+from torch.distributed.nn import functional as dist_fn
+
+# newer torch marks these autograd collectives deprecated in favour of a private module
+warnings.filterwarnings("ignore", message=r"torch\.distributed\.nn\.functional\.", category=FutureWarning)
+
+
+@dataclasses.dataclass(frozen=True)
+class CommRecord:
+    kind: str  # "all_to_all", "all_gather", "send"
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    nbytes: int
+    peer: Optional[int] = None  # a send's destination, a rank of its group
+
+
+class CommLog:
+    def __init__(self):
+        self.calls: dict[str, int] = {}
+        self.bytes: dict[str, int] = {}
+        self._records: Optional[list] = None
+
+    def reset(self) -> None:
+        self.calls.clear()
+        self.bytes.clear()
+
+    def add(self, kind: str, t: torch.Tensor, peer: Optional[int] = None) -> None:
+        nbytes = t.numel() * t.element_size()
+        self.calls[kind] = self.calls.get(kind, 0) + 1
+        self.bytes[kind] = self.bytes.get(kind, 0) + nbytes
+        if self._records is not None:
+            self._records.append(CommRecord(kind, tuple(t.shape), t.dtype, nbytes, peer))
+
+    @contextlib.contextmanager
+    def recording(self):
+        outer, self._records = self._records, []
+        try:
+            yield self._records
+        finally:
+            self._records = outer
+
+
+COMM = CommLog()
+
+
+def group_size(group) -> int:
+    return dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    return dist.get_rank(group)
+
+
+def all_to_all(chunks: torch.Tensor, group) -> torch.Tensor:
+    """``chunks`` (c, ...): chunk j goes to rank j of ``group``; returns
+    (c, ...) whose chunk j came from rank j. Differentiable."""
+    chunks = chunks.contiguous()
+    COMM.add("all_to_all", chunks)
+    return dist_fn.all_to_all_single(torch.empty_like(chunks), chunks, group=group)
+
+
+def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim``, in rank order. Differentiable."""
+    t = t.contiguous()
+    COMM.add("all_gather", t)
+    return torch.cat(dist_fn.all_gather(t, group=group), dim=dim)
+
+
+def exchange(sends: list[tuple[torch.Tensor, int]], recvs: list[tuple[torch.Tensor, int]], group) -> list:
+    """Post point-to-point sends of (tensor, group rank) and receives into
+    (buffer, group rank) as one batch; returns the requests to wait on.
+    Every tensor must be contiguous and stay alive until they are done.
+    Not differentiable."""
+    ops = []
+    for t, peer in sends + recvs:
+        if not t.is_contiguous():
+            raise ValueError(f"exchange: a {tuple(t.shape)} tensor is not contiguous")
+    for t, peer in sends:
+        COMM.add("send", t, peer)
+        ops.append(dist.P2POp(dist.isend, t, dist.get_global_rank(group, peer), group))
+    for buf, peer in recvs:
+        ops.append(dist.P2POp(dist.irecv, buf, dist.get_global_rank(group, peer), group))
+    return dist.batch_isend_irecv(ops) if ops else []
+
+
+def wait(requests: list) -> None:
+    for req in requests:
+        req.wait()

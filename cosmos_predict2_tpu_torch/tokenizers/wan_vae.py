@@ -170,19 +170,22 @@ class WanVAE(nn.Module):
         self.conv1 = nn.Conv3d(2 * config.z_dim, 2 * config.z_dim, 1)
         self.conv2 = nn.Conv3d(config.z_dim, config.z_dim, 1)
 
-    def encode(self, x: torch.Tensor, pixel_format: str = "float") -> torch.Tensor:
+    def encode(self, x: torch.Tensor, pixel_format: str = "float", grid=None) -> torch.Tensor:
         """(B, 1 + 4k, H, W, 3) pixels -> (B, 1 + k, H/8, W/8, 16) normalized
-        latents, the whole clip at once: wan_vae_streaming.encode_oneshot."""
+        latents, the whole clip at once: wan_vae_streaming.encode_oneshot.
+        ``grid`` (parallel/halo_conv.py::SpatialGrid): spatially sharded,
+        this rank's slabs in and out."""
         from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import encode_oneshot
 
-        return encode_oneshot(self, x, pixel_format)
+        return encode_oneshot(self, x, pixel_format, grid=grid)
 
-    def decode(self, z: torch.Tensor, pixel_format: str = "float") -> torch.Tensor:
+    def decode(self, z: torch.Tensor, pixel_format: str = "float", grid=None) -> torch.Tensor:
         """(B, t, h, w, 16) normalized latents -> (B, 1 + 4(t-1), 8h, 8w, 3)
-        pixels, the whole clip at once: wan_vae_streaming.decode_oneshot."""
+        pixels, the whole clip at once: wan_vae_streaming.decode_oneshot
+        (``grid`` as :meth:`encode`)."""
         from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import decode_oneshot
 
-        return decode_oneshot(self, z, pixel_format)
+        return decode_oneshot(self, z, pixel_format, grid=grid)
 
 
 @torch.no_grad()

@@ -14,6 +14,18 @@ of a batch at a time (the kernel takes batch 1); thin convs
 (the RGB input conv, the latent-side convs, the heads), 1x1x1, (3,1,1) and
 2D convs are plain torch. uint8 input is normalized on the device; uint8
 output is quantized on the device.
+
+Spatially sharded (``grid``, a parallel/halo_conv.py::SpatialGrid: H over
+one process group, W over another): every function takes and returns this
+rank's (H / gh, W / gw) slab. Each causal 3x3x3 conv takes a 1-row and
+1-column halo from its neighbours (zeros at the clip's border) and runs on
+the halo'd slab: the kernel (which pads H and W by 1 itself) then crops the
+border, a plain conv runs VALID. The stride-2 downsampling convs take the
+right and bottom halo only, the upsampling conv a 1-pixel halo before the
+upsample (cropped by 2 after it); 1x1x1 and temporal convs and the norms are
+local; the middle attention block all-gathers the frame for its keys and
+values. The per-rank frame caches hold the rank's slab and stay local.
+The JAX package gets the same function from GSPMD (tests/test_vae_sharded.py).
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ import torch.nn.functional as F
 
 from cosmos_predict2_tpu_torch.ops.conv3d import conv3d_causal, conv_weight_taps
 from cosmos_predict2_tpu_torch.ops.normalization import channel_l2_norm
+from cosmos_predict2_tpu_torch.parallel.halo_conv import SpatialGrid, halo_hw
 from cosmos_predict2_tpu_torch.tokenizers.wan_vae import (
     WAN_LATENT_MEAN,
     WAN_LATENT_STD,
@@ -93,15 +106,19 @@ def kernel_weight(conv: nn.Conv3d, dtype: torch.dtype) -> tuple[torch.Tensor, to
     return w, cached[1]
 
 
-def _stream_conv(conv: nn.Conv3d, x: torch.Tensor, cache: torch.Tensor, dtype: torch.dtype):
+def _stream_conv(conv: nn.Conv3d, x: torch.Tensor, cache: torch.Tensor, dtype: torch.dtype,
+                 grid: SpatialGrid | None = None):
     """Causal k_t = 3 conv with a 2-frame input cache (zeros at stream start)."""
     xin = torch.cat([cache.to(x.dtype), x], dim=1)
+    xh = xin if grid is None else halo_hw(xin, grid, 1, 1)
     if _use_kernel_conv(xin[:1], conv):  # a batch goes through the kernel one sample at a time
         w, w_taps = kernel_weight(conv, dtype)
         out = _per_sample(lambda xb: conv3d_causal(xb.to(dtype).contiguous(), w, conv.bias, out_dtype=dtype,
-                                                   w_taps=w_taps), xin)
+                                                   w_taps=w_taps), xh)
+        if grid is not None:
+            out = out[:, :, 1:-1, 1:-1]
     else:
-        out = _conv3d(conv, xin, dtype=dtype)
+        out = _conv3d(conv, xh, spatial_pad=1 if grid is None else 0, dtype=dtype)
     return out, xin[:, -CACHE_T:]
 
 
@@ -112,24 +129,28 @@ def _zeros_cache(batch, h, w, c, dtype, device, frames=CACHE_T):
 # ----------------------------- res / attn -----------------------------
 
 
-def _stream_resblock(blk: nn.Module, x: torch.Tensor, caches: dict, key: str, dtype: torch.dtype):
+def _stream_resblock(blk: nn.Module, x: torch.Tensor, caches: dict, key: str, dtype: torch.dtype,
+                     grid: SpatialGrid | None = None):
     norm1, _, conv1, norm2, _, _, conv2 = blk.residual
     h = x
     if isinstance(blk.shortcut, nn.Conv3d):
         h = _conv3d(blk.shortcut, x, spatial_pad=0, dtype=dtype)
     y = F.silu(_norm(norm1, x))
-    y, caches[f"{key}.c1"] = _stream_conv(conv1, y, caches[f"{key}.c1"], dtype)
+    y, caches[f"{key}.c1"] = _stream_conv(conv1, y, caches[f"{key}.c1"], dtype, grid)
     y = F.silu(_norm(norm2, y))
-    y, caches[f"{key}.c2"] = _stream_conv(conv2, y, caches[f"{key}.c2"], dtype)
+    y, caches[f"{key}.c2"] = _stream_conv(conv2, y, caches[f"{key}.c2"], dtype, grid)
     return y + h
 
 
-def _attn_block(blk: nn.Module, x: torch.Tensor, dtype: torch.dtype):
+def _attn_block(blk: nn.Module, x: torch.Tensor, dtype: torch.dtype, grid: SpatialGrid | None = None):
     B, T, H, W, C = x.shape
     y = _norm(blk.norm, x)
     no_pad = ((0, 0), (0, 0))
     qkv = _conv2d(blk.to_qkv, y, padding=no_pad, dtype=dtype).reshape(B * T, H * W, 3 * C)
     q, k, v = qkv.chunk(3, dim=-1)
+    if grid is not None:  # the slab's queries against the whole frame's keys and values
+        whole = _conv2d(blk.to_qkv, grid.gather(y), padding=no_pad, dtype=dtype)
+        _, k, v = whole.reshape(B * T, -1, 3 * C).chunk(3, dim=-1)
     logits = torch.einsum("bqc,bkc->bqk", q.float(), k.float()) / (C**0.5)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bqk,bkc->bqc", probs.to(v.dtype).float(), v.float())
@@ -176,22 +197,26 @@ def init_encoder_state(cfg: WanVAEConfig, batch: int, height: int, width: int, d
     return StreamState(caches=caches, first=True)
 
 
-def encoder_chunk(vae: WanVAE, x_chunk: torch.Tensor, state: StreamState):
+def encoder_chunk(vae: WanVAE, x_chunk: torch.Tensor, state: StreamState, grid: SpatialGrid | None = None):
     """One encode chunk: x (B, T, H, W, 3) -> latents (B, t, h, w, 16): the
     stream's first chunk 1 + 4k frames (t = 1 + k; the whole clip is the
-    one-shot encode), each later one 4k frames (t = k)."""
+    one-shot encode), each later one 4k frames (t = k). With ``grid``, this
+    rank's slabs in and out."""
     cfg = vae.config
     enc = vae.encoder
     dt = cfg.dtype
     caches = dict(state.caches)
     first = state.first
 
-    x, caches["conv1"] = _stream_conv(enc.conv1, x_chunk, caches["conv1"], dt)
+    x, caches["conv1"] = _stream_conv(enc.conv1, x_chunk, caches["conv1"], dt, grid)
     for li, layer in enumerate(enc.downsamples):
         if hasattr(layer, "residual"):
-            x = _stream_resblock(layer, x, caches, f"down_{li}", dt)
+            x = _stream_resblock(layer, x, caches, f"down_{li}", dt, grid)
             continue
-        x = _conv2d(layer.resample[1], x, stride=(2, 2), padding=((0, 1), (0, 1)), dtype=dt)
+        if grid is None:
+            x = _conv2d(layer.resample[1], x, stride=(2, 2), padding=((0, 1), (0, 1)), dtype=dt)
+        else:  # the bottom and right halo stand for the zero pad
+            x = _conv2d(layer.resample[1], halo_hw(x, grid, 0, 1), stride=(2, 2), padding=((0, 0), (0, 0)), dtype=dt)
         if layer.mode == "downsample3d":
             if first:
                 # frame 0 bypasses the stride-2 temporal conv; output j >= 1
@@ -205,11 +230,11 @@ def encoder_chunk(vae: WanVAE, x_chunk: torch.Tensor, state: StreamState):
                 caches[f"down_{li}.t"] = xin[:, -1:]
                 x = _conv3d(layer.time_conv, xin, stride=(2, 1, 1), spatial_pad=0, dtype=dt)
     mid_res1, mid_attn, mid_res2 = enc.middle
-    x = _stream_resblock(mid_res1, x, caches, "mid_res1", dt)
-    x = _attn_block(mid_attn, x, dt)
-    x = _stream_resblock(mid_res2, x, caches, "mid_res2", dt)
+    x = _stream_resblock(mid_res1, x, caches, "mid_res1", dt, grid)
+    x = _attn_block(mid_attn, x, dt, grid)
+    x = _stream_resblock(mid_res2, x, caches, "mid_res2", dt, grid)
     y = F.silu(_norm(enc.head[0], x))
-    y, caches["head"] = _stream_conv(enc.head[2], y, caches["head"], dt)
+    y, caches["head"] = _stream_conv(enc.head[2], y, caches["head"], dt, grid)
     out = _conv3d(vae.conv1, y, spatial_pad=0, dtype=dt)
     mean, std = _latent_stats(out.device)
     z = ((out[..., : cfg.z_dim].float() - mean) / std).to(x_chunk.dtype)
@@ -217,11 +242,13 @@ def encoder_chunk(vae: WanVAE, x_chunk: torch.Tensor, state: StreamState):
 
 
 @torch.no_grad()
-def encode_streaming(vae: WanVAE, x: torch.Tensor, chunk_frames: int = 4, pixel_format: str = "float") -> torch.Tensor:
+def encode_streaming(vae: WanVAE, x: torch.Tensor, chunk_frames: int = 4, pixel_format: str = "float",
+                     grid: SpatialGrid | None = None) -> torch.Tensor:
     """(B, 1 + 4k, H, W, 3) pixels -> (B, 1 + k, H/8, W/8, 16) normalized
     latents in the VAE dtype. ``pixel_format="uint8"`` takes raw uint8
     pixels and normalizes each chunk on the device (x / 127.5 - 1 in the
-    VAE dtype); "float" takes pixels in [-1, 1]."""
+    VAE dtype); "float" takes pixels in [-1, 1]. With ``grid``, this rank's
+    (H / gh, W / gw) slab in and its latent slab out."""
     if chunk_frames % 4:
         raise ValueError(f"chunk_frames must be a multiple of 4, got {chunk_frames}")
     if pixel_format == "uint8":
@@ -240,10 +267,10 @@ def encode_streaming(vae: WanVAE, x: torch.Tensor, chunk_frames: int = 4, pixel_
 
     B, T, H, W, _ = x.shape
     state = init_encoder_state(cfg, B, H, W, cfg.dtype, x.device)
-    z, state = encoder_chunk(vae, prep(x[:, :1]), state)
+    z, state = encoder_chunk(vae, prep(x[:, :1]), state, grid)
     outs = [z]
     for pos in range(1, T, chunk_frames):
-        z, state = encoder_chunk(vae, prep(x[:, pos : pos + chunk_frames]), state)
+        z, state = encoder_chunk(vae, prep(x[:, pos : pos + chunk_frames]), state, grid)
         outs.append(z)
     return torch.cat(outs, dim=1)
 
@@ -277,10 +304,11 @@ def init_decoder_state(cfg: WanVAEConfig, batch: int, latent_h: int, latent_w: i
     return StreamState(caches=caches, first=True)
 
 
-def decoder_chunk(vae: WanVAE, z_chunk: torch.Tensor, state: StreamState):
+def decoder_chunk(vae: WanVAE, z_chunk: torch.Tensor, state: StreamState, grid: SpatialGrid | None = None):
     """One decode chunk: z (B, k, h, w, 16) -> pixels in [-1, 1] (unclipped),
     1 + 4(k - 1) frames for the stream's first chunk (the whole clip is the
-    one-shot decode), 4k for each later one."""
+    one-shot decode), 4k for each later one. With ``grid``, this rank's
+    slabs in and out."""
     cfg = vae.config
     dec = vae.decoder
     dt = cfg.dtype
@@ -290,15 +318,15 @@ def decoder_chunk(vae: WanVAE, z_chunk: torch.Tensor, state: StreamState):
     mean, std = _latent_stats(z_chunk.device)
     zin = (z_chunk.float() * std + mean).to(dt)
     x = _conv3d(vae.conv2, zin, spatial_pad=0, dtype=dt)
-    x, caches["conv1"] = _stream_conv(dec.conv1, x, caches["conv1"], dt)
+    x, caches["conv1"] = _stream_conv(dec.conv1, x, caches["conv1"], dt, grid)
     mid_res1, mid_attn, mid_res2 = dec.middle
-    x = _stream_resblock(mid_res1, x, caches, "mid_res1", dt)
-    x = _attn_block(mid_attn, x, dt)
-    x = _stream_resblock(mid_res2, x, caches, "mid_res2", dt)
+    x = _stream_resblock(mid_res1, x, caches, "mid_res1", dt, grid)
+    x = _attn_block(mid_attn, x, dt, grid)
+    x = _stream_resblock(mid_res2, x, caches, "mid_res2", dt, grid)
 
     for li, layer in enumerate(dec.upsamples):
         if hasattr(layer, "residual"):
-            x = _stream_resblock(layer, x, caches, f"up_{li}", dt)
+            x = _stream_resblock(layer, x, caches, f"up_{li}", dt, grid)
             continue
         if layer.mode == "upsample3d":
             # "Rep": the stream's frame 0 bypasses the doubling conv and
@@ -312,10 +340,13 @@ def decoder_chunk(vae: WanVAE, z_chunk: torch.Tensor, state: StreamState):
                 # channels [0, C) -> even output frame, [C, 2C) -> odd frame
                 x = torch.cat([head, zt.permute(0, 1, 4, 2, 3, 5).reshape(B, 2 * T, Hh, Ww, C)], dim=1)
         conv = layer.resample[1]
-        x = upsample2x_conv3x3(conv.weight, conv.bias, x, dt)
+        if grid is None:
+            x = upsample2x_conv3x3(conv.weight, conv.bias, x, dt)
+        else:  # a 1-pixel halo before the upsample, 2 cropped after it
+            x = upsample2x_conv3x3(conv.weight, conv.bias, halo_hw(x, grid, 1, 1), dt)[:, :, 2:-2, 2:-2]
 
     y = F.silu(_norm(dec.head[0], x))
-    y, caches["head"] = _stream_conv(dec.head[2], y, caches["head"], dt)
+    y, caches["head"] = _stream_conv(dec.head[2], y, caches["head"], dt, grid)
     return y, StreamState(caches=caches, first=False)
 
 
@@ -333,22 +364,24 @@ def truncate_u8(px: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def decode_streaming(
-    vae: WanVAE, z: torch.Tensor, chunk_latent_frames: int = 2, pixel_format: str = "float"
+    vae: WanVAE, z: torch.Tensor, chunk_latent_frames: int = 2, pixel_format: str = "float",
+    grid: SpatialGrid | None = None,
 ) -> torch.Tensor:
     """(B, t, h, w, 16) latents -> (B, 1 + 4(t-1), 8h, 8w, 3) pixels on z's
     device: VAE-dtype values in [-1, 1] (unclipped) for "float", or uint8
     quantized on the device for "uint8". The first chunk is one latent
-    frame, then chunks of ``chunk_latent_frames``."""
+    frame, then chunks of ``chunk_latent_frames``. With ``grid``, this
+    rank's latent slab in and its pixel slab out."""
     if pixel_format not in ("float", "uint8"):
         raise ValueError(f"unknown pixel_format {pixel_format!r}")
     cfg = vae.config
     post = quantize_u8 if pixel_format == "uint8" else (lambda a: a)
     B, t, h, w, _ = z.shape
     state = init_decoder_state(cfg, B, h, w, cfg.dtype, z.device)
-    px, state = decoder_chunk(vae, z[:, :1], state)
+    px, state = decoder_chunk(vae, z[:, :1], state, grid)
     outs = [post(px)]
     for pos in range(1, t, chunk_latent_frames):
-        px, state = decoder_chunk(vae, z[:, pos : pos + chunk_latent_frames], state)
+        px, state = decoder_chunk(vae, z[:, pos : pos + chunk_latent_frames], state, grid)
         outs.append(post(px))
     return torch.cat(outs, dim=1)
 
@@ -378,12 +411,13 @@ def _check_kernel_convs(vae: WanVAE, x: torch.Tensor) -> None:
 
 
 @torch.no_grad()
-def encode_oneshot(vae: WanVAE, x: torch.Tensor, pixel_format: str = "float") -> torch.Tensor:
+def encode_oneshot(vae: WanVAE, x: torch.Tensor, pixel_format: str = "float",
+                   grid: SpatialGrid | None = None) -> torch.Tensor:
     """The whole clip (B, 1 + 4k, H, W, 3) through the encoder at once: the
     stream's first chunk with every cache at zero, so each causal 3x3x3
     conv sees two zero frames before frame 0 (JAX's ``WanVAE.encode``
     front padding). -> (B, 1 + k, H/8, W/8, 16) normalized latents in the
-    VAE dtype. ``pixel_format`` as :func:`encode_streaming`."""
+    VAE dtype. ``pixel_format`` and ``grid`` as :func:`encode_streaming`."""
     cfg = vae.config
     if pixel_format == "uint8":
         if x.dtype != torch.uint8:
@@ -397,16 +431,17 @@ def encode_oneshot(vae: WanVAE, x: torch.Tensor, pixel_format: str = "float") ->
 
     def one(xb):
         _, _, H, W, _ = xb.shape
-        return encoder_chunk(vae, xb, init_encoder_state(cfg, 1, H, W, cfg.dtype, xb.device))[0]
+        return encoder_chunk(vae, xb, init_encoder_state(cfg, 1, H, W, cfg.dtype, xb.device), grid)[0]
 
     return _per_sample(one, x)
 
 
 @torch.no_grad()
-def decode_oneshot(vae: WanVAE, z: torch.Tensor, pixel_format: str = "float") -> torch.Tensor:
+def decode_oneshot(vae: WanVAE, z: torch.Tensor, pixel_format: str = "float",
+                   grid: SpatialGrid | None = None) -> torch.Tensor:
     """The whole latent clip (B, t, h, w, 16) through the decoder at once
     (JAX's ``WanVAE.decode``) -> (B, 1 + 4(t-1), 8h, 8w, 3) pixels as
-    :func:`decode_streaming` gives them."""
+    :func:`decode_streaming` gives them (``grid`` as there)."""
     if pixel_format not in ("float", "uint8"):
         raise ValueError(f"unknown pixel_format {pixel_format!r}")
     cfg = vae.config
@@ -414,7 +449,7 @@ def decode_oneshot(vae: WanVAE, z: torch.Tensor, pixel_format: str = "float") ->
 
     def one(zb):
         _, _, h, w, _ = zb.shape
-        px = decoder_chunk(vae, zb, init_decoder_state(cfg, 1, h, w, cfg.dtype, zb.device))[0]
+        px = decoder_chunk(vae, zb, init_decoder_state(cfg, 1, h, w, cfg.dtype, zb.device), grid)[0]
         return quantize_u8(px) if pixel_format == "uint8" else px
 
     return _per_sample(one, z)

@@ -18,8 +18,11 @@ data/local_dataset.py's folder with ``data_train=local_video``), each
 encoded through the exact streaming VAE encode (no gradient); and the
 trainer, resumed from the latest checkpoint of ``--ckpt_dir`` when there is
 one. Runs on CUDA unless ``--device cpu`` is given. COSMOS_SMOKE=1 shrinks
-the run to 2 iterations without checkpoints. The mesh (fsdp, cp, tp) is not
-ported.
+the run to 2 iterations without checkpoints. The config's mesh sizes
+(``fsdp_shard_size``, ``cp_size``, ``tp_size``) must be 1: the training
+mesh is not ported (context parallelism serves, parallel/; its backward
+and fsdp / tp are not written), and ``pp_size`` > 1 raises as in
+parallel/mesh.py::make_mesh.
 """
 
 from __future__ import annotations
@@ -85,6 +88,14 @@ def launch(config, ckpt_dir: Optional[str] = None, device: str = "cuda", callbac
     from cosmos_predict2_tpu_torch.utils.flags import SMOKE
 
     device = torch.device(device)
+    if config.pp_size != 1:
+        from cosmos_predict2_tpu_torch.parallel.mesh import make_mesh
+
+        make_mesh(pp=config.pp_size, device_type=device.type)  # raises: no pipeline schedule
+    sizes = {n: getattr(config, n) for n in ("fsdp_shard_size", "cp_size", "tp_size")}
+    if any(v != 1 for v in sizes.values()):
+        raise NotImplementedError(f"the trainer runs on one device; mesh sizes {sizes} need the training mesh "
+                                  "(fsdp / tp and the context-parallel backward), which is not ported")
     trainer_cfg = config.trainer
     if SMOKE:
         trainer_cfg = dataclasses.replace(trainer_cfg, max_iter=2, logging_iter=1, save_iter=0)

@@ -118,8 +118,11 @@ class CredentialEnvParser(EnvParser):
 
 class InferenceEnvParser(EnvParser):
     """Serving-deployment knobs (inference_env_parser.py:20-36). The
-    parallelism fields are the JAX package's mesh axis sizes; the port
-    serves on one card, so they validate and are not used yet."""
+    parallelism fields are the JAX package's mesh axis sizes. They validate
+    and nothing reads them: the HTTP server serves on one rank, as in the
+    JAX package, where only training/train.py reads the sizes. Context
+    parallelism runs through the mesh of parallel/mesh.py under torchrun
+    (scripts/interactive_latency.py ``--cp``), not through these knobs."""
 
     MODEL_MODULE = String(default="cosmos_predict2_tpu_torch.inference.api")
     MODEL_CLASS = String(default="Inference")

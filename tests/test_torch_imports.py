@@ -54,6 +54,9 @@ def test_every_port_module_is_checked():
     assert {f"cosmos_predict2_tpu_torch/{m}.py" for m in (
         "utils/validator", "utils/env_parsers", "utils/blocklist", "utils/retinaface", "utils/guardrails",
         "inference/serving", "inference/web_ui", "inference/api", "inference/cli")} <= set(FILES)
+    # context parallelism
+    assert {f"cosmos_predict2_tpu_torch/parallel/{m}.py" for m in (
+        "__init__", "launch", "mesh", "comm", "cp", "ring_attention", "halo_conv")} <= set(FILES)
 
 
 def test_wandb_only_inside_the_metrics_logger():
