@@ -277,8 +277,25 @@ Phases, each printed with its wall time:
    x 4 heads (Ulysses) and 4 x 4 blocks of 21,120 x 21,120 x 16 heads
    merged by lse (ring), K10 on 4 head shards, K5 and K6 on head-sharded
    caches of 9 frames x 3,520 tokens, K2 on halo'd 720p decoder slabs,
-   cropped; (c) scripts/interactive_latency.py's --cp-proxy at 720p for
-   k = 2 and 4 beside the card's name and power limit.
+   cropped ((c), the --cp-proxy ladder, is cut: a measurement without a
+   check, its figures in PERF.md);
+21. the training mesh (parallel/mesh.py::parallelize, A14.2): (a) at the
+   machine's world size (as 20(a); the axes of __graft_entry__.py's
+   _pick_axes, 4 cards -> dp 1, fsdp 2, cp 2, tp 1), the full-width 2B
+   (2,048 channels, 16 heads; 4 of 28 blocks, no remat) trains 2 steps
+   through parallelize (FSDP2, even at world size 1) and the trainer (bf16
+   Adam moments, EMA) on 29-frame 192x320 mock clips encoded on each rank
+   (K2), with exact K1 / K7 / K8 launches a step; rank 0 trains the same
+   net unwrapped on the whole batch: step 0's loss bit-equal and its grad
+   norm within fp32 reduction order at world size 1, the rest (and every
+   step on more cards) within phase 6's bf16 limits, with the parameters'
+   update norm; a DCP save, a load into a fresh state and one resumed step
+   equal to the unbroken one; one step with cp_strategy="ring" (c + 1 K1,
+   K7 and K8 per block, the cp group set even at cp 1) against the same
+   step without; (b) the ring backward's rank programs at cp = 4 on 84,480
+   tokens x 16 heads, each rank's 4 K7 + 4 K8 block calls with the global
+   lse, assembled against K7 / K8 on the whole sequence, a rank's program
+   timed beside the whole call.
 
 Then it prints the kernels' JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero without that line.
@@ -5234,8 +5251,6 @@ CP_STREAM_CACHE = 8  # frames the stream's cache holds beside the block (8 + 1: 
 CP_STREAM_BLOCKS = 2  # streamed one-frame blocks after one prefilled frame
 CP_WINDOW = 2 * INTERACTIVE_WINDOW  # the 720p row window (phase 3's 720p K6 case)
 CP_SHARDS = 4  # the cp degree of (b)'s rank programs
-CP_PROXY_KS = (2, 4)
-CP_PROXY_BLOCKS = 4
 
 
 def _cp_nets(device):
@@ -5358,23 +5373,6 @@ def cp_entry(world: int, device: str = "cuda") -> dict:
     return out
 
 
-def _cp_rank(rank: int, world: int, port: int, result_dir: str, device: str = "cuda") -> None:
-    """One spawned rank of (a) on a machine with several cards."""
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
-                      MASTER_PORT=str(port))
-    import torch
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    from cosmos_predict2_tpu_torch.parallel.launch import shutdown_distributed
-
-    try:
-        res = cp_entry(world, device)
-    finally:
-        shutdown_distributed()
-    (Path(result_dir) / f"rank{rank}.json").write_text(json.dumps(res))
-
-
 def _free_port() -> int:
     import socket
 
@@ -5383,9 +5381,10 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def cp_world_slice(device: str = "cuda") -> dict:
-    """(a) at the machine's world size: every card a NCCL rank. One card:
-    the rank runs in this process; more: spawned, one process a card."""
+def world_slice(entry: str, device: str = "cuda") -> dict:
+    """A world-size entry (cp_entry, mesh_entry) at the machine's world
+    size, every card a NCCL rank. One card: the rank runs in this process;
+    more: spawned, one process a card; rank 0's result."""
     import torch
 
     world = torch.cuda.device_count()
@@ -5398,7 +5397,7 @@ def cp_world_slice(device: str = "cuda") -> dict:
         from cosmos_predict2_tpu_torch.parallel.launch import shutdown_distributed
 
         try:
-            return cp_entry(1, device)
+            return globals()[entry](1, device)
         finally:
             shutdown_distributed()
             for k, v in saved.items():
@@ -5408,9 +5407,9 @@ def cp_world_slice(device: str = "cuda") -> dict:
                     os.environ[k] = v
     import torch.multiprocessing as mp
 
-    result_dir = OUT_DIR / "cp_ranks"
+    result_dir = OUT_DIR / f"{entry}_ranks"
     result_dir.mkdir(parents=True, exist_ok=True)
-    mp.spawn(_cp_rank, args=(world, port, str(result_dir), device), nprocs=world, join=True)
+    mp.spawn(_world_rank, args=(world, port, str(result_dir), entry, device), nprocs=world, join=True)
     return json.loads((result_dir / "rank0.json").read_text())
 
 
@@ -5539,25 +5538,12 @@ def cp_rank_programs(smi: str) -> dict:
     return {"rows": rows}
 
 
-def cp_proxy_slice(smi: str) -> dict:
-    """(c): scripts/interactive_latency.py's --cp-proxy at 720p for k in
-    CP_PROXY_KS on this card (the full causal 2B, 28 blocks)."""
-    from cosmos_predict2_tpu_torch.scripts import interactive_latency as il
-
-    fresh_memory()
-    rows = il.cp_proxy_ladder(CP_STREAM_HW, cache_frames=CP_STREAM_CACHE, blocks=CP_PROXY_BLOCKS, ks=CP_PROXY_KS,
-                              device="cuda", verbose=False)
-    for r in rows:
-        log(f"  (c) cp-proxy 720p cp={r['cp']}: block {r['block_s'] * 1e3:.1f} ms = outside attention "
-            f"{r['nonattn_s'] * 1e3:.1f} + attention {r['attn_s'] * 1e3:.1f} + all-to-all {r['a2a_s'] * 1e3:.3f} ms "
-            f"({r['measured']}) -> {r['pixel_fps']:.1f} pixel fps on {smi}")
-    return {"rows": rows}
-
-
 def context_parallel_slice(smi: str) -> dict:
     """Phase 20: (a) the real entry at the machine's world size, (b) the
-    rank programs of cp = 4 at full width, (c) the cp-proxy ladder; with the
-    reckoning of what cp = 4 would move."""
+    rank programs of cp = 4 at full width; with the reckoning of what cp = 4
+    would move. (A cut: (c), scripts/interactive_latency.py's --cp-proxy
+    ladder, a measurement with no check, left to make room for phase 21;
+    its last figures are in PERF.md.)"""
     T, H, W = CP_LATENT
     tokens = T * (H // 2) * (W // 2)
     share = tokens // CP_SHARDS * 16 * 128 * 2  # a rank's q, k, v or output at cp = 4, bf16
@@ -5566,10 +5552,316 @@ def context_parallel_slice(smi: str) -> dict:
         f"{4 * share * 3 / 4 / 1e6:.1f} MB a rank per self-attention, {NUM_BLOCKS * 4 * share * 3 / 4 / 1e9:.2f} GB "
         f"a {NUM_BLOCKS}-block forward; ring {2 * share * (CP_SHARDS - 1) / 1e6:.1f} MB a rank per call; the "
         f"720p cache ({CP_STREAM_CACHE} + 1 frames) {cache / 1e9:.2f} GB whole, {cache / CP_SHARDS / 1e9:.2f} GB a rank")
-    a = cp_world_slice()
+    a = world_slice("cp_entry")
     b = cp_rank_programs(smi)
-    c = cp_proxy_slice(smi)
-    return {"world": a["world"], "paths": a["paths"], "programs": b["rows"], "proxy": c["rows"]}
+    return {"world": a["world"], "paths": a["paths"], "programs": b["rows"]}
+
+
+# ---------------- the training mesh (phase 21) ----------------
+
+MESH_DEPTH = 4  # blocks of the full-width 2B in (a) (a cut: depth)
+MESH_CLIP = (29, 192, 320)  # (a)'s mock clips: 8 latent frames of 12 x 20 tokens, 1,920 tokens a sample
+MESH_STEPS = 2
+# the wrapped run against the unwrapped one: at world size 1 step 0's loss
+# is bit-equal (FSDP2 at one rank all-gathers copies) and its gradient norm
+# within fp32 sums in another order (the norm over DTensor shards); the clip
+# by that norm moves the update by fp32 ulps, which the next bf16 forward
+# rounds on, so later steps, and every step on more cards (the slabs change
+# bf16 GEMM shapes), are held at phase 6's bf16 limits
+MESH_ONE_REL = 1e-5
+RING_SHARDS = 4  # the cp degree of (b)'s ring-backward rank programs
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def mesh_axes(world: int) -> tuple[int, int, int, int]:
+    """(dp, fsdp, cp, tp) for ``world`` cards, as __graft_entry__.py's _pick_axes factors them."""
+    if world >= 8:
+        return world // 8, 2, 2, 2
+    return {4: (1, 2, 2, 1), 2: (1, 1, 2, 1)}.get(world, (1, 1, 1, 1))
+
+
+def mesh_entry(world: int, device: str = "cuda") -> dict:
+    """(a): on every rank of a NCCL group of ``world`` cards, the (dp,
+    fsdp, cp, tp) mesh of :func:`mesh_axes`: the full-width 2B at
+    MESH_DEPTH blocks, context-parallel over cp (when above 1) and sharded
+    by parallel/mesh.py::parallelize, trains MESH_STEPS steps through the
+    trainer on mock clips encoded on each rank (its rows of the global
+    batch); rank 0 trains the same net unwrapped on the whole batch and
+    holds losses, grad norms and the parameters' update against it. Then a
+    DCP save, a third step, a fresh state loaded from the save and the same
+    step resumed on it; then one step of the resumed state with
+    cp_strategy="ring" (the cp group set even at cp 1) against the same
+    step of the unbroken state. Launches counted per path, from 0 just
+    before it."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.data.mock import MockDataLoader
+    from cosmos_predict2_tpu_torch.models.video2world import Video2WorldModel
+    from cosmos_predict2_tpu_torch.networks.dit import build_dit, set_context_parallel
+    from cosmos_predict2_tpu_torch.parallel.launch import init_distributed, world_info
+    from cosmos_predict2_tpu_torch.parallel.mesh import make_mesh, parallelize
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae import build_vae
+    from cosmos_predict2_tpu_torch.training.checkpointing import Checkpointer
+    from cosmos_predict2_tpu_torch.training.optim import OptimizerConfig, global_norm
+    from cosmos_predict2_tpu_torch.training.train import latent_batches
+    from cosmos_predict2_tpu_torch.training.trainer import Callback, Trainer, TrainerConfig, data_shard
+
+    info = init_distributed(device=device)
+    dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    axes = mesh_axes(world)
+    mesh = make_mesh(*axes, device_type=dev.type)
+    rank, (index, count), c = info["process_index"], data_shard(mesh), axes[2]
+    frames, h, w = MESH_CLIP
+    cfg = make_config(DENSE_EXPERIMENT, [
+        f"data_train.num_frames={frames}", f"data_train.height={h}", f"data_train.width={w}",
+        "data_train.text_dim=100352", f"data_train.batch_size={count}", "model.state_t=8"])
+    net_cfg = dataclasses.replace(cfg.model.net, num_blocks=MESH_DEPTH, remat="none")
+    model_cfg = dataclasses.replace(cfg.model, net=net_cfg)
+    # a constant rate of 1e-5 (the recipe's warm-up starts at 1e-6 of its rate): two steps move fp32 weights;
+    # bf16 moments (AdamWBF16, the noise of each shard cut from the whole draw): a quarter less state to save
+    opt = OptimizerConfig(lr=1e-5, warm_up_steps=(0,), f_start=(1.0,), f_max=(1.0,), f_min=(1.0,),
+                          cycle_lengths=(1000,), moments_dtype="bfloat16")
+    tc = TrainerConfig(max_iter=MESH_STEPS + 2, logging_iter=1000, save_iter=0, seed=0, ema_enabled=True,
+                       optimizer=opt)
+    vae = build_vae(cfg.tokenizer, dev, seed=1)
+    ckpt_dir = OUT_DIR / "mesh_ckpt"
+    if rank == 0:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    dist.barrier()
+
+    class Record(Callback):
+        def __init__(self):
+            self.steps = []
+
+        def on_training_step_start(self, trainer, state, batch, iteration):
+            self.counts0 = _build.launch_counts()
+
+        def on_training_step_end(self, trainer, state, metrics, iteration):
+            now = _build.launch_counts()
+            self.steps.append({"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                               "counts": {k: now[k] - self.counts0[k] for k in now}})
+
+    def trainer_for(seed, wrapped, strategy="ulysses", cp_group=c > 1):
+        net = build_dit(dataclasses.replace(net_cfg, cp_strategy=strategy), dev, seed=seed, trainable=True)
+        if wrapped and cp_group:
+            set_context_parallel(net, mesh.get_group("cp"))
+        if wrapped:
+            parallelize(net, mesh)
+        rec = Record()
+        return Trainer(tc, Video2WorldModel(model_cfg, net), callbacks=[rec]), rec
+
+    def update_norm(state, start):
+        with torch.no_grad():
+            return float(global_norm([p - p0 for p, p0 in zip(state.params.values(), start)]))
+
+    out = {"world": world_info(), "axes": axes, "paths": {}}
+    # the wrapped run: MESH_STEPS steps on clips encoded in the trainer's data section
+    trainer, rec = trainer_for(0, wrapped=True)
+    state = trainer.init_state()
+    start = [p.detach().clone() for p in state.params.values()]
+    batches = latent_batches(MockDataLoader(cfg.data_train), vae, dev, rows=(index, count))
+    sync()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = trainer.train(state, (next(batches) for _ in range(MESH_STEPS)))
+    sync()
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    moved = update_norm(state, start)
+    del start
+    out["paths"]["mesh_train"] = {"counts": counts, "s": wall, "steps": rec.steps, "update_norm": moved}
+    # rank 0: the same net and steps unwrapped, on the whole global batch
+    if rank == 0:
+        ref_trainer, ref_rec = trainer_for(0, wrapped=False)
+        ref_state = ref_trainer.init_state()
+        ref_start = [p.detach().clone() for p in ref_state.params.values()]
+        ref_batches = latent_batches(MockDataLoader(cfg.data_train), vae, dev)
+        ref_state = ref_trainer.train(ref_state, (next(ref_batches) for _ in range(MESH_STEPS)))
+        ref_moved = update_norm(ref_state, ref_start)
+        del ref_trainer, ref_state, ref_start, ref_batches
+        rows, worst = [], 0.0
+        for i, (a, b) in enumerate(zip(rec.steps, ref_rec.steps)):
+            loss_rel, norm_rel = _rel(a["loss"], b["loss"]), _rel(a["grad_norm"], b["grad_norm"])
+            rows.append((a["loss"], b["loss"], loss_rel, a["grad_norm"], b["grad_norm"], norm_rel))
+            exact = world == 1 and i == 0
+            worst = max(worst, loss_rel / TRAIN_LOSS_REL, norm_rel / (MESH_ONE_REL if exact else TRAIN_GRAD_REL_L2),
+                        float("inf") if exact and loss_rel else 0.0)
+        upd_rel = _rel(moved, ref_moved)
+        worst = max(worst, upd_rel / TRAIN_GRAD_REL_L2)
+        bit_equal = all(r[0] == r[1] and r[3] == r[4] for r in rows) and moved == ref_moved
+        out["reference"] = {"steps": rows, "update_norm": (moved, ref_moved, upd_rel), "bit_equal": bit_equal}
+        log(f"  (a) mesh {axes} (dp, fsdp, cp, tp) on {world} card(s), the full-width 2B at {MESH_DEPTH} blocks, "
+            f"{frames} frames at {h}x{w}, a global batch of {count}: {MESH_STEPS} steps through parallelize and "
+            f"the trainer in {wall:.2f} s, launches {counts}")
+        for i, r in enumerate(rows):
+            log(f"      step {i}: loss {r[0]:.9g} vs unwrapped {r[1]:.9g} (rel {r[2]:.3e}); grad_norm {r[3]:.9g} vs "
+                f"{r[4]:.9g} (rel {r[5]:.3e})")
+        log(f"      parameter update norm {moved:.9g} vs unwrapped {ref_moved:.9g} (rel {upd_rel:.3e}); "
+            f"{'bit-equal' if bit_equal else 'not bit-equal'}; limits: "
+            f"{'step 0 loss equal, its grad_norm ' + str(MESH_ONE_REL) + '; then ' if world == 1 else ''}"
+            f"loss {TRAIN_LOSS_REL}, norms {TRAIN_GRAD_REL_L2}")
+        fresh_memory()
+        if not worst <= 1.0 or not moved > 0:
+            raise AssertionError(f"(a) the wrapped steps disagree with the unwrapped ones: {rows}, update {upd_rel}")
+    dist.barrier()
+    for i, step in enumerate(rec.steps):  # a dense block: self- and cross-attention, each K1 / K7 / K8 once
+        want = {"flash_attention_fwd": 2 * MESH_DEPTH, "flash_attention_bwd_dq": 2 * MESH_DEPTH,
+                "flash_attention_bwd_dkv": 2 * MESH_DEPTH}
+        if {k: step["counts"][k] for k in want} != want:
+            raise AssertionError(f"(a) mesh step {i} launched {step['counts']}, want {want}")
+    if counts["conv3d_causal"] == 0:  # the clips' encode, in the trainer's data section before each step
+        raise AssertionError("(a) conv3d_causal never ran in the mesh run's VAE encode")
+
+    # a DCP save, an unbroken third step, and the same step resumed on a fresh state loaded from the save
+    batch = next(batches)
+    t0 = time.perf_counter()
+    Checkpointer(str(ckpt_dir)).save(state, state.step)
+    save_s = time.perf_counter() - t0
+    state = trainer.train(state, [batch], start_iteration=state.step)
+    unbroken = rec.steps[-1]["loss"]
+    fresh, fresh_rec = trainer_for(7, wrapped=True, strategy="ring", cp_group=True)
+    t0 = time.perf_counter()
+    resumed = Checkpointer(str(ckpt_dir)).load(fresh.init_state())
+    load_s = time.perf_counter() - t0
+    fresh.model.net.cfg = dataclasses.replace(fresh.model.net.cfg, cp_strategy="ulysses")
+    resumed = fresh.train(resumed, [batch], start_iteration=resumed.step)
+    again = fresh_rec.steps[-1]["loss"]
+    with torch.no_grad():
+        same = (float(global_norm(list(state.params.values()))), float(global_norm(list(resumed.params.values()))))
+    # the ring: one step of the resumed state against the same step of the unbroken one
+    fresh.model.net.cfg = dataclasses.replace(fresh.model.net.cfg, cp_strategy="ring")
+    state = trainer.train(state, [batch], start_iteration=state.step)
+    sync()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    resumed = fresh.train(resumed, [batch], start_iteration=resumed.step)
+    sync()
+    ring_s = time.perf_counter() - t0
+    ring_counts = _build.launch_counts()
+    ring_loss, dense_loss = fresh_rec.steps[-1]["loss"], rec.steps[-1]["loss"]
+    out["paths"]["mesh_ring_train"] = {"counts": ring_counts, "s": ring_s, "loss": ring_loss, "unbroken": dense_loss}
+    out["dcp"] = {"save_s": save_s, "load_s": load_s, "unbroken": unbroken, "resumed": again, "param_norms": same}
+    want = {k: (c + 1) * MESH_DEPTH for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                                              "flash_attention_bwd_dkv")}
+    ring_rel = _rel(ring_loss, dense_loss)
+    if rank == 0:
+        log(f"  (a) DCP save at step {MESH_STEPS} {save_s:.2f} s, load into a fresh state (other weights) "
+            f"{load_s:.2f} s; step {MESH_STEPS} resumed: loss {again:.9g} vs unbroken {unbroken:.9g} "
+            f"({'equal' if again == unbroken else f'rel {_rel(again, unbroken):.3e}'}); parameter norms "
+            f"{same[0]:.9g} / {same[1]:.9g}")
+        log(f"  (a) a step with cp_strategy='ring' (cp {c}): loss {ring_loss:.9g} vs {dense_loss:.9g} without "
+            f"(rel {ring_rel:.3e}, limit {TRAIN_LOSS_REL}); {ring_s:.2f} s; launches "
+            f"{ {k: ring_counts[k] for k in want} } (want {want})")
+    if _rel(again, unbroken) > MESH_ONE_REL or _rel(*same) > MESH_ONE_REL:
+        raise AssertionError(f"(a) the resumed step {again} differs from the unbroken {unbroken}")
+    if {k: ring_counts[k] for k in want} != want or not ring_rel <= TRAIN_LOSS_REL:
+        raise AssertionError(f"(a) the ring step launched {ring_counts}, want {want}; loss rel {ring_rel:.3e}")
+    del trainer, fresh, state, resumed, vae
+    fresh_memory()
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return out
+
+
+def _world_rank(rank: int, world: int, port: int, result_dir: str, entry: str, device: str = "cuda") -> None:
+    """One spawned rank of a world-size entry (cp_entry, mesh_entry) on a machine with several cards."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from cosmos_predict2_tpu_torch.parallel.launch import shutdown_distributed
+
+    try:
+        res = globals()[entry](world, device)
+    finally:
+        shutdown_distributed()
+    (Path(result_dir) / f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def ring_backward_programs(smi: str) -> dict:
+    """(b): the rank programs of the ring's backward at cp = RING_SHARDS, at
+    phase 20's 84,480 tokens x 16 heads of 128 in bf16, on this card: rank
+    r's queries against each source shard, K7 adding to its fp32 dq and K8
+    to the source's fp32 dK / dV, with the whole sequence's lse and delta
+    (the forward's), assembled and held against K7 / K8 on the whole
+    sequence (FlashAttention's backward) at KERNEL_REL_L2; rank 0's program
+    (its c K7 and c K8 calls) timed beside the whole call (CUDA events)."""
+    import torch
+
+    from cosmos_predict2_tpu_torch.ops.flash_attention import (
+        attention_delta,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_fwd,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    T, Hl, Wl = CP_LATENT
+    S, H, D, c = T * (Hl // 2) * (Wl // 2), 16, 128, RING_SHARDS
+    sl = S // c
+    q, k, v, do = (torch.randn((1, S, H, D), generator=gen, device=dev).to(torch.bfloat16) for _ in range(4))
+    out, lse = flash_attention_fwd(q, k, v)
+    delta = attention_delta(out, do)
+    del out
+    whole = lambda: (flash_attention_bwd_dq(q, k, v, do, lse, delta), flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+    ref_dq, (ref_dk, ref_dv) = whole()
+    whole_ms = cuda_ms(whole, 0, 1)
+    part = lambda t, i: t[:, i * sl:(i + 1) * sl].contiguous()
+    rows = lambda t, i: t[:, :, i * sl:(i + 1) * sl].contiguous()
+
+    def program(r, dq, dkv):
+        """Rank r's backward blocks; adds into dq (its rows) and dkv[src] (fp32)."""
+        qr, dor, lr, dr = part(q, r), part(do, r), rows(lse, r), rows(delta, r)
+        for step in range(c):
+            src = (r - step) % c
+            ks, vs = part(k, src), part(v, src)
+            dq += flash_attention_bwd_dq(qr, ks, vs, dor, lr, dr).float()
+            dk_b, dv_b = flash_attention_bwd_dkv(qr, ks, vs, dor, lr, dr)
+            dkv[src][0] += dk_b.float()
+            dkv[src][1] += dv_b.float()
+
+    dkv = [[torch.zeros((1, sl, H, D), device=dev) for _ in range(2)] for _ in range(c)]
+    dqs = [torch.zeros((1, sl, H, D), device=dev) for _ in range(c)]
+    for r in range(c):
+        program(r, dqs[r], dkv)
+    got = {"dq": torch.cat(dqs, 1), "dk": torch.cat([d[0] for d in dkv], 1), "dv": torch.cat([d[1] for d in dkv], 1)}
+    spare_dq, spare_dkv = dqs[0].clone(), [[t.clone() for t in d] for d in dkv]  # the timed call adds into copies
+    rank_ms = cuda_ms(lambda: program(0, spare_dq, spare_dkv), 0, 1)
+    result = {"rank_ms": rank_ms, "whole_ms": whole_ms, "tokens": S, "shards": c}
+    for name, ref in (("dq", ref_dq), ("dk", ref_dk), ("dv", ref_dv)):
+        max_abs, rel = errors(got[name].to(torch.bfloat16), ref)
+        result[name] = {"max_abs": max_abs, "rel_l2": rel}
+        if not (bool(torch.isfinite(got[name]).all()) and rel <= KERNEL_REL_L2):
+            raise AssertionError(f"(b) ring backward {name}: rel_l2 {rel:.3e}")
+    log(f"  (b) ring backward at cp={c}: {c} x {c} blocks of {sl} x {sl} x {H} heads, K7 + K8 per block with the "
+        f"global lse, fp32 sums: dq rel_l2 {result['dq']['rel_l2']:.3e}, dk {result['dk']['rel_l2']:.3e}, dv "
+        f"{result['dv']['rel_l2']:.3e} against K7 / K8 on the whole {S} tokens (limit {KERNEL_REL_L2}); one rank's "
+        f"program ({c} K7 + {c} K8) {rank_ms:.3f} ms, the whole call {whole_ms:.3f} ms, on {smi}")
+    del q, k, v, do, lse, delta, ref_dq, ref_dk, ref_dv, got, dkv, dqs, spare_dq, spare_dkv
+    fresh_memory()
+    return result
+
+
+def training_mesh_slice(smi: str) -> dict:
+    """Phase 21: (a) the training mesh at the machine's world size, (b) the
+    ring backward's rank programs at cp = RING_SHARDS."""
+    a = world_slice("mesh_entry")
+    b = ring_backward_programs(smi)
+    return {"world": a["world"], "axes": a["axes"], "paths": a["paths"], "dcp": a["dcp"],
+            "reference": a.get("reference"), "ring_programs": b}
 
 
 def main(argv=None) -> int:
@@ -5661,8 +5953,11 @@ def main(argv=None) -> int:
     with Phase("self-forcing DMD2 of the causal 2B, Wan 1.3B and EDM 2B training, narrow steps card vs CPU"):
         p19 = training_variants_slice()
     with Phase("20, context parallelism: the 2B at 720p through Ulysses and ring, the sparse NA block and the 720p "
-               "stream on NCCL ranks; the cp=4 rank programs; the cp-proxy ladder"):
+               "stream on NCCL ranks; the cp=4 rank programs"):
         p20 = context_parallel_slice(smi)
+    with Phase("21, the training mesh: the 2B through parallelize and the trainer at the machine's world size, a DCP "
+               "save and resume, a ring step; the ring backward's cp=4 rank programs"):
+        p21 = training_mesh_slice(smi)
     paths = {"serve": sl, "train": tr, "sparse_serve": ssl, "sparse_train": stl, "interactive": it,
              "interactive_window": itw, "fwdmode": fm, "fa_jvp": fj, "dmd2_serve": dsl, "distill": dtl,
              "released": rel, "autoregressive": ar, "text2image": t2i, "oneshot": osl, "serving_guardrails": sgd,
@@ -5674,7 +5969,7 @@ def main(argv=None) -> int:
              **{name: a13["sparse_14b"][name] for name in SPARSE_14B_EXPERIMENTS},
              "reason1": a15["reason1"], "wan_encoders": a15["wan_encoders"],
              "self_forcing": p19["self_forcing"], "wan_train": p19["wan_train"], "edm_train": p19["edm_train"],
-             **p20["paths"]}
+             **p20["paths"], **p21["paths"]}
     path_kernels = {
         "serve": ("flash_attention_fwd", "conv3d_causal"),
         "train": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal"),
@@ -5700,6 +5995,8 @@ def main(argv=None) -> int:
         "cp_ulysses": ("flash_attention_fwd",), "cp_ring": ("flash_attention_fwd",),
         "cp_sparse": ("flash_attention_fwd", "na_fwd"), "cp_stream": ("flash_attention_fwd", "flash_attention_kv_cache"),
         "cp_stream_window": ("flash_attention_fwd", "flash_attention_kv_cache_window"),
+        "mesh_train": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal"),
+        "mesh_ring_train": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
         **{path: ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal")
            for path in ("posttrain_lora", "posttrain_full", "remote_shards")},
     }

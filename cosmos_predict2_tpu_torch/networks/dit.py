@@ -99,6 +99,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from cosmos_predict2_tpu_torch.ops.attention import dot_product_attention
@@ -108,7 +109,7 @@ from cosmos_predict2_tpu_torch.ops.normalization import layer_norm, rms_norm
 from cosmos_predict2_tpu_torch.ops.rope import RopeSpec, apply_rope, rope_angles_3d
 from cosmos_predict2_tpu_torch.parallel import comm
 from cosmos_predict2_tpu_torch.parallel.cp import ulysses_attention, ulysses_kv_cache_attention
-from cosmos_predict2_tpu_torch.parallel.mesh import TokenSlab, divisible_cp, token_slab
+from cosmos_predict2_tpu_torch.parallel.mesh import TokenSlab, divisible_cp, token_slab, tp_linear, tp_local
 from cosmos_predict2_tpu_torch.parallel.ring_attention import ring_attention
 
 
@@ -229,10 +230,13 @@ class DiTConfig:
 def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """y = x W^T (+ b) computed and returned in ``dtype`` (the reference's
     ``Dense``: inputs and parameters cast to the compute dtype), plus
-    ``layer.adapter(x)`` when the layer carries a LoRA adapter."""
+    ``layer.adapter(x)`` when the layer carries a LoRA adapter. A
+    tensor-parallel layer (parallel/mesh.py::parallelize) runs through
+    :func:`tp_linear` on the local tensors."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
     x = x.to(dtype)
-    y = F.linear(x, layer.weight.to(dtype), bias)
+    weight = layer.weight.to(dtype)
+    y = tp_linear(x, weight, bias) if isinstance(weight, DTensor) else F.linear(x, weight, bias)
     adapter = layer.__dict__.get("adapter")
     return y if adapter is None else y + adapter(x)
 
@@ -246,7 +250,7 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rms_norm(x, self.weight, self.eps)
+        return rms_norm(x, tp_local(self.weight), self.eps)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,7 +266,8 @@ class ContextParallel:
 
 class Attention(nn.Module):
     """Self- or cross-attention: bias-free projections, per-head q/k RMSNorm,
-    RoPE on self-attention only."""
+    RoPE on self-attention only. Under tensor parallelism the projections
+    give this rank's heads; the head count is read from their width."""
 
     def __init__(self, query_dim: int, context_dim: Optional[int], n_heads: int, head_dim: int, dtype: torch.dtype):
         super().__init__()
@@ -290,7 +295,7 @@ class Attention(nn.Module):
         (``na`` and ``frame_group`` of the whole sequence; the cache a head
         shard). Returns (out, cache) with ``kv_cache``, else out."""
         ctx = x if context is None else context
-        heads = lambda t: t.reshape(t.shape[:-1] + (self.n_heads, self.head_dim))
+        heads = lambda t: t.reshape(t.shape[:-1] + (-1, self.head_dim))
         q = self.q_norm(heads(linear(self.q_proj, x, self.dtype)))
         k = self.k_norm(heads(linear(self.k_proj, ctx, self.dtype)))
         v = heads(linear(self.v_proj, ctx, self.dtype))
@@ -430,10 +435,11 @@ class CrossViewAttention(nn.Module):
 
     def forward(self, x_B_V_T_H_W_D: torch.Tensor) -> torch.Tensor:
         B, V, Tv, H, W, D = x_B_V_T_H_W_D.shape
-        L, h, d = H * W, self.n_heads, self.head_dim
+        L, d = H * W, self.head_dim
         x = x_B_V_T_H_W_D.reshape(B, V, Tv, L, D)
-        heads = lambda t: t.reshape(t.shape[:-1] + (h, d))
+        heads = lambda t: t.reshape(t.shape[:-1] + (-1, d))
         q = self.q_norm(heads(linear(self.q_proj, x, self.dtype)))
+        h = q.shape[-2]  # this rank's heads under tensor parallelism
         k = self.k_norm(heads(linear(self.k_proj, x, self.dtype)))
         v = heads(linear(self.v_proj, x, self.dtype))
         outs = []
@@ -879,7 +885,15 @@ def set_context_parallel(net: MiniTrainDIT, group) -> MiniTrainDIT:
     """Run ``net``'s forwards context-parallel over the process group
     ``group`` (a mesh's ``mesh.get_group("cp")``), or locally with None.
     Every rank of the group calls the net with the same inputs; a cached
-    forward needs head-sharded caches (models/interactive.py)."""
+    forward needs head-sharded caches (models/interactive.py).
+
+    Training: the exit all-gather is differentiable, and its backward sums
+    the cp ranks' output gradients into each slab. When every rank of the
+    group takes the same loss over the whole output, each rank's parameter
+    gradient is cp times its slab's share; parallel/mesh.py::parallelize
+    folds cp into FSDP2's data-parallel mean, which divides that factor
+    out and sums the slabs (tests/test_torch_mesh.py holds it against one
+    device)."""
     net.cp_group = group
     return net
 

@@ -1,10 +1,16 @@
-"""The collectives of the context-parallel routes, and a log of what enters each.
+"""The collectives of the parallel routes, and a log of what enters each.
 
-Every collective the port's CP code issues goes through this module:
-``all_to_all`` (Ulysses), ``all_gather`` (the net's exit, the VAE's middle
-attention), ``exchange`` (point-to-point: the ring's K/V hop and the VAE's
-halos). All-to-all and all-gather are the autograd-aware functions of
-``torch.distributed.nn.functional``, so a gradient flows back through them.
+Every collective the port's CP and training-mesh code issues goes through
+this module: ``all_to_all`` (Ulysses), ``all_gather`` (the net's exit, the
+VAE's middle attention), ``exchange`` (point-to-point: the ring's K/V hops,
+forward and backward, the backward's dK / dV hops, and the VAE's halos),
+``all_reduce`` (the trainer's global gradient norm and loss). The
+all-to-all is the autograd-aware one of ``torch.distributed.nn.functional``
+and the all-gather this module's own, whose backward reduce-scatters, so a
+gradient flows back through them. FSDP2's own all-gathers and
+reduce-scatters of the parameters and gradients, and the DTensor
+collectives of tensor parallelism (parallel/mesh.py::parallelize), stay
+inside torch and are not logged.
 
 :data:`COMM` counts, per kind, the calls and the bytes that enter them on
 this rank (a point-to-point call counts the tensors it sends). Inside
@@ -29,7 +35,7 @@ warnings.filterwarnings("ignore", message=r"torch\.distributed\.nn\.functional\.
 
 @dataclasses.dataclass(frozen=True)
 class CommRecord:
-    kind: str  # "all_to_all", "all_gather", "send"
+    kind: str  # "all_to_all", "all_gather", "send", "all_reduce", "reduce_scatter" (the gather's backward)
     shape: tuple[int, ...]
     dtype: torch.dtype
     nbytes: int
@@ -81,11 +87,49 @@ def all_to_all(chunks: torch.Tensor, group) -> torch.Tensor:
     return dist_fn.all_to_all_single(torch.empty_like(chunks), chunks, group=group)
 
 
+class _AllGather(torch.autograd.Function):
+    """All-gather along a dim; its backward is the reduce-scatter of the
+    output gradient: each rank gets the sum over the ranks of its part.
+    (``torch.distributed.nn``'s all-gather emulates that off NCCL with
+    scatters that take a subgroup's ranks for global ones.)"""
+
+    @staticmethod
+    def forward(ctx, t, group, dim: int):
+        ctx.group, ctx.dim = group, dim
+        parts = [torch.empty_like(t) for _ in range(group_size(group))]
+        dist.all_gather(parts, t, group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        c = group_size(ctx.group)
+        chunks = torch.stack(grad.chunk(c, dim=ctx.dim)).contiguous()  # chunk j: rank j's part
+        COMM.add("reduce_scatter", chunks)
+        out = torch.empty_like(chunks[0])
+        if dist.get_backend(ctx.group) == "nccl":
+            dist.reduce_scatter_tensor(out, chunks, group=ctx.group)
+        else:  # gloo has no reduce-scatter: all-to-all, then the sum
+            got = torch.empty_like(chunks)
+            dist.all_to_all_single(got, chunks, group=ctx.group)
+            torch.sum(got, dim=0, out=out)
+        return out, None, None
+
+
 def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
-    """Every rank's ``t`` concatenated along ``dim``, in rank order. Differentiable."""
+    """Every rank's ``t`` concatenated along ``dim``, in rank order.
+    Differentiable: the backward reduce-scatters (logged
+    ``reduce_scatter``)."""
     t = t.contiguous()
     COMM.add("all_gather", t)
-    return torch.cat(dist_fn.all_gather(t, group=group), dim=dim)
+    return _AllGather.apply(t, group, dim)
+
+
+def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``t`` over ``group`` (default: every rank) in place and return
+    it. Not differentiable."""
+    COMM.add("all_reduce", t)
+    dist.all_reduce(t, group=group)
+    return t
 
 
 def exchange(sends: list[tuple[torch.Tensor, int]], recvs: list[tuple[torch.Tensor, int]], group) -> list:

@@ -1,4 +1,5 @@
-"""The device mesh, a rank's slab of the token grid, and the sharding rules.
+"""The device mesh, a rank's slab of the token grid, the sharding rules and
+their application to a module.
 
 Counterpart of cosmos_predict2_tpu/parallel/mesh.py on
 ``torch.distributed.device_mesh``: one mesh with the axes
@@ -9,6 +10,14 @@ dp replicates, fsdp shards parameters (ZeRO-3), cp shards the video tokens
 (parallel/cp.py, parallel/ring_attention.py) and tp the heads and the MLP's
 hidden width. ``mesh.get_group("cp")`` is the process group a DiT runs its
 context parallelism over (networks/dit.py::set_context_parallel).
+
+:func:`parallelize` is the counterpart of the JAX package's
+``shard_params``: tensor parallelism through DTensor, then FSDP2 over the
+data axes. The hand-written kernels take plain tensors, so the modules
+compute on local tensors: :func:`tp_linear` runs a tensor-parallel
+projection as ``ColwiseParallel`` / ``RowwiseParallel`` run it and returns
+the local output, :func:`tp_local` gives a replicated parameter's local
+tensor.
 
 :class:`TokenSlab` is a rank's contiguous share of a (T, H, W) token grid:
 whole frames when the cp degree divides T (the latent T axis, as the JAX
@@ -25,6 +34,9 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
+from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from cosmos_predict2_tpu_torch.parallel import comm
 
@@ -184,3 +196,150 @@ def param_sharding_rules(name: str, shape: tuple[int, ...]) -> tuple[Optional[st
     spec[tp_dim] = AXIS_TP
     spec[1 - tp_dim] = AXIS_FSDP
     return tuple(spec)
+
+
+def data_mesh(mesh):
+    """The mesh FSDP2 and tensor parallelism share: (dp, fsdp x cp, tp) over
+    the ranks of ``mesh``, named ("dp", "fsdp_cp", "tp"). The batch is
+    sharded over (dp, fsdp) and the tokens over cp, so a parameter's
+    gradient is reduced over all three; FSDP2's mean over the folded
+    fsdp x cp dim and the replicated dp dim is that reduction."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dp, fsdp, cp, tp = (mesh[a].size() for a in MESH_AXES)
+    return init_device_mesh(mesh.device_type, (dp, fsdp * cp, tp), mesh_dim_names=("dp", "fsdp_cp", "tp"))
+
+
+def tp_plan(module: nn.Module) -> dict[str, str]:
+    """Linear name -> "col" or "row": the projections that
+    :func:`param_sharding_rules` makes tensor-parallel."""
+    plan = {}
+    for name, sub in module.named_modules():
+        if isinstance(sub, nn.Linear):
+            spec = param_sharding_rules(f"{name}.weight", tuple(sub.weight.shape))
+            if AXIS_TP in spec:
+                plan[name] = "col" if spec.index(AXIS_TP) == 0 else "row"
+    return plan
+
+
+# the per-head norms of an attention whose q / k projections are column parallel
+_HEAD_NORMS = ("q_norm", "k_norm")
+
+
+def parallelize(module: nn.Module, mesh) -> nn.Module:
+    """Shard ``module`` over ``mesh`` by :func:`param_sharding_rules`, in
+    place, and return it.
+
+    1. With tp > 1, tensor parallelism over ``tp`` through DTensor:
+       ``ColwiseParallel`` on the column keys and ``RowwiseParallel`` on
+       the row keys (the modules run them through :func:`tp_linear`, with
+       local outputs), and the per-head q / k norms of those attentions
+       replicated over tp (:func:`tp_local`).
+    2. FSDP2 ``fully_shard`` of each block (``module.blocks`` or
+       ``module.layers``) and then of the whole module over (dp, fsdp x
+       cp) (:func:`data_mesh`): HSDP, dp replicating; a 2-D weight is
+       sharded on the dim the rule gives fsdp (Shard(0) where that dim does
+       not split evenly, FSDP2 padding only dim 0), others on dim 0 (the
+       JAX rule replicates vectors; FSDP2 shards every parameter).
+
+    FSDP2 averages each gradient over the dp x fsdp x cp ranks. With the
+    batch over (dp, fsdp) and each rank's loss its rows' mean, that is the
+    global batch's gradient. Under cp each rank of a cp group takes the
+    loss of the whole (gathered) output, and the exit all-gather's backward
+    sums the cp ranks' gradients into each slab: every rank's gradient is
+    cp times its slab's share, and the mean over cp gives the one-device
+    gradient (networks/dit.py::set_context_parallel).
+    """
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.parallel import ColwiseParallel, RowwiseParallel, parallelize_module
+
+    flat = data_mesh(mesh)
+    tp = flat["tp"]
+    if tp.size() > 1:
+        plan = tp_plan(module)
+        parallelize_module(module, tp, {n: ColwiseParallel() if s == "col" else RowwiseParallel()
+                                        for n, s in plan.items()})
+        for name, sub in module.named_modules():
+            if hasattr(sub, "norm_q") and plan.get(f"{name}.q" if name else "q") == "col":
+                raise NotImplementedError(f"tensor parallelism of {name}: its q / k norms span every head (the Wan "
+                                          "DiT), which needs an all-reduce over tp inside the norm; not ported")
+            if plan.get(f"{name}.q_proj" if name else "q_proj") != "col":
+                continue
+            for norm in _HEAD_NORMS:
+                layer = getattr(sub, norm, None)
+                if layer is not None:
+                    layer.weight = nn.Parameter(distribute_tensor(layer.weight.data, tp, [Replicate()]),
+                                                requires_grad=layer.weight.requires_grad)
+    fsdp_size = flat["fsdp_cp"].size()
+    names = {id(p): n for n, p in module.named_parameters()}
+
+    def placement(param) -> Shard:
+        spec = param_sharding_rules(names[id(param)], tuple(param.shape))
+        if len(spec) == 2 and AXIS_FSDP in spec:
+            dim = spec.index(AXIS_FSDP)
+            if dim == 0 or param.shape[dim] % fsdp_size == 0:
+                return Shard(dim)
+        return Shard(0)
+
+    dp_mesh = flat["dp", "fsdp_cp"]
+    blocks = getattr(module, "blocks", None)
+    if blocks is None:
+        blocks = getattr(module, "layers", None)
+    for block in blocks or ():
+        fully_shard(block, mesh=dp_mesh, shard_placement_fn=placement)
+    fully_shard(module, mesh=dp_mesh, shard_placement_fn=placement)
+    module.mesh = mesh  # the trainer reads it (training/trainer.py)
+    return module
+
+
+def tp_linear(x: torch.Tensor, weight: DTensor, bias=None) -> torch.Tensor:
+    """x W^T (+ b) for a tensor-parallel projection: ``weight`` (and
+    ``bias``) as :func:`parallelize` left them, DTensors on the tp mesh; x
+    and the result plain local tensors. Column parallel (weight Shard(0)):
+    x is the whole input and the result this rank's output features; the
+    backward sums x's gradient over tp. Row parallel (Shard(1)): x is this
+    rank's input features and the result the whole output, summed over tp.
+    ``ColwiseParallel`` and ``RowwiseParallel`` compute it so; the bias is
+    added after the product, in the result's dtype."""
+    mesh = weight.device_mesh
+    if weight.placements == (Shard(0),):
+        y = F.linear(DTensor.from_local(x, mesh, [Replicate()], run_check=False), weight).to_local()
+    elif weight.placements == (Shard(1),):
+        y = F.linear(DTensor.from_local(x, mesh, [Shard(x.ndim - 1)], run_check=False), weight)
+        y = y.redistribute(mesh, [Replicate()]).to_local()
+    else:
+        raise ValueError(f"tp_linear: a weight with placements {weight.placements} is not column or row parallel")
+    return y if bias is None else y + bias.to_local()
+
+
+def tp_local(t: torch.Tensor) -> torch.Tensor:
+    """A parameter as a plain tensor: itself, or the local tensor of a
+    DTensor that :func:`parallelize` replicated over tp (a per-head q / k
+    norm). Such a norm is applied to this rank's heads only, so its local
+    gradient is a partial sum over tp; it is marked so (``Partial``), and
+    FSDP2 sums it over tp before the reduce-scatter."""
+    if not isinstance(t, DTensor):
+        return t
+    if t.placements != (Replicate(),):
+        raise ValueError(f"tp_local: a parameter with placements {t.placements} is not replicated over tp")
+    return t.to_local(grad_placements=[Partial()])
+
+
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """A tensor, or a DTensor's local shard (its storage, for in-place updates)."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def copies(t: torch.Tensor) -> int:
+    """On how many ranks of the default group the local shard of ``t`` lies:
+    a plain tensor on all of them; a DTensor on the world size over the
+    number of distinct shards (the product of its sharded mesh dims)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if not isinstance(t, DTensor):
+        return world
+    shards = 1
+    for i, p in enumerate(t.placements):
+        if p.is_shard():
+            shards *= t.device_mesh.size(i)
+    return world // shards

@@ -36,14 +36,21 @@ from typing import Callable, Iterable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from cosmos_predict2_tpu_torch.networks.dit import RMSNorm
+from cosmos_predict2_tpu_torch.parallel.mesh import tp_linear
 
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Flax's ``nn.Dense(dtype=dtype)``: x W^T in ``dtype``, then + b in ``dtype``."""
-    y = F.linear(x.to(dtype), layer.weight.to(dtype))
-    return y if layer.bias is None else y + layer.bias.to(dtype)
+    """Flax's ``nn.Dense(dtype=dtype)``: x W^T in ``dtype``, then + b in
+    ``dtype``. A tensor-parallel layer (parallel/mesh.py::parallelize) runs
+    through ``tp_linear`` on the local tensors."""
+    weight, bias = layer.weight.to(dtype), None if layer.bias is None else layer.bias.to(dtype)
+    if isinstance(weight, DTensor):
+        return tp_linear(x.to(dtype), weight, bias)
+    y = F.linear(x.to(dtype), weight)
+    return y if bias is None else y + bias
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

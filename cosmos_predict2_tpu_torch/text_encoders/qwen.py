@@ -116,16 +116,17 @@ class QwenAttention(nn.Module):
         cfg, dt = self.cfg, self.cfg.dtype
         B, S, _ = x.shape
         nq, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-        q = dense(self.q_proj, x, dt).view(B, S, nq, hd)
-        k = dense(self.k_proj, x, dt).view(B, S, nkv, hd)
-        v = dense(self.v_proj, x, dt).view(B, S, nkv, hd)
+        # this rank's heads under tensor parallelism (parallel/mesh.py::parallelize): nq / tp and nkv / tp
+        q = dense(self.q_proj, x, dt).view(B, S, -1, hd)
+        k = dense(self.k_proj, x, dt).view(B, S, -1, hd)
+        v = dense(self.v_proj, x, dt).view(B, S, -1, hd)
         if cfg.qk_norm:
             q, k = self.q_norm(q), self.k_norm(k)
         q, k = apply_rope_1d(q, angles), apply_rope_1d(k, angles)
         rep = nq // nkv  # GQA: each kv head serves `rep` consecutive query heads
         k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
         out = attention(q, k, v, scale=1.0 / math.sqrt(hd), bias=causal_mask)
-        return dense(self.o_proj, out.reshape(B, S, nq * hd), dt)
+        return dense(self.o_proj, out.reshape(B, S, -1), dt)
 
 
 class QwenMLP(nn.Module):

@@ -1,4 +1,5 @@
-"""Checkpoints of the training state, on ``torch.save`` / ``torch.load``.
+"""Checkpoints of the training state, on ``torch.save`` / ``torch.load``,
+or sharded through ``torch.distributed.checkpoint``.
 
 Counterpart of cosmos_predict2_tpu/training/checkpointing.py, with the same
 "latest step" contract as its Orbax manager: one directory per saved step,
@@ -7,6 +8,15 @@ highest complete one; the oldest are removed beyond ``max_to_keep``. A step
 is written to a temporary directory and renamed into place, so a
 half-written step is never taken for the latest. Saves are synchronous
 (``wait`` returns at once).
+
+A one-device state is one ``state.pt``. A mesh state (DTensor parameters,
+training/trainer.py::TrainState with its ``module``) is written by every
+rank through torch.distributed.checkpoint, each its shards, into the
+temporary directory, which rank 0 renames once all have written; its
+optimizer state is keyed by parameter name. Loading reads into the
+state's own sharded tensors, so a checkpoint saved on one mesh loads onto
+another (saved at fsdp 2 x tp 2, restored at fsdp 4), as the JAX package's
+Orbax restore reshards.
 
 ``save_consolidated`` / ``load_consolidated`` write and read one file of
 (possibly EMA) parameters by name, for inference; ``load_ema_to_reg`` puts
@@ -20,10 +30,21 @@ import shutil
 from typing import Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
 from cosmos_predict2_tpu_torch.utils import log
 
 _STATE_FILE = "state.pt"
+_DCP_FILE = ".metadata"  # torch.distributed.checkpoint's index of a sharded step
+
+
+def _sharded(state) -> bool:
+    return getattr(state, "module", None) is not None
+
+
+def _barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
 
 
 class Checkpointer:
@@ -38,20 +59,33 @@ class Checkpointer:
             return []
         return sorted(
             int(d) for d in os.listdir(self.directory)
-            if d.isdigit() and os.path.isfile(os.path.join(self.directory, d, _STATE_FILE))
+            if d.isdigit() and any(os.path.isfile(os.path.join(self.directory, d, f)) for f in (_STATE_FILE, _DCP_FILE))
         )
 
     def save(self, state, step: int) -> None:
         final = os.path.join(self.directory, str(step))
-        tmp = f"{final}.tmp{os.getpid()}"
-        os.makedirs(tmp, exist_ok=True)
-        torch.save(state.state_dict(), os.path.join(tmp, _STATE_FILE))
+        if not _sharded(state):
+            tmp = f"{final}.tmp{os.getpid()}"
+            os.makedirs(tmp, exist_ok=True)
+            torch.save(state.state_dict(), os.path.join(tmp, _STATE_FILE))
+            self._commit(tmp, final)
+        else:
+            import torch.distributed.checkpoint as dcp
+
+            tmp = f"{final}.tmp"  # one name for every rank
+            dcp.save(state.state_dict(), checkpoint_id=tmp)
+            _barrier()
+            if not dist.is_initialized() or dist.get_rank() == 0:
+                self._commit(tmp, final)
+            _barrier()
+        log.info(f"Saved checkpoint at iteration {step} -> {self.directory}")
+
+    def _commit(self, tmp: str, final: str) -> None:
         if os.path.isdir(final):
             shutil.rmtree(final)
         os.replace(tmp, final)
         for old in self._steps()[: -self.max_to_keep]:
             shutil.rmtree(os.path.join(self.directory, str(old)))
-        log.info(f"Saved checkpoint at iteration {step} -> {self.directory}")
 
     def wait(self) -> None:
         """Saves are synchronous; nothing to wait for."""
@@ -69,7 +103,16 @@ class Checkpointer:
 
     def load(self, state, step: Optional[int] = None):
         """Restore ``state`` in place from ``step`` (default: the latest) and return it."""
-        sd = self.read(step)
+        if not _sharded(state):
+            sd = self.read(step)
+        else:
+            import torch.distributed.checkpoint as dcp
+
+            step = step if step is not None else self.latest_step()
+            if step is None:
+                raise FileNotFoundError(f"no checkpoint found in {self.directory}")
+            sd = state.state_dict()  # the state's own tensors, sharded as this mesh shards them
+            dcp.load(sd, checkpoint_id=os.path.join(self.directory, str(step)))
         state.load_state_dict(sd)
         log.info(f"Restored checkpoint from iteration {sd['step']}")
         return state

@@ -8,7 +8,8 @@ the EDM2 power-EMA decay of the reference model
 ``ema_update`` updates the EMA tensors in place, by a lerp toward the
 parameters (ema + (1 - beta) (p - ema)), where the JAX package builds a new
 tree: the EMA of a 2B model is 8 GB in fp32, and an in-place update needs
-no second copy.
+no second copy. Sharded parameters (DTensors) and their EMA update shard by
+shard (the update is elementwise).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from typing import Iterable
 
 import numpy as np
 import torch
+
+from cosmos_predict2_tpu_torch.parallel.mesh import local_tensor
 
 
 @functools.lru_cache(maxsize=None)
@@ -36,5 +39,5 @@ def power_ema_beta(iteration: int, s: float = 0.1) -> float:
 def ema_update(ema_params: Iterable[torch.Tensor], params: Iterable[torch.Tensor], beta: float) -> None:
     """ema <- ema * beta + (1 - beta) * p, in place, one fused lerp over all
     tensors."""
-    ema_params = list(ema_params)
-    torch._foreach_lerp_(ema_params, [p.to(e.dtype) for e, p in zip(ema_params, params)], 1.0 - beta)
+    ema_params = [local_tensor(e) for e in ema_params]
+    torch._foreach_lerp_(ema_params, [local_tensor(p).to(e.dtype) for e, p in zip(ema_params, params)], 1.0 - beta)

@@ -19,6 +19,13 @@ stochastic rounding, its bits drawn from a ``torch.Generator`` seeded by
 ``moments_seed``. It halves the optimizer state (8 -> 4 bytes per
 parameter). Host-offloaded moments (``moments_offload``) are a TPU
 workaround and are not ported.
+
+Sharded parameters (DTensors of parallel/mesh.py::parallelize): AdamW
+steps them as they are; AdamWBF16 updates each local shard (its update is
+elementwise) and draws every parameter's noise whole, in the unsharded
+order, and keeps its shard's part, so each element gets the draw it gets
+on one device. :func:`global_norm` of sharded gradients is the whole
+model's, the same on every rank.
 """
 
 from __future__ import annotations
@@ -28,6 +35,9 @@ from typing import Callable, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
+
+from cosmos_predict2_tpu_torch.parallel import comm
+from cosmos_predict2_tpu_torch.parallel.mesh import DTensor, copies, local_tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +109,17 @@ def rounding_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
     generator's device and moved to ``device``."""
     return torch.randint(0, 1 << 16, tuple(shape), generator=generator, device=generator.device,
                          dtype=torch.int32).to(device)
+
+
+def local_noise(p: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """:func:`rounding_noise` for ``p``'s whole shape; of a sharded ``p``,
+    the part that lies on its local shard (cut without communication)."""
+    noise = rounding_noise(p.shape, generator, local_tensor(p).device)
+    if not isinstance(p, DTensor):
+        return noise
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(noise, p.device_mesh, p.placements, src_data_rank=None).to_local()
 
 
 @torch.no_grad()
@@ -179,22 +200,25 @@ class AdamWBF16(torch.optim.Optimizer):
                         st["exp_avg"] = torch.zeros_like(p, dtype=torch.bfloat16)
                         st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.bfloat16)
                     st["step"] += 1
-                noise_mu = [rounding_noise(p.shape, self.generator, p.device) for p in chunk]
-                noise_nu = [rounding_noise(p.shape, self.generator, p.device) for p in chunk]
-                updates = scale_by_adam_bf16([p.grad for p in chunk], [st["exp_avg"] for st in states],
-                                             [st["exp_avg_sq"] for st in states], states[0]["step"], group["betas"],
-                                             group["eps"], noise_mu, noise_nu)
+                noise_mu = [local_noise(p, self.generator) for p in chunk]
+                noise_nu = [local_noise(p, self.generator) for p in chunk]
+                local = [local_tensor(p) for p in chunk]
+                updates = scale_by_adam_bf16([local_tensor(p.grad) for p in chunk],
+                                             [local_tensor(st["exp_avg"]) for st in states],
+                                             [local_tensor(st["exp_avg_sq"]) for st in states], states[0]["step"],
+                                             group["betas"], group["eps"], noise_mu, noise_nu)
                 del noise_mu, noise_nu
                 if group["weight_decay"]:
-                    torch._foreach_add_(updates, torch._foreach_mul(chunk, group["weight_decay"]))
-                torch._foreach_add_(chunk, torch._foreach_mul(updates, -group["lr"]))
+                    torch._foreach_add_(updates, torch._foreach_mul(local, group["weight_decay"]))
+                torch._foreach_add_(local, torch._foreach_mul(updates, -group["lr"]))
 
     def state_dict(self) -> dict:
         return {**super().state_dict(), "generator": self.generator.get_state()}
 
     def load_state_dict(self, state_dict: dict) -> None:
         state_dict = dict(state_dict)
-        self.generator.set_state(state_dict.pop("generator"))
+        if "generator" in state_dict:  # a name-keyed (mesh) state restores it apart (training/trainer.py::TrainState)
+            self.generator.set_state(state_dict.pop("generator"))
         super().load_state_dict(state_dict)
         # torch.optim casts floating state to the parameter's dtype on load: back to bf16 (exact)
         for st in self.state.values():
@@ -220,12 +244,21 @@ def make_optimizer(
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares) over all tensors, fp32, on their device."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm([t.float() for t in tensors])))
+    """sqrt(sum of squares) over all tensors, fp32, on their device. With
+    sharded tensors (DTensors) among them it is the whole tensors' norm, the
+    same on every rank: each local shard's sum of squares over the number
+    of ranks that hold that shard (parallel/mesh.py::copies), summed over
+    every rank."""
+    tensors = list(tensors)
+    norms = torch._foreach_norm([local_tensor(t).float() for t in tensors])
+    if not any(isinstance(t, DTensor) for t in tensors):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack([n.square() / copies(t) for n, t in zip(norms, tensors)]).sum()
+    return comm.all_reduce(sq).sqrt()
 
 
 def clip_by_global_norm_(grads: Sequence[torch.Tensor], norm: torch.Tensor, max_norm: float) -> None:
     """optax.clip_by_global_norm in place: grads scaled by max_norm / norm
     unless norm < max_norm, where ``norm`` is their :func:`global_norm`."""
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    torch._foreach_mul_(list(grads), scale)
+    torch._foreach_mul_([local_tensor(g) for g in grads], scale)

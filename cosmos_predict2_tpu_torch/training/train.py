@@ -9,20 +9,29 @@ LoRA or in full:
     python -m cosmos_predict2_tpu_torch.training.train \\
         --experiment=predict2_lora_training_2b_cosmos_nemo_assets data_train=local_video data_train.root=DIR
 
-Counterpart of cosmos_predict2_tpu/training/train.py on one device: the
-composed config; a DiT with seeded random weights, trained in full or, with
+On a mesh, one process per device (NCCL on the card, gloo with --device cpu):
+
+    torchrun --nproc-per-node 4 -m cosmos_predict2_tpu_torch.training.train \
+        --experiment=predict2_video2world_2b_rectified_flow fsdp_shard_size=2 cp_size=2
+
+Counterpart of cosmos_predict2_tpu/training/train.py: the composed config;
+the (dp, fsdp, cp, tp) mesh over the process group (:func:`dp_size`:
+dp is what the world size leaves, shrunk until the global batch divides
+over dp x fsdp); a DiT with seeded random weights, trained in full or, with
 ``model.use_lora``, frozen under LoRA adapters (training/lora.py) that are
-then all the trainer updates, averages and checkpoints; the Wan2.1 VAE on
-seeded random weights; batches from the data config's type (mock clips, or
+then all the trainer updates, averages and checkpoints; on a mesh the net
+is context-parallel over cp (networks/dit.py::set_context_parallel) and
+sharded by parallel/mesh.py::parallelize; the Wan2.1 VAE on seeded random
+weights; batches from the data config's type (mock clips, or
 data/local_dataset.py's folder with ``data_train=local_video``), each
-encoded through the exact streaming VAE encode (no gradient); and the
-trainer, resumed from the latest checkpoint of ``--ckpt_dir`` when there is
-one. Runs on CUDA unless ``--device cpu`` is given. COSMOS_SMOKE=1 shrinks
-the run to 2 iterations without checkpoints. The config's mesh sizes
-(``fsdp_shard_size``, ``cp_size``, ``tp_size``) must be 1: the training
-mesh is not ported (context parallelism serves, parallel/; its backward
-and fsdp / tp are not written), and ``pp_size`` > 1 raises as in
-parallel/mesh.py::make_mesh.
+rank's rows of the global batch encoded through the exact streaming VAE
+encode (no gradient); and the trainer, resumed from the latest checkpoint
+of ``--ckpt_dir`` when there is one. Runs on CUDA unless ``--device cpu``
+is given. COSMOS_SMOKE=1 shrinks the run to 2 iterations without
+checkpoints. One process with every mesh size 1 takes the one-device route
+(no process group, no sharding). ``pp_size`` > 1 raises as in
+parallel/mesh.py::make_mesh; LoRA on a mesh of more than one device raises
+(not ported).
 """
 
 from __future__ import annotations
@@ -57,14 +66,38 @@ def make_loader(data_config):
     return MockDataLoader(data_config)
 
 
-def latent_batches(loader, vae, device: torch.device):
+def dp_size(world: int, batch: int, fsdp: int, cp: int, tp: int) -> int:
+    """dp of the training mesh, as the JAX package's ``launch`` picks it:
+    the world size over fsdp x cp x tp, shrunk until the global ``batch``
+    splits over dp x fsdp (its message when it cannot). Here every process
+    drives one device of the mesh, so a dp that leaves processes out
+    raises."""
+    shard = fsdp * cp * tp
+    dp = max(1, world // shard)
+    while dp > 1 and batch % (dp * fsdp) != 0:
+        dp -= 1
+    if batch % (dp * fsdp) != 0:
+        raise ValueError(f"batch_size {batch} not divisible by dp*fsdp = {dp * fsdp}")
+    if dp * shard != world:
+        raise ValueError(f"mesh dp={dp} x fsdp={fsdp} x cp={cp} x tp={tp} = {dp * shard} devices, but {world} "
+                         f"processes: launch {dp * shard}, or a batch size that splits over more")
+    return dp
+
+
+def latent_batches(loader, vae, device: torch.device, rows: tuple[int, int] = (0, 1)):
     """Endless (latents (B, C, T, H, W) fp32, condition) batches: the
     loader's clips encoded by the exact streaming VAE encode under no_grad,
-    with their text embeddings and fps."""
+    with their text embeddings and fps. ``rows`` = (index, count): this
+    rank's share of each global batch, the index-th of count equal row
+    shards (trainer.py::data_shard)."""
     from cosmos_predict2_tpu_torch.conditioning.conditioner import make_condition
     from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import encode_streaming
 
+    index, count = rows
     for batch in loader:
+        if count > 1:
+            b = batch["video"].shape[0] // count
+            batch = {k: v[index * b:(index + 1) * b] if getattr(v, "ndim", 0) >= 1 else v for k, v in batch.items()}
         clip = torch.from_numpy(batch["video"]).to(device).permute(0, 2, 3, 4, 1)  # (B, T, H, W, 3) uint8
         with torch.no_grad():
             latents = encode_streaming(vae, clip, pixel_format="uint8")
@@ -79,29 +112,41 @@ def launch(config, ckpt_dir: Optional[str] = None, device: str = "cuda", callbac
     """Train ``config`` on ``device``; returns the final TrainState. Extra
     ``callbacks`` run after the trainer's own logging callback."""
     from cosmos_predict2_tpu_torch.models.video2world import Video2WorldModel
-    from cosmos_predict2_tpu_torch.networks.dit import build_dit
+    from cosmos_predict2_tpu_torch.networks.dit import build_dit, set_context_parallel
+    from cosmos_predict2_tpu_torch.parallel.launch import init_distributed
+    from cosmos_predict2_tpu_torch.parallel.mesh import make_mesh, parallelize
     from cosmos_predict2_tpu_torch.tokenizers.wan_vae import build_vae
     from cosmos_predict2_tpu_torch.training.checkpointing import Checkpointer
     from cosmos_predict2_tpu_torch.training.lora import LoRAModelWrapper, count_lora_params
-    from cosmos_predict2_tpu_torch.training.trainer import IterSpeedCallback, Trainer
+    from cosmos_predict2_tpu_torch.training.trainer import IterSpeedCallback, Trainer, data_shard
     from cosmos_predict2_tpu_torch.utils import log
     from cosmos_predict2_tpu_torch.utils.flags import SMOKE
 
     device = torch.device(device)
     if config.pp_size != 1:
-        from cosmos_predict2_tpu_torch.parallel.mesh import make_mesh
-
         make_mesh(pp=config.pp_size, device_type=device.type)  # raises: no pipeline schedule
-    sizes = {n: getattr(config, n) for n in ("fsdp_shard_size", "cp_size", "tp_size")}
-    if any(v != 1 for v in sizes.values()):
-        raise NotImplementedError(f"the trainer runs on one device; mesh sizes {sizes} need the training mesh "
-                                  "(fsdp / tp and the context-parallel backward), which is not ported")
+    fsdp, cp, tp = config.fsdp_shard_size, config.cp_size, config.tp_size
+    world = init_distributed(device=device)["process_count"]
+    mesh = None
+    if world > 1 or fsdp * cp * tp > 1:
+        dp = dp_size(world, config.data_train.batch_size, fsdp, cp, tp)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())  # init_distributed set this rank's card
+        mesh = make_mesh(dp, fsdp, cp, tp, device_type=device.type)
+        log.info(f"mesh: dp={dp} fsdp={fsdp} cp={cp} tp={tp}")
+        if config.model.use_lora:
+            raise NotImplementedError("LoRA on a mesh of more than one device is not ported: post-train with LoRA "
+                                      "on one device")
     trainer_cfg = config.trainer
     if SMOKE:
         trainer_cfg = dataclasses.replace(trainer_cfg, max_iter=2, logging_iter=1, save_iter=0)
 
     model_cfg = config.model
     net = build_dit(model_cfg.net, device, seed=trainer_cfg.seed, trainable=not model_cfg.use_lora)
+    if mesh is not None:
+        if cp > 1:
+            set_context_parallel(net, mesh.get_group("cp"))
+        parallelize(net, mesh)
     model = Video2WorldModel(model_cfg, net)
     if model_cfg.use_lora:
         # the base stays frozen; the adapters are the trainable (and checkpointed) state
@@ -122,7 +167,7 @@ def launch(config, ckpt_dir: Optional[str] = None, device: str = "cuda", callbac
         start_iteration = state.step
         log.info(f"resumed from iteration {start_iteration}")
 
-    batches = latent_batches(make_loader(config.data_train), vae, device)
+    batches = latent_batches(make_loader(config.data_train), vae, device, rows=data_shard(mesh))
     return trainer.train(state, batches, start_iteration=start_iteration)
 
 
@@ -138,7 +183,12 @@ def main(argv=None, callbacks: Optional[list] = None) -> int:
 
         log.info(f"config OK:\n{config}")
         return 0
-    state = launch(config, ckpt_dir=args.ckpt_dir, device=args.device, callbacks=callbacks)
+    from cosmos_predict2_tpu_torch.parallel.launch import shutdown_distributed
+
+    try:
+        state = launch(config, ckpt_dir=args.ckpt_dir, device=args.device, callbacks=callbacks)
+    finally:
+        shutdown_distributed()
     print(f"trained {state.step} iterations")
     return 0
 

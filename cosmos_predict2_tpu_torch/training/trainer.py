@@ -18,6 +18,17 @@ default draws them with ``model.sample_train_draws`` from a CPU
 ``torch.Generator`` seeded from ``(config.seed, iteration)``, so a resumed
 run draws what an unbroken one would.
 
+On a mesh (a net sharded by parallel/mesh.py::parallelize) each rank's
+``x0`` is its rows of the global batch, the batch being sharded over (dp,
+fsdp) in that order: the default draws are made for the global batch from
+the same generator and each rank keeps its rows (a ``draw_fn`` may return
+draws of either batch), so the ranks of a cp or tp group draw alike and a
+run on a mesh draws what the one-device run draws, as the JAX trainer's
+global arrays do. ``grad_norm`` is the whole model's and ``loss`` the
+global batch's mean, the same on every rank; the state's parameters, EMA
+and optimizer moments are DTensors, checkpointed through
+torch.distributed.checkpoint (training/checkpointing.py).
+
 The model is any of the port's trainable models: ``trainable_parameters()``,
 ``sample_train_draws`` and ``training_step(x0, condition, draws)`` over a
 ``net``. The rectified-flow Video2World models (and their variants) draw
@@ -37,9 +48,11 @@ import time
 from typing import Callable, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 
 from cosmos_predict2_tpu_torch.conditioning.conditioner import apply_train_dropout
 from cosmos_predict2_tpu_torch.models.video2world import TrainDraws
+from cosmos_predict2_tpu_torch.parallel import comm
 from cosmos_predict2_tpu_torch.training.ema import ema_update, power_ema_beta
 from cosmos_predict2_tpu_torch.training.optim import OptimizerConfig, clip_by_global_norm_, global_norm, make_optimizer
 
@@ -66,7 +79,10 @@ class TrainState:
     name (the live ``nn.Parameter`` objects of the net): micro-steps taken
     (``step``), optimizer updates applied (``opt_step``), the EMA tensors,
     the optimizer and schedule, and the running mean of the micro-step
-    gradients under accumulation."""
+    gradients under accumulation. ``module`` is the sharded net of a mesh
+    state (None on one device): its optimizer state is then keyed by
+    parameter name (torch.distributed.checkpoint.state_dict), so that a
+    checkpoint loads onto another mesh."""
 
     step: int
     params: dict[str, torch.nn.Parameter]
@@ -75,9 +91,10 @@ class TrainState:
     scheduler: torch.optim.lr_scheduler.LRScheduler
     opt_step: int = 0
     grad_acc: Optional[dict[str, torch.Tensor]] = None
+    module: Optional[torch.nn.Module] = None
 
     def state_dict(self) -> dict:
-        return {
+        sd = {
             "step": self.step,
             "opt_step": self.opt_step,
             "params": {n: p.detach() for n, p in self.params.items()},
@@ -86,6 +103,13 @@ class TrainState:
             "scheduler": self.scheduler.state_dict(),
             "grad_acc": self.grad_acc,
         }
+        if self.module is not None:
+            from torch.distributed.checkpoint.state_dict import get_optimizer_state_dict
+
+            # the optimizer's own extra state (AdamWBF16's generator) beside its name-keyed moments
+            sd["optimizer_extra"] = {k: v for k, v in sd["optimizer"].items() if k not in ("state", "param_groups")}
+            sd["optimizer"] = get_optimizer_state_dict(self.module, self.optimizer)
+        return sd
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
@@ -97,8 +121,16 @@ class TrainState:
             if (mine is None) != (theirs is None) or (mine is not None and mine.keys() != theirs.keys()):
                 raise KeyError(f"checkpoint's {group} do not match this training state")
             for n, t in (mine or {}).items():
-                t.copy_(theirs[n])
-        self.optimizer.load_state_dict(sd["optimizer"])
+                if t is not theirs[n]:
+                    t.copy_(theirs[n])
+        if self.module is None:
+            self.optimizer.load_state_dict(sd["optimizer"])
+        else:
+            from torch.distributed.checkpoint.state_dict import set_optimizer_state_dict
+
+            set_optimizer_state_dict(self.module, self.optimizer, sd["optimizer"])
+            if "generator" in sd.get("optimizer_extra", {}):
+                self.optimizer.generator.set_state(sd["optimizer_extra"]["generator"])
         self.scheduler.load_state_dict(sd["scheduler"])
 
 
@@ -186,6 +218,30 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def data_shard(mesh) -> tuple[int, int]:
+    """(this rank's index, count) of the batch shards of a (dp, fsdp, cp,
+    tp) mesh: the batch is sharded over (dp, fsdp), dp major; (0, 1)
+    without a mesh."""
+    if mesh is None:
+        return 0, 1
+    fsdp = mesh["fsdp"].size()
+    return mesh.get_local_rank("dp") * fsdp + mesh.get_local_rank("fsdp"), mesh["dp"].size() * fsdp
+
+
+def rows_of(draws, batch: int, index: int, count: int):
+    """The ``index``-th of ``count`` row shards of a draws dataclass whose
+    batch fields hold ``batch * count`` rows; draws of ``batch`` rows, and
+    fields of another length (a scalar flag), are kept."""
+    if count == 1:
+        return draws
+    cut = {}
+    for f in dataclasses.fields(draws):
+        t = getattr(draws, f.name)
+        if isinstance(t, torch.Tensor) and t.ndim >= 1 and t.shape[0] == batch * count:
+            cut[f.name] = t[index * batch:(index + 1) * batch]
+    return dataclasses.replace(draws, **cut)
+
+
 class Trainer:
     """Trains ``model.trainable_parameters()`` in place: the whole net, or
     the adapters of a training/lora.py::LoRAModelWrapper.
@@ -212,11 +268,14 @@ class Trainer:
         self.stats = TrainingStats()
         self.draw_fn = draw_fn  # None: default_draws (not stored as a bound method: no Trainer -> Trainer cycle)
         self.device = next(model.net.parameters()).device
+        self.mesh = getattr(model.net, "mesh", None)  # parallel/mesh.py::parallelize
         self.last_timings: dict[str, float] = {}
 
     def default_draws(self, iteration: int, x0: torch.Tensor):
+        """The draws of the global batch (of which ``x0`` is this rank's rows)."""
         gen = torch.Generator().manual_seed(self.config.seed * 1_000_003 + iteration)
-        return self.model.sample_train_draws(gen, tuple(x0.shape))
+        count = data_shard(self.mesh)[1]
+        return self.model.sample_train_draws(gen, (x0.shape[0] * count, *x0.shape[1:]))
 
     # ------------------------------ state ------------------------------
 
@@ -228,7 +287,8 @@ class Trainer:
         ema = {n: p.detach().clone().float() for n, p in params.items()} if cfg.ema_enabled else None
         optimizer, scheduler = make_optimizer(cfg.optimizer, params.values())
         acc = {n: torch.zeros_like(p) for n, p in params.items()} if cfg.grad_accum_iter > 1 else None
-        return TrainState(step=0, params=params, ema_params=ema, optimizer=optimizer, scheduler=scheduler, grad_acc=acc)
+        return TrainState(step=0, params=params, ema_params=ema, optimizer=optimizer, scheduler=scheduler, grad_acc=acc,
+                          module=None if self.mesh is None else self.model.net)
 
     # ---------------------------- train step ----------------------------
 
@@ -236,7 +296,8 @@ class Trainer:
         """One micro-step; updates ``state`` in place and returns the metrics."""
         cfg = self.config
         t0 = time.perf_counter()
-        draws = (self.draw_fn or self.default_draws)(iteration, x0).to(self.device)
+        draws = (self.draw_fn or self.default_draws)(iteration, x0)
+        draws = rows_of(draws, x0.shape[0], *data_shard(self.mesh)).to(self.device)
         if isinstance(draws, TrainDraws):  # the conditioning dropout of the rectified-flow Video2World models
             condition = apply_train_dropout(condition, draws.text_keep, draws.use_video)
         for p in state.params.values():
@@ -248,6 +309,8 @@ class Trainer:
             raise RuntimeError(f"{len(missing)} trainable parameters received no gradient, e.g. {missing[:3]}")
         grads = [p.grad for p in state.params.values()]
         metrics["grad_norm"] = norm = global_norm(grads)
+        if self.mesh is not None:  # the global batch's mean loss
+            metrics["loss"] = comm.all_reduce(metrics["loss"].detach().float().clone()) / dist.get_world_size()
         _sync(self.device)
         t1 = time.perf_counter()
 

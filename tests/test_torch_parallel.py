@@ -6,8 +6,10 @@ same seeded NumPy inputs and weights that go through the JAX package's
 functions on the conftest's virtual CPU mesh: Ulysses dense, causal and with
 neighborhood attention, the head-sharded streaming decode with and without
 the row window, the tiny DiT forward (test_parallel.py:106), the mesh's
-refusals, and the streaming loop under CP. Tolerances are JAX's own: 2e-5 on
-attention, 2e-4 on the DiT. A communication-pattern test (the port's
+refusals, the streaming loop under CP, and the gradient of Ulysses, dense
+and with neighborhood attention, against JAX's (test_parallel.py:62).
+Tolerances are JAX's own: 2e-5 on attention, 1e-4 on its gradient, 2e-4
+on the DiT. A communication-pattern test (the port's
 counterpart of test_parallel.py:359) reads the byte log of
 parallel/comm.py: the streaming decode moves only the new block through
 four all-to-alls, never a cache tensor.
@@ -25,6 +27,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 from cosmos_predict2_tpu.networks.dit import MiniTrainDIT as JDiT
 from cosmos_predict2_tpu.networks.dit import PRESETS
+from cosmos_predict2_tpu.ops.attention import reference_attention
 from cosmos_predict2_tpu.ops.flash_attention import _kv_cache_reference, _kv_cache_window_reference
 from cosmos_predict2_tpu.parallel import mesh as jmesh
 from cosmos_predict2_tpu.parallel.cp import ulysses_attention as j_ulysses
@@ -36,6 +39,7 @@ from torch_dist_util import run_ranks
 from torch_variants_util import jit_init, port_config
 
 ATTN_TOL = 2e-5
+GRAD_TOL = 1e-4
 DIT_TOL = 2e-4
 CP = 4
 
@@ -76,6 +80,8 @@ KV = dict(q=_draw(20, 1, 8, 4, 16), k=_draw(21, 1, 8, 4, 16), v=_draw(22, 1, 8, 
 GH, GW = 4, 8
 KVW = dict(q=_draw(30, 1, GH * GW, 4, 16), k=_draw(31, 1, GH * GW, 4, 16), v=_draw(32, 1, GH * GW, 4, 16),
            k_buf=_draw(33, 1, 4, 4 * GH * GW, 16), v_buf=_draw(34, 1, 4, 4 * GH * GW, 16), fill=2 * GH * GW)
+GRAD_Q = _draw(70, 1, 32, 4, 16)  # test_parallel.py:62's shape
+NA_GRAD_Q = _draw(71, 1, 64, 8, 32)
 PATTERN = dict(q=_draw(40, 1, 8, 8, 16), k=_draw(41, 1, 8, 8, 16), v=_draw(42, 1, 8, 8, 16),
                k_buf=_draw(43, 1, 8, 32, 16), v_buf=_draw(44, 1, 8, 32, 16), fill=12)
 
@@ -121,6 +127,8 @@ def ranks(tmp_path_factory):
         "mesh": ("mesh_errors", {}),
         "stream": ("stream", dict(cfg=scfg, state_dict=ssd, **skw)),
         "stream_window": ("stream", dict(cfg=window_cfg, state_dict=ssd, **skw)),
+        "grad": ("ulysses_grads", dict(q=GRAD_Q)),
+        "na_grad": ("ulysses_grads", dict(q=NA_GRAD_Q, na=(NA_SIZE, NA_WINDOW, (1, 1, 1), (1, 1, 1)))),
     }
     results = run_ranks(tmp_path_factory.mktemp("cp"), CP, list(cases.values()))
     return dict(zip(cases, results)), (jcfg, params, x, ts, ctx), (scfg, window_cfg, ssd, skw)
@@ -147,6 +155,38 @@ def test_ulysses_neighborhood_attention_matches_jax(ranks):
     got = _assembled(ranks[0]["na"])
     np.testing.assert_allclose(got, _j_ulysses(*NA, na_video_size=NA_SIZE, na_window=NA_WINDOW), atol=ATTN_TOL,
                                rtol=0)
+
+
+def _j_ulysses_grad(q, **kw):
+    """JAX's d/dq of sum(ulysses_attention(q, q, q)^2) on its cp mesh (test_parallel.py:62)."""
+    mesh = _jmesh()
+    with jax.set_mesh(mesh):
+        qs = jax.device_put(jnp.asarray(q), NamedSharding(mesh, P(None, "cp", None, None)))
+        loss = lambda a: jnp.sum(j_ulysses(a, a, a, axis_name="cp", **kw) ** 2)
+        return np.asarray(jax.jit(jax.grad(loss))(qs))
+
+
+@pytest.mark.parametrize("case", ["grad", "na_grad"])
+def test_ulysses_grads_match_jax(ranks, case):
+    """The gradient through Ulysses (the all-to-alls' backward, then K7 / K8
+    on the card, or K11 / K12 with neighborhood attention; their plain
+    versions here): each rank's share of d/dq of the loss summed over the
+    whole output against JAX's on its cp mesh; the NA case also against
+    the single-device gradient of JAX's NA reference."""
+    got = _assembled(ranks[0][case])
+    if case == "grad":
+        want = _j_ulysses_grad(GRAD_Q, backend="reference")
+        np.testing.assert_allclose(got, want, atol=GRAD_TOL, rtol=0)
+        ref = jax.grad(lambda a: jnp.sum(reference_attention(a, a, a) ** 2))(jnp.asarray(GRAD_Q))
+        np.testing.assert_allclose(got, np.asarray(ref), atol=GRAD_TOL, rtol=0)
+        return
+    from cosmos_predict2_tpu.ops.neighborhood_attention import VideoSize, neighborhood_attention_reference
+
+    want = _j_ulysses_grad(NA_GRAD_Q, na_video_size=NA_SIZE, na_window=NA_WINDOW)
+    np.testing.assert_allclose(got, want, atol=GRAD_TOL, rtol=0)
+    ref = jax.grad(lambda a: jnp.sum(neighborhood_attention_reference(a, a, a, VideoSize(*NA_SIZE), NA_WINDOW) ** 2))(
+        jnp.asarray(NA_GRAD_Q))
+    np.testing.assert_allclose(got, np.asarray(ref), atol=GRAD_TOL, rtol=0)
 
 
 @pytest.mark.parametrize("case", ["kv", "kv_window"])

@@ -4,10 +4,15 @@ Eight gloo ranks (tests/torch_dist_util.py, one start for the file) run the
 ring at cp 4 (the first four ranks' group) and cp 8, without and with a
 frame group of 8 (test_ring_attention.py's cases: B2 S32 H4 D16), a frame
 group that does not align with the shards (the plain version's global
-mask), and the tiny DiT forward with ``cp_strategy="ring"``
-(test_ring_attention.py:72). The JAX side is its ``ring_attention`` and its
-ring-CP net on the conftest's virtual CPU mesh. Tolerances are JAX's: 2e-5
-on attention, 2e-4 on the DiT.
+mask), the tiny DiT forward with ``cp_strategy="ring"``
+(test_ring_attention.py:72), and the ring's gradients (dq, dk, dv of
+test_ring_attention.py:45's loss, B1 S32 H4 D8) at cp 2 and 4, without
+and with a frame group of 8. The JAX side is its ``ring_attention`` (whose
+gradient is autodiff of its ring) and its ring-CP net on the conftest's
+virtual CPU mesh. Tolerances are JAX's: 2e-5 on attention and its
+gradients, 2e-4 on the DiT. A communication-pattern test reads the byte
+log of parallel/comm.py: the backward moves each K/V shard c - 1 hops and
+its fp32 dK / dV c - 1 hops and one home, and no q.
 """
 
 import dataclasses
@@ -32,6 +37,7 @@ from torch_variants_util import jit_init, port_config
 ATTN_TOL = 2e-5
 DIT_TOL = 2e-4
 RING_CASES = [(4, 0), (8, 0), (4, 8), (4, 6)]  # (cp, frame_group); 6 does not divide the 8-token shards
+GRAD_CASES = [(2, 0), (4, 0), (2, 8), (4, 8)]  # (cp, frame_group) of the gradient cases
 
 
 def _qkv(seed):
@@ -45,6 +51,22 @@ def _j_ring(q, k, v, cp, frame_group):
     with jax.set_mesh(mesh):
         qs, ks, vs = (jax.device_put(jnp.asarray(t), spec) for t in (q, k, v))
         return np.asarray(jax.jit(lambda a, b, c: j_ring(a, b, c, frame_group=frame_group))(qs, ks, vs))
+
+
+def _grad_case(seed):
+    """test_ring_attention.py:45's inputs: q, k, v (B1 S32 H4 D8) and the target."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((1, 32, 4, 8)).astype(np.float32) for _ in range(4))
+
+
+def _j_ring_grads(q, k, v, tgt, cp, frame_group):
+    """JAX's gradients of mean((ring_attention(q, k, v) - tgt)^2) on a cp mesh."""
+    mesh = Mesh(np.array(jax.devices()[:cp]), ("cp",))
+    spec = NamedSharding(mesh, P(None, "cp", None, None))
+    with jax.set_mesh(mesh):
+        qs, ks, vs, ts = (jax.device_put(jnp.asarray(t), spec) for t in (q, k, v, tgt))
+        loss = lambda a, b, c: jnp.mean((j_ring(a, b, c, frame_group=frame_group) - ts) ** 2)
+        return [np.asarray(g) for g in jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(qs, ks, vs)]
 
 
 def _dit_case():
@@ -65,6 +87,8 @@ def ranks(tmp_path_factory):
     sd = {n: t.numpy() for n, t in jax_dit_params_to_torch(params, tcfg).items()}
     cases = [("ring", dict(zip("qkv", _qkv(i)), cp=cp, frame_group=fg)) for i, (cp, fg) in enumerate(RING_CASES)]
     cases.append(("dit_forward", dict(cfg=tcfg, state_dict=sd, x=x, t=ts, ctx=ctx)))
+    cases += [("ring_grads", dict(zip(("q", "k", "v", "tgt"), _grad_case(20 + i)), cp=cp, frame_group=fg))
+              for i, (cp, fg) in enumerate(GRAD_CASES)]
     return run_ranks(tmp_path_factory.mktemp("ring"), 8, cases), (jcfg, params, x, ts, ctx)
 
 
@@ -118,8 +142,37 @@ def test_block_merge_equals_whole_attention():
     torch.testing.assert_close(merged[0], reference_attention(q8, k[:, :8], v[:, :8]), atol=ATTN_TOL, rtol=0)
 
 
-def test_ring_refuses_a_backward():
-    """The ring is forward only: under autograd it raises before any collective."""
-    q = torch.zeros((1, 8, 2, 16), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        ring_attention(q, q, q, group=None)
+@pytest.mark.parametrize("i", range(len(GRAD_CASES)), ids=[f"cp{cp}-fg{fg}" for cp, fg in GRAD_CASES])
+def test_ring_gradients_match_jax(ranks, i):
+    """dq, dk, dv of the ring's backward (the ring run again with the
+    global lse, K7 / K8's plain versions per block, dK / dV travelling
+    with the K/V shards) assembled in rank order, against the autodiff of
+    JAX's ring (test_ring_attention.py:45) and the plain whole-sequence
+    attention's gradient."""
+    cp, fg = GRAD_CASES[i]
+    shares = ranks[0][len(RING_CASES) + 1 + i]
+    assert all(s is None for s in shares[cp:])
+    got = [np.concatenate([s[j] for s in shares[:cp]], axis=1) for j in range(3)]
+    q, k, v, tgt = _grad_case(20 + i)
+    for g, w in zip(got, _j_ring_grads(q, k, v, tgt, cp, fg)):
+        np.testing.assert_allclose(g, w, atol=ATTN_TOL, rtol=ATTN_TOL)
+    tq, tk, tv = (torch.from_numpy(t).requires_grad_(True) for t in (q, k, v))
+    ((reference_attention(tq, tk, tv, frame_group=fg) - torch.from_numpy(tgt)) ** 2).mean().backward()
+    for g, w in zip(got, (tq.grad, tk.grad, tv.grad)):
+        np.testing.assert_allclose(g, w.numpy(), atol=ATTN_TOL, rtol=ATTN_TOL)
+
+
+def test_ring_backward_communication_pattern(ranks):
+    """The ring's hops, forward and backward, on every rank of the cp 4
+    cases: the forward sends its K/V block c - 1 times; the backward sends
+    it c - 1 times more, and its fp32 dK / dV c times (c - 1 hops around
+    the ring and one home), each to the next rank; nothing else, so no q
+    and no output moves."""
+    for i, (cp, _) in enumerate(GRAD_CASES):
+        for rank, share in enumerate(ranks[0][len(RING_CASES) + 1 + i][:cp]):
+            fwd, bwd = share[3], share[4]
+            block = (2, 1, 32 // cp, 4, 8)  # K and V stacked, or dK and dV
+            assert [(r.kind, r.shape, r.peer) for r in fwd] == [("send", block, (rank + 1) % cp)] * (cp - 1)
+            assert all((r.kind, r.shape, r.peer, r.dtype) == ("send", block, (rank + 1) % cp, torch.float32)
+                       for r in bwd), bwd
+            assert len(bwd) == (cp - 1) + cp

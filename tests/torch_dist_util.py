@@ -1,4 +1,4 @@
-"""Rank workers of the port's context-parallel tests: N gloo processes.
+"""Rank workers of the port's context-parallel and training-mesh tests: N gloo processes.
 
 Imports torch (and the port) only. :func:`run_ranks` writes a list of cases
 (a worker's name and its keyword arguments: numpy arrays, configs, state
@@ -48,9 +48,9 @@ def run_ranks(tmp_path: Path, world: int, cases: list[tuple[str, dict]], timeout
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for rank, (p, out) in enumerate(zip(procs, logs)):
-        if p.returncode != 0:
-            raise RuntimeError(f"rank {rank} of {world} exited with {p.returncode}:\n{out[-6000:]}")
+    failed = [(rank, p.returncode, out) for rank, (p, out) in enumerate(zip(procs, logs)) if p.returncode != 0]
+    if failed:  # every failed rank's tail: the first to fail need not be rank 0
+        raise RuntimeError("\n".join(f"rank {rank} of {world} exited with {rc}:\n{out[-4000:]}" for rank, rc, out in failed))
     per_rank = [torch.load(work / f"result_{rank}.pt", weights_only=False) for rank in range(world)]
     return [[per_rank[rank][i] for rank in range(world)] for i in range(len(cases))]
 
@@ -209,6 +209,214 @@ def vae_sharded(cfg, state_dict, clip, z, streaming: bool, record=False):
     with COMM.recording() as records:
         px = dec(vae, grid.take(_t(z)).contiguous(), grid=grid)
     return _np(got_z), _np(grid.gather(px)), list(records)
+
+
+def _loss_backward(out: torch.Tensor, tgt=None, scale: float = 1.0) -> None:
+    """Backward of this rank's share of a loss summed over the ranks."""
+    loss = (out.pow(2) if tgt is None else (out - tgt).pow(2)).sum() * scale
+    loss.backward()
+
+
+def ring_grads(q, k, v, tgt, cp, frame_group=0):
+    """(dq, dk, dv) shares of mean((ring(q, k, v) - tgt)^2) over the whole
+    sequence on the first ``cp`` ranks, and the ring's sends in the forward
+    and in the backward (None on the other ranks)."""
+    from cosmos_predict2_tpu_torch.parallel.comm import COMM
+    from cosmos_predict2_tpu_torch.parallel.ring_attention import ring_attention
+
+    g = _cp_group(cp)
+    if g is None:
+        return None
+    qs, ks, vs = (_shard(t, g).requires_grad_(True) for t in (q, k, v))
+    with COMM.recording() as fwd:
+        out = ring_attention(qs, ks, vs, g, frame_group=frame_group)
+    with COMM.recording() as bwd:
+        _loss_backward(out, _shard(tgt, g), 1.0 / tgt.size)
+    return _np(qs.grad), _np(ks.grad), _np(vs.grad), list(fwd), list(bwd)
+
+
+def ulysses_grads(q, frame_group=0, na=None):
+    """The share of d/dq of sum(ulysses(q, q, q)^2) over the whole sequence,
+    on 4 ranks (test_parallel.py:62's loss), dense or with ``na``."""
+    from cosmos_predict2_tpu_torch.parallel.cp import ulysses_attention
+
+    g = _cp_group(4)
+    qs = _shard(q, g).requires_grad_(True)
+    _loss_backward(ulysses_attention(qs, qs, qs, g, frame_group=frame_group, na=na))
+    return _np(qs.grad)
+
+
+def _full(t: torch.Tensor) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+
+    return _np(t.full_tensor() if isinstance(t, DTensor) else t)
+
+
+def _mesh_model(cfg, state_dict, sizes, strategy="ulysses"):
+    """The tiny DiT holding ``state_dict``, trainable, context-parallel over
+    cp and sharded by parallelize on a (dp, fsdp, cp, tp) mesh of every
+    rank, in a Video2WorldModel; and the mesh."""
+    import dataclasses
+
+    from cosmos_predict2_tpu_torch.models.video2world import RFModelConfig, Video2WorldModel
+    from cosmos_predict2_tpu_torch.networks import dit
+    from cosmos_predict2_tpu_torch.parallel.mesh import make_mesh, parallelize
+
+    mesh = make_mesh(*sizes, device_type="cpu")
+    cfg = dataclasses.replace(cfg, cp_strategy=strategy)
+    net = dit.MiniTrainDIT(cfg)
+    net.load_state_dict({n: _t(a) for n, a in state_dict.items()}, strict=True)
+    net.train().requires_grad_(True)
+    if mesh["cp"].size() > 1:
+        dit.set_context_parallel(net, mesh.get_group("cp"))
+    parallelize(net, mesh)
+    return Video2WorldModel(RFModelConfig(net=cfg, state_t=2), net), mesh
+
+
+def _rank_batches(batches, mesh):
+    """(latents, condition) of this rank's rows of each (latents, text) global batch."""
+    from cosmos_predict2_tpu_torch.conditioning.conditioner import make_condition
+    from cosmos_predict2_tpu_torch.training.trainer import data_shard
+
+    index, count = data_shard(mesh)
+    for latents, emb in batches:
+        b = latents.shape[0] // count
+        x0 = _t(latents[index * b:(index + 1) * b])
+        yield x0, make_condition(_t(emb[index * b:(index + 1) * b])).replace(gt_frames=x0)
+
+
+def _draws(d: dict):
+    from cosmos_predict2_tpu_torch.models.video2world import TrainDraws
+
+    return TrainDraws(**{n: None if a is None else _t(a) for n, a in d.items()})
+
+
+def mesh_train(cfg, state_dict, batches, draws, sizes, strategy="ulysses", optimizer=None, ckpt=None):
+    """Trainer steps of the tiny DiT (one per batch, with EMA) on a mesh of
+    ``sizes`` (dp, fsdp, cp, tp), fed the global draws ``draws[i]``: the
+    per-step losses and grad norms, and on rank 0 the final parameters and
+    EMA gathered whole. ``ckpt``: a directory to save the final state to."""
+    from cosmos_predict2_tpu_torch.training.checkpointing import Checkpointer
+    from cosmos_predict2_tpu_torch.training.optim import OptimizerConfig
+    from cosmos_predict2_tpu_torch.training.trainer import Callback, Trainer, TrainerConfig
+
+    class Record(Callback):
+        def __init__(self):
+            self.losses, self.norms = [], []
+
+        def on_training_step_end(self, trainer, state, metrics, iteration):
+            self.losses.append(float(metrics["loss"]))
+            self.norms.append(float(metrics["grad_norm"]))
+
+    model, mesh = _mesh_model(cfg, state_dict, sizes, strategy)
+    opt = optimizer or OptimizerConfig(lr=1e-4, warm_up_steps=(2,), cycle_lengths=(10,))
+    tc = TrainerConfig(max_iter=len(batches), logging_iter=100, save_iter=0, seed=0, ema_enabled=True, optimizer=opt)
+    rec = Record()
+    trainer = Trainer(tc, model, callbacks=[rec], draw_fn=lambda it, x0: _draws(draws[it]))
+    state = trainer.train(trainer.init_state(), _rank_batches(batches, mesh))
+    if ckpt is not None:
+        Checkpointer(ckpt).save(state, state.step)
+    params = {n: _full(p) for n, p in state.params.items()}
+    ema = {n: _full(p) for n, p in state.ema_params.items()}
+    import torch.distributed as dist
+
+    first = dist.get_rank() == 0
+    return rec.losses, rec.norms, params if first else None, ema if first else None
+
+
+def _optimizer_state_full(state) -> dict:
+    """The optimizer's moments gathered whole, by parameter name."""
+    names = {id(p): n for n, p in state.params.items()}
+    return {f"{names[id(p)]}.{k}": _full(v) for p, st in state.optimizer.state.items() for k, v in st.items()
+            if isinstance(v, torch.Tensor) and v.ndim > 0}
+
+
+def dcp_roundtrip(cfg, state_dict, batches, draws, ckpt, save_sizes, load_sizes, optimizer=None):
+    """Train one step on a mesh of ``save_sizes`` and save (DCP); then on a
+    new mesh of ``load_sizes`` a fresh state (other weights) restored from
+    it. Returns (saved, restored): each the state's step, parameters, EMA
+    and optimizer moments gathered whole."""
+    from cosmos_predict2_tpu_torch.training.checkpointing import Checkpointer
+    from cosmos_predict2_tpu_torch.training.optim import OptimizerConfig
+    from cosmos_predict2_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    opt = optimizer or OptimizerConfig(lr=1e-4, warm_up_steps=(2,), cycle_lengths=(10,))
+    tc = TrainerConfig(max_iter=1, logging_iter=100, save_iter=0, seed=0, ema_enabled=True, optimizer=opt)
+
+    def snapshot(state):
+        return {"step": state.step, "opt_step": state.opt_step,
+                "params": {n: _full(p) for n, p in state.params.items()},
+                "ema": {n: _full(p) for n, p in state.ema_params.items()},
+                "moments": _optimizer_state_full(state), "lr": state.optimizer.param_groups[0]["lr"]}
+
+    model, mesh = _mesh_model(cfg, state_dict, save_sizes)
+    trainer = Trainer(tc, model, callbacks=[], draw_fn=lambda it, x0: _draws(draws[it]))
+    state = trainer.train(trainer.init_state(), _rank_batches(batches[:1], mesh))
+    Checkpointer(ckpt).save(state, state.step)
+    saved = snapshot(state)
+    other = {n: a + 1.0 for n, a in state_dict.items()}
+    model2, _ = _mesh_model(cfg, other, load_sizes)
+    trainer2 = Trainer(tc, model2, callbacks=[])
+    ckpt2 = Checkpointer(ckpt)
+    state2 = ckpt2.load(trainer2.init_state())
+    return saved, snapshot(state2), ckpt2.latest_step()
+
+
+def qwen_forward(cfg, state_dict, ids, sizes):
+    """The Qwen LM's hidden states on a mesh of ``sizes``, sharded by
+    parallelize, and the placements of its first layer's parameters (mesh
+    dim names, placements)."""
+    from cosmos_predict2_tpu_torch.parallel.mesh import make_mesh, parallelize
+    from cosmos_predict2_tpu_torch.text_encoders.qwen import QwenLM
+
+    lm = QwenLM(cfg)
+    lm.load_state_dict({n: _t(a) for n, a in state_dict.items()}, strict=True)
+    parallelize(lm, make_mesh(*sizes, device_type="cpu"))
+    placements = {n: (p.device_mesh.mesh_dim_names, tuple(f"{type(x).__name__}({getattr(x, 'dim', '')})"
+                                                           for x in p.placements))
+                  for n, p in lm.named_parameters() if n.startswith("layers.0.")}
+    with torch.no_grad():
+        return [_np(h) for h in lm(torch.from_numpy(ids))], placements
+
+
+def wan_tp_refusal():
+    """parallelize's refusal of tensor parallelism over the Wan DiT (its q / k norms span every head)."""
+    import dataclasses
+
+    from cosmos_predict2_tpu_torch.networks import wan_dit
+    from cosmos_predict2_tpu_torch.parallel.mesh import make_mesh, parallelize
+
+    net = wan_dit.WanModel(dataclasses.replace(wan_dit.WAN_PRESETS["test"], text_dim=32, clip_dim=32))
+    try:
+        parallelize(net, make_mesh(1, 2, 1, 2, device_type="cpu"))
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
+def launch_run(overrides, ckpt_dir=None, resume_overrides=None):
+    """training/train.py::launch of the mock-data smoke experiment with
+    ``overrides`` on the CPU, its DiT computing in fp32 (the experiment's
+    is bf16, whose matmuls round row blocks of other sizes otherwise): the
+    global losses. ``resume_overrides``: then launch again from
+    ``ckpt_dir`` with those, and append its losses."""
+    import dataclasses
+
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.training.train import launch
+    from cosmos_predict2_tpu_torch.training.trainer import Callback
+
+    losses = []
+
+    class Record(Callback):
+        def on_training_step_end(self, trainer, state, metrics, iteration):
+            losses.append(float(metrics["loss"]))
+
+    for ov in [overrides] + ([resume_overrides] if resume_overrides else []):
+        config = make_config("error-free_mock_data_smoke", ov)
+        model = dataclasses.replace(config.model, net=dataclasses.replace(config.model.net, dtype=torch.float32))
+        launch(dataclasses.replace(config, model=model), ckpt_dir=ckpt_dir, device="cpu", callbacks=[Record()])
+    return losses
 
 
 def _main(work: str, rank: int, world: int) -> None:
