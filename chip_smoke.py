@@ -295,7 +295,24 @@ Phases, each printed with its wall time:
    step without; (b) the ring backward's rank programs at cp = 4 on 84,480
    tokens x 16 heads, each rank's 4 K7 + 4 K8 block calls with the global
    lse, assembled against K7 / K8 on the whole sequence, a rank's program
-   timed beside the whole call.
+   timed beside the whole call;
+22. the last mesh gaps (A14.3-5), at the machine's world size as 21(a)
+   (one card: world size 1, the groups set at size 1; four cards: tp 2
+   and cp 2 meshes, cp 4): (a) LoRA with the recipe's rank, alpha, targets
+   and block remat over the full-width 2B at 4 of 28 blocks, 2 steps
+   through training/train.py::launch on 29-frame 192x320 mock clips (each
+   rank encodes its rows, K2), at (dp, fsdp, cp, tp) = (1, 2, 1, 2) and
+   (1, 2, 2, 1) on four cards; (b) Wan2.1 1.3B i2v at full width and 4 of
+   30 layers, sharded by parallelize (tp 2 on four cards: 6 of 12 heads a
+   rank), 2 trainer steps on 25-frame 480x832 clips through the Wan2.1
+   VAE; (c) the 7-view 2B at 4 blocks, 7 views x 13 frames at 192x320
+   (28 latent frames, 6,720 tokens; at cp 4 each rank's 7 frames cross a
+   view boundary): the serving forward under Ulysses and ring and with
+   cross-view attention, a MultiviewInference request whose grid video
+   rank 0 writes, and trainer steps (Ulysses, ring, cross-view) wrapped
+   by set_context_parallel and parallelize; every path on rank 0 against
+   its one-device run (forwards at KERNEL_REL_L2, steps at phase 21's
+   bounds) with exact K1 / K7 / K8 launches a step or forward.
 
 Then it prints the kernels' JSON line, the nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero without that line.
@@ -454,6 +471,19 @@ def cuda_ms(fn, warmup: int = 1, iters: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def timed_call(fn):
+    """(fn(), its time in ms by CUDA events): one call timed, for a plain
+    version whose output a check needs anyway (no second pass to time it)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def yardstick_ms(fn, warmup: int = 1, iters: int = 3):
     """cuda_ms of a library call that is only a yardstick: when it cannot run
     (out of memory, no kernel for the case), the reason instead of a time."""
@@ -568,6 +598,7 @@ def check_kernels(results: dict) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     failures = []
+    t_kernels = time.perf_counter()
 
     def fmt(x):
         return x if isinstance(x, str) else "-" if x is None else f"{x:9.3f} ms"
@@ -670,9 +701,12 @@ def check_kernels(results: dict) -> None:
         if not lse_abs < 1e-2:
             failures.append(f"flash_attention_fwd {label}: lse max_abs {lse_abs:.3e}")
         del ref, ref_lse, got, got_lse
-        ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, frame_group=fg))
+        # the off-main shapes held on rows or one batch element (the largest) take one timed lap each, the kernel
+        # warm from the check's calls: measurement only, and their laps were most of this loop's time
+        laps = (1, 3) if rows is None and not split else (0, 1)
+        ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, frame_group=fg), *laps)
         qt, kt, vt, mask = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), sdpa_mask(Sq, Skv, fg)
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), *laps)
         nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
         bnd = bound(4 * B * H * visible_pairs(Sq, Skv, fg) * 128, nbytes)
         record("flash_attention_fwd", label, max_abs, rel, ms, plain_ms, library_ms, bnd)
@@ -802,7 +836,9 @@ def check_kernels(results: dict) -> None:
         ref = conv3d_causal_plain(x, w, b, out_dtype=torch.float32)
         max_abs, rel = errors(out, ref)
         ms = cuda_ms(lambda: conv3d_causal(x, w, b, w_taps=w_taps))
-        plain_ms = cuda_ms(lambda: conv3d_causal_plain(x, w, b))
+        # the plain version's time: three laps at the main case, one elsewhere (measurement only)
+        plain_ms = cuda_ms(lambda: conv3d_causal_plain(x, w, b), *((1, 3) if "192x320 96->96 (smoke)" in label
+                                                                    else (0, 1)))
         # yardstick: cuDNN's conv3d on the same causally padded input (NDHWC
         # viewed as channels-last NCDHW), spatial zero padding 1
         xc, wc, bc = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous(), b.to(torch.bfloat16)
@@ -816,7 +852,9 @@ def check_kernels(results: dict) -> None:
         del x, w, w_taps, b, out, ref, xc, wc, bc
         torch.cuda.empty_cache()
 
+    log(f"  (K1, K7 + K8 and K2 checked {time.perf_counter() - t_kernels:.1f} s into the phase)")
     check_na_kernels(gen, record, failures)
+    log(f"  (K10-K12 checked {time.perf_counter() - t_kernels:.1f} s into the phase)")
     check_cache_kernels(gen, record, failures)
     check_jvp_kernel(gen, record, failures)
     if failures:
@@ -867,14 +905,15 @@ def check_na_kernels(gen, record, failures) -> None:
     # 14B comb02 list (dilated) at 720p, at 16 heads and at the 14B's 40;
     # comb02's other sparse kinds at 720p and 40 heads: layers 11-12
     # (strided and dilated), and the forward only of the two wide windows
-    # (layers 23-35). flex_attention is timed on the layer-0 rows only: it
-    # compiles anew for each mask.
+    # (layers 23-35). flex_attention is timed on the 720p row only: it
+    # compiles anew for each mask (the comb02 rows' flex times are in
+    # PERF.md).
     cases = [
         ("smoke", (24, 12, 20), (-1, 12, 24), (1, 4, 8), (1, 1, 1), 2, "sdpa", 16, True),
         ("720p", (24, 44, 80), (-1, 12, 24), (1, 4, 8), (1, 1, 1), 1, "flex", 16, True),
         ("480p padded", (24, 30, 52), (-1, 12, 24), (1, 4, 8), (1, 1, 1), 1, "sdpa", 16, True),
-        ("720p comb02 dilated", (24, 44, 80), (-1, 4, 16), (1, 1, 1), (1, 11, 5), 1, "flex", 16, True),
-        ("720p comb02 dilated H40 (14B)", (24, 44, 80), (-1, 4, 16), (1, 1, 1), (1, 11, 5), 1, "flex", 40, True),
+        ("720p comb02 dilated", (24, 44, 80), (-1, 4, 16), (1, 1, 1), (1, 11, 5), 1, None, 16, True),
+        ("720p comb02 dilated H40 (14B)", (24, 44, 80), (-1, 4, 16), (1, 1, 1), (1, 11, 5), 1, None, 40, True),
         ("720p comb02 layer 11 H40 (14B)", (24, 44, 80), (-1, 12, 16), (1, 4, 1), (1, 1, 5), 1, None, 40, True),
         ("720p comb02 wide H40 (14B)", (24, 44, 80), (-1, 28, 56), (1, 4, 8), (1, 1, 1), 1, None, 40, False),
         ("720p comb02 mid H40 (14B)", (24, 44, 80), (-1, 20, 40), (1, 4, 8), (1, 1, 1), 1, None, 40, False),
@@ -913,7 +952,7 @@ def check_na_kernels(gen, record, failures) -> None:
         if not (torch.equal(out, repeat[0]) and torch.equal(lse, repeat[1])):
             failures.append(f"na_fwd {label}: two calls differ")
         del repeat
-        ref, ref_lse = na.na_fwd_plain(q, k, v, plan, ew, es)
+        (ref, ref_lse), plain_ms = timed_call(lambda: na.na_fwd_plain(q, k, v, plan, ew, es))  # the check's own call
         max_abs, rel = errors(out, ref)
         lse_abs, _ = errors(lse[:, :, real], ref_lse[:, :, real])
         log(f"  {'':24s} lse max_abs {lse_abs:.3e} (real rows); pad rows of out all zero: "
@@ -921,7 +960,6 @@ def check_na_kernels(gen, record, failures) -> None:
         if not lse_abs < 1e-2:
             failures.append(f"na_fwd {label}: lse max_abs {lse_abs:.3e}")
         del ref, ref_lse
-        plain_ms = cuda_ms(lambda: na.na_fwd_plain(q, k, v, plan, ew, es), 0, 1)
         ms = cuda_ms(lambda: na.na_fwd(q, k, v, plan, ew, es))
         layout_ms = cuda_ms(lambda: ([na.permute_in(x, plan) for x in bshd], na.permute_out(out, plan)))
         qh, kh, vh = (x.transpose(1, 2) for x in bshd)
@@ -932,7 +970,7 @@ def check_na_kernels(gen, record, failures) -> None:
             library_fwd, library_bwd = flex_yardstick(qh, kh, vh, doh, size, w, s, d)
             del doh
         else:
-            library_fwd = library_bwd = "not timed for this case (flex_attention's is on the layer-0 rows)"
+            library_fwd = library_bwd = "not timed for this case (flex_attention's is on the 720p row)"
         # the bound's bytes count the S real tokens: pad slots of the tiled
         # layout are neither keys nor queries, and their zero rows are the
         # layout's own (s_pad beside the bound shows that overhead)
@@ -958,12 +996,11 @@ def check_na_kernels(gen, record, failures) -> None:
             if not torch.equal(got, again):
                 failures.append(f"{name} {label}: two calls differ")
         del repeat
-        ref = na.na_bwd_plain(q, k, v, out, lse, do, plan, ew, es)
+        ref, plain_ms = timed_call(lambda: na.na_bwd_plain(q, k, v, out, lse, do, plan, ew, es))  # the check's call
         errs = [errors(g, r) for g, r in zip((dq, dk, dv), ref)]
         del ref
         if not all(bool(torch.isfinite(t.float()).all()) for t in (dq, dk, dv)):
             failures.append(f"neighborhood attention backward {label}: non-finite gradients")
-        plain_ms = cuda_ms(lambda: na.na_bwd_plain(q, k, v, out, lse, do, plan, ew, es), 0, 1)
         ms_dq = cuda_ms(lambda: na.na_bwd_dq(q, k, v, do, lse, delta, plan, ew, es))
         ms_dkv = cuda_ms(lambda: na.na_bwd_dkv(q, k, v, do, lse, delta, plan, ew, es))
         if route == "sdpa":
@@ -5612,7 +5649,7 @@ def mesh_entry(world: int, device: str = "cuda") -> dict:
     from cosmos_predict2_tpu_torch.training.checkpointing import Checkpointer
     from cosmos_predict2_tpu_torch.training.optim import OptimizerConfig, global_norm
     from cosmos_predict2_tpu_torch.training.train import latent_batches
-    from cosmos_predict2_tpu_torch.training.trainer import Callback, Trainer, TrainerConfig, data_shard
+    from cosmos_predict2_tpu_torch.training.trainer import Trainer, TrainerConfig, data_shard
 
     info = init_distributed(device=device)
     dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else torch.device(device)
@@ -5638,25 +5675,13 @@ def mesh_entry(world: int, device: str = "cuda") -> dict:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     dist.barrier()
 
-    class Record(Callback):
-        def __init__(self):
-            self.steps = []
-
-        def on_training_step_start(self, trainer, state, batch, iteration):
-            self.counts0 = _build.launch_counts()
-
-        def on_training_step_end(self, trainer, state, metrics, iteration):
-            now = _build.launch_counts()
-            self.steps.append({"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
-                               "counts": {k: now[k] - self.counts0[k] for k in now}})
-
     def trainer_for(seed, wrapped, strategy="ulysses", cp_group=c > 1):
         net = build_dit(dataclasses.replace(net_cfg, cp_strategy=strategy), dev, seed=seed, trainable=True)
         if wrapped and cp_group:
             set_context_parallel(net, mesh.get_group("cp"))
         if wrapped:
             parallelize(net, mesh)
-        rec = Record()
+        rec = MeshStepRecord()
         return Trainer(tc, Video2WorldModel(model_cfg, net), callbacks=[rec]), rec
 
     def update_norm(state, start):
@@ -5864,6 +5889,431 @@ def training_mesh_slice(smi: str) -> dict:
             "reference": a.get("reference"), "ring_programs": b}
 
 
+# ---------------- the last mesh gaps (phase 22) ----------------
+
+VARIANT_MESH_DEPTH = 4  # blocks (Wan: layers) of each full-width net in phase 22 (a cut: depth)
+LORA_MESH_CLIP = (29, 192, 320)  # (a)'s mock clips: 8 latent frames of 12 x 20 tokens, 1,920 tokens a sample
+LORA_MESH_STEPS = 2
+WAN_MESH_CLIP = (25, 480, 832)  # (b)'s clips: 7 latent frames of 30 x 52 tokens, 10,920 tokens a sample
+WAN_MESH_STEPS = 2
+MV_CP_FRAMES = 13  # (c): 4 latent frames a view, 7 views packed on T: 28 frames of 12 x 20 tokens, 6,720 tokens
+MV_CP_HW = (192, 320)
+MV_CP_STEPS = 1  # UniPC steps of (c)'s request
+# a constant rate of 1e-5 (a recipe's warm-up starts at 1e-6 of its rate): the steps move fp32 weights
+MESH_OPT = dict(lr=1e-5, warm_up_steps=(0,), f_start=(1.0,), f_max=(1.0,), f_min=(1.0,), cycle_lengths=(1000,))
+
+
+def variant_axes(world: int) -> dict:
+    """Phase 22's (dp, fsdp, cp, tp) meshes for ``world`` cards: (a)'s
+    LoRA meshes (tp, then cp), (b)'s Wan mesh (tp) and (c)'s cp degree."""
+    if world == 1:
+        return {"lora": [(1, 1, 1, 1)], "wan": (1, 1, 1, 1), "cp": 1}
+    half = world // 2
+    return {"lora": [(1, half, 1, 2), (1, half, 2, 1)], "wan": (1, half, 1, 2), "cp": world}
+
+
+class MeshStepRecord:
+    """Trainer callback: each step's global loss, grad norm and launches."""
+
+    def __init__(self):
+        self.steps = []
+
+    def on_train_start(self, trainer, state): ...
+
+    def on_training_step_start(self, trainer, state, batch, iteration):
+        from cosmos_predict2_tpu_torch import _build
+
+        self.counts0 = _build.launch_counts()
+
+    def on_training_step_end(self, trainer, state, metrics, iteration):
+        from cosmos_predict2_tpu_torch import _build
+
+        now = _build.launch_counts()
+        self.steps.append({"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                           "counts": {k: now[k] - self.counts0[k] for k in now}})
+
+    def on_save_checkpoint(self, trainer, state, iteration): ...
+
+    def on_train_end(self, trainer, state): ...
+
+
+def hold_steps(name: str, world: int, steps: list, ref: list) -> dict:
+    """Rank 0: a wrapped run's steps against the unwrapped run's, at phase
+    21's bounds: at world size 1 step 0's loss bit-equal and its grad norm
+    within MESH_ONE_REL; the rest, and every step on more cards, within
+    TRAIN_LOSS_REL and TRAIN_GRAD_REL_L2."""
+    rows, worst = [], 0.0
+    for i, (a, b) in enumerate(zip(steps, ref)):
+        loss_rel, norm_rel = _rel(a["loss"], b["loss"]), _rel(a["grad_norm"], b["grad_norm"])
+        rows.append((a["loss"], b["loss"], loss_rel, a["grad_norm"], b["grad_norm"], norm_rel))
+        exact = world == 1 and i == 0
+        worst = max(worst, loss_rel / TRAIN_LOSS_REL, norm_rel / (MESH_ONE_REL if exact else TRAIN_GRAD_REL_L2),
+                    float("inf") if exact and loss_rel else 0.0)
+        log(f"      {name} step {i}: loss {a['loss']:.9g} vs unwrapped {b['loss']:.9g} (rel {loss_rel:.3e}); grad_norm "
+            f"{a['grad_norm']:.9g} vs {b['grad_norm']:.9g} (rel {norm_rel:.3e})")
+    bit_equal = all(r[0] == r[1] and r[3] == r[4] for r in rows)
+    if len(rows) != len(ref) or not worst <= 1.0:
+        raise AssertionError(f"{name}: the wrapped steps disagree with the unwrapped ones: {rows}")
+    return {"steps": rows, "bit_equal": bit_equal}
+
+
+def check_step_counts(name: str, steps: list, want: dict) -> None:
+    for i, step in enumerate(steps):
+        if {k: step["counts"][k] for k in want} != want:
+            raise AssertionError(f"{name} step {i} launched {step['counts']}, want {want}")
+
+
+def _mesh_lora_run(axes, dev, rank: int, world: int) -> dict:
+    """(a) one mesh: the LoRA recipe (its rank, alpha and targets, block
+    remat) on the full-width 2B at VARIANT_MESH_DEPTH blocks, LORA_MESH_STEPS
+    steps through training/train.py::launch on mock clips (each rank
+    encodes its rows); rank 0 then runs launch's one-device route by hand
+    on the whole batch and holds the steps against it."""
+    import torch
+    import torch.distributed as dist
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.models.video2world import Video2WorldModel
+    from cosmos_predict2_tpu_torch.networks.dit import build_dit
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae import build_vae
+    from cosmos_predict2_tpu_torch.training.lora import LoRAModelWrapper
+    from cosmos_predict2_tpu_torch.training.optim import OptimizerConfig
+    from cosmos_predict2_tpu_torch.training.train import latent_batches, launch, make_loader
+    from cosmos_predict2_tpu_torch.training.trainer import Trainer
+
+    dp, fsdp, cp, tp = axes
+    frames, h, w = LORA_MESH_CLIP
+    cfg = make_config(LORA_EXPERIMENT, [
+        f"data_train.num_frames={frames}", f"data_train.height={h}", f"data_train.width={w}",
+        "data_train.text_dim=100352", f"data_train.batch_size={dp * fsdp}", "model.state_t=8",
+        f"fsdp_shard_size={fsdp}", f"cp_size={cp}", f"tp_size={tp}"])
+    tc = dataclasses.replace(cfg.trainer, max_iter=LORA_MESH_STEPS, logging_iter=1000, save_iter=0,
+                             optimizer=OptimizerConfig(**MESH_OPT))
+    mc = dataclasses.replace(cfg.model, net=dataclasses.replace(cfg.model.net, num_blocks=VARIANT_MESH_DEPTH))
+    cfg = dataclasses.replace(cfg, trainer=tc, model=mc)
+    rec = MeshStepRecord()
+    t0 = time.perf_counter()
+    state = launch(cfg, device="cuda", callbacks=[rec])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    adapters = sorted(state.params)
+    if not all(n.endswith((".lora_A", ".lora_B")) for n in adapters) or len(adapters) != 2 * 10 * VARIANT_MESH_DEPTH:
+        raise AssertionError(f"(a) the trained state holds {len(adapters)} tensors, not the adapters alone")
+    out = {"axes": axes, "s": wall, "steps": rec.steps, "rank": mc.lora_rank, "alpha": mc.lora_alpha, "counts": counts}
+    del state
+    if rank == 0:
+        net = build_dit(mc.net, dev, seed=tc.seed, trainable=False)
+        model = LoRAModelWrapper(Video2WorldModel(mc, net), rank=mc.lora_rank, alpha=mc.lora_alpha,
+                                 targets=mc.lora_targets)
+        model.init_lora(torch.Generator(dev).manual_seed(tc.seed + 2))
+        ref = MeshStepRecord()
+        trainer = Trainer(tc, model, callbacks=[ref])
+        vae = build_vae(cfg.tokenizer, dev, seed=tc.seed + 1)
+        trainer.train(trainer.init_state(), latent_batches(make_loader(cfg.data_train), vae, dev))
+        log(f"  (a) LoRA rank {mc.lora_rank} alpha {mc.lora_alpha} on mesh {axes} (dp, fsdp, cp, tp), "
+            f"{world} card(s), the full-width 2B at {VARIANT_MESH_DEPTH} blocks ({mc.net.remat} remat), "
+            f"{frames} frames at {h}x{w}, a global batch of {dp * fsdp}: {LORA_MESH_STEPS} steps through launch "
+            f"in {wall:.2f} s")
+        out["reference"] = hold_steps("(a)", world, rec.steps, ref.steps)
+        del net, model, trainer, vae
+    dist.barrier()
+    fresh_memory()
+    # a block under block remat: self- and cross-attention forward, again in the recompute, and their backwards
+    per = {"flash_attention_fwd": 4 * VARIANT_MESH_DEPTH, "flash_attention_bwd_dq": 2 * VARIANT_MESH_DEPTH,
+           "flash_attention_bwd_dkv": 2 * VARIANT_MESH_DEPTH}
+    check_step_counts("(a)", rec.steps, per)
+    return out
+
+
+def _wan_mesh_run(axes, dev, rank: int, world: int) -> dict:
+    """(b): Wan2.1 1.3B i2v at full width (1,536 channels, 12 heads of 128)
+    and VARIANT_MESH_DEPTH of its 30 layers, sharded by parallelize on
+    ``axes`` (tp 2 on more than one card: 6 heads a rank, the whole-width
+    q / k norms summing their squares over tp), WAN_MESH_STEPS trainer
+    steps on WAN_MESH_CLIP clips through the Wan2.1 VAE (K2; each rank its
+    rows of the global batch), seeded umT5 and CLIP tokens, frame 0
+    conditional; rank 0 trains the same net unwrapped on the whole batch."""
+    import torch
+    import torch.distributed as dist
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.models.wan_video2world import WanModelConfig, WanVideo2WorldModel, make_i2v_condition
+    from cosmos_predict2_tpu_torch.networks.wan_dit import WAN_PRESETS, WanModel, init_wan_weights
+    from cosmos_predict2_tpu_torch.parallel.mesh import make_mesh, parallelize
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae import WanVAEConfig, build_vae
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import encode_streaming
+    from cosmos_predict2_tpu_torch.training.optim import OptimizerConfig
+    from cosmos_predict2_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    dp, fsdp, cp, tp = axes
+    count = dp * fsdp
+    index = rank // (cp * tp)  # (dp, fsdp) major: this rank's row of the global batch
+    cfg = dataclasses.replace(WAN_PRESETS["1.3B"], num_layers=VARIANT_MESH_DEPTH)
+    frames, H, W = WAN_MESH_CLIP
+    vae = build_vae(WanVAEConfig(), dev, seed=61)
+    tc = TrainerConfig(max_iter=WAN_MESH_STEPS, logging_iter=1000, save_iter=0, seed=0, ema_enabled=True,
+                       optimizer=OptimizerConfig(**MESH_OPT))
+
+    def train(rows: slice, wrapped: bool) -> list:
+        with torch.device("meta"):
+            net = WanModel(cfg)
+        net = init_wan_weights(net.to_empty(device=dev), torch.Generator(device=dev).manual_seed(60)).train()
+        if wrapped:
+            parallelize(net, make_mesh(*axes, device_type=dev.type))
+        model = WanVideo2WorldModel(WanModelConfig(net=cfg), net)
+
+        def batches():
+            gen = torch.Generator(device=dev).manual_seed(62)
+            for _ in range(WAN_MESH_STEPS):
+                clip = torch.randint(0, 256, (count, frames, H, W, 3), generator=gen, device=dev, dtype=torch.uint8)
+                text = torch.randn((count, 512, cfg.text_dim), generator=gen, device=dev)
+                image = torch.randn((count, 257, cfg.clip_dim), generator=gen, device=dev)
+                with torch.no_grad():
+                    x0 = encode_streaming(vae, clip[rows], pixel_format="uint8").permute(0, 4, 1, 2, 3).float()
+                yield x0, make_i2v_condition(text[rows], x0, image[rows])
+
+        rec = MeshStepRecord()
+        trainer = Trainer(tc, model, callbacks=[rec])
+        trainer.train(trainer.init_state(), batches())
+        del trainer, model, net
+        return rec.steps
+
+    t0 = time.perf_counter()
+    steps = train(slice(index, index + 1), wrapped=True)
+    torch.cuda.synchronize()
+    out = {"axes": axes, "s": time.perf_counter() - t0, "steps": steps, "counts": _build.launch_counts()}
+    if rank == 0:
+        ref = train(slice(0, count), wrapped=False)
+        tokens = (1 + (frames - 1) // 4) * (H // 16) * (W // 16)
+        log(f"  (b) Wan2.1 1.3B i2v at {cfg.num_layers} of 30 layers on mesh {axes} (dp, fsdp, cp, tp), {world} "
+            f"card(s), {cfg.num_heads // tp} of {cfg.num_heads} heads a rank, {frames} frames at {H}x{W} ({tokens:,} "
+            f"tokens a sample), a global batch of {count}: {WAN_MESH_STEPS} steps in {out['s']:.2f} s")
+        out["reference"] = hold_steps("(b)", world, steps, ref)
+    dist.barrier()
+    del vae
+    fresh_memory()
+    # a layer: self-, text cross- and CLIP cross-attention, no remat
+    per = 3 * VARIANT_MESH_DEPTH
+    check_step_counts("(b)", steps, {"flash_attention_fwd": per, "flash_attention_bwd_dq": per,
+                                     "flash_attention_bwd_dkv": per})
+    return out
+
+
+def mv_view_segments(frames: int, views: int, cp: int, rank: int) -> int:
+    """The view segments of a cp rank's slab of whole frames of the packed
+    (V Tv) axis (networks/dit.py::Block._per_view_cross_attention): one
+    K1 call for equal segments, one a segment else."""
+    per_view, slab = frames // views, frames // cp
+    lo, hi = rank * slab, (rank + 1) * slab
+    lengths = [min(hi, (v + 1) * per_view) - max(lo, v * per_view) for v in range(views)]
+    lengths = [n for n in lengths if n > 0]
+    return 1 if len(set(lengths)) == 1 else len(lengths)
+
+
+def _multiview_cp_run(cp: int, dev, rank: int, world: int) -> dict:
+    """(c): the 7-view 2B at full width and VARIANT_MESH_DEPTH blocks, 7
+    views x MV_CP_FRAMES frames at MV_CP_HW (28 latent frames), context
+    parallel over cp (slabs of whole frames crossing views at cp 4; the cp
+    group set even at cp 1): the serving forward (batch 2, as batched CFG)
+    under Ulysses and ring, and a cross-view variant (each view attending
+    its two rig neighbours), each against the same net unsharded; one
+    MultiviewInference request of MV_CP_STEPS step (the VAE view by view,
+    K2), rank 0 writing the grid video; one trainer step of each net
+    wrapped (set_context_parallel and parallelize over (1, 1, cp, 1)),
+    Ulysses then ring, held on rank 0 against the same step unwrapped."""
+    import torch
+    import torch.distributed as dist
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.conditioning.conditioner import make_condition
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+    from cosmos_predict2_tpu_torch.inference.multiview import MultiviewInference, MultiviewInferenceArguments
+    from cosmos_predict2_tpu_torch.models.multiview import MultiviewVid2VidModel
+    from cosmos_predict2_tpu_torch.networks.dit import build_dit, build_serving_dit, set_context_parallel
+    from cosmos_predict2_tpu_torch.parallel.mesh import make_mesh, parallelize
+    from cosmos_predict2_tpu_torch.tokenizers.wan_vae import build_vae
+    from cosmos_predict2_tpu_torch.training.optim import OptimizerConfig
+    from cosmos_predict2_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    base = make_config(MULTIVIEW_EXPERIMENT)
+    V = base.model.net.n_views
+    tv = 1 + (MV_CP_FRAMES - 1) // 4
+    H, W = MV_CP_HW
+    T = V * tv
+    net_cfg = dataclasses.replace(base.model.net, num_blocks=VARIANT_MESH_DEPTH, remat="none")
+    rig = tuple(((v - 1) % V, (v + 1) % V) for v in range(V))
+    nets = {"views": net_cfg, "cross-view": dataclasses.replace(net_cfg, enable_cross_view_attn=True,
+                                                                cross_view_attn_map=rig)}
+    model_cfg = dataclasses.replace(base.model, state_t=T)
+    mesh = make_mesh(1, 1, cp, 1, device_type=dev.type)
+    group = mesh.get_group("cp")
+    gen = torch.Generator(device=dev).manual_seed(71)
+    text_dim = net_cfg.crossattn_proj_in_channels
+    emb = (torch.randn((1, 512, text_dim), generator=gen, device=dev) * 0.05)
+    x = torch.randn((2, 16, T, H // 8, W // 8), generator=gen, device=dev)
+    ts = torch.tensor([700.0, 700.0], device=dev)
+    ctx = emb.repeat(2, V, 1).to(torch.bfloat16)
+    out = {"cp": cp, "tokens": T * (H // 16) * (W // 16), "forward": {}, "train": {}}
+    segments = mv_view_segments(T, V, cp, rank % cp)
+    serve_counts = {k: 0 for k in _build.launch_counts()}
+    fresh_memory()
+
+    def forward(net, name, strategy, want):
+        set_context_parallel(net, None)
+        with torch.no_grad():
+            ref = net(x, ts, ctx)
+        net.cfg = dataclasses.replace(net.cfg, cp_strategy=strategy)
+        set_context_parallel(net, group)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            got = net(x, ts, ctx)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        for k, v in counts.items():
+            serve_counts[k] += v
+        max_abs, rel = errors(got, ref)
+        out["forward"][name] = {"max_abs": max_abs, "rel_l2": rel, "s": wall, "bit_equal": bool(torch.equal(got, ref)),
+                                "counts": counts}
+        if rank == 0:
+            log(f"  (c) serving forward, {name} ({strategy}), cp={cp} vs unsharded: max_abs {max_abs:.3e} rel_l2 "
+                f"{rel:.3e} (limit {KERNEL_REL_L2}){', bit-equal' if torch.equal(got, ref) else ''}; {wall:.3f} s; "
+                f"launches {counts['flash_attention_fwd']} K1 (want {want})")
+        if not (bool(torch.isfinite(got).all()) and rel <= KERNEL_REL_L2 and counts["flash_attention_fwd"] == want):
+            raise AssertionError(f"(c) {name} {strategy}: rel_l2 {rel:.3e}, K1 {counts['flash_attention_fwd']} "
+                                 f"(want {want})")
+
+    # a block: self-attention (Ulysses: one K1; ring: one per ring step), the per-view cross-attention (one K1
+    # for equal view segments of the slab, else one a segment) and, with it, cross-view attention (one a view)
+    serving = build_serving_dit(nets["views"], dev, seed=0)
+    forward(serving, "ulysses", "ulysses", (1 + segments) * VARIANT_MESH_DEPTH)
+    forward(serving, "ring", "ring", (cp + segments) * VARIANT_MESH_DEPTH)
+    cross = build_serving_dit(nets["cross-view"], dev, seed=0)
+    forward(cross, "cross-view", "ulysses", (1 + segments + V) * VARIANT_MESH_DEPTH)
+    del cross
+
+    # one request through MultiviewInference with the cp group set (Ulysses); rank 0 writes the grid video
+    serving.cfg = dataclasses.replace(serving.cfg, cp_strategy="ulysses")
+    set_context_parallel(serving, group)
+    vae = build_vae(base.tokenizer, dev, seed=1)
+    pipe = MultiviewInference(MultiviewVid2VidModel(dataclasses.replace(model_cfg, net=serving.cfg), serving), vae,
+                              text_encoder=lambda prompts: emb, height=H, width=W)
+    videos = np.random.default_rng(72).integers(0, 256, (V, 5, H, W, 3), dtype=np.uint8)
+    args = MultiviewInferenceArguments(prompt="a drive", inference_type="video2world", n_views=V,
+                                       num_steps=MV_CP_STEPS, guidance=GUIDANCE)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    frames, grid = pipe.generate(args, videos)
+    request_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    t0 = time.perf_counter()
+    written = pipe.write(grid, str(OUT_DIR / "multiview_cp.gif"), fps=args.fps)
+    write_s = time.perf_counter() - t0
+    for k, v in counts.items():
+        serve_counts[k] += v
+    want = MV_CP_STEPS * (1 + segments) * VARIANT_MESH_DEPTH
+    if (frames.shape != (V, MV_CP_FRAMES, H, W, 3) or frames.dtype != np.uint8 or frames[:, -1].std() == 0
+            or counts["flash_attention_fwd"] != want or counts["conv3d_causal"] == 0
+            or (written is not None) != (rank == 0) or (written is not None and not os.path.isfile(written))):
+        raise AssertionError(f"(c) the request: frames {frames.shape} {frames.dtype}, launches {counts} (K1 want "
+                             f"{want}), written {written}")
+    out["request"] = {"s": request_s, "write_s": write_s, "counts": counts, "grid": list(grid.shape)}
+    if rank == 0:
+        log(f"  (c) MultiviewInference request at cp={cp} (Ulysses): {V} views x {MV_CP_FRAMES} frames at {H}x{W}, "
+            f"{MV_CP_STEPS} step, {request_s:.2f} s (denoise {pipe.last_timings['denoise_s']:.3f} s); rank 0 wrote "
+            f"{written} ({write_s:.2f} s); launches K1 {counts['flash_attention_fwd']} (want {want}), K2 "
+            f"{counts['conv3d_causal']}")
+    del pipe, vae, serving, frames, grid
+    fresh_memory()
+
+    # training: one step of each net wrapped (Ulysses, then for the views net ring), rank 0 the same unwrapped
+    tc = TrainerConfig(max_iter=2, logging_iter=1000, save_iter=0, seed=0, ema_enabled=True,
+                       optimizer=OptimizerConfig(**MESH_OPT))
+    x0 = torch.randn((1, 16, T, H // 8, W // 8), generator=gen, device=dev)
+
+    def train(cfg, wrapped: bool, strategies: list) -> list:
+        net = build_dit(cfg, dev, seed=0, trainable=True)
+        if wrapped:
+            set_context_parallel(net, group)
+            parallelize(net, mesh)
+        model = MultiviewVid2VidModel(dataclasses.replace(model_cfg, net=cfg), net)
+        cond = model.set_multiview_condition(make_condition(emb.repeat(1, V, 1)), x0, 1)
+        rec = MeshStepRecord()
+        trainer = Trainer(dataclasses.replace(tc, max_iter=len(strategies)), model, callbacks=[rec])
+        state = trainer.init_state()
+        for i, strategy in enumerate(strategies):
+            net.cfg = dataclasses.replace(net.cfg, cp_strategy=strategy)
+            state = trainer.train(state, [(x0, cond)], start_iteration=i)
+        del trainer, state, model, net
+        fresh_memory()
+        return rec.steps
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    steps = {"views": train(nets["views"], True, ["ulysses", "ring"]), "cross-view": train(nets["cross-view"], True,
+                                                                                           ["ulysses"])}
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    out["train_counts"] = _build.launch_counts()
+    out["serve_counts"] = serve_counts
+    if rank == 0:
+        log(f"  (c) training at cp={cp} (parallelize over (1, 1, {cp}, 1)), {out['tokens']:,} tokens: the views net "
+            f"a Ulysses and a ring step, the cross-view net a Ulysses step, {out['train_s']:.2f} s")
+        for name, strategies in (("views", ["ulysses", "ring"]), ("cross-view", ["ulysses"])):
+            out["train"][name] = hold_steps(f"(c) {name}", world, steps[name], train(nets[name], False, strategies))
+    dist.barrier()
+    per = {"ulysses": 1 + segments, "ring": cp + segments}
+    for name, step, strategy in (("views", 0, "ulysses"), ("views", 1, "ring"), ("cross-view", 0, "ulysses")):
+        n = (per[strategy] + (V if name == "cross-view" else 0)) * VARIANT_MESH_DEPTH
+        check_step_counts(f"(c) {name} {strategy}", steps[name][step:step + 1],
+                          {"flash_attention_fwd": n, "flash_attention_bwd_dq": n, "flash_attention_bwd_dkv": n})
+    return out
+
+
+def mesh_variants_entry(world: int, device: str = "cuda") -> dict:
+    """Phase 22 on every rank of a NCCL group of ``world`` cards (a world
+    size entry, as phases 20(a) and 21(a)): (a) LoRA on the meshes of
+    :func:`variant_axes`, (b) the Wan DiT under tp, (c) the multiview net
+    under cp; launches per path from the wrapped runs, each counted from 0
+    just before it."""
+    import torch
+
+    from cosmos_predict2_tpu_torch import _build
+    from cosmos_predict2_tpu_torch.parallel.launch import init_distributed, world_info
+
+    info = init_distributed(device=device)
+    dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else torch.device(device)
+    rank, axes = info["process_index"], variant_axes(world)
+    out = {"world": world_info(), "axes": axes, "paths": {}}
+    runs, lora_counts, t0 = [], None, time.perf_counter()
+    for mesh_axes_ in axes["lora"]:
+        _build.reset_launch_counts()
+        runs.append(_mesh_lora_run(mesh_axes_, dev, rank, world))
+        counts = runs[-1].pop("counts")
+        lora_counts = counts if lora_counts is None else {k: lora_counts[k] + v for k, v in counts.items()}
+    out["paths"]["mesh_lora"] = {"counts": lora_counts, "s": time.perf_counter() - t0, "runs": runs}
+    _build.reset_launch_counts()
+    wan = _wan_mesh_run(axes["wan"], dev, rank, world)
+    out["paths"]["wan_tp"] = {"counts": wan.pop("counts"), **wan}
+    mv = _multiview_cp_run(axes["cp"], dev, rank, world)
+    out["paths"]["multiview_cp"] = {"counts": mv.pop("serve_counts"), "s": mv["request"]["s"],
+                                    "forward": mv["forward"], "request": mv["request"], "cp": mv["cp"]}
+    out["paths"]["multiview_cp_train"] = {"counts": mv.pop("train_counts"), "s": mv["train_s"], "train": mv["train"],
+                                          "cp": mv["cp"]}
+    return out
+
+
+def mesh_variants_slice() -> dict:
+    """Phase 22: the last mesh gaps at the machine's world size."""
+    return world_slice("mesh_variants_entry")
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)  # --help; no options
     t_start = time.perf_counter()
@@ -5958,6 +6408,10 @@ def main(argv=None) -> int:
     with Phase("21, the training mesh: the 2B through parallelize and the trainer at the machine's world size, a DCP "
                "save and resume, a ring step; the ring backward's cp=4 rank programs"):
         p21 = training_mesh_slice(smi)
+    with Phase("22, the last mesh gaps: LoRA through launch on a mesh, the Wan DiT under tensor parallelism, the "
+               "7-view net under context parallelism (serving forward, a request, training steps)"):
+        p22 = mesh_variants_slice()
+    log(f"  phases 1-22 took {time.perf_counter() - t_start:.1f} s")
     paths = {"serve": sl, "train": tr, "sparse_serve": ssl, "sparse_train": stl, "interactive": it,
              "interactive_window": itw, "fwdmode": fm, "fa_jvp": fj, "dmd2_serve": dsl, "distill": dtl,
              "released": rel, "autoregressive": ar, "text2image": t2i, "oneshot": osl, "serving_guardrails": sgd,
@@ -5969,7 +6423,7 @@ def main(argv=None) -> int:
              **{name: a13["sparse_14b"][name] for name in SPARSE_14B_EXPERIMENTS},
              "reason1": a15["reason1"], "wan_encoders": a15["wan_encoders"],
              "self_forcing": p19["self_forcing"], "wan_train": p19["wan_train"], "edm_train": p19["edm_train"],
-             **p20["paths"], **p21["paths"]}
+             **p20["paths"], **p21["paths"], **p22["paths"]}
     path_kernels = {
         "serve": ("flash_attention_fwd", "conv3d_causal"),
         "train": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal"),
@@ -5998,7 +6452,9 @@ def main(argv=None) -> int:
         "mesh_train": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal"),
         "mesh_ring_train": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
         **{path: ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "conv3d_causal")
-           for path in ("posttrain_lora", "posttrain_full", "remote_shards")},
+           for path in ("posttrain_lora", "posttrain_full", "remote_shards", "mesh_lora", "wan_tp")},
+        "multiview_cp": ("flash_attention_fwd", "conv3d_causal"),
+        "multiview_cp_train": ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
     }
     for path, names in path_kernels.items():
         idle = [n for n in names if paths[path]["counts"][n] == 0]

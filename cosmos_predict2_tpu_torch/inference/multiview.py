@@ -9,6 +9,12 @@ card), so the views' clips never sit on the card together; the denoise
 packs all views view-major on the latent T axis (models/multiview.py). The
 condition marks the first k latent frames of every view (the JAX package
 conditions view 0 only, see models/multiview.py).
+
+Under context parallelism (the net's cp group, networks/dit.py::
+set_context_parallel) every rank of the group runs the same request on
+the same inputs and seed, the denoise shards the packed tokens, and each
+rank ends with the whole output; :meth:`MultiviewInference.write` writes
+it on rank 0 only.
 """
 
 from __future__ import annotations
@@ -19,11 +25,13 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cosmos_predict2_tpu_torch.conditioning.conditioner import DataType, make_condition
 from cosmos_predict2_tpu_torch.models.multiview import MultiviewVid2VidModel, stack_views, unstack_views, view_grid
 from cosmos_predict2_tpu_torch.tokenizers.wan_vae import WanVAE
 from cosmos_predict2_tpu_torch.tokenizers.wan_vae_streaming import decode_streaming, encode_streaming, truncate_u8
+from cosmos_predict2_tpu_torch.utils.io import save_img_or_video
 from cosmos_predict2_tpu_torch.utils.misc import arch_invariant_rand
 
 from cosmos_predict2_tpu_torch.utils import log
@@ -149,3 +157,12 @@ class MultiviewInference:
         self.last_timings = {"vae_encode_s": encode_s, "denoise_s": denoise_s, "vae_decode_s": decode_s}
         log.info(f"multiview generate: {V} views x {frames_u8.shape[1]} frames")
         return frames_u8, view_grid(list(frames_u8))
+
+    @staticmethod
+    def write(video_u8: np.ndarray, path: str, fps: int = 16) -> Optional[str]:
+        """Write a request's video (its grid, or one view's frames) on the
+        main process: rank 0 of a process group, or the one process.
+        Returns the path written, None on the other ranks."""
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return None
+        return save_img_or_video(video_u8, path, fps=fps)

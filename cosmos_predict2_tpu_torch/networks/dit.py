@@ -74,6 +74,8 @@ between self- and cross-attention.
 LoRA: a Linear that carries an ``adapter`` attribute (a module of
 training/lora.py, not registered in this net) adds ``adapter(x)`` to its
 output in :func:`linear`, unmerged: the frozen weight gets no gradient.
+Under tensor parallelism the adapter is laid out as its layer and joins
+its product's collectives (parallel/mesh.py::tp_linear).
 
 Context parallelism (:func:`set_context_parallel`, the JAX package's
 ``cp_axis``): every rank of the cp group holds the same replicated inputs
@@ -85,7 +87,12 @@ self-attention runs by ``cfg.cp_strategy``: Ulysses (parallel/cp.py: K1, or
 K10 on a sparse block) or ring (parallel/ring_attention.py: K1 per block);
 a cached forward takes the head-sharded decode
 (``ulysses_kv_cache_attention``: K5 / K6 over (B, H/c, S_max, D) buffers);
-cross-attention stays local, the caption being replicated.
+cross-attention stays local, the caption being replicated. A multiview
+slab may cross views: its frames split into view segments, each attending
+its own view's caption (one K1 call for equal segments, else one a
+segment), and cross-view attention, which needs the same frame of other
+views, moves to the head-sharded layout (parallel/cp.py::scatter_heads:
+every token of H/c heads on each rank) for its per-view K1 calls.
 """
 
 from __future__ import annotations
@@ -108,7 +115,7 @@ from cosmos_predict2_tpu_torch.ops.neighborhood_attention import VideoSize, adap
 from cosmos_predict2_tpu_torch.ops.normalization import layer_norm, rms_norm
 from cosmos_predict2_tpu_torch.ops.rope import RopeSpec, apply_rope, rope_angles_3d
 from cosmos_predict2_tpu_torch.parallel import comm
-from cosmos_predict2_tpu_torch.parallel.cp import ulysses_attention, ulysses_kv_cache_attention
+from cosmos_predict2_tpu_torch.parallel.cp import gather_heads, scatter_heads, ulysses_attention, ulysses_kv_cache_attention
 from cosmos_predict2_tpu_torch.parallel.mesh import TokenSlab, divisible_cp, token_slab, tp_linear, tp_local
 from cosmos_predict2_tpu_torch.parallel.ring_attention import ring_attention
 
@@ -232,12 +239,14 @@ def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
     ``Dense``: inputs and parameters cast to the compute dtype), plus
     ``layer.adapter(x)`` when the layer carries a LoRA adapter. A
     tensor-parallel layer (parallel/mesh.py::parallelize) runs through
-    :func:`tp_linear` on the local tensors."""
+    :func:`tp_linear` on the local tensors, its adapter with it."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
     x = x.to(dtype)
     weight = layer.weight.to(dtype)
-    y = tp_linear(x, weight, bias) if isinstance(weight, DTensor) else F.linear(x, weight, bias)
     adapter = layer.__dict__.get("adapter")
+    if isinstance(weight, DTensor):
+        return tp_linear(x, weight, bias, adapter)
+    y = F.linear(x, weight, bias)
     return y if adapter is None else y + adapter(x)
 
 
@@ -435,13 +444,37 @@ class CrossViewAttention(nn.Module):
 
     def forward(self, x_B_V_T_H_W_D: torch.Tensor) -> torch.Tensor:
         B, V, Tv, H, W, D = x_B_V_T_H_W_D.shape
-        L, d = H * W, self.head_dim
-        x = x_B_V_T_H_W_D.reshape(B, V, Tv, L, D)
-        heads = lambda t: t.reshape(t.shape[:-1] + (-1, d))
+        q, k, v = self._project(x_B_V_T_H_W_D.reshape(B, V, Tv, H * W, D))
+        out = linear(self.output_proj, self._attend(q, k, v), self.dtype)
+        return out.reshape(B, V, Tv, H, W, D)
+
+    def forward_slab(self, x_B_T_H_W_D: torch.Tensor, n_views: int, group) -> torch.Tensor:
+        """Context-parallel: x is this rank's slab of whole frames of the
+        packed (V Tv) axis over the cp ``group``. The projections and norms
+        run on the slab; q, k and v move to the head-sharded layout
+        (parallel/cp.py::scatter_heads: every token of this rank's H/c
+        heads), where each view attends its neighbours as in
+        :meth:`forward`, and back before the output projection."""
+        B, T, H, W, D = x_B_T_H_W_D.shape
+        L = H * W
+        q, k, v = (scatter_heads(t.contiguous(), group) for t in self._project(x_B_T_H_W_D.reshape(B, T * L, D)))
+        frames = q.shape[1] // L
+        shape = (B, n_views, frames // n_views, L) + q.shape[2:]
+        out = self._attend(*(t.reshape(shape) for t in (q, k, v)))
+        out = gather_heads(out.reshape(B, frames * L, q.shape[2], -1), group)
+        return linear(self.output_proj, out.reshape(B, T * L, -1), self.dtype).reshape(B, T, H, W, D)
+
+    def _project(self, x: torch.Tensor):
+        """q (normed), k (normed) and v of x (..., D), each (..., h, head_dim)."""
+        heads = lambda t: t.reshape(t.shape[:-1] + (-1, self.head_dim))
         q = self.q_norm(heads(linear(self.q_proj, x, self.dtype)))
-        h = q.shape[-2]  # this rank's heads under tensor parallelism
         k = self.k_norm(heads(linear(self.k_proj, x, self.dtype)))
-        v = heads(linear(self.v_proj, x, self.dtype))
+        return q, k, heads(linear(self.v_proj, x, self.dtype))
+
+    def _attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """q, k, v (B, V, Tv, L, h, d) -> (B, V, Tv, L, h d): each view's
+        tokens over its neighbours' same-frame tokens, one K1 call a view."""
+        B, V, Tv, L, h, d = q.shape  # h: this rank's heads under tensor or context parallelism
         outs = []
         for view in range(V):
             neighbors = [n for n in self.attn_map[view] if 0 <= n < V]
@@ -452,8 +485,7 @@ class CrossViewAttention(nn.Module):
             k_v = torch.cat([k[:, n] for n in neighbors], dim=2).reshape(B * Tv, len(neighbors) * L, h, d)
             v_v = torch.cat([v[:, n] for n in neighbors], dim=2).reshape(B * Tv, len(neighbors) * L, h, d)
             outs.append(dot_product_attention(q_v, k_v.contiguous(), v_v.contiguous()).reshape(B, Tv, L, h * d))
-        out = linear(self.output_proj, torch.stack(outs, dim=1), self.dtype)
-        return out.reshape(B, V, Tv, H, W, D)
+        return torch.stack(outs, dim=1)
 
 
 class GPT2FeedForward(nn.Module):
@@ -547,25 +579,53 @@ class Block(nn.Module):
 
         if hasattr(self, "cross_view_attn"):
             # affine LayerNorm -> cross-view attention -> ungated residual
-            xv = x.reshape(B, V, T // V, H, W, D)
-            normed = (layer_norm(xv) * self.ln_cross_view_scale + self.ln_cross_view_bias).to(dt)
-            x = x + self.cross_view_attn(normed).reshape(B, T, H, W, D).to(x.dtype)
+            normed = (layer_norm(x) * self.ln_cross_view_scale + self.ln_cross_view_bias).to(dt)
+            if cp is None:
+                out = self.cross_view_attn(normed.reshape(B, V, T // V, H, W, D))
+            else:
+                out = self.cross_view_attn.forward_slab(normed, V, cp.group)
+            x = x + out.reshape(B, T, H, W, D).to(x.dtype)
 
         shift, scale, gate = self._mod("cross_attn", emb, adaln_lora)
-        attn_in, ctx = modulated(shift, scale).reshape(B, T * H * W, D), crossattn_emb.to(dt)
-        if V > 1:  # each view attends its own caption: views move into the batch, (V B)
-            L, M = (T // V) * H * W, cfg.tokens_per_view
-            attn_in = attn_in.reshape(B, V, L, D).transpose(0, 1).reshape(V * B, L, D)
-            ctx = ctx.reshape(B, V, M, -1).transpose(0, 1).reshape(V * B, M, -1)
-        out = self.cross_attn(attn_in, context=ctx)
+        attn_in, ctx = modulated(shift, scale), crossattn_emb.to(dt)
         if V > 1:
-            out = out.reshape(V, B, L, D).transpose(0, 1)
+            out = self._per_view_cross_attention(attn_in, ctx, cp)
+        else:
+            out = self.cross_attn(attn_in.reshape(B, T * H * W, D), context=ctx)
         x = x + gate.to(x.dtype) * out.reshape(B, T, H, W, D).to(x.dtype)
 
         shift, scale, gate = self._mod("mlp", emb, adaln_lora)
         out = self.mlp(modulated(shift, scale))
         x = x + gate.to(x.dtype) * out.to(x.dtype)
         return x if kv_cache is None else (x, kv_cache)
+
+    def _per_view_cross_attention(self, x: torch.Tensor, ctx: torch.Tensor, cp: Optional[ContextParallel]):
+        """Each view's tokens of x (B, T, H, W, D) attend that view's
+        ``tokens_per_view`` tokens of the caption ctx (B, V M, D'). The
+        frames of x (all of them, or a cp slab of whole frames that may
+        cross views) split into view segments; equal segments run as one
+        call with the segments in the batch, (n B), else one call a
+        segment. Returns (B, T H W, D)."""
+        cfg = self.cfg
+        B, T, H, W, D = x.shape
+        V, M = cfg.n_views, cfg.tokens_per_view
+        first, whole = (0, T) if cp is None else (cp.slab.frames[0], cp.slab.grid[0])
+        per_view = whole // V
+        segments = []  # (view, first frame, last + 1), local
+        t = first
+        while t < first + T:
+            view = t // per_view
+            end = min((view + 1) * per_view, first + T)
+            segments.append((view, t - first, end - first))
+            t = end
+        ctx = ctx.reshape(B, V, M, -1)
+        if len({hi - lo for _, lo, hi in segments}) > 1:
+            outs = [self.cross_attn(x[:, lo:hi].reshape(B, -1, D), context=ctx[:, view]) for view, lo, hi in segments]
+            return torch.cat(outs, dim=1)
+        n, L = len(segments), T // len(segments) * H * W
+        q_in = x.reshape(B, n, L, D).transpose(0, 1).reshape(n * B, L, D)
+        c = ctx[:, segments[0][0]:segments[-1][0] + 1].transpose(0, 1).reshape(n * B, M, -1)
+        return self.cross_attn(q_in, context=c).reshape(n, B, L, D).transpose(0, 1).reshape(B, T * H * W, D)
 
 
 def block_layout(cfg: DiTConfig) -> list[Optional[tuple]]:
@@ -846,8 +906,6 @@ class MiniTrainDIT(nn.Module):
         if self.cp_group is None:
             return None
         c, r = comm.group_size(self.cp_group), comm.group_rank(self.cp_group)
-        if self.cfg.n_views > 1:
-            raise NotImplementedError("context parallelism with a multiview net (views pack latent T)")
         if not cached and not divisible_cp(grid[0], c):
             raise ValueError(f"context parallelism shards latent T: {grid[0]} latent frames (after the temporal "
                              f"patch) do not split over cp={c}")

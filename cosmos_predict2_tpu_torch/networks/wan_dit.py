@@ -33,6 +33,12 @@ ops/attention.py::dot_product_attention: K1 on a CUDA tensor (bf16, head dim
 128; the kernel masks the ragged 257-key tail), its plain version on the
 CPU. The JAX package computes both cross-attentions with its fp32
 reference (materialised logits); the port does not.
+
+Tensor parallelism (parallel/mesh.py::parallelize): q / k / v / k_img /
+v_img and ``ffn.0`` are column parallel, ``o`` and ``ffn.2`` row parallel,
+so each rank runs RoPE and K1 on its own heads (the head count is read
+from the projections' local width); the whole-width q / k norms sum their
+squares over tp (parallel/mesh.py::tp_rms_norm).
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ import torch.nn.functional as F
 from cosmos_predict2_tpu_torch.networks.dit import linear
 from cosmos_predict2_tpu_torch.ops.attention import dot_product_attention
 from cosmos_predict2_tpu_torch.ops.normalization import layer_norm, rms_norm
+from cosmos_predict2_tpu_torch.parallel.mesh import DTensor, tp_rms_norm
 
 T5_CONTEXT_TOKEN_NUMBER = 512
 CLIP_TOKENS = 257
@@ -135,7 +142,8 @@ def rope_apply_interleaved(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor
 
 
 class WanRMSNorm(nn.Module):
-    """RMSNorm over the full width (eps from the config), fp32 inside."""
+    """RMSNorm over the full width (eps from the config), fp32 inside; over
+    a width sharded by tensor parallelism, through tp_rms_norm."""
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
@@ -143,6 +151,8 @@ class WanRMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(self.weight, DTensor):
+            return tp_rms_norm(x, self.weight, self.eps)
         return rms_norm(x, self.weight, self.eps)
 
 
@@ -152,8 +162,10 @@ def _affine_layer_norm(norm: nn.LayerNorm, x: torch.Tensor, eps: float) -> torch
     return layer_norm(x, eps) * norm.weight + norm.bias
 
 
-def _heads(t: torch.Tensor, n: int) -> torch.Tensor:
-    return t.reshape(t.shape[0], t.shape[1], n, -1)
+def _heads(t: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """(B, S, h * head_dim) -> (B, S, h, head_dim): every head, or under
+    tensor parallelism this rank's."""
+    return t.reshape(t.shape[0], t.shape[1], -1, head_dim)
 
 
 class WanSelfAttention(nn.Module):
@@ -171,10 +183,10 @@ class WanSelfAttention(nn.Module):
         q, k, v = linear(self.q, x, dt), linear(self.k, x, dt), linear(self.v, x, dt)
         if cfg.qk_norm:
             q, k = self.norm_q(q), self.norm_k(k)
-        q = rope_apply_interleaved(_heads(q, cfg.num_heads), freqs).contiguous()
-        k = rope_apply_interleaved(_heads(k, cfg.num_heads), freqs).contiguous()
-        out = dot_product_attention(q, k, _heads(v, cfg.num_heads).contiguous())
-        return linear(self.o, out.reshape(x.shape[0], x.shape[1], cfg.dim), dt)
+        q = rope_apply_interleaved(_heads(q, cfg.head_dim), freqs).contiguous()
+        k = rope_apply_interleaved(_heads(k, cfg.head_dim), freqs).contiguous()
+        out = dot_product_attention(q, k, _heads(v, cfg.head_dim).contiguous())
+        return linear(self.o, out.reshape(x.shape[0], x.shape[1], -1), dt)
 
 
 class WanCrossAttention(nn.Module):
@@ -196,21 +208,21 @@ class WanCrossAttention(nn.Module):
                 self.norm_k_img = WanRMSNorm(d, cfg.eps)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
-        cfg, dt, n = self.cfg, self.cfg.dtype, self.cfg.num_heads
+        cfg, dt, d = self.cfg, self.cfg.dtype, self.cfg.head_dim
         if cfg.i2v:
             img_len = context.shape[1] - T5_CONTEXT_TOKEN_NUMBER
             context_img, context = context[:, :img_len], context[:, img_len:]
         q, k, v = linear(self.q, x, dt), linear(self.k, context, dt), linear(self.v, context, dt)
         if cfg.qk_norm:
             q, k = self.norm_q(q), self.norm_k(k)
-        q = _heads(q, n).contiguous()
-        out = dot_product_attention(q, _heads(k, n).contiguous(), _heads(v, n).contiguous())
+        q = _heads(q, d).contiguous()
+        out = dot_product_attention(q, _heads(k, d).contiguous(), _heads(v, d).contiguous())
         if cfg.i2v:
             k_img, v_img = linear(self.k_img, context_img, dt), linear(self.v_img, context_img, dt)
             if cfg.qk_norm:
                 k_img = self.norm_k_img(k_img)
-            out = out + dot_product_attention(q, _heads(k_img, n).contiguous(), _heads(v_img, n).contiguous())
-        return linear(self.o, out.reshape(x.shape[0], x.shape[1], cfg.dim), dt)
+            out = out + dot_product_attention(q, _heads(k_img, d).contiguous(), _heads(v_img, d).contiguous())
+        return linear(self.o, out.reshape(x.shape[0], x.shape[1], -1), dt)
 
 
 class WanAttentionBlock(nn.Module):

@@ -4,7 +4,9 @@ Every collective the port's CP and training-mesh code issues goes through
 this module: ``all_to_all`` (Ulysses), ``all_gather`` (the net's exit, the
 VAE's middle attention), ``exchange`` (point-to-point: the ring's K/V hops,
 forward and backward, the backward's dK / dV hops, and the VAE's halos),
-``all_reduce`` (the trainer's global gradient norm and loss). The
+``all_reduce`` (the trainer's global gradient norm and loss, the LoRA
+adapters' gradient buckets), ``sum_over_group`` (the Wan DiT's norm under
+tensor parallelism: an all-reduce whose backward all-reduces). The
 all-to-all is the autograd-aware one of ``torch.distributed.nn.functional``
 and the all-gather this module's own, whose backward reduce-scatters, so a
 gradient flows back through them. FSDP2's own all-gathers and
@@ -130,6 +132,29 @@ def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
     COMM.add("all_reduce", t)
     dist.all_reduce(t, group=group)
     return t
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """The sum of every rank's ``t``; the backward sums the output gradient
+    over the group too: each rank's output feeds only its own share of the
+    loss (a norm's sum of squares under tensor parallelism scales only this
+    rank's features), so the input's gradient is the sum of the shares."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_reduce(t.clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.clone(), ctx.group), None
+
+
+def sum_over_group(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``t`` summed over ``group`` (logged ``all_reduce``), out
+    of place. Differentiable: the backward is the same all-reduce of the
+    output gradient."""
+    return _SumOverGroup.apply(t, group)
 
 
 def exchange(sends: list[tuple[torch.Tensor, int]], recvs: list[tuple[torch.Tensor, int]], group) -> list:

@@ -224,6 +224,8 @@ def tp_plan(module: nn.Module) -> dict[str, str]:
 
 # the per-head norms of an attention whose q / k projections are column parallel
 _HEAD_NORMS = ("q_norm", "k_norm")
+# the Wan DiT's q / k norms over the whole width, by the projection whose features they scale
+_WIDTH_NORMS = {"norm_q": "q", "norm_k": "k", "norm_k_img": "k_img"}
 
 
 def parallelize(module: nn.Module, mesh) -> nn.Module:
@@ -234,7 +236,14 @@ def parallelize(module: nn.Module, mesh) -> nn.Module:
        ``ColwiseParallel`` on the column keys and ``RowwiseParallel`` on
        the row keys (the modules run them through :func:`tp_linear`, with
        local outputs), and the per-head q / k norms of those attentions
-       replicated over tp (:func:`tp_local`).
+       replicated over tp (:func:`tp_local`). The Wan DiT's q / k norms
+       span the whole width: their weights are sharded over tp like the
+       out features they scale, Shard(0) as the column-parallel q / k /
+       k_img, and :func:`tp_rms_norm` sums the squares over tp. That
+       placement keeps a rank's gradient its own slice (each element of
+       the weight scales features of one rank only), where a replicated
+       weight, as the JAX rule keeps every vector and as the per-head
+       norms stay, would take a partial sum to reduce.
     2. FSDP2 ``fully_shard`` of each block (``module.blocks`` or
        ``module.layers``) and then of the whole module over (dp, fsdp x
        cp) (:func:`data_mesh`): HSDP, dp replicating; a 2-D weight is
@@ -261,15 +270,14 @@ def parallelize(module: nn.Module, mesh) -> nn.Module:
         parallelize_module(module, tp, {n: ColwiseParallel() if s == "col" else RowwiseParallel()
                                         for n, s in plan.items()})
         for name, sub in module.named_modules():
-            if hasattr(sub, "norm_q") and plan.get(f"{name}.q" if name else "q") == "col":
-                raise NotImplementedError(f"tensor parallelism of {name}: its q / k norms span every head (the Wan "
-                                          "DiT), which needs an all-reduce over tp inside the norm; not ported")
-            if plan.get(f"{name}.q_proj" if name else "q_proj") != "col":
-                continue
-            for norm in _HEAD_NORMS:
+            prefix = f"{name}." if name else ""
+            norms = {norm: [Shard(0)] for norm, proj in _WIDTH_NORMS.items() if plan.get(prefix + proj) == "col"}
+            if plan.get(prefix + "q_proj") == "col":
+                norms.update((norm, [Replicate()]) for norm in _HEAD_NORMS)
+            for norm, placements in norms.items():
                 layer = getattr(sub, norm, None)
                 if layer is not None:
-                    layer.weight = nn.Parameter(distribute_tensor(layer.weight.data, tp, [Replicate()]),
+                    layer.weight = nn.Parameter(distribute_tensor(layer.weight.data, tp, placements),
                                                 requires_grad=layer.weight.requires_grad)
     fsdp_size = flat["fsdp_cp"].size()
     names = {id(p): n for n, p in module.named_parameters()}
@@ -290,10 +298,11 @@ def parallelize(module: nn.Module, mesh) -> nn.Module:
         fully_shard(block, mesh=dp_mesh, shard_placement_fn=placement)
     fully_shard(module, mesh=dp_mesh, shard_placement_fn=placement)
     module.mesh = mesh  # the trainer reads it (training/trainer.py)
+    module.data_mesh = flat  # LoRA adapters are laid out on it (training/lora.py)
     return module
 
 
-def tp_linear(x: torch.Tensor, weight: DTensor, bias=None) -> torch.Tensor:
+def tp_linear(x: torch.Tensor, weight: DTensor, bias=None, adapter=None) -> torch.Tensor:
     """x W^T (+ b) for a tensor-parallel projection: ``weight`` (and
     ``bias``) as :func:`parallelize` left them, DTensors on the tp mesh; x
     and the result plain local tensors. Column parallel (weight Shard(0)):
@@ -301,16 +310,44 @@ def tp_linear(x: torch.Tensor, weight: DTensor, bias=None) -> torch.Tensor:
     backward sums x's gradient over tp. Row parallel (Shard(1)): x is this
     rank's input features and the result the whole output, summed over tp.
     ``ColwiseParallel`` and ``RowwiseParallel`` compute it so; the bias is
-    added after the product, in the result's dtype."""
+    added after the product, in the result's dtype.
+
+    ``adapter`` (a LoRA adapter laid out as its layer, training/lora.py)
+    maps the local x to its term of the local result: column parallel,
+    this rank's output features, its share of x's gradient joining the
+    product's in the one sum over tp; row parallel, a partial sum that
+    joins the product's before the one all-reduce."""
     mesh = weight.device_mesh
     if weight.placements == (Shard(0),):
-        y = F.linear(DTensor.from_local(x, mesh, [Replicate()], run_check=False), weight).to_local()
+        xd = DTensor.from_local(x, mesh, [Replicate()], run_check=False)
+        y = F.linear(xd, weight).to_local()
+        if adapter is not None:
+            y = y + adapter(xd.to_local(grad_placements=[Partial()]))
     elif weight.placements == (Shard(1),):
         y = F.linear(DTensor.from_local(x, mesh, [Shard(x.ndim - 1)], run_check=False), weight)
+        if adapter is not None:
+            y = y + DTensor.from_local(adapter(x), mesh, [Partial()], run_check=False)
         y = y.redistribute(mesh, [Replicate()]).to_local()
     else:
         raise ValueError(f"tp_linear: a weight with placements {weight.placements} is not column or row parallel")
     return y if bias is None else y + bias.to_local()
+
+
+def tp_rms_norm(x: torch.Tensor, weight: DTensor, eps: float) -> torch.Tensor:
+    """RMSNorm over a width sharded over tp (ops/normalization.py::rms_norm's
+    numerics, fp32 inside): x holds this rank's features, ``weight`` is the
+    norm's Shard(0) DTensor on the tp mesh (:func:`parallelize`). The fp32
+    sums of squares are summed over tp (parallel/comm.py::sum_over_group,
+    whose backward sums their gradients too) and divided by the whole
+    width; x is scaled by this rank's slice of the weight, whose gradient
+    is then its own slice."""
+    if weight.placements != (Shard(0),):
+        raise ValueError(f"tp_rms_norm: a weight with placements {weight.placements} is not sharded over tp")
+    group = weight.device_mesh.get_group()
+    xf = x.float()
+    squares = comm.sum_over_group(xf.square().sum(dim=-1, keepdim=True), group)
+    out = (xf * torch.rsqrt(squares / weight.shape[0] + eps)).to(x.dtype)
+    return out * weight.to_local().to(x.dtype)
 
 
 def tp_local(t: torch.Tensor) -> torch.Tensor:
@@ -340,6 +377,6 @@ def copies(t: torch.Tensor) -> int:
         return world
     shards = 1
     for i, p in enumerate(t.placements):
-        if p.is_shard():
+        if not (p.is_replicate() or p.is_partial()):  # Shard, or FSDP2's _StridedShard over a tp shard
             shards *= t.device_mesh.size(i)
     return world // shards

@@ -28,10 +28,16 @@ rank's rows of the global batch encoded through the exact streaming VAE
 encode (no gradient); and the trainer, resumed from the latest checkpoint
 of ``--ckpt_dir`` when there is one. Runs on CUDA unless ``--device cpu``
 is given. COSMOS_SMOKE=1 shrinks the run to 2 iterations without
-checkpoints. One process with every mesh size 1 takes the one-device route
-(no process group, no sharding). ``pp_size`` > 1 raises as in
-parallel/mesh.py::make_mesh; LoRA on a mesh of more than one device raises
-(not ported).
+checkpoints. One process with every mesh size 1 and no process group takes
+the one-device route (no sharding); under torchrun, a group even of one
+process, the mesh route. ``pp_size`` > 1 raises as in
+parallel/mesh.py::make_mesh. LoRA on a mesh follows JAX's order: the
+frozen net is sharded first, then wrapped, and every rank draws the
+adapters from the same generator (training/lora.py):
+
+    torchrun --nproc-per-node 4 -m cosmos_predict2_tpu_torch.training.train \
+        --experiment=predict2_lora_training_2b_cosmos_nemo_assets data_train=local_video data_train.root=DIR \
+        fsdp_shard_size=2 tp_size=2
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import sys
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 
 def parse_args(argv=None):
@@ -128,15 +135,12 @@ def launch(config, ckpt_dir: Optional[str] = None, device: str = "cuda", callbac
     fsdp, cp, tp = config.fsdp_shard_size, config.cp_size, config.tp_size
     world = init_distributed(device=device)["process_count"]
     mesh = None
-    if world > 1 or fsdp * cp * tp > 1:
+    if dist.is_initialized() or fsdp * cp * tp > 1:
         dp = dp_size(world, config.data_train.batch_size, fsdp, cp, tp)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())  # init_distributed set this rank's card
         mesh = make_mesh(dp, fsdp, cp, tp, device_type=device.type)
         log.info(f"mesh: dp={dp} fsdp={fsdp} cp={cp} tp={tp}")
-        if config.model.use_lora:
-            raise NotImplementedError("LoRA on a mesh of more than one device is not ported: post-train with LoRA "
-                                      "on one device")
     trainer_cfg = config.trainer
     if SMOKE:
         trainer_cfg = dataclasses.replace(trainer_cfg, max_iter=2, logging_iter=1, save_iter=0)

@@ -27,7 +27,10 @@ run on a mesh draws what the one-device run draws, as the JAX trainer's
 global arrays do. ``grad_norm`` is the whole model's and ``loss`` the
 global batch's mean, the same on every rank; the state's parameters, EMA
 and optimizer moments are DTensors, checkpointed through
-torch.distributed.checkpoint (training/checkpointing.py).
+torch.distributed.checkpoint (training/checkpointing.py). A model whose
+trainable parameters live outside the sharded net (LoRA adapters,
+training/lora.py) reduces their gradients itself (``reduce_gradients``,
+called after each backward) and names them by its ``state_module``.
 
 The model is any of the port's trainable models: ``trainable_parameters()``,
 ``sample_train_draws`` and ``training_step(x0, condition, draws)`` over a
@@ -287,8 +290,9 @@ class Trainer:
         ema = {n: p.detach().clone().float() for n, p in params.items()} if cfg.ema_enabled else None
         optimizer, scheduler = make_optimizer(cfg.optimizer, params.values())
         acc = {n: torch.zeros_like(p) for n, p in params.items()} if cfg.grad_accum_iter > 1 else None
+        module = None if self.mesh is None else getattr(self.model, "state_module", None) or self.model.net
         return TrainState(step=0, params=params, ema_params=ema, optimizer=optimizer, scheduler=scheduler, grad_acc=acc,
-                          module=None if self.mesh is None else self.model.net)
+                          module=module)
 
     # ---------------------------- train step ----------------------------
 
@@ -304,6 +308,8 @@ class Trainer:
             p.grad = None
         loss, metrics = self.model.training_step(x0, condition, draws)
         loss.backward()
+        if hasattr(self.model, "reduce_gradients"):
+            self.model.reduce_gradients()
         missing = [n for n, p in state.params.items() if p.grad is None]
         if missing:
             raise RuntimeError(f"{len(missing)} trainable parameters received no gradient, e.g. {missing[:3]}")

@@ -193,6 +193,25 @@ def test_causal_dit_with_sparse_blocks_raises():
                                          n_dense_blocks=1))
 
 
+@pytest.mark.parametrize("experiment", ["predict2_video2world_2b_sparse", "predict2_video2world_14b_sparse",
+                                        "predict2_video2world_14b_sparse_comb02"])
+def test_c11_causal_model_config_over_a_sparse_net_raises(experiment):
+    """ROADMAP C11: JAX's causal DiT runs its neighborhood-attention blocks
+    without the block-causal mask. The port refuses the pair where the
+    interactive model's config makes it: causal_model_config over a
+    registered sparse net's DiTConfig (the sparse 2B, and the 14B sparse
+    pair) gives a net that raises NotImplementedError when built (on the
+    meta device: nothing is allocated)."""
+    from cosmos_predict2_tpu_torch.configs.defaults import make_config
+
+    base = make_config(experiment).model.net
+    assert any(p is not None for p in tdit.block_layout(base))
+    cfg = tint.causal_model_config(base).net
+    assert cfg.temporal_causal
+    with torch.device("meta"), pytest.raises(NotImplementedError, match="temporal_causal"):
+        tdit.MiniTrainDIT(cfg)
+
+
 def test_cached_forward_under_autograd_raises(models):
     """The cached forward records a graph under autograd (self-forcing
     training, tests/test_torch_self_forcing.py); once a window slide has

@@ -17,7 +17,9 @@ inputs and weights that go through the JAX package on one device:
   order;
 - the Qwen LM at tp 2 x fsdp 2 with 4 query heads over 2 KV heads, with
   q/k/v biases and (Qwen3) with per-head q / k norms, against JAX's forward
-  (test_parallel.py:135, 2e-5);
+  (test_parallel.py:135, 2e-5); the Wan2.1 DiT (i2v, 4 heads) at tp 2 x
+  fsdp 2, its whole-width q / k norms summing their squares over tp,
+  against JAX's one-device forward at the same bound;
 - a DCP checkpoint saved at fsdp 2 x tp 2 and restored at fsdp 4 into a
   state with other weights: parameters, EMA, Adam moments, step and rate
   exactly (test_parallel.py:212's resharded restore);
@@ -40,19 +42,23 @@ from test_torch_training import jax_draws
 from cosmos_predict2_tpu.conditioning.conditioner import make_condition as j_make_condition
 from cosmos_predict2_tpu.models.video2world import RFModelConfig as JRFConfig
 from cosmos_predict2_tpu.models.video2world import Video2WorldModel as JModel
+from cosmos_predict2_tpu.networks import wan_dit as jwd
 from cosmos_predict2_tpu.networks.dit import PRESETS
 from cosmos_predict2_tpu.text_encoders import qwen as jqwen
 from cosmos_predict2_tpu.training.optim import OptimizerConfig as JOptimizerConfig
 from cosmos_predict2_tpu.training.trainer import Trainer as JTrainer
 from cosmos_predict2_tpu.training.trainer import TrainerConfig as JTrainerConfig
+from cosmos_predict2_tpu.utils.checkpoint_convert import convert_wan_dit_state_dict as jax_convert_wan
 from cosmos_predict2_tpu_torch.conditioning.conditioner import make_condition
 from cosmos_predict2_tpu_torch.models.video2world import RFModelConfig, Video2WorldModel
+from cosmos_predict2_tpu_torch.networks import wan_dit as twd
 from cosmos_predict2_tpu_torch.networks.dit import MiniTrainDIT
 from cosmos_predict2_tpu_torch.text_encoders import qwen as tqwen
 from cosmos_predict2_tpu_torch.training.optim import OptimizerConfig
 from cosmos_predict2_tpu_torch.training.train import dp_size
 from cosmos_predict2_tpu_torch.training.trainer import Callback, Trainer, TrainerConfig
 from cosmos_predict2_tpu_torch.utils.convert import jax_dit_params_to_torch, jax_qwen_params_to_torch
+from test_torch_wan_dit import reference_state_dict
 from torch_dist_util import _draws, run_ranks
 from torch_variants_util import jit_init, noisy_params, port_config
 
@@ -130,6 +136,27 @@ def _port_one_device(cfg, sd, draws, optimizer):
             {n: e.numpy() for n, e in state.ema_params.items()})
 
 
+def wan_tp_pair():
+    """The Wan2.1 i2v DiT of tests/test_torch_wan_dit.py with 4 heads (2 a
+    rank at tp 2): JAX's config and parameters, the port's config and the
+    reference-named state dict both came from, and two samples of inputs."""
+    jcfg = dataclasses.replace(jwd.WAN_PRESETS["test"], model_type="i2v", text_dim=32, clip_dim=48, num_heads=4)
+    names = {f.name for f in dataclasses.fields(twd.WanConfig)} - {"dtype"}
+    tcfg = twd.WanConfig(dtype=torch.float32, **{n: getattr(jcfg, n) for n in names})
+    sd = reference_state_dict(tcfg, seed=0)
+    rng = np.random.default_rng(3)
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
+    inputs = dict(x=f(2, 16, 2, 8, 8), y=f(2, 20, 2, 8, 8), ctx=0.5 * f(2, 512, 32), clip=0.5 * f(2, 257, 48),
+                  t=np.asarray([731.0, 219.0], np.float32))
+    return jcfg, jax_convert_wan(sd, jcfg.num_layers, i2v=True), tcfg, sd, inputs
+
+
+def jax_wan_forward(jcfg, jparams, inputs):
+    return np.asarray(jwd.WanModel(jcfg).apply(jparams, *(jnp.asarray(inputs[k]) for k in ("x", "t", "ctx")),
+                                               y_B_C_T_H_W=jnp.asarray(inputs["y"]),
+                                               frame_cond_crossattn_emb=jnp.asarray(inputs["clip"])))
+
+
 def _qwen_cfgs():
     """test_parallel.py:135's LM (Qwen2.5: q/k/v biases) and its Qwen3 form (per-head q / k norms)."""
     base = dict(vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2, num_attention_heads=4,
@@ -161,7 +188,9 @@ def setup():
         qsd = {n: t.numpy() for n, t in jax_qwen_params_to_torch(qp).items()}
         want = [np.asarray(h) for h in jqwen.QwenLM(jc).apply(qp, jnp.asarray(ids))]
         qwen[name] = (tc, qsd, want)
-    return dict(jmodel=jmodel, params=params, draws=draws, tcfg=tcfg, sd=sd, qwen=qwen, ids=ids)
+    jwan, jwan_params, twan, wan_sd, wan_inputs = wan_tp_pair()
+    wan = dict(cfg=twan, sd=wan_sd, inputs=wan_inputs, want=jax_wan_forward(jwan, jwan_params, wan_inputs))
+    return dict(jmodel=jmodel, params=params, draws=draws, tcfg=tcfg, sd=sd, qwen=qwen, ids=ids, wan=wan)
 
 
 @pytest.fixture(scope="module")
@@ -179,7 +208,9 @@ def ranks(setup, tmp_path_factory):
         cases[name] = ("qwen_forward", dict(cfg=tc, state_dict=qsd, ids=setup["ids"], sizes=(1, 2, 1, 2)))
     cases["launch_cp"] = ("launch_run", dict(overrides=LAUNCH + ["fsdp_shard_size=2", "cp_size=2",
                                                                  "data_train.batch_size=2"]))  # dp 1
-    cases["wan_tp"] = ("wan_tp_refusal", {})
+    wan = setup["wan"]
+    cases["wan_tp"] = ("wan_tp_forward", dict(cfg=wan["cfg"], state_dict=wan["sd"], inputs=wan["inputs"],
+                                              sizes=(1, 2, 1, 2)))
     cases["launch_hsdp"] = ("launch_run", dict(overrides=LAUNCH + ["fsdp_shard_size=2", "data_train.batch_size=4"]))
     mesh_launch = LAUNCH + ["fsdp_shard_size=2", "cp_size=2", "data_train.batch_size=2"]
     cases["launch_resume"] = ("launch_run", dict(overrides=mesh_launch + ["trainer.max_iter=1"],
@@ -252,11 +283,23 @@ def test_qwen_tp_fsdp_forward_matches_jax(setup, ranks, name):
     assert placements["layers.0.input_layernorm.weight"] == (dims[:2], ("Replicate()", "Shard(0)"))
 
 
-def test_parallelize_refuses_whole_width_norms_under_tp(ranks):
-    """The Wan DiT's q / k norms span every head: parallelize refuses tp
-    over it (an all-reduce inside the norm, not ported) on every rank."""
-    for message in ranks["wan_tp"]:
-        assert message is not None and "Wan" in message and "tensor parallelism" in message
+def test_parallelize_refuses_whole_width_norms_under_tp(setup, ranks):
+    """The Wan DiT's q / k norms span every head. parallelize no longer
+    refuses tp over it: at tp 2 x fsdp 2 each rank runs 2 of the 4 heads,
+    its norms' weights sharded over tp like q / k / k_img's out features
+    and their sums of squares summed over tp, and every rank's forward
+    matches JAX's one-device forward (the Qwen tp bound, 2e-5)."""
+    want = setup["wan"]["want"]
+    for out, placements in ranks["wan_tp"]:
+        np.testing.assert_allclose(out, want, atol=QWEN_TOL, rtol=QWEN_TOL)
+    placements = ranks["wan_tp"][0][1]
+    for norm in ("self_attn.norm_q", "self_attn.norm_k", "cross_attn.norm_q", "cross_attn.norm_k",
+                 "cross_attn.norm_k_img"):
+        assert placements[f"blocks.0.{norm}.weight"][-1] == "S(0)", norm
+    for proj in ("self_attn.q", "cross_attn.k_img", "ffn.0"):
+        assert placements[f"blocks.0.{proj}.weight"][-1] == "S(0)", proj
+    for proj in ("self_attn.o", "cross_attn.o", "ffn.2"):
+        assert placements[f"blocks.0.{proj}.weight"][-1] == "S(1)", proj
 
 
 def test_dcp_checkpoint_reshards(ranks):

@@ -30,6 +30,52 @@ REPO = Path(__file__).resolve().parent.parent
 def run_ranks(tmp_path: Path, world: int, cases: list[tuple[str, dict]], timeout: float = 300.0) -> list[list]:
     """Run ``cases`` on ``world`` gloo ranks; returns [case][rank] results.
     Raises with a rank's output when one fails."""
+    return start_ranks(tmp_path, world, cases).results(timeout)
+
+
+class Ranks:
+    """``world`` started rank processes; :meth:`results` waits for them."""
+
+    def __init__(self, work: Path, procs: list):
+        self.work, self.procs, self._results = work, procs, None
+
+    def results(self, timeout: float = 300.0) -> list[list]:
+        if self._results is not None:
+            return self._results
+        logs = []
+        try:
+            for p in self.procs:  # one pipe at a time: a rank writes far less than a pipe holds
+                logs.append(p.communicate(timeout=timeout)[0])
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        failed = [(rank, p.returncode, out) for rank, (p, out) in enumerate(zip(self.procs, logs)) if p.returncode != 0]
+        world = len(self.procs)
+        if failed:  # every failed rank's tail: the first to fail need not be rank 0
+            raise RuntimeError("\n".join(f"rank {rank} of {world} exited with {rc}:\n{out[-4000:]}"
+                                         for rank, rc, out in failed))
+        per_rank = [torch.load(self.work / f"result_{rank}.pt", weights_only=False) for rank in range(world)]
+        n = len(per_rank[0])
+        self._results = [[per_rank[rank][i] for rank in range(world)] for i in range(n)]
+        return self._results
+
+
+class NamedRanks:
+    """Started ranks whose cases have names: ``ranks[name]`` waits for the
+    processes at the first look and gives that case's per-rank results."""
+
+    def __init__(self, names: list[str], ranks: Ranks):
+        self.names, self.ranks = names, ranks
+
+    def __getitem__(self, name: str) -> list:
+        return dict(zip(self.names, self.ranks.results()))[name]
+
+
+def start_ranks(tmp_path: Path, world: int, cases: list[tuple[str, dict]]) -> Ranks:
+    """Start ``world`` gloo rank processes on ``cases`` and return at once;
+    the caller may compute meanwhile and then wait in ``.results()``."""
     work = Path(tmp_path) / f"ranks_{world}"
     work.mkdir(parents=True, exist_ok=True)
     torch.save(cases, work / "cases.pt")
@@ -39,20 +85,7 @@ def run_ranks(tmp_path: Path, world: int, cases: list[tuple[str, dict]], timeout
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for rank in range(world)
     ]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    failed = [(rank, p.returncode, out) for rank, (p, out) in enumerate(zip(procs, logs)) if p.returncode != 0]
-    if failed:  # every failed rank's tail: the first to fail need not be rank 0
-        raise RuntimeError("\n".join(f"rank {rank} of {world} exited with {rc}:\n{out[-4000:]}" for rank, rc, out in failed))
-    per_rank = [torch.load(work / f"result_{rank}.pt", weights_only=False) for rank in range(world)]
-    return [[per_rank[rank][i] for rank in range(world)] for i in range(len(cases))]
+    return Ranks(work, procs)
 
 
 def _t(a) -> torch.Tensor:
@@ -252,10 +285,11 @@ def _full(t: torch.Tensor) -> np.ndarray:
     return _np(t.full_tensor() if isinstance(t, DTensor) else t)
 
 
-def _mesh_model(cfg, state_dict, sizes, strategy="ulysses"):
-    """The tiny DiT holding ``state_dict``, trainable, context-parallel over
-    cp and sharded by parallelize on a (dp, fsdp, cp, tp) mesh of every
-    rank, in a Video2WorldModel; and the mesh."""
+def _mesh_model(cfg, state_dict, sizes, strategy="ulysses", trainable=True, state_t=2):
+    """The tiny DiT holding ``state_dict``, trainable (or frozen),
+    context-parallel over cp and sharded by parallelize on a (dp, fsdp, cp,
+    tp) mesh of every rank, in a Video2WorldModel (of ``state_t`` latent
+    frames); and the mesh."""
     import dataclasses
 
     from cosmos_predict2_tpu_torch.models.video2world import RFModelConfig, Video2WorldModel
@@ -266,11 +300,11 @@ def _mesh_model(cfg, state_dict, sizes, strategy="ulysses"):
     cfg = dataclasses.replace(cfg, cp_strategy=strategy)
     net = dit.MiniTrainDIT(cfg)
     net.load_state_dict({n: _t(a) for n, a in state_dict.items()}, strict=True)
-    net.train().requires_grad_(True)
+    net.train().requires_grad_(trainable)
     if mesh["cp"].size() > 1:
         dit.set_context_parallel(net, mesh.get_group("cp"))
     parallelize(net, mesh)
-    return Video2WorldModel(RFModelConfig(net=cfg, state_t=2), net), mesh
+    return Video2WorldModel(RFModelConfig(net=cfg, state_t=state_t), net), mesh
 
 
 def _rank_batches(batches, mesh):
@@ -291,27 +325,38 @@ def _draws(d: dict):
     return TrainDraws(**{n: None if a is None else _t(a) for n, a in d.items()})
 
 
-def mesh_train(cfg, state_dict, batches, draws, sizes, strategy="ulysses", optimizer=None, ckpt=None):
+class _Record:
+    """A trainer callback keeping each step's global loss and grad norm."""
+
+    def __init__(self):
+        self.losses, self.norms = [], []
+
+    def on_train_start(self, *a): ...
+
+    def on_training_step_start(self, *a): ...
+
+    def on_save_checkpoint(self, *a): ...
+
+    def on_train_end(self, *a): ...
+
+    def on_training_step_end(self, trainer, state, metrics, iteration):
+        self.losses.append(float(metrics["loss"]))
+        self.norms.append(float(metrics["grad_norm"]))
+
+
+def mesh_train(cfg, state_dict, batches, draws, sizes, strategy="ulysses", optimizer=None, ckpt=None, state_t=2):
     """Trainer steps of the tiny DiT (one per batch, with EMA) on a mesh of
     ``sizes`` (dp, fsdp, cp, tp), fed the global draws ``draws[i]``: the
     per-step losses and grad norms, and on rank 0 the final parameters and
     EMA gathered whole. ``ckpt``: a directory to save the final state to."""
     from cosmos_predict2_tpu_torch.training.checkpointing import Checkpointer
     from cosmos_predict2_tpu_torch.training.optim import OptimizerConfig
-    from cosmos_predict2_tpu_torch.training.trainer import Callback, Trainer, TrainerConfig
+    from cosmos_predict2_tpu_torch.training.trainer import Trainer, TrainerConfig
 
-    class Record(Callback):
-        def __init__(self):
-            self.losses, self.norms = [], []
-
-        def on_training_step_end(self, trainer, state, metrics, iteration):
-            self.losses.append(float(metrics["loss"]))
-            self.norms.append(float(metrics["grad_norm"]))
-
-    model, mesh = _mesh_model(cfg, state_dict, sizes, strategy)
+    model, mesh = _mesh_model(cfg, state_dict, sizes, strategy, state_t=state_t)
     opt = optimizer or OptimizerConfig(lr=1e-4, warm_up_steps=(2,), cycle_lengths=(10,))
     tc = TrainerConfig(max_iter=len(batches), logging_iter=100, save_iter=0, seed=0, ema_enabled=True, optimizer=opt)
-    rec = Record()
+    rec = _Record()
     trainer = Trainer(tc, model, callbacks=[rec], draw_fn=lambda it, x0: _draws(draws[it]))
     state = trainer.train(trainer.init_state(), _rank_batches(batches, mesh))
     if ckpt is not None:
@@ -379,19 +424,156 @@ def qwen_forward(cfg, state_dict, ids, sizes):
         return [_np(h) for h in lm(torch.from_numpy(ids))], placements
 
 
-def wan_tp_refusal():
-    """parallelize's refusal of tensor parallelism over the Wan DiT (its q / k norms span every head)."""
+def _set_whole(p: torch.Tensor, whole) -> None:
+    """Write the whole tensor ``whole`` into ``p``: a plain tensor, or this
+    rank's part of a DTensor (cut without communication)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    with torch.no_grad():
+        if isinstance(p, DTensor):
+            p.to_local().copy_(distribute_tensor(_t(whole), p.device_mesh, p.placements, src_data_rank=None).to_local())
+        else:
+            p.copy_(_t(whole))
+
+
+def mesh_lora_train(cfg, state_dict, lora, batches, draws, sizes, strategy="ulysses", rank=4, alpha=8.0):
+    """LoRA over the frozen tiny DiT on a mesh of ``sizes``: the net sharded
+    by parallelize, then wrapped, the adapters set to ``lora`` (whole, by
+    name) and trained one step per batch with EMA, fed the global draws.
+    Returns the losses and grad norms, the adapters' placements, whether
+    the base is bit-equal to ``state_dict`` after the steps, and on rank 0
+    the adapters and their EMA gathered whole."""
+    import torch.distributed as dist
+
+    from cosmos_predict2_tpu_torch.training.lora import LoRAModelWrapper
+    from cosmos_predict2_tpu_torch.training.optim import OptimizerConfig
+    from cosmos_predict2_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    model, mesh = _mesh_model(cfg, state_dict, sizes, strategy, trainable=False)
+    wrapper = LoRAModelWrapper(model, rank=rank, alpha=alpha)
+    adapters = wrapper.init_lora(torch.Generator().manual_seed(0))
+    for name, p in adapters.items():
+        _set_whole(p, lora[name])
+    tc = TrainerConfig(max_iter=len(batches), logging_iter=100, save_iter=0, seed=0, ema_enabled=True,
+                       optimizer=OptimizerConfig(lr=1e-4, warm_up_steps=(2,), cycle_lengths=(10,)))
+    rec = _Record()
+    trainer = Trainer(tc, wrapper, callbacks=[rec], draw_fn=lambda it, x0: _draws(draws[it]))
+    state = trainer.train(trainer.init_state(), _rank_batches(batches, mesh))
+    base = all(np.array_equal(_full(p), state_dict[n]) for n, p in wrapper.net.named_parameters())
+    placements = {n: tuple(str(x) for x in p.placements) for n, p in adapters.items() if n.startswith("blocks.0.")}
+    params = {n: _full(p) for n, p in state.params.items()}  # every rank: full_tensor is a collective
+    ema = {n: _full(p) for n, p in state.ema_params.items()}
+    first = dist.get_rank() == 0
+    return rec.losses, rec.norms, placements, base, params if first else None, ema if first else None
+
+
+def mesh_lora_resume(cfg, state_dict, lora, batches, draws, sizes, ckpt, optimizer=None, rank=4, alpha=8.0):
+    """LoRA on a mesh of ``sizes``: one step, a DCP save, then the rest of
+    ``batches`` on the unbroken state and, on a fresh wrapper (the base
+    and adapters drawn anew) restored from the save, the same steps.
+    Returns, each gathered whole: the saved state's keys, and per run
+    (unbroken, resumed) its losses after the save, adapters and EMA."""
+    from cosmos_predict2_tpu_torch.training.checkpointing import Checkpointer
+    from cosmos_predict2_tpu_torch.training.lora import LoRAModelWrapper
+    from cosmos_predict2_tpu_torch.training.optim import OptimizerConfig
+    from cosmos_predict2_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    opt = optimizer or OptimizerConfig(lr=1e-4, warm_up_steps=(2,), cycle_lengths=(10,))
+    tc = TrainerConfig(max_iter=len(batches), logging_iter=100, save_iter=0, seed=0, ema_enabled=True, optimizer=opt)
+
+    def trainer_for(adapters_from):
+        model, mesh = _mesh_model(cfg, state_dict, sizes, trainable=False)
+        wrapper = LoRAModelWrapper(model, rank=rank, alpha=alpha)
+        for name, p in wrapper.init_lora(torch.Generator().manual_seed(1)).items():
+            if adapters_from is not None:
+                _set_whole(p, adapters_from[name])
+        rec = _Record()
+        return Trainer(tc, wrapper, callbacks=[rec], draw_fn=lambda it, x0: _draws(draws[it])), rec, mesh
+
     import dataclasses
 
-    from cosmos_predict2_tpu_torch.networks import wan_dit
-    from cosmos_predict2_tpu_torch.parallel.mesh import make_mesh, parallelize
+    trainer, rec, mesh = trainer_for(lora)
+    trainer.config = dataclasses.replace(tc, max_iter=1)
+    state = trainer.train(trainer.init_state(), _rank_batches(batches[:1], mesh))
+    Checkpointer(ckpt).save(state, state.step)
+    saved = sorted(state.state_dict())
+    trainer.config = tc
+    state = trainer.train(state, list(_rank_batches(batches, mesh))[1:], start_iteration=1)
+    fresh, fresh_rec, _ = trainer_for(None)
+    resumed = Checkpointer(ckpt).load(fresh.init_state())
+    resumed = fresh.train(resumed, list(_rank_batches(batches, mesh))[1:], start_iteration=resumed.step)
+    runs = []
+    for st, losses in ((state, rec.losses[1:]), (resumed, fresh_rec.losses)):
+        runs.append((losses, {n: _full(p) for n, p in st.params.items()},
+                     {n: _full(p) for n, p in st.ema_params.items()}, st.step, st.opt_step))
+    return saved, runs
 
-    net = wan_dit.WanModel(dataclasses.replace(wan_dit.WAN_PRESETS["test"], text_dim=32, clip_dim=32))
-    try:
-        parallelize(net, make_mesh(1, 2, 1, 2, device_type="cpu"))
-    except NotImplementedError as e:
-        return str(e)
-    return None
+
+def _wan_net(cfg, state_dict, sizes=None):
+    """The Wan DiT holding ``state_dict`` (reference names, through the
+    converter), sharded by parallelize on a mesh of ``sizes`` when given."""
+    from cosmos_predict2_tpu_torch.networks.wan_dit import WanModel
+    from cosmos_predict2_tpu_torch.parallel.mesh import make_mesh, parallelize
+    from cosmos_predict2_tpu_torch.utils.checkpoint_convert import convert_wan_dit_state_dict
+
+    net = WanModel(cfg)
+    net.load_state_dict(convert_wan_dit_state_dict({k: _t(v) for k, v in state_dict.items()}), strict=True)
+    if sizes is not None:
+        parallelize(net, make_mesh(*sizes, device_type="cpu"))
+    return net
+
+
+def wan_tp_forward(cfg, state_dict, inputs, sizes):
+    """The Wan DiT (i2v) sharded by parallelize on a mesh of ``sizes``, its
+    forward on the whole inputs (every rank), and the placements of its
+    first block's q / norm_q / o / ffn weights."""
+    net = _wan_net(cfg, state_dict, sizes)
+    placements = {n: tuple(str(x) for x in p.placements) for n, p in net.named_parameters()
+                  if n.startswith("blocks.0.") and n.endswith("weight")}
+    with torch.no_grad():
+        out = net(_t(inputs["x"]), _t(inputs["t"]), _t(inputs["ctx"]), y_B_C_T_H_W=_t(inputs["y"]),
+                  frame_cond_crossattn_emb=_t(inputs["clip"]))
+    return _np(out), placements
+
+
+def _wan_model(cfg, state_dict, sizes=None):
+    from cosmos_predict2_tpu_torch.models.wan_video2world import WanModelConfig, WanVideo2WorldModel
+
+    net = _wan_net(cfg, state_dict, sizes).train()
+    return WanVideo2WorldModel(WanModelConfig(net=cfg, state_t=2), net)
+
+
+def _wan_batches(batches, index: int = 0, count: int = 1):
+    """(x0, i2v condition) of this rank's rows of each (x0, text, clip) global batch."""
+    from cosmos_predict2_tpu_torch.models.wan_video2world import make_i2v_condition
+
+    for x0, ctx, clip in batches:
+        b = x0.shape[0] // count
+        rows = slice(index * b, (index + 1) * b)
+        x = _t(x0[rows])
+        yield x, make_i2v_condition(_t(ctx[rows]), x, _t(clip[rows]))
+
+
+def wan_train(cfg, state_dict, batches, sizes=None):
+    """Trainer steps (one per batch, with EMA, the trainer's own draws) of
+    the Wan Video2World model, sharded on a mesh of ``sizes`` or on one
+    device: losses, grad norms, and on rank 0 the parameters gathered
+    whole."""
+    import torch.distributed as dist
+
+    from cosmos_predict2_tpu_torch.training.optim import OptimizerConfig
+    from cosmos_predict2_tpu_torch.training.trainer import Trainer, TrainerConfig, data_shard
+
+    model = _wan_model(cfg, state_dict, sizes)
+    tc = TrainerConfig(max_iter=len(batches), logging_iter=100, save_iter=0, seed=0, ema_enabled=True,
+                       optimizer=OptimizerConfig(lr=1e-4, warm_up_steps=(2,), cycle_lengths=(10,)))
+    rec = _Record()
+    trainer = Trainer(tc, model, callbacks=[rec])
+    mesh = getattr(model.net, "mesh", None)
+    state = trainer.train(trainer.init_state(), _wan_batches(batches, *data_shard(mesh)))
+    params = {n: _full(p) for n, p in state.params.items()}
+    first = not dist.is_initialized() or dist.get_rank() == 0
+    return rec.losses, rec.norms, params if first else None
 
 
 def launch_run(overrides, ckpt_dir=None, resume_overrides=None):
@@ -435,3 +617,4 @@ def _main(work: str, rank: int, world: int) -> None:
 if __name__ == "__main__":
     sys.path.insert(0, str(REPO))
     _main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
+
